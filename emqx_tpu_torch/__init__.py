@@ -5,10 +5,13 @@ The single-GPU publish → match → dispatch path (the reference's
 ``emqx_broker:dispatch/2``): :class:`~emqx_tpu_torch.broker.Broker`
 over a :class:`~emqx_tpu_torch.router.Router` whose NFA walk and
 bitmap OR run as hand-written CUDA kernels for Hopper
-(``csrc/walk.cu``, ``csrc/bitmap_or.cu``). Every entry point takes
-``device=`` (default ``"cuda"``); on CPU tensors the kernels' plain
-PyTorch versions run, which is how the tests hold the port against
-the JAX package byte for byte.
+(``csrc/walk.cu``, ``csrc/bitmap_or.cu``); and the retained store
+with subscribe-time replay: :class:`~emqx_tpu_torch.node.Node` with
+:class:`~emqx_tpu_torch.modules.retainer.RetainerModule`, whose
+batched name match runs as kernel B3 (``csrc/retained_match.cu``).
+Every entry point takes ``device=`` (default ``"cuda"``); on CPU
+tensors the kernels' plain PyTorch versions run, which is how the
+tests hold the port against the JAX package byte for byte.
 
 The package imports torch and numpy only — never JAX, never the JAX
 package: the host modules it needs (topic algebra, the trie oracle,

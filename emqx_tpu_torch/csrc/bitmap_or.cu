@@ -23,7 +23,9 @@
 // fusing rows_for_matches are later work.
 //
 // Built into one library with walk.cu, which exports the shared
-// emqx_cuda_error(code) for both launchers.
+// emqx_cuda_error(code) for every launcher. The port's or_bitmaps
+// (kernel B4's entry point, the BlockSpec twin _or_kernel's contract)
+// launches this kernel too.
 
 #include <cstdint>
 #include <cuda_runtime.h>

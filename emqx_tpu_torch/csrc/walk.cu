@@ -239,7 +239,7 @@ extern "C" int emqx_walk(const int* word_ids, const int* n_words,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the error string of a launcher's return code (for both kernels of
+// the error string of a launcher's return code (for every kernel of
 // the library)
 extern "C" const char* emqx_cuda_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

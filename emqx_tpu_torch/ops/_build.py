@@ -1,17 +1,20 @@
 """Build the port's CUDA kernels at first use and bind them.
 
-``csrc/walk.cu`` and ``csrc/bitmap_or.cu`` expose a plain C interface
-and include no PyTorch header. :func:`build` compiles both with
-``torch.utils.cpp_extension.load`` — ``nvcc`` for ``sm_90a``, one
-compiler process per source run side by side by ninja — into one
-shared library under ``emqx_tpu_torch/_build/`` (listed in
-``.gitignore``); ``load`` rebuilds when a source changes. The library
-is then bound with ``ctypes``. Nothing here runs at import time: the
+``csrc/walk.cu``, ``csrc/bitmap_or.cu`` and ``csrc/retained_match.cu``
+expose a plain C interface and include no PyTorch header. :func:`build`
+compiles all three with ``torch.utils.cpp_extension.load`` — ``nvcc``
+for ``sm_90a``, one compiler process per source run side by side by
+ninja — into one shared library under ``emqx_tpu_torch/_build/``
+(listed in ``.gitignore``); ``load`` rebuilds when a source changes.
+The library is then bound with ``ctypes``. Nothing here runs at import time: the
 first wrapper call on a CUDA tensor builds, and a CPU-only run never
 needs ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else. ``or_bitmaps`` counts
+the launches of the bitmap-OR kernel made through B4's entry point
+(:func:`emqx_tpu_torch.ops.bitmap.or_bitmaps`), which ``bitmap_or``
+counts too.
 """
 
 from __future__ import annotations
@@ -28,11 +31,11 @@ from typing import Dict, Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("walk", "bitmap_or")
+KERNELS = ("walk", "bitmap_or", "retained_match")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-Xptxas=-v"]
 
 #: launches per kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS + ("or_bitmaps",), 0)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -74,7 +77,9 @@ def build(verbose: bool = False) -> float:
         ptr3, i4 = [ctypes.c_void_p] * 3, [ctypes.c_int] * 4
         for fn, args in (
                 (lib.emqx_walk, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7),
-                (lib.emqx_bitmap_or, ptr3 + i4)):
+                (lib.emqx_bitmap_or, ptr3 + i4),
+                (lib.emqx_retained_match,
+                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3)):
             fn.argtypes = args + [ctypes.c_void_p]  # + the stream
             fn.restype = ctypes.c_int
         lib.emqx_cuda_error.argtypes = [ctypes.c_int]

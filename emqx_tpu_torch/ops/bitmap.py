@@ -14,6 +14,11 @@ builders, copied. :func:`or_bitmaps_ref` is the plain PyTorch version;
 picks by the device of the tensors it is given: CUDA tensors launch
 the kernel (or raise), CPU tensors run the plain version.
 
+:func:`or_bitmaps` is the entry point of the JAX package's BlockSpec
+twin ``_or_kernel`` (kernel B4): the same function under a stricter
+contract (W a multiple of 1,024 words). On Hopper the two TPU
+schedules are one kernel, so it launches the B2 kernel.
+
 Rows are held as ``int32`` on the torch side: OR ignores sign, and
 torch's ``uint32`` lacks most CPU ops.
 """
@@ -30,6 +35,8 @@ from emqx_tpu_torch.ops import _build
 from emqx_tpu_torch.ops.csr import capacity_for
 
 _DEFAULT_TILE = 2048  # words per row tile of the JAX layout (min width)
+_TILE2D = 1024       # words per (8, 128) block of B4's layout
+_MAX_BLK = 64        # (8, 128) blocks per B4 program
 
 
 class BitmapTable(NamedTuple):
@@ -147,3 +154,23 @@ def or_bitmaps_auto(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     if bitmaps.is_cuda:
         return or_bitmaps_cuda(bitmaps, rows)
     return or_bitmaps_ref(bitmaps, rows)
+
+
+def or_bitmaps(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Kernel B4's entry point: ``out[b] = OR bitmaps[rows[b, m]]`` for
+    ``rows[b, m] >= 0``; ``bitmaps`` int32[R, W] with W a multiple of
+    1,024 words, and of 65,536 when wider than that, as B4's 64-block
+    programs need (``words_for`` widths always are); ``rows``
+    int32[B, mb].
+    CUDA tensors launch the B2 kernel, CPU tensors run
+    :func:`or_bitmaps_ref`."""
+    W = bitmaps.shape[1]
+    wt = W // _TILE2D
+    if W % _TILE2D or (wt > _MAX_BLK and wt % _MAX_BLK):
+        raise ValueError(f"or_bitmaps: W={W} is not a multiple of "
+                         f"{_TILE2D} words in {_MAX_BLK}-block programs")
+    if not bitmaps.is_cuda:
+        return or_bitmaps_ref(bitmaps, rows)
+    out = or_bitmaps_cuda(bitmaps, rows)
+    _build.LAUNCHES["or_bitmaps"] += 1
+    return out

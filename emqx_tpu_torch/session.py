@@ -1,0 +1,324 @@
+"""Per-client session: subscriptions, QoS flows, delivery window,
+message queue.
+
+The port of the JAX package's ``Session`` (``src/emqx_session.erl``,
+#session record :96-124) for the paths ported so far:
+
+  - subscribe/unsubscribe with the max_subscriptions quota (:238-276);
+  - outbound delivery: subopts enrichment (qos downgrade/upgrade, nl,
+    rap, subid, :505-530), packet-id assignment, inflight window with
+    mqueue overflow (:419-457); ``deliver_many`` is the dispatch
+    planner's grouped enqueue;
+  - puback/pubrec/pubcomp (:314-376) with dequeue-on-ack;
+  - retry with the dup flag and delivery expiry (:543-577).
+
+Inbound QoS2 (awaiting_rel), takeover/resume/replay and the wire and
+durability members come with the front door and the connection
+manager's takeover.
+
+A Session is a broker subscriber: ``deliver(filter, msg)`` enriches
+and windows the message and appends ready-to-send publishes to
+``outbox`` for the channel to drain.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+from emqx_tpu_torch import topic as T
+from emqx_tpu_torch.concurrency import owner_loop
+from emqx_tpu_torch.inflight import Inflight
+from emqx_tpu_torch.mqueue import MQueue
+from emqx_tpu_torch.types import QOS_0, Message, SubOpts
+
+# reason codes used at the session boundary
+RC_NO_SUBSCRIPTION_EXISTED = 0x11
+RC_PACKET_IDENTIFIER_IN_USE = 0x91
+RC_PACKET_IDENTIFIER_NOT_FOUND = 0x92
+RC_QUOTA_EXCEEDED = 0x97
+
+PUBREL_MARKER = "pubrel"
+
+
+class SessionError(Exception):
+    def __init__(self, rc: int):
+        super().__init__(hex(rc))
+        self.rc = rc
+
+
+class Session:
+    def __init__(
+        self,
+        client_id: str,
+        broker=None,
+        clean_start: bool = True,
+        max_subscriptions: int = 0,
+        max_inflight: int = 32,
+        max_mqueue_len: int = 1000,
+        mqueue_store_qos0: bool = False,
+        mqueue_priorities: Optional[Dict[str, int]] = None,
+        mqueue_default_priority: float = 0,
+        upgrade_qos: bool = False,
+        retry_interval: float = 30.0,
+    ) -> None:
+        self.client_id = client_id
+        self.broker = broker
+        self.clean_start = clean_start
+        self.created_at = time.time()
+        self.subscriptions: Dict[str, SubOpts] = {}
+        # reverse share-suffix map: bare filter -> the full
+        # "$share/<g>/…" / "$queue/…" subscription key, so a shared
+        # delivery resolves its subopts in one dict fetch (_enrich).
+        # The first subscription wins on a bare-filter collision.
+        self._share_keys: Dict[str, str] = {}
+        self.max_subscriptions = max_subscriptions
+        self.upgrade_qos = upgrade_qos
+        self.inflight = Inflight(max_inflight)
+        self.mqueue = MQueue(max_mqueue_len, mqueue_store_qos0,
+                             mqueue_priorities, mqueue_default_priority)
+        self.next_pkt_id = 1
+        self.retry_interval = retry_interval
+        # (packet_id | None, Message) or (PUBREL_MARKER, packet_id)
+        self.outbox: List[Tuple[Any, Any]] = []
+
+    def info(self) -> dict:
+        return {
+            "clientid": self.client_id,
+            "clean_start": self.clean_start,
+            "subscriptions_cnt": len(self.subscriptions),
+            "inflight_cnt": len(self.inflight),
+            "mqueue_len": len(self.mqueue),
+            "mqueue_dropped": self.mqueue.dropped,
+            "next_pkt_id": self.next_pkt_id,
+            "created_at": self.created_at,
+        }
+
+    # -- SUBSCRIBE / UNSUBSCRIBE ------------------------------------------
+
+    def subscribe(self, topic_filter: str,
+                  opts: Optional[SubOpts] = None) -> None:
+        is_new = topic_filter not in self.subscriptions
+        if (is_new and self.max_subscriptions
+                and len(self.subscriptions) >= self.max_subscriptions):
+            raise SessionError(RC_QUOTA_EXCEEDED)
+        opts = opts or SubOpts()
+        if self.broker is not None:
+            self.broker.subscribe(self, topic_filter, opts)
+        self.subscriptions[topic_filter] = opts
+        if opts.share is not None or topic_filter.startswith(
+                ("$share/", "$queue/")):
+            bare, _ = T.parse(topic_filter)
+            self._share_keys.setdefault(bare, topic_filter)
+
+    def unsubscribe(self, topic_filter: str) -> SubOpts:
+        if topic_filter not in self.subscriptions:
+            raise SessionError(RC_NO_SUBSCRIPTION_EXISTED)
+        if self.broker is not None:
+            self.broker.unsubscribe(self, topic_filter)
+        opts = self.subscriptions.pop(topic_filter)
+        if self._share_keys:
+            bare, _ = T.parse(topic_filter)
+            if self._share_keys.get(bare) == topic_filter:
+                # another group may still cover the bare filter
+                self._rebuild_share_keys()
+        return opts
+
+    def _rebuild_share_keys(self) -> None:
+        keys: Dict[str, str] = {}
+        for key, o in self.subscriptions.items():
+            if o.share is not None or key.startswith(("$share/", "$queue/")):
+                bare, _ = T.parse(key)
+                keys.setdefault(bare, key)
+        self._share_keys = keys
+
+    # -- outbound acks (client acks our deliveries) -----------------------
+
+    @owner_loop
+    def puback(self, packet_id: int) -> Message:
+        val = self.inflight.lookup(packet_id)
+        if val is None:
+            raise SessionError(RC_PACKET_IDENTIFIER_NOT_FOUND)
+        msg, _ts = val
+        if msg == PUBREL_MARKER:
+            raise SessionError(RC_PACKET_IDENTIFIER_IN_USE)
+        self.inflight.delete(packet_id)
+        self.dequeue()
+        return msg
+
+    @owner_loop
+    def pubrec(self, packet_id: int) -> Message:
+        val = self.inflight.lookup(packet_id)
+        if val is None:
+            raise SessionError(RC_PACKET_IDENTIFIER_NOT_FOUND)
+        msg, _ts = val
+        if msg == PUBREL_MARKER:
+            raise SessionError(RC_PACKET_IDENTIFIER_IN_USE)
+        self.inflight.update(packet_id, (PUBREL_MARKER, time.time()))
+        return msg
+
+    @owner_loop
+    def pubcomp(self, packet_id: int) -> None:
+        val = self.inflight.lookup(packet_id)
+        if val is None:
+            raise SessionError(RC_PACKET_IDENTIFIER_NOT_FOUND)
+        if val[0] != PUBREL_MARKER:
+            raise SessionError(RC_PACKET_IDENTIFIER_IN_USE)
+        self.inflight.delete(packet_id)
+        self.dequeue()
+
+    # -- outbound delivery (broker -> client) -----------------------------
+
+    @owner_loop
+    def deliver(self, topic_filter: str, msg: Message) -> None:
+        """Broker subscriber protocol: enrich, window, queue."""
+        self._deliver_msg(self._enrich(topic_filter, msg))
+
+    @owner_loop
+    def deliver_many(self, items: Iterable[tuple]) -> None:
+        """Batched broker→client delivery — the dispatch planner's
+        grouped enqueue. Each item is ``(topic_filter, msg, opts,
+        fast)``: ``opts`` is the SubOpts object ``subscriptions``
+        holds (resolved by the caller), and ``fast`` pre-classifies
+        the QoS0/plain-subopts broadcast fast path."""
+        now = None  # one inflight timestamp per delivery group
+        for flt, msg, opts, fast in items:
+            if fast:
+                # the _enrich fast path, pre-decided: nothing to
+                # rewrite, every session shares the same object
+                self.outbox.append((None, msg))
+                continue
+            if now is None:
+                now = time.time()
+            self._deliver_msg(self._enrich(flt, msg, opts), now)
+
+    def _enrich(self, topic_filter: str, msg: Message,
+                opts: Optional[SubOpts] = None) -> Message:
+        if opts is None:
+            opts = self.subscriptions.get(topic_filter)
+        if (opts is not None and msg.qos == 0
+                and not msg.flags.get("retain")
+                and opts.share is None and not opts.nl
+                and opts.subid is None
+                and (opts.qos == 0 or not self.upgrade_qos)):
+            # broadcast fast path: a QoS0, non-retained delivery with
+            # plain subopts has nothing to rewrite — every session
+            # shares the SAME message object; downstream treats it as
+            # immutable
+            return msg
+        # a shared delivery carries the bare filter: resolve its
+        # subscription key through the reverse share-suffix map
+        if opts is None:
+            key = self._share_keys.get(topic_filter)
+            if key is not None:
+                opts = self.subscriptions.get(key)
+        m = Message(
+            topic=msg.topic, payload=msg.payload, qos=msg.qos,
+            from_=msg.from_, flags=dict(msg.flags),
+            headers=dict(msg.headers), id=msg.id, timestamp=msg.timestamp)
+        if opts is None:
+            return m
+        if self.upgrade_qos:
+            m.qos = max(opts.qos, m.qos)
+        else:
+            m.qos = min(opts.qos, m.qos)
+        if opts.nl:
+            m.set_flag("nl")
+        if not opts.rap and not m.get_header("retained", False):
+            m.set_flag("retain", False)
+        if opts.subid is not None:
+            props = dict(m.get_header("properties") or {})
+            props["Subscription-Identifier"] = opts.subid
+            m.set_header("properties", props)
+        if opts.share:
+            # mark for group redispatch if this session dies before
+            # acking; the pre-enrichment message rides along
+            m.set_header("shared", (opts.share, topic_filter, msg))
+            if m.get_header("redispatch") and m.qos > 0:
+                # retransmission of a possibly-seen message — DUP only
+                # at QoS>0 after our downgrade (MQTT-3.3.1-2)
+                m.set_flag("dup", True)
+        return m
+
+    def _deliver_msg(self, msg: Message,
+                     now: Optional[float] = None) -> None:
+        if msg.qos == QOS_0:
+            self.outbox.append((None, msg))
+            return
+        if self.inflight.is_full():
+            self.enqueue(msg)
+            return
+        pid = self._next_pkt_id()
+        self.inflight.insert(
+            pid, (msg, time.time() if now is None else now))
+        self.outbox.append((pid, msg))
+
+    @owner_loop
+    def enqueue(self, msg: Message) -> None:
+        dropped = self.mqueue.push(msg)
+        if dropped is not None and self.broker is not None:
+            self.broker.metrics.inc("delivery.dropped")
+            if msg.qos == QOS_0 and not self.mqueue.store_qos0:
+                self.broker.metrics.inc("delivery.dropped.qos0_msg")
+            else:
+                self.broker.metrics.inc("delivery.dropped.queue_full")
+
+    @owner_loop
+    def dequeue(self) -> None:
+        """Move queued messages into the freed inflight window
+        (emqx_session:dequeue/1 :389-409)."""
+        while not self.mqueue.is_empty() and not self.inflight.is_full():
+            msg = self.mqueue.pop()
+            if msg is None:
+                break
+            if msg.is_expired():
+                if self.broker is not None:
+                    self.broker.metrics.inc("delivery.dropped")
+                    self.broker.metrics.inc("delivery.dropped.expired")
+                continue
+            self._deliver_msg(msg)
+
+    def _next_pkt_id(self) -> int:
+        # skip ids still in flight (wrap-around safety; the reference
+        # wraps at 0xFFFF and relies on window < 65535)
+        for _ in range(0x10000):
+            pid = self.next_pkt_id
+            self.next_pkt_id = 1 if pid == 0xFFFF else pid + 1
+            if pid not in self.inflight:
+                return pid
+        raise SessionError(RC_QUOTA_EXCEEDED)
+
+    # -- timers -----------------------------------------------------------
+
+    @owner_loop
+    def retry(self, now: Optional[float] = None) -> float:
+        """Re-send timed-out inflight entries (dup=true) / pubrels.
+        Returns the next retry delay in seconds."""
+        now = time.time() if now is None else now
+        if self.inflight.is_empty():
+            return self.retry_interval
+        items = self.inflight.to_list(sort_key=lambda kv: kv[1][1])
+        next_delay = self.retry_interval
+        for pid, (msg, ts) in items:
+            age = now - ts
+            if age < self.retry_interval:
+                next_delay = self.retry_interval - age
+                break
+            if msg == PUBREL_MARKER:
+                self.inflight.update(pid, (PUBREL_MARKER, now))
+                self.outbox.append((PUBREL_MARKER, pid))
+            elif msg.is_expired():
+                self.inflight.delete(pid)
+                if self.broker is not None:
+                    self.broker.metrics.inc("delivery.dropped")
+                    self.broker.metrics.inc("delivery.dropped.expired")
+            else:
+                msg.set_flag("dup", True)
+                self.inflight.update(pid, (msg, now))
+                self.outbox.append((pid, msg))
+        return next_delay
+
+    @owner_loop
+    def drain_outbox(self) -> List[Tuple[Any, Any]]:
+        out, self.outbox = self.outbox, []
+        return out

@@ -15,10 +15,13 @@ import torch
 from emqx_tpu_torch import topic as T
 from emqx_tpu_torch.broker import Broker
 from emqx_tpu_torch.ops import _build, convert
-from emqx_tpu_torch.ops.bitmap import or_bitmaps_cuda, or_bitmaps_ref
+from emqx_tpu_torch.modules.retainer import RetainIndex
+from emqx_tpu_torch.ops.bitmap import or_bitmaps, or_bitmaps_cuda, or_bitmaps_ref
 from emqx_tpu_torch.ops.csr import (attach_walk_tables, build_automaton,
                                     compress_automaton)
 from emqx_tpu_torch.ops.match import match_batch, walk_params
+from emqx_tpu_torch.ops.retained_match import (match_names_cuda,
+                                               match_names_many)
 from emqx_tpu_torch.ops.tokenize import WordTable, encode_batch
 from emqx_tpu_torch.ops.walk_cuda import match_batch_cuda
 from emqx_tpu_torch.oracle import TrieOracle
@@ -111,6 +114,71 @@ def test_bitmap_kernel_matches_plain_or(cuda_device):
     got = or_bitmaps_cuda(bm, rows)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_or_bitmaps_entry_point_launches_the_bitmap_kernel(cuda_device):
+    g = torch.Generator(device="cpu").manual_seed(4)
+    bm = torch.randint(-2**31, 2**31 - 1, (8, 2048), generator=g,
+                       dtype=torch.int32).to(cuda_device)
+    rows = torch.randint(-1, 8, (50, 5), generator=g,
+                         dtype=torch.int32).to(cuda_device)
+    _build.reset_launches()
+    got = or_bitmaps(bm, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, or_bitmaps_ref(bm, rows))
+    assert _build.LAUNCHES["or_bitmaps"] == _build.LAUNCHES["bitmap_or"] == 1
+
+
+def _retained_index(rs, n):
+    idx = RetainIndex("cpu")
+    words = ["a", "b", "c", "$SYS", "$p", "s0", ""]
+    for _ in range(n):
+        depth = int(rs.randint(1, 21))
+        idx.add("/".join(words[i] for i in rs.randint(0, len(words),
+                                                        size=depth)))
+    for t in list(idx._row_of)[::3]:
+        idx.remove(t)  # dead rows
+    return idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_names", [37, 1500])
+def test_retained_kernel_matches_plain_match(cuda_device, n_names):
+    rs = np.random.RandomState(n_names)
+    idx = _retained_index(rs, n_names)
+    flts = ["#", "+/+", "$SYS/#", "a/+/#", "zz/+", "+", "a", "b/#",
+            "/".join(["+"] * 16), "+/b/c/#"]
+    for F in (1, 3, 10, 130):
+        fw, fn, hh = idx._encode((flts * 13)[:F])
+        args = [torch.from_numpy(a).to(cuda_device) for a in
+                (fw, fn, hh, idx._ids, idx._n, idx._sys)]
+        want = match_names_many(*args)
+        _build.reset_launches()
+        got = match_names_cuda(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bool and torch.equal(got, want), F
+        assert _build.LAUNCHES["retained_match"] == 1
+        # ragged cap: a slice of the name rows
+        cut = [a[:-5] if a.shape[0] == idx._cap else a for a in args]
+        assert torch.equal(match_names_cuda(*cut), match_names_many(*cut))
+
+
+@pytest.mark.gpu
+def test_retain_index_on_card_matches_cpu_index(cuda_device):
+    rs = np.random.RandomState(5)
+    cpu = _retained_index(rs, 1200)
+    card = RetainIndex(cuda_device)
+    for t in cpu._row_of:
+        card.add(t)
+    for t in cpu._deep:
+        card.add(t)
+    flts = ["#", "+/+/#", "$SYS/#", "a/#", "a/b", "c/+/a"]
+    _build.reset_launches()
+    got = card.match_many(flts, device_threshold=0)
+    want = cpu.match_many(flts, device_threshold=0)
+    assert [sorted(h) for h in got] == [sorted(h) for h in want]
+    assert _build.LAUNCHES["retained_match"] == 1
 
 
 class Sink:
