@@ -15,11 +15,17 @@ hand-written kernels against their plain PyTorch versions:
      a wide (chain-compressed) automaton, k ∈ {16, 64} with
      ``pack_ids`` on and off, tiny-k overflow, ``$SYS`` and too-deep
      topics; kernel and plain times;
-  4. B2 (the bitmap OR) against ``or_bitmaps_ref``, bit for bit, at the
-     main path's rows (the slice batch with the most live row slots)
-     and at W = 32,768, B = 4,096, mb = 16 with -1 slots; the same
-     dense shape through ``or_bitmaps`` (kernel B4's entry point, which
-     launches the B2 kernel); times;
+  4. B2 (the bitmap OR of the packed union rows) against
+     ``or_union_rows_ref``, bit for bit, on the slice batch with the
+     most live row slots at the learned packed-row budget and at one
+     below its live count (overflow); the dense union (a null slot
+     map) against ``or_bitmaps_ref`` at W = 32,768, B = 4,096, mb = 16
+     with -1 slots, and packed from it with an overflowing budget; the
+     same dense shape through ``or_bitmaps`` (kernel B4's entry point,
+     which launches the B2 kernel); the old route (dense OR, then
+     ``pack_union_rows``) against the packed launch on the main path's
+     batch: equal, times and peak device memory; kernel times and
+     bounds;
   5. the slice: ``Broker(device="cuda")`` at BASELINE config 2's shape
      (1M ``+`` subscriptions over a 5-level tree of 40 words per level,
      10K literal, 10K ``#``, 10K ``$share`` subscriptions, 8 filters of
@@ -28,8 +34,8 @@ hand-written kernels against their plain PyTorch versions:
      (what ``publish_batch`` runs); asserts every batch took the device
      path and launched both kernels, checks every batch's per-message
      (subscriber, filter) sets against the port's ``TrieOracle``, and
-     prints msgs/s, p50/p99 batch latency, the overflow-row share and
-     the subscribe / rebuild seconds;
+     prints msgs/s, p50/p99 batch latency, the overflow-row share, the
+     phase's peak device memory and the subscribe / rebuild seconds;
   6. the retained slice: ``Node(device="cuda")`` with ``RetainerModule``
      at its defaults stores 1,000,000 retained messages
      (``s{i % 499}/g{(i // 499) % 97}/d{i}/state``) through
@@ -44,7 +50,8 @@ hand-written kernels against their plain PyTorch versions:
   7. B3 (the retained match) against the plain ``match_names_many``,
      bit for bit, on the 1M-name index at F = 32 and F = 64 and on
      small indexes with ``$`` names, 20-level names, dead rows, UNKNOWN
-     filter words and ragged F and cap, and on random rows; kernel and
+     filter words and ragged F, at caps of 4·k + 1, 4·k + 2 and
+     4·k + 3 with F = 1, 5 and 130, and on random rows; kernel and
      plain times and the bound from the run's filters.
 
 The last two lines are one JSON object per kernel row
@@ -260,6 +267,26 @@ def kernel_ms(fn, name: str, iters: int = 20):
     return sum(_dev_us(e) for e in hits) / sum(e.count for e in hits) / 1e3
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: every kernel and copy it
+    runs, from torch.profiler's CUDA trace (host time between launches
+    excluded). Raises when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    if not events:
+        raise RuntimeError("torch.profiler traced no device time")
+    return sum(_dev_us(e) for e in events) / iters / 1e3
+
+
 def walk_lanes(router, topics, k: int, steps: int):
     """``(live, probing)`` lane-hops of a narrow walk of ``topics``
     (the padded batch), replayed on the router's host trie: per hop,
@@ -306,11 +333,20 @@ def walk_bound_ms(B, L, steps, k, live, probing, row_bytes) -> float:
 
 
 def or_bound_ms(R, W, B, mb, rows_live) -> float:
-    """Least time for the OR's bytes: the rows read once, each live
-    bitmap row tile read once (at most the whole table), the union
-    written once."""
+    """Least time for the dense OR's bytes: the rows read once, each
+    live bitmap row tile read once (at most the whole table), the
+    [B, W] union written once."""
     read = min(rows_live, R) * W * 4
     return (read + B * mb * 4 + B * W * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def union_bound_ms(pr, mb, W, rows_live) -> float:
+    """Least time for the packed union's bytes: the slot map and the
+    packed topics' row slots read once (pr + pr * mb ids), each
+    distinct live bitmap row read once, the [pr, W] rows written
+    once."""
+    nbytes = pr * mb * 4 + pr * 4 + rows_live * W * 4 + pr * W * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 # -- phases -----------------------------------------------------------------
@@ -457,15 +493,81 @@ def check_or(bitmaps, rows, label):
     return int((got.long() - want.long()).abs().max())
 
 
+def check_union(bitmaps, rows, has_big, pr, label):
+    """The packed union at budget ``pr`` against its plain twin."""
+    import torch
+
+    from emqx_tpu_torch.ops.bitmap import (or_union_rows_cuda,
+                                           or_union_rows_ref)
+    from emqx_tpu_torch.ops.pack import union_slots
+
+    _sel, src, total = union_slots(has_big, pr)
+    want = or_union_rows_ref(bitmaps, rows, src)
+    got = or_union_rows_cuda(bitmaps, rows, src)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"packed bitmap OR kernel != plain twin "
+                             f"({label}, pr={pr})")
+    log(f"[B2] {label}, pr={pr} ({int(total)} live topics): equal")
+    return int((got.long() - want.long()).abs().max())
+
+
+def peak_mib(fn) -> float:
+    """Peak device memory one call of ``fn`` allocates above what was
+    resident before it, MiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def route_ab(bm, rows, has_big, pr, card):
+    """The publish path's old route (the dense [B, W] OR, then
+    ``pack_union_rows``' gather) against the packed launch, on the same
+    inputs in one call: equal outputs, the device time of each route
+    with its torch glue (profiler; old, new, new, old), its OR kernel
+    alone, and the peak device memory it allocates."""
+    import torch
+
+    from emqx_tpu_torch.ops.bitmap import or_bitmaps_cuda, or_union_rows_cuda
+    from emqx_tpu_torch.ops.pack import pack_union_rows, union_slots
+
+    def old():
+        return pack_union_rows(or_bitmaps_cuda(bm, rows), has_big, pr=pr)
+
+    def new():
+        sel, src, total = union_slots(has_big, pr)
+        return sel, or_union_rows_cuda(bm, rows, src), total
+
+    a, b = old(), new()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("packed OR route != dense OR + pack_union_rows")
+    t = [device_ms(fn) for fn in (old, new, new, old)]
+    old_kernel = kernel_ms(lambda: or_bitmaps_cuda(bm, rows), "bitmap_or_kernel")
+    mem = {"old": peak_mib(old), "new": peak_mib(new)}
+    log(f"[B2] route A/B at the main path's batch, pr={pr}: equal; device "
+        f"time old (dense OR + gather) {t[0]:.5f} / {t[3]:.5f} ms (its OR "
+        f"kernel {old_kernel:.5f} ms), peak {mem['old']:.1f} MiB; new (slots "
+        f"+ packed OR) {t[1]:.5f} / {t[2]:.5f} ms, peak {mem['new']:.1f} MiB "
+        f"— {card}")
+
+
 def phase_bitmap(broker, batches, rng, card):
-    """B2 against the plain OR at the main path's rows (of the slice
-    batch with the most live row slots) and at the dense W = 32,768 x
-    B = 4,096 x mb = 16 shape."""
+    """B2 against its plain twin at the main path's rows (of the slice
+    batch with the most live row slots) at the learned budget and an
+    overflowing one, the dense union at W = 32,768 x B = 4,096 x
+    mb = 16, B4's entry point, and the old route against the new."""
     import torch
 
     from emqx_tpu_torch.ops.bitmap import (or_bitmaps, or_bitmaps_cuda,
-                                           or_bitmaps_ref, rows_for_matches)
-    from emqx_tpu_torch.ops.pack import mask_pad_rows
+                                           or_bitmaps_ref, or_union_rows_cuda,
+                                           or_union_rows_ref, rows_for_matches)
+    from emqx_tpu_torch.ops.pack import mask_pad_rows, union_slots
     from emqx_tpu_torch.ops.walk_cuda import match_batch_auto
 
     router = broker.router
@@ -486,20 +588,38 @@ def phase_bitmap(broker, batches, rng, card):
     bm = st.bm.bitmaps
     R, W = bm.shape
     B, mb = rows.shape
-    err = check_or(bm, rows, f"main path rows (slice batch {pick}) B={B} "
-                             f"mb={mb} R={R} W={W} ({live} live slots)")
+    has_big = (rows >= 0).any(dim=1)
+    total = int(has_big.sum())
+    # the budget the broker holds for this bucket (grown by any batch
+    # that overflowed it), else the one it would start from
+    pr = broker._pack_budgets.get(B, [0, 0, max(1, router.config.pack_rows)])[2]
+    label = (f"main path rows (slice batch {pick}) B={B} mb={mb} R={R} "
+             f"W={W}, {live} live slots")
+    err = check_union(bm, rows, has_big, pr, label + ", learned budget")
+    if total >= 2:
+        err = max(err, check_union(bm, rows, has_big, total - 1,
+                                   label + ", overflow"))
     dense = torch.from_numpy(rng.integers(-1, st.bm.n_rows, size=(4096, 16))
                              .astype(np.int32)).to(bm.device)
-    err = max(err, check_or(bm, dense, f"dense B=4096 mb=16 W={W} "
-                                       f"({int((dense >= 0).sum())} live slots)"))
-    ms = kernel_ms(lambda: or_bitmaps_cuda(bm, rows), "bitmap_or_kernel")
-    plain_ms = time_cuda_ms(lambda: or_bitmaps_ref(bm, rows), iters=3, warmup=1)
-    bound = or_bound_ms(R, W, B, mb, len(set(rows[rows >= 0].tolist())))
+    d_label = f"dense B=4096 mb=16 W={W} ({int((dense >= 0).sum())} live slots)"
+    err = max(err, check_or(bm, dense, d_label + ", null slot map"))
+    err = max(err, check_union(bm, dense, (dense >= 0).any(dim=1), 64,
+                               d_label + ", overflow"))
+    route_ab(bm, rows, has_big, pr, card)
+    src = union_slots(has_big, pr)[1]
+    ms = kernel_ms(lambda: or_union_rows_cuda(bm, rows, src), "bitmap_or_kernel")
+    plain_ms = time_cuda_ms(lambda: or_union_rows_ref(bm, rows, src),
+                            iters=3, warmup=1)
+    packed = rows[src[src >= 0].long()]
+    live_rows = len(set(packed[packed >= 0].tolist()))
+    bound = union_bound_ms(pr, mb, W, live_rows)
     d_ms = kernel_ms(lambda: or_bitmaps_cuda(bm, dense), "bitmap_or_kernel")
     d_plain = time_cuda_ms(lambda: or_bitmaps_ref(bm, dense), iters=3, warmup=1)
     d_bound = or_bound_ms(R, W, 4096, 16, st.bm.n_rows)
-    log(f"[B2] main path rows B={B}: kernel {ms:.5f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound:.5f} ms (bytes) — {card}")
+    log(f"[B2] main path packed union B={B} pr={pr}, {total} live topics, "
+        f"{live_rows} live bitmap rows: kernel {ms:.5f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.6f} ms (bytes of the packed "
+        f"function) — {card}")
     log(f"[B2] dense B=4096 mb=16 W={W}: kernel {d_ms:.5f} ms, plain "
         f"{d_plain:.4f} ms, bound {d_bound:.5f} ms (bytes) — {card}")
     # kernel B4's entry point (its contract: W a multiple of 1,024
@@ -517,7 +637,7 @@ def phase_bitmap(broker, batches, rng, card):
     b4 = {"max_abs_err": b4_err, "ms": b4_ms, "plain_ms": d_plain,
           "bound_ms": d_bound}
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound}, b4
+            "bound_ms": bound, "pr": pr, "live_rows": live_rows}, b4
 
 
 def check_batches(broker, batches, deliveries):
@@ -564,10 +684,17 @@ def check_batches(broker, batches, deliveries):
 
 def phase_slice(broker, batches, card):
     """The timed main-path run; every count starts at 0 here."""
+    import torch
+
     from emqx_tpu_torch.ops import _build
     from emqx_tpu_torch.types import Message
 
     msgs = [[Message(topic=t, payload=b"x") for t in b] for b in batches]
+    on_card = broker.router.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     lat, n_ovf, n_uniq = [], 0, 0
     split = np.zeros(3)  # begin (host + enqueue), fetch (+ wait), finish
@@ -594,6 +721,7 @@ def phase_slice(broker, batches, card):
         big_rows += int((pb.sel[:pb.n_uniq] >= 0).sum())
         checks.append((batch, res))
     launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else None
     deliveries, Sink.log = Sink.log, None
     n_big = check_batches(broker, checks, deliveries)
     n_msgs = sum(len(b) for b in msgs)
@@ -605,6 +733,7 @@ def phase_slice(broker, batches, card):
         "overflow_row_share": n_ovf / max(1, n_uniq),
         "unique_per_batch": n_uniq / len(msgs),
         "launches": launches,
+        "peak_mib": peak,
     }
     log(f"[slice] {len(msgs)} batches x {len(msgs[0])} msgs: "
         f"{out['msgs_per_s']:.1f} msgs/s, p50 {out['p50_ms']:.3f} ms, "
@@ -617,6 +746,9 @@ def phase_slice(broker, batches, card):
         f"{split_ms[1]:.3f} ms, finish (delivery tail) {split_ms[2]:.3f} ms"
         f" — {card}")
     out["split_ms"] = split_ms.tolist()
+    if on_card:
+        log(f"[slice] peak device memory of the publish phase {peak:.1f} MiB "
+            f"({resident / 2**20:.1f} MiB resident at its start) — {card}")
     log(f"[slice] all {n_msgs} messages: {len(deliveries)} deliveries "
         f"({n_big} through the bitmap path, {big_rows} union rows) match "
         f"the TrieOracle")
@@ -1075,8 +1207,18 @@ def phase_retained_kernel(index, bursts, rng, card):
         args = [torch.from_numpy(a).to(dev[2].device) for a in
                 (fw[:F], fn[:F], hh[:F], idx._ids[:cut], idx._n[:cut],
                  idx._sys[:cut])]
-        err = max(err, check_retained(args, f"edge index F={F} cap={cut} "
+        err = max(err, check_retained(args, f"edge index F={F} "
+                                            f"cap={args[3].shape[0]} "
                                             f"({len(idx._deep)} deep names)"))
+    # caps of 4·k + 1..3: a filter's output row is not 4-byte aligned
+    fw, fn, hh = idx._encode((edge_f * 9)[:130])
+    for cut in (idx._cap - 3, idx._cap - 2, idx._cap - 1):
+        for F in (1, 5, 130):
+            args = [torch.from_numpy(a).to(dev[2].device) for a in
+                    (fw[:F], fn[:F], hh[:F], idx._ids[:cut], idx._n[:cut],
+                     idx._sys[:cut])]
+            err = max(err, check_retained(
+                args, f"edge index F={F} cap={cut} (4k + {cut % 4})"))
     # random words, lengths (up to 20) and filter counts (-1 up to 18,
     # 10 or 6: the kernel reads 4, 3 or 2 of a row's four 16-byte parts)
     F, cut = 77, 3333

@@ -35,11 +35,11 @@ from emqx_tpu_torch import topic as T
 from emqx_tpu_torch.broker_helper import FanoutManager, unpack_sids
 from emqx_tpu_torch.hooks import Hooks
 from emqx_tpu_torch.metrics import Metrics
-from emqx_tpu_torch.ops.bitmap import or_bitmaps_auto, rows_for_matches
+from emqx_tpu_torch.ops.bitmap import or_union_rows_auto, rows_for_matches
 from emqx_tpu_torch.ops.dispatch_plan import big_rows_for, build_plan
 from emqx_tpu_torch.ops.fanout import expand_packed
 from emqx_tpu_torch.ops.pack import (budget_for, bundle_i32, mask_pad_rows,
-                                     pack_matches, pack_union_rows)
+                                     pack_matches, union_slots)
 from emqx_tpu_torch.router import MatcherConfig, Router
 from emqx_tpu_torch.shared_sub import SharedSub
 from emqx_tpu_torch.types import Message, SubOpts
@@ -262,14 +262,14 @@ class Broker:
         return pb
 
     def _bitmap_union(self, pb: PendingBatch, cfg, pr: int) -> None:
-        """Big-filter fan-out: matched ids → bitmap rows → OR (kernel
-        B2 on CUDA) → packed union rows."""
+        """Big-filter fan-out: matched ids → bitmap rows → the packed
+        slots → the OR of just the ``pr`` packed rows (one kernel B2
+        launch on CUDA; no dense ``[B, W]`` union)."""
         rows_d, pb.bovf_d = rows_for_matches(
             pb.st.bm, pb.ids_dev, mb=cfg.fanout_mb)
-        union_d = or_bitmaps_auto(pb.st.bm.bitmaps, rows_d)
         has_big = (rows_d >= 0).any(dim=1)
-        pb.sel_d, pb.rows_packed_d, pb.bm_total_d = pack_union_rows(
-            union_d, has_big, pr=pr)
+        pb.sel_d, src, pb.bm_total_d = union_slots(has_big, pr)
+        pb.rows_packed_d = or_union_rows_auto(pb.st.bm.bitmaps, rows_d, src)
 
     def _begin_device(self, pb: PendingBatch, topics: List[str],
                       cfg) -> PendingBatch:

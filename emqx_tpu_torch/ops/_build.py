@@ -74,10 +74,9 @@ def build(verbose: bool = False) -> float:
         finally:
             os.environ["PATH"] = saved_path
         lib = ctypes.CDLL(path)
-        ptr3, i4 = [ctypes.c_void_p] * 3, [ctypes.c_int] * 4
         for fn, args in (
                 (lib.emqx_walk, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7),
-                (lib.emqx_bitmap_or, ptr3 + i4),
+                (lib.emqx_bitmap_or, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5),
                 (lib.emqx_retained_match,
                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3)):
             fn.argtypes = args + [ctypes.c_void_p]  # + the stream

@@ -7,15 +7,24 @@ OR of its matched rows:
     out[b, :] = OR over m of bitmaps[rows[b, m], :]   (rows < 0 skipped)
 
 ``words_for`` / ``build_bitmaps`` are the JAX package's numpy
-builders, copied. :func:`or_bitmaps_ref` is the plain PyTorch version;
-:func:`or_bitmaps_cuda` launches the hand-written CUDA kernel
-(``csrc/bitmap_or.cu``), which replaces the Pallas
-``emqx_tpu/ops/bitmap.py::_or_kernel_dma``. :func:`or_bitmaps_auto`
-picks by the device of the tensors it is given: CUDA tensors launch
-the kernel (or raise), CPU tensors run the plain version.
+builders, copied. The publish path needs only the union rows of the
+topics that matched a big filter, packed into a budget of ``pr`` rows
+(``pack.union_slots`` gives the slot map ``src``).
+:func:`or_union_rows_cuda` launches the hand-written CUDA kernel
+(``csrc/bitmap_or.cu``, which replaces the Pallas
+``emqx_tpu/ops/bitmap.py::_or_kernel_dma``) over those ``pr`` rows
+only: one launch and no ``[B, W]`` union, since at the main path's
+1-2 MiB a launch's latency, not bytes, bounds it.
+:func:`or_union_rows_ref` is its plain version, equal to the JAX
+package's ``pack_union_rows(or_bitmaps(...))`` composition.
+:func:`or_union_rows_auto` picks by the device of the tensors it is
+given: CUDA tensors launch the kernel (or raise), CPU tensors run the
+plain version. The same kernel with a null slot map computes the dense
+union: :func:`or_bitmaps_cuda`, whose plain version is
+:func:`or_bitmaps_ref`.
 
 :func:`or_bitmaps` is the entry point of the JAX package's BlockSpec
-twin ``_or_kernel`` (kernel B4): the same function under a stricter
+twin ``_or_kernel`` (kernel B4): the dense function under a stricter
 contract (W a multiple of 1,024 words). On Hopper the two TPU
 schedules are one kernel, so it launches the B2 kernel.
 
@@ -116,44 +125,73 @@ def or_bitmaps_ref(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def or_bitmaps_cuda(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Launch kernel B2: ``out[b] = OR bitmaps[rows[b, m]]`` for
-    ``rows[b, m] >= 0``; ``bitmaps`` int32[R, W] with W a multiple of
-    4 words, ``rows`` int32[B, mb]. Raises on anything the kernel does
-    not take, or when the launch fails."""
-    if not (bitmaps.is_cuda and rows.is_cuda) \
-            or bitmaps.device != rows.device:
-        raise ValueError("or_bitmaps_cuda: tensors must share one CUDA "
-                         "device")
-    if bitmaps.dtype != torch.int32 or rows.dtype != torch.int32:
-        raise TypeError("or_bitmaps_cuda: int32 bitmaps and rows")
+def _launch(bitmaps: torch.Tensor, rows: torch.Tensor,
+            src: torch.Tensor | None, name: str) -> torch.Tensor:
+    """One launch of kernel B2 over ``P`` output rows: ``src[p]`` (or
+    ``p`` when ``src`` is None) names each row's topic. Raises on
+    anything the kernel does not take, or when the launch fails."""
+    tensors = (bitmaps, rows) + (() if src is None else (src,))
+    if any(not t.is_cuda or t.device != bitmaps.device for t in tensors):
+        raise ValueError(f"{name}: tensors must share one CUDA device")
+    if any(t.dtype != torch.int32 for t in tensors):
+        raise TypeError(f"{name}: int32 bitmaps, rows and slot map")
     R, W = bitmaps.shape
     B, mb = rows.shape
     if W % 4:
-        raise ValueError(f"or_bitmaps_cuda: W={W} is not a multiple of 4")
+        raise ValueError(f"{name}: W={W} is not a multiple of 4")
+    if src is not None and src.dim() != 1:
+        raise ValueError(f"{name}: the slot map must be 1-D")
+    P = B if src is None else src.shape[0]
     bitmaps = bitmaps.contiguous()
     rows = rows.contiguous()
-    out = torch.empty((B, W), dtype=torch.int32, device=bitmaps.device)
-    if B == 0:
+    src = None if src is None else src.contiguous()
+    out = torch.empty((P, W), dtype=torch.int32, device=bitmaps.device)
+    if P == 0:
         return out
     if bitmaps.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("or_bitmaps_cuda: rows must be 16-byte aligned")
+        raise ValueError(f"{name}: rows must be 16-byte aligned")
     lib = _build.library()
     stream = torch.cuda.current_stream(bitmaps.device).cuda_stream
     rc = lib.emqx_bitmap_or(
         ctypes.c_void_p(bitmaps.data_ptr()), ctypes.c_void_p(rows.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), B, mb, W, R,
+        ctypes.c_void_p(None if src is None else src.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), P, B, mb, W, R,
         ctypes.c_void_p(stream))
     _build.check(lib, rc, "bitmap_or")
     _build.LAUNCHES["bitmap_or"] += 1
     return out
 
 
-def or_bitmaps_auto(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def or_bitmaps_cuda(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Launch kernel B2 over every topic (a null slot map): the dense
+    ``out[b] = OR bitmaps[rows[b, m]]`` for ``rows[b, m] >= 0``;
+    ``bitmaps`` int32[R, W] with W a multiple of 4 words, ``rows``
+    int32[B, mb]."""
+    return _launch(bitmaps, rows, None, "or_bitmaps_cuda")
+
+
+def or_union_rows_ref(bitmaps: torch.Tensor, rows: torch.Tensor,
+                      src: torch.Tensor) -> torch.Tensor:
+    """The plain version of the packed union: ``out[p]`` is the OR of
+    topic ``src[p]``'s bitmap rows, zero where ``src[p] < 0``."""
+    out = or_bitmaps_ref(bitmaps, rows[src.clamp(min=0).long()])
+    return out.masked_fill_((src < 0)[:, None], 0)
+
+
+def or_union_rows_cuda(bitmaps: torch.Tensor, rows: torch.Tensor,
+                       src: torch.Tensor) -> torch.Tensor:
+    """Launch kernel B2 over the packed rows only: ``out[p] = OR
+    bitmaps[rows[src[p], m]]`` for ``rows[src[p], m] >= 0``, zero where
+    ``src[p] < 0``; ``src`` int32[pr] from ``pack.union_slots``."""
+    return _launch(bitmaps, rows, src, "or_union_rows_cuda")
+
+
+def or_union_rows_auto(bitmaps: torch.Tensor, rows: torch.Tensor,
+                       src: torch.Tensor) -> torch.Tensor:
     """Kernel B2 on CUDA tensors, the plain version on CPU tensors."""
     if bitmaps.is_cuda:
-        return or_bitmaps_cuda(bitmaps, rows)
-    return or_bitmaps_ref(bitmaps, rows)
+        return or_union_rows_cuda(bitmaps, rows, src)
+    return or_union_rows_ref(bitmaps, rows, src)
 
 
 def or_bitmaps(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

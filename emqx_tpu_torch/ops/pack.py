@@ -6,10 +6,22 @@ results are packed into CSR-style buffers sized by a power-of-two
 *budget* — a cumulative sum assigns each valid element its slot, and
 elements past the budget drop. The JAX drop-mode ``.at[].set`` becomes
 index filtering: a small 1-D pack writes its dropped elements into a
-spare slot that is sliced off, and the wide union rows are gathered
-through a map of their source rows. The true totals (``m_ptr[-1]``,
+spare slot that is sliced off, and the wide union rows go through a
+map of their source rows. The true totals (``m_ptr[-1]``,
 ``f_ptr[-1]``, the bitmap-row total) tell the caller to re-pack with
 a bigger budget.
+
+The bitmap union is packed before it is computed: :func:`union_slots`
+maps each of the ``pr`` packed rows to its source topic, and kernel B2
+(``csrc/bitmap_or.cu``, replacing the Pallas
+``emqx_tpu/ops/bitmap.py::_or_kernel_dma``) ORs just those rows in one
+launch. What bounds it at the main path's shapes is that launch's
+latency, not bytes (about 1-2 MiB), so the design drops the dense
+``[B, W]`` union (512 MiB a 4,096-topic batch at W = 32,768) and its
+gather rather than pipelining the copies. One kernel serves both the
+packed union (B2) and the dense one (B4, a null slot map).
+:func:`pack_union_rows` keeps the dense composition, the JAX
+package's function, for the tests and the old-route comparison.
 """
 
 from __future__ import annotations
@@ -76,21 +88,31 @@ def bundle_i32(*parts: torch.Tensor) -> torch.Tensor:
     return torch.cat([p.reshape(-1).to(torch.int32) for p in parts])
 
 
-def pack_union_rows(union: torch.Tensor, has_big: torch.Tensor, *,
-                    pr: int):
-    """Compact the bitmap-union rows: only rows with ``has_big`` set
-    are materialized. Returns ``(sel[B], rows[pr, W], total)`` —
-    ``sel[b]`` is message ``b``'s packed row (-1 = none) and
-    ``total`` > ``pr`` signals budget overflow.
-
-    The packed slots' source rows are scattered into a map of ``pr``
-    entries (-1 = empty) and the rows gathered through it, so the op
-    moves ``pr`` rows of the union, not all ``B``, with no sync."""
+def union_slots(has_big: torch.Tensor, pr: int):
+    """The packed-slot map of the bitmap-union rows: only rows with
+    ``has_big`` set are materialized. Returns ``(sel[B], src[pr],
+    total)`` — ``sel[b]`` is message ``b``'s packed row (-1 = none),
+    ``src[p]`` the message packed at row ``p`` (-1 = empty, int32),
+    and ``total`` > ``pr`` signals budget overflow (the rows past
+    ``pr`` dropped). A cumsum and a scatter over B elements, no
+    sync."""
     hb = has_big.to(torch.int32)
     pos = torch.cumsum(hb, 0) - 1
     sel = torch.where(has_big, pos, -1).to(torch.int32)
     src = _scatter_drop(pr, pos, has_big,
-                        torch.arange(union.shape[0], device=union.device), -1)
+                        torch.arange(has_big.shape[0], dtype=torch.int32,
+                                     device=has_big.device), -1)
+    return sel, src, hb.sum(dtype=torch.int32)
+
+
+def pack_union_rows(union: torch.Tensor, has_big: torch.Tensor, *,
+                    pr: int):
+    """Compact a dense bitmap union ``[B, W]``: :func:`union_slots`,
+    then a gather of the ``pr`` packed rows. Returns ``(sel[B],
+    rows[pr, W], total)``, the JAX package's ``pack_union_rows``. The
+    publish path never builds the dense union: kernel B2 ORs the packed
+    rows directly (``bitmap.or_union_rows_auto``)."""
+    sel, src, total = union_slots(has_big, pr)
     rows = union.index_select(0, src.clamp(min=0))
     rows.masked_fill_((src < 0)[:, None], 0)
-    return sel, rows, hb.sum(dtype=torch.int32)
+    return sel, rows, total

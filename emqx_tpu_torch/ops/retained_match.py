@@ -15,7 +15,10 @@ the hand-written CUDA kernel (``csrc/retained_match.cu``), which
 replaces the Pallas ``emqx_tpu/ops/retained_match.py::_retained_kernel``.
 :func:`match_names_auto` picks by the device of the tensors it is
 given: CUDA tensors launch the kernel (or raise), CPU tensors run the
-plain version.
+plain version. A kernel with one name per thread is held by
+instruction issue, not by its bytes; this one takes four names per
+thread, so each shared-memory read of a pre-digested filter serves
+four names and each filter's four results go out as one 32-bit store.
 """
 
 from __future__ import annotations

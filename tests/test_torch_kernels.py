@@ -16,10 +16,13 @@ from emqx_tpu_torch import topic as T
 from emqx_tpu_torch.broker import Broker
 from emqx_tpu_torch.ops import _build, convert
 from emqx_tpu_torch.modules.retainer import RetainIndex
-from emqx_tpu_torch.ops.bitmap import or_bitmaps, or_bitmaps_cuda, or_bitmaps_ref
+from emqx_tpu_torch.ops.bitmap import (or_bitmaps, or_bitmaps_cuda,
+                                       or_bitmaps_ref, or_union_rows_cuda,
+                                       or_union_rows_ref)
 from emqx_tpu_torch.ops.csr import (attach_walk_tables, build_automaton,
                                     compress_automaton)
 from emqx_tpu_torch.ops.match import match_batch, walk_params
+from emqx_tpu_torch.ops.pack import pack_union_rows, union_slots
 from emqx_tpu_torch.ops.retained_match import (match_names_cuda,
                                                match_names_many)
 from emqx_tpu_torch.ops.tokenize import WordTable, encode_batch
@@ -130,6 +133,32 @@ def test_or_bitmaps_entry_point_launches_the_bitmap_kernel(cuda_device):
     assert _build.LAUNCHES["or_bitmaps"] == _build.LAUNCHES["bitmap_or"] == 1
 
 
+@pytest.mark.gpu
+def test_union_kernel_matches_its_twin_and_the_dense_route(cuda_device):
+    """The packed union at budgets below (overflow), at and above the
+    live count, against its plain twin and against the dense route
+    (the same kernel with a null slot map, then ``pack_union_rows``);
+    W = 4,100 words leaves a ragged strip at the row's end."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    bm = torch.randint(-2**31, 2**31 - 1, (16, 4100), generator=g,
+                       dtype=torch.int32).to(cuda_device)
+    rows = torch.randint(-1, 16, (300, 16), generator=g, dtype=torch.int32)
+    rows[torch.rand(300, generator=g) < 0.7] = -1
+    rows = rows.to(cuda_device)
+    has_big = (rows >= 0).any(1)
+    live = int(has_big.sum())
+    for pr in (1, live // 2, live, live + 7):
+        sel, src, total = union_slots(has_big, pr)
+        _build.reset_launches()
+        got = or_union_rows_cuda(bm, rows, src)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["bitmap_or"] == 1
+        assert got.shape == (pr, 4100) and int(total) == live
+        assert torch.equal(got, or_union_rows_ref(bm, rows, src)), pr
+        dense = pack_union_rows(or_bitmaps_cuda(bm, rows), has_big, pr=pr)
+        assert torch.equal(dense[1], got) and torch.equal(dense[0], sel)
+
+
 def _retained_index(rs, n):
     idx = RetainIndex("cpu")
     words = ["a", "b", "c", "$SYS", "$p", "s0", ""]
@@ -162,6 +191,34 @@ def test_retained_kernel_matches_plain_match(cuda_device, n_names):
         # ragged cap: a slice of the name rows
         cut = [a[:-5] if a.shape[0] == idx._cap else a for a in args]
         assert torch.equal(match_names_cuda(*cut), match_names_many(*cut))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1000, 1001, 1002, 1003])
+def test_retained_kernel_at_ragged_caps_and_every_level_count(cuda_device,
+                                                              cap):
+    """Random rows (a small word alphabet, so levels match often) at a
+    cap of 4·k and 4·k + 1..3, with the burst's deepest filter
+    comparing 1 to 16 levels: every quarter count of a name row, and
+    the byte-store path wherever a filter's output row is not 4-byte
+    aligned."""
+    rs = np.random.RandomState(cap)
+    F = 37
+    names = [rs.randint(-2, 4, size=(cap, 16)), rs.randint(-1, 21, size=cap),
+             rs.rand(cap) < 0.3]
+    for top in range(1, 17):
+        fn = rs.randint(-1, top + 1, size=F)
+        fn[0] = top
+        raw = [rs.randint(-3, 4, size=(F, 16)), fn, rs.rand(F) < 0.4] + names
+        args = [torch.from_numpy(a.astype(np.int32) if a.dtype != bool else a)
+                .to(cuda_device) for a in raw]
+        want = match_names_many(*args)
+        _build.reset_launches()
+        got = match_names_cuda(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["retained_match"] == 1
+        assert got.dtype == torch.bool and torch.equal(got, want), top
+        assert bool(want.any())
 
 
 @pytest.mark.gpu

@@ -2,8 +2,9 @@
 jitted ones, on the same seeded inputs, exactly (every output is an
 integer or a bit). The bitmap OR is held against
 ``emqx_tpu.ops.bitmap.or_bitmaps_auto``, which runs the Pallas kernel
-in interpret mode on the CPU. Tests of the CUDA kernel itself need a
-card (tests/test_torch_kernels.py).
+in interpret mode on the CPU, and the packed union against that OR
+followed by the JAX ``pack_union_rows``. Tests of the CUDA kernel
+itself need a card (tests/test_torch_kernels.py).
 """
 
 import itertools
@@ -130,9 +131,9 @@ def test_or_bitmaps_ref_matches_pallas_kernel_in_interpret_mode():
     got = tbm.or_bitmaps_ref(torch.from_numpy(bm.view(np.int32)),
                              torch.from_numpy(rows))
     _eq(got.numpy().view(np.uint32), want, "or")
-    auto = tbm.or_bitmaps_auto(torch.from_numpy(bm.view(np.int32)),
-                               torch.from_numpy(rows))
-    assert torch.equal(auto, got)
+    entry = tbm.or_bitmaps(torch.from_numpy(bm.view(np.int32)),
+                           torch.from_numpy(rows))
+    assert torch.equal(entry, got)
 
 
 def test_pack_union_rows_matches_jax():
@@ -147,6 +148,39 @@ def test_pack_union_rows_matches_jax():
         _eq(got[0], want[0], "sel")
         _eq(got[1].numpy().view(np.uint32), want[1], "rows")
         assert int(got[2]) == int(want[2])
+
+
+@pytest.mark.parametrize("budget", ["below", "equal", "above"])
+def test_or_union_rows_matches_jax_pack_of_the_pallas_or(budget):
+    """The packed union (kernel B2's function on the publish path) is
+    the JAX package's dense Pallas OR followed by ``pack_union_rows``:
+    rows, slot map and total, with a budget below (overflow: the live
+    rows past it drop), at and above the live count; one topic row has
+    no live slot, so it packs no row."""
+    rs = np.random.RandomState(13)
+    R, W, B, mb = 6, 2048, 12, 4
+    bm = rs.randint(0, 2**32, size=(R, W), dtype=np.uint64).astype(np.uint32)
+    # live slots packed to the front, as rows_for_matches makes them
+    rows = rs.randint(0, R, size=(B, mb)).astype(np.int32)
+    rows[np.arange(mb)[None, :] >= rs.randint(0, mb + 1, size=(B, 1))] = -1
+    rows[3] = -1
+    has_big = (rows >= 0).any(1)
+    live = int(has_big.sum())
+    assert 2 <= live < B
+    pr = {"below": live - 1, "equal": live, "above": 2 * live + 1}[budget]
+    want = jpack.pack_union_rows(jbm.or_bitmaps_auto(bm, rows), has_big,
+                                 pr=pr)
+    sel, src, total = tpack.union_slots(torch.from_numpy(has_big), pr)
+    tb, tr = torch.from_numpy(bm.view(np.int32)), torch.from_numpy(rows)
+    got = tbm.or_union_rows_ref(tb, tr, src)
+    _eq(got.numpy().view(np.uint32), want[1], "rows")
+    _eq(sel, want[0], "sel")
+    assert int(total) == int(want[2]) == live
+    assert src.dtype == torch.int32 and int((src >= 0).sum()) == min(pr, live)
+    assert torch.equal(tbm.or_union_rows_auto(tb, tr, src), got)
+    dense = tpack.pack_union_rows(tbm.or_bitmaps_ref(tb, tr),
+                                  torch.from_numpy(has_big), pr=pr)
+    assert torch.equal(dense[1], got) and torch.equal(dense[0], sel)
 
 
 def test_device_resolution_never_falls_back_silently(monkeypatch):
@@ -167,3 +201,5 @@ def test_bitmap_kernel_wrapper_refuses_cpu_tensors():
     rows = torch.full((2, 3), -1, dtype=torch.int32)
     with pytest.raises(ValueError):
         tbm.or_bitmaps_cuda(bm, rows)
+    with pytest.raises(ValueError):
+        tbm.or_union_rows_cuda(bm, rows, torch.zeros(2, dtype=torch.int32))
