@@ -12,9 +12,11 @@ hand-written kernels against their plain PyTorch versions:
      compiler's register report;
   3. B1 (the NFA walk) against the plain walk, byte for byte: the
      1M-filter narrow automaton of phase 5 at the main path's batch,
-     a wide (chain-compressed) automaton, k ∈ {16, 64} with
-     ``pack_ids`` on and off, tiny-k overflow, ``$SYS`` and too-deep
-     topics; kernel and plain times;
+     a wide (chain-compressed) automaton, k ∈ {15, 16, 17, 32, 64}
+     (both compaction orders and their edge) with ``pack_ids`` on and
+     off, batches of 1 and 4,093 topics, tiny-k overflow, ``$SYS`` and
+     too-deep topics; kernel, per-hop, whole-call device and plain
+     times;
   4. B2 (the bitmap OR of the packed union rows) against
      ``or_union_rows_ref``, bit for bit, on the slice batch with the
      most live row slots at the learned packed-row budget and at one
@@ -414,11 +416,17 @@ def phase_walk(broker, batch_topics, rng, card):
     err = check_walk(auto, args, kw,
                      f"{main}, main path inputs B={B} L={L} "
                      f"k={kw['k']} steps={kw['steps']}")
-    for k in (16, 64):
+    # k = 15 .. 17 and 32: the edge of the two compaction orders
+    # (2k = 30, 32, 34 and 64)
+    for k in (15, 16, 17, 32, 64):
         for pack in (True, False):
             err = max(err, check_walk(
                 auto, args, dict(kw, k=k, pack_ids=pack),
                 f"{main} k={k} pack_ids={pack}"))
+    # a batch that is not a multiple of a block's 4 topics, and one topic
+    for cut in (4093, 1):
+        err = max(err, check_walk(auto, [a[:cut] for a in args], kw,
+                                  f"{main} B={cut}"))
     odd = uniq[:2000] + ["$SYS/brokers/up", "$SYS/w1_0/w2_0",
                          "/".join(["w0_1"] * 20), "w0_1/w1_1/w2_1/w3_1/w4_1/x"]
     a2, kw2 = router.walk_inputs(odd)
@@ -450,20 +458,25 @@ def phase_walk(broker, batch_topics, rng, card):
     topics = ["/".join(w if w not in ("+", "#") else "d1"
                        for w in f.split("/")) for f in list(fids)[:3000]]
     topics += ["$SYS/d0/d1", "/".join(["d0"] * 20), "d0", "d2/d2/d2"]
-    ids, n, sysm = encode_batch(table, topics, 16)
+    ids, n, sysm = encode_batch(table, (topics * 2)[:4093], 16)
     wargs = [torch.from_numpy(a).to(router.device) for a in (ids, n, sysm)]
-    for k in (2, 16, 64):
+    wlabel = f"wide ({wide.v2_states} states, take {wide.wt_take})"
+    for k in (2, 15, 16, 17, 32, 64):
         for pack in (True, False):
             err = max(err, check_walk(
                 wauto, wargs, dict(k=k, m=64, pack_ids=pack,
                                    **walk_params(wide, ids.shape[1])),
-                f"wide ({wide.v2_states} states, take {wide.wt_take}) "
-                f"k={k} pack_ids={pack}"))
+                f"{wlabel} B=4093 k={k} pack_ids={pack}"))
+    err = max(err, check_walk(
+        wauto, [a[-1:] for a in wargs],
+        dict(k=16, m=64, **walk_params(wide, ids.shape[1])),
+        f"{wlabel} B=1 k=16"))
     # times and bound at the main path's inputs: the kernel alone
     # (profiler device time) and the wrapper with its torch tail
     run = lambda: match_batch_cuda(auto, *args, **kw)  # noqa: E731
     wrapper_ms = time_cuda_ms(run)
     ms = kernel_ms(run, "walk_kernel")
+    call_ms = device_ms(run)
     plain_ms = time_cuda_ms(lambda: match_batch(auto, *args, **kw),
                             iters=3, warmup=1)
     if kw["take"] > 1:
@@ -472,9 +485,12 @@ def phase_walk(broker, batch_topics, rng, card):
     live, probing = walk_lanes(router, padded, kw["k"], kw["steps"])
     bound = walk_bound_ms(B, L, kw["steps"], kw["k"], live, probing,
                           auto.wt.shape[1] * 4)
-    log(f"[B1] main path inputs B={B}: kernel {ms:.5f} ms (wrapper with "
-        f"its torch tail {wrapper_ms:.5f} ms), plain {plain_ms:.4f} ms, "
-        f"bound {bound:.5f} ms (bytes) — {card}")
+    log(f"[B1] main path inputs B={B}: kernel {ms:.5f} ms, "
+        f"{ms / kw['steps'] * 1e3:.4f} us per hop over {kw['steps']} steps; "
+        f"whole match_batch_cuda call {call_ms:.5f} ms of device time "
+        f"(kernel and its torch tail; {wrapper_ms:.5f} ms on CUDA events, "
+        f"host enqueue included), plain {plain_ms:.4f} ms, bound "
+        f"{bound:.5f} ms (bytes) — {card}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound}
 

@@ -9,6 +9,15 @@ emit slots ``[B, steps, 2k]`` and the per-topic overflow; the
 byte-identical :class:`~emqx_tpu_torch.ops.match.MatchResult` as the
 plain :func:`~emqx_tpu_torch.ops.match.match_batch`.
 
+The kernel's time is a dependent chain of ``steps`` device-memory
+round trips per topic, not bytes: a hop's reads hang on the previous
+hop, and a batch is one wave of warps. So one warp walks a topic and a
+hop costs one round trip: every load of the hop (the node2 row and the
+bucket entries, chain words included) is issued before any compare,
+with the layout's slot count (2 narrow, 4 wide) fixed at compile time;
+the topic's words sit in registers from the start, and the frontier is
+compacted in registers by warp shuffles and ballots.
+
 :func:`match_batch_auto` picks by the device of the tensors it is
 given — CUDA tensors launch the kernel (or raise), CPU tensors run the
 plain walk. There is no environment switch and no fallback.
@@ -22,12 +31,15 @@ from typing import Optional
 import torch
 
 from emqx_tpu_torch.ops import _build
-from emqx_tpu_torch.ops.csr import MAX_TAKE, NARROW_SLOT, WIDE_SLOT
+from emqx_tpu_torch.ops.csr import (MAX_TAKE, NARROW_SLOT, NARROW_SLOTS,
+                                    WIDE_SLOT, WIDE_SLOTS)
 from emqx_tpu_torch.ops.match import (_LVL_MASK, MatchResult, finish,
                                       match_batch)
 
 #: frontier capacity one warp holds (two slots per lane)
 MAX_K = 64
+#: topic levels one warp holds in registers (two words per lane)
+MAX_L = 64
 
 
 def match_batch_cuda(
@@ -55,6 +67,11 @@ def match_batch_cuda(
         raise ValueError(f"walk kernel supports 1 <= k <= {MAX_K}, got {k}")
     if take > MAX_TAKE:
         raise ValueError(f"walk kernel supports take <= {MAX_TAKE}")
+    if slots != (WIDE_SLOTS if wide else NARROW_SLOTS):
+        raise ValueError(f"walk kernel supports {NARROW_SLOTS} slots "
+                         f"(narrow) or {WIDE_SLOTS} (wide), got {slots}")
+    if not 1 <= L <= MAX_L:
+        raise ValueError(f"walk kernel supports 1 <= L <= {MAX_L}, got {L}")
     dev = word_ids.device
     tensors = (word_ids, n_words, sys_mask, auto.wt, auto.wt_seed,
                auto.node2)
@@ -78,8 +95,8 @@ def match_batch_cuda(
     n = n_words.to(torch.int32).contiguous()
     sysm = sys_mask.to(torch.int32).contiguous()
     emits = torch.empty((B, steps, 2 * k), dtype=torch.int32, device=dev)
-    ovf = torch.zeros((B,), dtype=torch.int32, device=dev)
-    if B and steps:
+    ovf = torch.empty((B,), dtype=torch.int32, device=dev)  # every row written
+    if B:
         lib = _build.library()
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.emqx_walk(

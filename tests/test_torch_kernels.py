@@ -90,20 +90,57 @@ def _automaton(filters, mode):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["narrow", "wide"])
 def test_walk_kernel_matches_plain_walk(cuda_device, mode):
+    """k on both sides of the two compaction orders (2k = 30, 32, 34
+    and 64) and of two frontier slots a lane (k = 33), a batch of 700
+    topics, of one and of 4,093 (not a multiple of the block's 4). A
+    topic made from each filter walks every edge, the ones placed in
+    their second-choice bucket row too."""
     rs = np.random.RandomState(12)
-    auto, table = _automaton(_filters(rs, 400), mode)
-    ids, n, sysm = encode_batch(table, _topics(rs, 300), 16)
+    filters = _filters(rs, 400)
+    auto, table = _automaton(filters, mode)
+    topics = _topics(rs, 300) + [f.replace("+", "a").replace("#", "b")
+                                 for f in filters]
+    batches = [topics, topics[:1], (topics * 6)[:4093]]
+    for bi, batch in enumerate(batches):
+        ids, n, sysm = encode_batch(table, batch, 16)
+        ta = convert.automaton(auto, cuda_device)
+        args = [torch.from_numpy(a).to(cuda_device) for a in (ids, n, sysm)]
+        for k in ((2, 15, 16, 17, 32, 33, 64) if bi == 0 else (2, 16, 64)):
+            for pack_ids in (True, False):
+                kw = dict(k=k, m=64, pack_ids=pack_ids,
+                          **walk_params(auto, ids.shape[1]))
+                want = match_batch(ta, *args, **kw)
+                _build.reset_launches()
+                got = match_batch_cuda(ta, *args, **kw)
+                torch.cuda.synchronize()
+                assert _build.LAUNCHES["walk"] == 1
+                for x, y in zip(got, want):
+                    assert torch.equal(x, y), (len(batch), k, pack_ids)
+        # no hop at all: every live topic keeps a lane, so it overflows
+        kw = dict(k=16, m=64, steps=0, slots=auto.wt_slots,
+                  take=auto.wt_take)
+        for x, y in zip(match_batch_cuda(ta, *args, **kw),
+                        match_batch(ta, *args, **kw)):
+            assert torch.equal(x, y), (len(batch), "steps=0")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["narrow", "wide"])
+def test_walk_kernel_refuses_a_slot_count_of_another_layout(cuda_device,
+                                                            mode):
+    """The kernel is built for 2 slots (narrow) and 4 (wide); any other
+    count is refused before a launch, on CUDA tensors."""
+    rs = np.random.RandomState(13)
+    auto, table = _automaton(_filters(rs, 50), mode)
+    ids, n, sysm = encode_batch(table, _topics(rs, 20), 16)
     ta = convert.automaton(auto, cuda_device)
     args = [torch.from_numpy(a).to(cuda_device) for a in (ids, n, sysm)]
-    for k in (2, 16, 17, 64):
-        for pack_ids in (True, False):
-            kw = dict(k=k, m=64, pack_ids=pack_ids,
-                      **walk_params(auto, ids.shape[1]))
-            want = match_batch(ta, *args, **kw)
-            got = match_batch_cuda(ta, *args, **kw)
-            torch.cuda.synchronize()
-            for x, y in zip(got, want):
-                assert torch.equal(x, y), (k, pack_ids)
+    kw = dict(k=16, m=64, **walk_params(auto, ids.shape[1]))
+    for slots in (1, 3, 6 - kw["slots"], 8):
+        _build.reset_launches()
+        with pytest.raises(ValueError, match="slots"):
+            match_batch_cuda(ta, *args, **dict(kw, slots=slots))
+        assert _build.LAUNCHES["walk"] == 0
 
 
 @pytest.mark.gpu

@@ -71,7 +71,10 @@ def _assert_same(ref, got):
 @pytest.mark.parametrize("mode,pack_ids,k", [
     ("narrow", True, 16), ("narrow", False, 16),
     ("wide", True, 16), ("wide", False, 16),
-    ("narrow", False, 64), ("wide", True, 64)])
+    ("narrow", False, 64), ("wide", True, 64),
+    # the edge of the two compaction orders: 2k = 30, 34 and 64
+    ("narrow", False, 15), ("narrow", True, 17), ("narrow", False, 32),
+    ("wide", True, 15), ("wide", False, 17), ("wide", True, 32)])
 def test_plain_walk_matches_lax_walk(mode, pack_ids, k):
     trie, auto, inv, topics, ids, n, sysm = _inputs(4100 + k, mode)
     assert (auto.wt_take > 1) == (mode == "wide")
