@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``emqx_tpu_torch``) on one GPU.
 
-Drives the port's two single-GPU paths — publish → match → dispatch,
-and the retained store with subscribe-time replay — and holds its
-hand-written kernels against their plain PyTorch versions:
+Drives the port's single-GPU paths — publish → match → dispatch, the
+retained store with subscribe-time replay, and both again through the
+MQTT front door over loopback sockets — and holds its hand-written
+kernels against their plain PyTorch versions:
 
   1. environment: torch / CUDA versions and the card's name and power
      limit (``nvidia-smi``);
@@ -16,7 +17,12 @@ hand-written kernels against their plain PyTorch versions:
      (both compaction orders and their edge) with ``pack_ids`` on and
      off, batches of 1 and 4,093 topics, tiny-k overflow, ``$SYS`` and
      too-deep topics; kernel, per-hop, whole-call device and plain
-     times;
+     times. Past the register instantiation's limits (the scratch-row
+     one): k ∈ {65, 128, 200} on the main automaton, and L ∈ {65, 100}
+     on the main automaton and a narrow deep one, with the k = 128 and
+     L = 65 kernel times; and ``Broker(device="cuda")`` with
+     ``active_k = 128``, and with ``max_levels = 80`` and 70-level
+     topics, delivering what the TrieOracle gives;
   4. B2 (the bitmap OR of the packed union rows) against
      ``or_union_rows_ref``, bit for bit, on the slice batch with the
      most live row slots at the learned packed-row budget and at one
@@ -28,7 +34,8 @@ hand-written kernels against their plain PyTorch versions:
      ``pack_union_rows``) against the packed launch on the main path's
      batch: equal, times and peak device memory; kernel times and
      bounds;
-  5. the slice: ``Broker(device="cuda")`` at BASELINE config 2's shape
+  5. the slice: ``Node(device="cuda")``'s broker at BASELINE config 2's
+     shape
      (1M ``+`` subscriptions over a 5-level tree of 40 words per level,
      10K literal, 10K ``#``, 10K ``$share`` subscriptions, 8 filters of
      4,096 subscribers on the bitmap path), batches of Zipf(1.1) topics
@@ -42,19 +49,37 @@ hand-written kernels against their plain PyTorch versions:
      at its defaults stores 1,000,000 retained messages
      (``s{i % 499}/g{(i // 499) % 97}/d{i}/state``) through
      ``broker.publish_batch``, then replays 8 bursts of 64
-     subscriptions inside one asyncio loop, each subscription on its
-     own ``Session`` making the channel's calls; asserts per burst one
+     subscriptions inside one asyncio loop, each subscription a
+     SUBSCRIBE handed to its own sans-IO ``Channel``; asserts per burst one
      replay batch, one B3 launch and every session's deliveries equal
      to the stored names its filter matches (8 filters of the first
      burst also against the host ``T.match`` scan); prints store and
      upload seconds, p50/p99 replay latency, subscriptions/s and the
      bytes fetched per burst;
-  7. B3 (the retained match) against the plain ``match_names_many``,
-     bit for bit, on the 1M-name index at F = 32 and F = 64 and on
-     small indexes with ``$`` names, 20-level names, dead rows, UNKNOWN
-     filter words and ragged F, at caps of 4·k + 1, 4·k + 2 and
-     4·k + 3 with F = 1, 5 and 130, and on random rows; kernel and
-     plain times and the bound from the run's filters.
+     Then B3 (the retained match) against the plain
+     ``match_names_many``, bit for bit, on the 1M-name index at F = 32
+     and F = 64 and on small indexes with ``$`` names, 20-level names,
+     dead rows, UNKNOWN filter words and ragged F, at caps of 4·k + 1,
+     4·k + 2 and 4·k + 3 with F = 1, 5 and 130, and on random rows;
+     kernel and plain times and the bound from the run's filters;
+  7. the front door on the card, on the nodes phases 5 and 6 built:
+     (7a) a listener on phase 5's node and 2,000 TCP connections over
+     loopback in this process (1,000 subscribers, half MQTT v4 and half
+     v5, each at QoS 1 on one config-2 ``+`` filter and one big
+     literal filter; 1,000 publishers sending QoS 1 PUBLISHes, 5 each
+     in the timed window, cut from the fleet's 20 to hold the run's
+     time, topics Zipf(1.1) with seed 0, the send time in the payload);
+     before the fleet, an open-loop burst into the ingress batcher in
+     one loop step (every pipeline slot busy, the largest batch
+     reached), its acks' order and every delivery checked;
+     every socket delivery checked against the TrieOracle; CONNACKs/s,
+     delivered msgs/s, publish→delivery and PUBACK latencies, the
+     ingress batcher's device batches, the B1 and B2 launches of the
+     socket path and the device idle share over a profiled window;
+     (7b) a listener on phase 6's node and 8 bursts of 64 live clients,
+     each a CONNECT then a SUBSCRIBE; every replayed message checked
+     against the name family; SUBACK-to-last-retained p50/p99 and the
+     B3 launches.
 
 The last two lines are one JSON object per kernel row
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Every
@@ -65,6 +90,7 @@ at once and prints no result.
     python3 chip_smoke.py                 # full size, one card
     python3 chip_smoke.py --subs 100000   # a smaller tree
     python3 chip_smoke.py --names 100000  # a smaller retained store
+    python3 chip_smoke.py --conns 200 --pubs-per-conn 5   # a smaller fleet
 """
 
 from __future__ import annotations
@@ -90,6 +116,8 @@ LEVELS = 5
 VOCAB = 40
 #: the kernels the publish path launches on every device batch
 PUBLISH_KERNELS = ("walk", "bitmap_or")
+#: QoS 1 PUBLISHes a publisher of the 2,000-connection fleet sends
+FLEET_PUBS = 20
 
 
 def log(*a) -> None:
@@ -471,6 +499,42 @@ def phase_walk(broker, batch_topics, rng, card):
         wauto, [a[-1:] for a in wargs],
         dict(k=16, m=64, **walk_params(wide, ids.shape[1])),
         f"{wlabel} B=1 k=16"))
+    # past the register instantiation's limits (the scratch-row one):
+    # frontiers of 65 to 200 lanes, and topics of 65 and 100 levels on
+    # the main automaton and on a narrow deep one
+    for k in (65, 128, 200):
+        for pack in (True, False):
+            err = max(err, check_walk(
+                auto, args, dict(kw, k=k, pack_ids=pack),
+                f"{main} main path inputs k={k} pack_ids={pack}"))
+    deep_auto, deep_table, deep_topics = deep_automaton(rng, 100)
+    deep_dev = convert.automaton(deep_auto, router.device)
+    deep_in = {}
+    for depth in (65, 100):
+        # the main automaton: half of the topics run on past level 5
+        # (named apart from L, the main path's level count, which the
+        # bound below reads)
+        topics = [t if i % 2
+                  else t + "/" + "/".join(["w0_1"] * (depth - LEVELS))
+                  for i, t in enumerate(uniq[:2000])]
+        ids, n, sysm = encode_batch(router._table, topics, depth)
+        a_main = [torch.from_numpy(a).to(router.device)
+                  for a in (ids, n, sysm)]
+        ids, n, sysm = encode_batch(
+            deep_table, [t for t in deep_topics if t.count("/") < depth],
+            depth)
+        a_deep = [torch.from_numpy(a).to(router.device)
+                  for a in (ids, n, sysm)]
+        deep_in[depth] = (a_deep, dict(m=64, pack_ids=False,
+                                       **walk_params(deep_auto, depth)))
+        for k in (16, 128):
+            err = max(err, check_walk(
+                auto, a_main, dict(kw, k=k, steps=router._steps_for(depth)),
+                f"{main} L={depth} B={len(topics)} k={k}"))
+            err = max(err, check_walk(
+                deep_dev, a_deep, dict(deep_in[depth][1], k=k),
+                f"narrow deep automaton ({deep_auto.v2_states} states) "
+                f"L={depth} B={a_deep[0].shape[0]} k={k}"))
     # times and bound at the main path's inputs: the kernel alone
     # (profiler device time) and the wrapper with its torch tail
     run = lambda: match_batch_cuda(auto, *args, **kw)  # noqa: E731
@@ -491,8 +555,111 @@ def phase_walk(broker, batch_topics, rng, card):
         f"(kernel and its torch tail; {wrapper_ms:.5f} ms on CUDA events, "
         f"host enqueue included), plain {plain_ms:.4f} ms, bound "
         f"{bound:.5f} ms (bytes) — {card}")
+    # the scratch-row instantiation: k = 128 at the main path's inputs,
+    # and the deep automaton at L = 65 (k = 16)
+    k128_ms = kernel_ms(lambda: match_batch_cuda(auto, *args,
+                                                 **dict(kw, k=128)),
+                        "walk_kernel_gmem")
+    a_deep, kw_deep = deep_in[65]
+    l65_ms = kernel_ms(lambda: match_batch_cuda(deep_dev, *a_deep,
+                                                **dict(kw_deep, k=16)),
+                       "walk_kernel_gmem")
+    log(f"[B1] past the registers: k=128 at the main path inputs B={B} "
+        f"{k128_ms:.5f} ms ({k128_ms / kw['steps'] * 1e3:.4f} us per hop); "
+        f"L=65 on the narrow deep automaton B={a_deep[0].shape[0]} k=16 "
+        f"{l65_ms:.5f} ms over {kw_deep['steps']} steps — {card}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound}
+            "bound_ms": bound, "k128_ms": k128_ms, "l65_ms": l65_ms}
+
+
+def deep_automaton(rng, L):
+    """A narrow automaton over 2,000 spines of 60 to ``L`` levels with
+    wildcards sprinkled in; the topics made from each filter, and
+    random topics up to ``L`` levels."""
+    from emqx_tpu_torch.ops.csr import (attach_walk_tables,
+                                        build_automaton, compress_automaton)
+    from emqx_tpu_torch.ops.tokenize import WordTable
+    from emqx_tpu_torch.oracle import TrieOracle
+
+    trie, table, fids = TrieOracle(), WordTable(), {}
+    while len(fids) < 2000:
+        depth = int(rng.integers(60, L + 1))
+        ws = [f"s{int(x)}" for x in rng.integers(0, 3, size=depth)]
+        for _ in range(int(rng.integers(0, 4))):
+            ws[int(rng.integers(0, depth))] = "+"
+        if rng.random() < 0.3:
+            ws[-1] = "#"
+        f = "/".join(ws)
+        if f not in fids:
+            fids[f] = len(fids)
+            trie.insert(f)
+            for w in ws:
+                if w not in ("+", "#"):
+                    table.intern(w)
+    raw = build_automaton(trie, fids, table, skip_hash=True)
+    deep, edges = compress_automaton(raw, force_mode="narrow")
+    topics = [f.replace("+", "s1").replace("#", "s2") for f in fids]
+    topics += ["/".join(f"s{int(x)}" for x in
+                        rng.integers(0, 3, size=int(rng.integers(1, L + 1))))
+               for _ in range(500)]
+    return attach_walk_tables(deep, edges), table, topics
+
+
+def phase_c1(device, card):
+    """Fault C.1 closed, through the entry point a user calls:
+    ``Broker(device="cuda")`` with ``active_k = 128`` (frontiers past
+    64 lanes), and with ``max_levels = 80`` and topics of 70 levels,
+    delivers what the TrieOracle gives; the walk ran on the card."""
+    from emqx_tpu_torch.broker import Broker
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.router import MatcherConfig
+    from emqx_tpu_torch.types import Message
+
+    rng = random.Random(61)
+    wide = set()
+    while len(wide) < 1500:
+        ws = [rng.choice("aaab++++") for _ in range(rng.randint(1, 10))]
+        if rng.random() < 0.15:
+            ws[-1] = "#"
+        wide.add("/".join(ws))
+    deep = set()
+    while len(deep) < 1100:
+        ws = ["s%d" % rng.randint(0, 2) for _ in range(rng.randint(60, 80))]
+        ws[rng.randrange(len(ws))] = "+"
+        if rng.random() < 0.3:
+            ws[-1] = "#"
+        deep.add("/".join(ws))
+    cases = [
+        ("active_k=128", MatcherConfig(active_k=128), sorted(wide),
+         ["/".join("a" * rng.randint(1, 11)) for _ in range(50)]
+         + [f.replace("+", "a").replace("#", "b") for f in sorted(wide)]),
+        ("max_levels=80", MatcherConfig(max_levels=80), sorted(deep),
+         [f.replace("+", "s1").replace("#", "s2/s0") for f in sorted(deep)]
+         + ["/".join(["s0"] * 70), "/".join(["s1"] * 70)]),
+    ]
+    for label, cfg, filters, topics in cases:
+        broker = Broker(config=cfg, device=device)
+        for i, f in enumerate(filters):
+            broker.subscribe(Sink(i), f)
+        msgs = [Message(topic=t) for t in topics]
+        Sink.log = []
+        _build.reset_launches()
+        pb = broker.publish_begin(msgs)
+        if pb.done:
+            raise AssertionError(f"C.1 {label}: not the device path")
+        broker.publish_fetch(pb)
+        res = broker.publish_finish(pb)
+        deliveries, Sink.log = Sink.log, None
+        if _build.LAUNCHES["walk"] < 1:
+            raise AssertionError(f"C.1 {label}: the walk kernel did not "
+                                 f"launch")
+        check_batches(broker, [(msgs, res)], deliveries)
+        n_ovf = int(pb.ovf[:pb.n_uniq].sum())
+        log(f"[C.1] Broker(device='cuda') {label}: {len(filters)} filters, "
+            f"{len(msgs)} messages, {len(deliveries)} deliveries equal the "
+            f"TrieOracle; {pb.n_uniq - n_ovf} of {pb.n_uniq} topics "
+            f"finished on the card (the rest re-matched on the host) — "
+            f"{card}")
 
 
 def check_or(bitmaps, rows, label):
@@ -822,14 +989,25 @@ def phase_profile(broker, batches, card):
                   PUBLISH_KERNELS, card, "batches")
 
 
+def timed(label, fn, *args):
+    """``fn(*args)``, with its seconds logged under ``label``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run(opts, device, card):
-    """Phases 3-5 on ``device``; returns the kernel rows."""
-    from emqx_tpu_torch.broker import Broker
+    """Phases 3-5 and 7a on ``device``; returns the kernel rows."""
+    from emqx_tpu_torch.node import Node
     from emqx_tpu_torch.types import Message
 
     rng = np.random.default_rng(opts.seed)
     wl = make_workload(rng, opts.subs, opts.others, 8, 4096)
-    broker = Broker(device=device)
+    # one node holds the table: phase 5 drives its broker, phase 7a
+    # its listener; the ingress batcher takes up to a slice batch
+    node = Node(device=device, batch_size=opts.batch)
+    broker = node.broker
     t0 = time.perf_counter()
     sinks, draw = subscribe_all(broker, wl, rng)
     sub_s = time.perf_counter() - t0
@@ -846,20 +1024,26 @@ def run(opts, device, card):
         f"(fan-out tables) {first_s:.1f} s — {card}")
     batches = [topics[(i + 1) * opts.batch:(i + 2) * opts.batch]
                for i in range(opts.batches)]
-    walk = phase_walk(broker, topics[:opts.batch], rng, card)
-    bmp, b4 = phase_bitmap(broker, batches, rng, card)
-    sl = phase_slice(broker, batches, card)
-    phase_profile(broker, batches, card)
+    walk = timed("3 (B1)", phase_walk, broker, topics[:opts.batch], rng,
+                 card)
+    timed("3 (C.1)", phase_c1, device, card)
+    bmp, b4 = timed("4 (B2)", phase_bitmap, broker, batches, rng, card)
+    sl = timed("5 (slice)", phase_slice, broker, batches, card)
+    timed("5 (profile)", phase_profile, broker, batches, card)
+    sock = timed("7a (socket publish)", phase_socket, node, wl, draw, opts,
+                 card)
     return [
         {"name": "walk", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/walk.cu",
          "replaces": "emqx_tpu/ops/walk_pallas.py:87",
-         "launches": sl["launches"]["walk"], "equal": True,
+         "launches": sl["launches"]["walk"],
+         "socket_launches": sock["launches"]["walk"], "equal": True,
          "bound_by": "bytes", "library_ms": None, **walk},
         {"name": "bitmap_or", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/bitmap_or.cu",
          "replaces": "emqx_tpu/ops/bitmap.py:199",
-         "launches": sl["launches"]["bitmap_or"], "equal": True,
+         "launches": sl["launches"]["bitmap_or"],
+         "socket_launches": sock["launches"]["bitmap_or"], "equal": True,
          "bound_by": "bytes", "library_ms": None, **bmp},
         # B4 lies on no path: its launches on the publish path (0) are
         # read like the others; it runs the B2 kernel
@@ -933,16 +1117,6 @@ class NameFamily:
         return np.flatnonzero(mask)
 
 
-class StandInChannel:
-    """What the channel registry holds until the front door is ported:
-    a channel with its ``.session``."""
-
-    __slots__ = ("session",)
-
-    def __init__(self, session) -> None:
-        self.session = session
-
-
 def store_retained(node, n_names: int, batch: int = 4096) -> float:
     """Store ``n_names`` retained messages through the broker; returns
     the seconds it took."""
@@ -958,30 +1132,25 @@ def store_retained(node, n_names: int, batch: int = 4096) -> float:
 
 
 async def one_burst(node, flts, tag):
-    """One subscribe burst: a ``Session`` per filter, registered under
-    a stand-in channel, makes the channel's sequence of calls
-    (emqx_tpu/channel.py:752-768) in one loop tick; then the loop runs
-    the replay flush. Returns the sessions and the seconds of the
-    channel calls and of the flush."""
-    from emqx_tpu_torch.session import Session
-    from emqx_tpu_torch.types import SubOpts
+    """One subscribe burst: a sans-IO ``Channel`` per filter, connected
+    first, then handed its SUBSCRIBE, all in one loop tick; then the
+    loop runs the replay flush. Returns the sessions and the seconds
+    of the SUBSCRIBEs' channel work and of the flush."""
+    from emqx_tpu_torch.channel import Channel
+    from emqx_tpu_torch.mqtt.packet import Connect, Subscribe
 
-    sessions = []
+    chans = []
     for j in range(len(flts)):
-        s = Session(f"{tag}_{j}", broker=node.broker)
-        node.cm.register_channel(s.client_id, StandInChannel(s))
-        sessions.append(s)
+        ch = Channel(node.broker, node.cm)
+        ch.handle_in(Connect(client_id=f"{tag}_{j}"))
+        chans.append(ch)
     t0 = time.perf_counter()
-    for s, flt in zip(sessions, flts):
-        opts = SubOpts(qos=0)
-        resub = flt in s.subscriptions
-        s.subscribe(flt, opts)
-        node.hooks.run("session.subscribed",
-                       ({"clientid": s.client_id}, flt,
-                        {**opts.to_dict(), "resub": resub}))
+    for ch, flt in zip(chans, flts):
+        ch.handle_in(Subscribe(packet_id=1, topic_filters=[(flt,
+                                                            {"qos": 0})]))
     t1 = time.perf_counter()
     await asyncio.sleep(0)  # the burst's replay flush runs here
-    return sessions, t1 - t0, time.perf_counter() - t1
+    return [ch.session for ch in chans], t1 - t0, time.perf_counter() - t1
 
 
 async def replay_bursts(node, index, bursts, family):
@@ -1010,13 +1179,16 @@ async def replay_bursts(node, index, bursts, family):
         return out
 
     index.match_many = timed_match
-    lat, split, fetched, n_deliveries = [], [], [], 0
+    lat, split, fetched, n_deliveries, gc_s = [], [], [], 0, []
     _build.reset_launches()
     try:
         for bi, flts in enumerate(bursts):
             batches = metrics.val("retained.replay.batches")
             launches = _build.LAUNCHES["retained_match"]
-            sessions, calls_s, flush_s = await one_burst(node, flts, f"r{bi}")
+            with GcPauses() as gcp:
+                sessions, calls_s, flush_s = await one_burst(node, flts,
+                                                             f"r{bi}")
+            gc_s.append(sum(gcp.secs))
             lat.append(calls_s + flush_s)
             split.append((calls_s, match_s[-1], flush_s - match_s[-1]))
             if failures:
@@ -1047,7 +1219,7 @@ async def replay_bursts(node, index, bursts, family):
     finally:
         del index.match_many
         loop.set_exception_handler(None)
-    return lat, split, fetched, n_deliveries, dict(_build.LAUNCHES)
+    return lat, split, fetched, n_deliveries, gc_s, dict(_build.LAUNCHES)
 
 
 def check_host_scan(index, bursts, family, k: int = 8):
@@ -1107,7 +1279,7 @@ def phase_retained(opts, device, card):
         finally:
             await node.stop()
 
-    lat, split, fetched, n_del, launches = asyncio.run(replay())
+    lat, split, fetched, n_del, gc_s, launches = asyncio.run(replay())
     lat_ms = np.sort(np.array(lat) * 1e3)
     split_ms = np.mean(split, axis=0) * 1e3
     n_subs = sum(len(b) for b in bursts)
@@ -1123,10 +1295,11 @@ def phase_retained(opts, device, card):
     log(f"[retained] per burst: channel calls {split_ms[0]:.3f} ms, index "
         f"match (encode, B3, hit fetch) {split_ms[1]:.3f} ms, plan and "
         f"delivery {split_ms[2]:.3f} ms; bursts in order "
-        f"{[round(x * 1e3, 3) for x in lat]} ms — {card}")
+        f"{[round(x * 1e3, 3) for x in lat]} ms, of which garbage-collector "
+        f"pauses {[round(x * 1e3, 3) for x in gc_s]} ms — {card}")
     check_host_scan(mod._index, bursts, family)
     phase_retained_profile(node, opts, card)
-    return mod._index, bursts, launches
+    return node, mod._index, bursts, launches
 
 
 def phase_retained_profile(node, opts, card):
@@ -1264,15 +1437,576 @@ def phase_retained_kernel(index, bursts, rng, card):
     return {"max_abs_err": err, **rows[next(iter(shapes))]}
 
 
+# -- phase 7: the front door over loopback sockets ---------------------------
+
+def raise_fd_limit(want: int) -> int:
+    """Raise RLIMIT_NOFILE to its hard limit; returns the soft limit."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    target = hard if hard != resource.RLIM_INFINITY else max(soft, want)
+    if soft < target:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (target, hard))
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    log(f"[socket] RLIMIT_NOFILE soft {soft}, hard {hard}; {want} wanted")
+    return soft
+
+
+class WireClient:
+    """An MQTT client in this process, over the port's codec: records
+    each PUBLISH it receives with its arrival time, answers QoS 1 with
+    a PUBACK, and resolves a future per CONNACK, SUBACK and PUBACK."""
+
+    def __init__(self, cid: str, version: int) -> None:
+        from emqx_tpu_torch.mqtt.frame import Parser
+
+        self.cid = cid
+        self.version = version
+        self.parser = Parser(version=version)
+        self.got = []          # (topic, payload, retain, arrival)
+        self.waiting = {}      # ("connack"|"suback"|"puback", pid) -> future
+        self.on_publish = None
+        self.closed = None
+
+    async def connect(self, port: int) -> None:
+        from emqx_tpu_torch.mqtt.packet import Connect
+
+        loop = asyncio.get_running_loop()
+        self.reader, self.writer = await asyncio.open_connection(
+            "127.0.0.1", port)
+        self.closed = loop.create_future()
+        fut = self.expect("connack", 0)
+        self.send(Connect(client_id=self.cid, proto_ver=self.version,
+                          proto_name="MQTT", keepalive=0))
+        self._task = loop.create_task(self._read())
+        pkt = await fut
+        if pkt.reason_code != 0:
+            raise AssertionError(f"{self.cid}: CONNACK {pkt.reason_code}")
+
+    def expect(self, kind: str, pid: int):
+        fut = asyncio.get_running_loop().create_future()
+        self.waiting[(kind, pid)] = fut
+        return fut
+
+    def send(self, pkt) -> None:
+        from emqx_tpu_torch.mqtt.frame import serialize
+
+        self.writer.write(serialize(pkt, self.version))
+
+    async def _read(self) -> None:
+        from emqx_tpu_torch.mqtt import constants as C
+        from emqx_tpu_torch.mqtt.packet import (Connack, PubAck, Publish,
+                                                Suback)
+
+        try:
+            while True:
+                data = await self.reader.read(1 << 16)
+                if not data:
+                    break
+                now = time.perf_counter()
+                for pkt in self.parser.feed(data):
+                    if isinstance(pkt, Publish):
+                        self.got.append((pkt.topic, pkt.payload, pkt.retain,
+                                         now))
+                        if pkt.qos == 1:
+                            self.send(PubAck(type=C.PUBACK,
+                                             packet_id=pkt.packet_id))
+                        if self.on_publish is not None:
+                            self.on_publish(self)
+                        continue
+                    key = (("connack", 0) if isinstance(pkt, Connack) else
+                           ("suback", pkt.packet_id)
+                           if isinstance(pkt, Suback) else
+                           ("puback", pkt.packet_id)
+                           if isinstance(pkt, PubAck) else None)
+                    fut = self.waiting.pop(key, None)
+                    if fut is None:
+                        raise AssertionError(f"{self.cid}: unexpected "
+                                             f"{pkt!r}")
+                    fut.set_result(pkt)
+        finally:
+            for fut in self.waiting.values():
+                if not fut.done():
+                    fut.set_exception(ConnectionError(f"{self.cid} closed"))
+            if not self.closed.done():
+                self.closed.set_result(None)
+
+    async def close(self) -> None:
+        self.writer.close()
+        await self.closed
+
+
+class Countdown:
+    """Set ``done`` when ``n`` expected PUBLISHes have arrived."""
+
+    def __init__(self, want) -> None:
+        self.left = dict(want)   # client -> PUBLISHes still expected
+        self.n = sum(self.left.values())
+        self.done = asyncio.get_running_loop().create_future()
+        if not self.n:
+            self.done.set_result(None)
+
+    def __call__(self, client) -> None:
+        self.left[client] -= 1
+        self.n -= 1
+        if self.left[client] < 0:
+            raise AssertionError(f"{client.cid}: more PUBLISHes than the "
+                                 f"oracle gives")
+        if not self.n and not self.done.done():
+            self.done.set_result(None)
+
+
+async def connect_fleet(port, specs, wave: int = 100):
+    """Connect ``(client id, version)`` clients, ``wave`` at a time (the
+    listener's accept backlog); returns them and the seconds taken."""
+    clients = [WireClient(cid, v) for cid, v in specs]
+    t0 = time.perf_counter()
+    for i in range(0, len(clients), wave):
+        await asyncio.gather(*(c.connect(port)
+                               for c in clients[i:i + wave]))
+    return clients, time.perf_counter() - t0
+
+
+#: host-time groups of the socket path, by source file (first match)
+HOST_GROUPS = (
+    ("emqx_tpu_torch/mqtt/", "codec (parse, serialize)"),
+    ("emqx_tpu_torch/channel.py", "channel"),
+    ("emqx_tpu_torch/connection.py", "connection"),
+    ("emqx_tpu_torch/ingress.py", "ingress batcher"),
+    ("emqx_tpu_torch/session.py", "session"),
+    ("emqx_tpu_torch/inflight.py", "session"),
+    ("emqx_tpu_torch/mqueue.py", "session"),
+    ("emqx_tpu_torch/", "broker, router, fan-out and plan"),
+    ("chip_smoke.py", "the test's clients"),
+    ("torch/", "torch (host side)"),
+    ("asyncio/", "asyncio and sockets"),
+    ("selectors.py", "asyncio and sockets"),
+    ("socket", "asyncio and sockets"),
+)
+
+
+def host_split(prof):
+    """Self time of a cProfile run by :data:`HOST_GROUPS`, largest
+    first: ``[(group, seconds)]``. A built-in's time goes to the
+    groups of its callers, in the shares they called it for; socket
+    and selector built-ins go to asyncio and sockets."""
+    import pstats
+
+    def group(where):
+        return next((g for key, g in HOST_GROUPS if key in where), "other")
+
+    groups = {}
+    for (path, _line, func), row in pstats.Stats(prof).stats.items():
+        if path != "~" or group(func) != "other":
+            shares = [(group(path if path != "~" else func), row[2])]
+        else:
+            shares = [(group(cpath), crow[2])
+                      for (cpath, _l, _f), crow in row[4].items()]
+        for name, sec in shares:
+            groups[name] = groups.get(name, 0.0) + sec
+    return sorted(groups.items(), key=lambda kv: -kv[1])
+
+
+class GcPauses:
+    """Seconds the interpreter's garbage collector held the process
+    while installed, per generation."""
+
+    def __init__(self) -> None:
+        self.secs = [0.0, 0.0, 0.0]
+        self.count = [0, 0, 0]
+        self._t0 = 0.0
+
+    def __call__(self, phase, info) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            gen = info["generation"]
+            self.secs[gen] += time.perf_counter() - self._t0
+            self.count[gen] += 1
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import gc
+
+        gc.callbacks.remove(self)
+
+
+def _pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs) * 1e3, q)) if len(xs) else 0.0
+
+
+async def socket_publish(node, wl, draw, opts, card):
+    """Phase 7a on a running node: the fleet, the timed publish run
+    and a profiled window; returns the numbers and the launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from emqx_tpu_torch.mqtt.packet import Publish, Subscribe
+    from emqx_tpu_torch.ops import _build
+
+    router, ing = node.broker.router, node.ingress
+    lst = node.listeners[-1]
+    n_conn = opts.conns
+    limit = raise_fd_limit(2 * n_conn + 256)
+    if limit < 2 * n_conn + 256:
+        n_conn = max(2, (limit - 256) // 2 // 2 * 2)
+        log(f"[socket] the descriptor limit {limit} holds {n_conn} "
+            f"connections, not {opts.conns}: running {n_conn}")
+    n_sub = n_conn // 2
+    n_pub = n_conn - n_sub
+    plus_set = set(wl["plus"])
+    top_plus = [f for f in draw if f in plus_set][:n_sub]
+    specs = ([(f"sub{i}", 4 + i % 2) for i in range(n_sub)]
+             + [(f"pub{i}", 4 + i % 2) for i in range(n_pub)])
+    clients, conn_s = await connect_fleet(lst.port, specs)
+    subs, pubs = clients[:n_sub], clients[n_sub:]
+    log(f"[socket] {n_conn} connections ({n_sub} subscribers, {n_pub} "
+        f"publishers, half MQTT v4 and half v5): {n_conn / conn_s:.1f} "
+        f"CONNACKs/s — {card}")
+    sub_filters = {}
+    acks = []
+    for i, c in enumerate(subs):
+        flts = (top_plus[i % len(top_plus)], wl["big"][i % len(wl["big"])])
+        sub_filters[c] = flts
+        acks.append(c.expect("suback", 1))
+        c.send(Subscribe(packet_id=1,
+                         topic_filters=[(f, {"qos": 1}) for f in flts]))
+    for a in await asyncio.gather(*acks):
+        if a.reason_codes != [1, 1]:
+            raise AssertionError(f"SUBACK {a.reason_codes}")
+    per_pub = opts.pubs_per_conn
+    if per_pub < FLEET_PUBS:
+        log(f"[socket] cut: {per_pub} timed PUBLISHes a publisher, not the "
+            f"fleet's {FLEET_PUBS}, to hold the whole run near 145 s")
+    # the topics: Zipf(1.1) draws, seed 0; a publisher's timed window,
+    # then 2 for the profiled window and 2 for the cProfile one
+    topics = zipf_topics(np.random.default_rng(0), draw,
+                         n_pub * (per_pub + 4))
+    # the oracle's deliveries per socket subscriber, per topic
+    subs_of = {}
+    for c, flts in sub_filters.items():
+        for f in flts:
+            subs_of.setdefault(f, []).append(c)
+    hits = {}
+    for t in set(topics):
+        got = [c for f in router.host_match(t) for c in subs_of.get(f, ())]
+        if got:
+            hits[t] = got
+    # warm-up: the fan-out tables the subscriptions changed
+    w = pubs[0]
+    fut = w.expect("puback", 0xFFFF)
+    w.send(Publish(topic="warmup/none", qos=1, packet_id=0xFFFF,
+                   payload=b"w"))
+    await fut
+
+    async def publisher(c, mine, lat, out):
+        for t in mine:
+            j = len(out) + 1
+            t0 = time.perf_counter()
+            payload = b"%s:%d:%.9f" % (c.cid.encode(), j, t0)
+            out.append((t, payload))
+            fut = c.expect("puback", j)
+            c.send(Publish(topic=t, qos=1, packet_id=j, payload=payload))
+            await fut
+            lat.append(time.perf_counter() - t0)
+
+    async def window(lo, hi):
+        sent = {c: topics[k * (per_pub + 4) + lo:k * (per_pub + 4) + hi]
+                for k, c in enumerate(pubs)}
+        want = {c: 0 for c in subs}
+        for mine in sent.values():
+            for t in mine:
+                for c in hits.get(t, ()):
+                    want[c] += 1
+        cd = Countdown(want)
+        for c in subs:
+            c.on_publish = cd
+        lat = []
+        done = {c: [] for c in pubs}  # (topic, payload) as sent
+        t0 = time.perf_counter()
+        await asyncio.gather(*(publisher(c, sent[c], lat, done[c])
+                               for c in pubs))
+        await cd.done
+        return done, lat, time.perf_counter() - t0
+
+    for c in subs:
+        c.got.clear()
+    ing.device_batches = ing.device_msgs = 0
+    _build.reset_launches()
+    with GcPauses() as gcp:
+        sent, puback_lat, wall = await window(0, per_pub)
+    launches = dict(_build.LAUNCHES)
+    batches, batch_msgs = ing.device_batches, ing.device_msgs
+    for name in PUBLISH_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"the socket path launched no {name}")
+    # every delivery against the oracle: (topic, payload) multisets
+    from collections import Counter
+
+    n_del = 0
+    lat = []
+    want = {c: Counter() for c in subs}
+    for mine in sent.values():
+        for t, payload in mine:
+            for s in hits.get(t, ()):
+                want[s][(t, payload)] += 1
+    for c in subs:
+        got = Counter((t, p) for t, p, _r, _a in c.got)
+        if got != want[c]:
+            raise AssertionError(f"{c.cid}: received {sum(got.values())} "
+                                 f"PUBLISHes, the oracle gives "
+                                 f"{sum(want[c].values())}")
+        for _t, p, _r, arrival in c.got:
+            lat.append(arrival - float(p.rsplit(b":", 1)[1]))
+        n_del += len(c.got)
+    n_msgs = sum(len(m) for m in sent.values())
+    out = {"conns": n_conn, "connacks_per_s": n_conn / conn_s,
+           "publishes_per_s": n_msgs / wall, "deliveries": n_del,
+           "delivered_per_s": n_del / wall,
+           "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+           "puback_p50_ms": _pct(puback_lat, 50),
+           "puback_p99_ms": _pct(puback_lat, 99),
+           "device_batches": batches,
+           "mean_batch": batch_msgs / max(1, batches),
+           "launches": launches}
+    log(f"[socket] {n_msgs} QoS 1 PUBLISHes ({per_pub} a publisher) in "
+        f"{wall:.3f} s: {out['publishes_per_s']:.1f} publishes/s, "
+        f"{n_del} socket deliveries ({out['delivered_per_s']:.1f}/s) equal "
+        f"the TrieOracle's per subscriber; publish→delivery p50 "
+        f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms; PUBACK p50 "
+        f"{out['puback_p50_ms']:.3f} ms, p99 {out['puback_p99_ms']:.3f} ms; "
+        f"ingress device batches {batches}, mean {out['mean_batch']:.1f} "
+        f"messages; launches {launches}; garbage-collector pauses "
+        f"{sum(gcp.secs):.3f} s ({gcp.count[2]} full collections, "
+        f"{gcp.secs[2]:.3f} s) — {card}")
+    # a profiled window: 2 more PUBLISHes a publisher
+    for c in subs:
+        c.got.clear()
+    before = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sent2, _l, _w = await window(per_pub, per_pub + 2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    counted = {k: _build.LAUNCHES[k] - before[k] for k in PUBLISH_KERNELS}
+    traced = {k: sum(e.count for e in events if f"{k}_kernel" in e.key)
+              for k in PUBLISH_KERNELS}
+    n2 = sum(len(c.got) for c in subs)
+    if n2 != sum(len(hits.get(t, ())) for m in sent2.values()
+                 for t, _p in m):
+        raise AssertionError("profiled window: deliveries differ from the "
+                             "oracle's count")
+    if events and counted == traced:
+        busy = sum(_dev_us(e) for e in events) / 1e3
+        out["idle_share"] = 1 - busy / wall_ms
+        log(f"[socket] profiled window ({2 * n_pub} PUBLISHes, {n2} socket "
+            f"deliveries): wall {wall_ms:.3f} ms, device busy {busy:.3f} "
+            f"ms, idle share {out['idle_share']:.4f}; launches in the trace "
+            f"equal the counters' {counted} — {card}")
+    else:
+        out["idle_share"] = None
+        log(f"[socket] profiled window: device busy not measured — the "
+            f"trace holds {traced} launches, the counters saw {counted}")
+    # where the event loop's time goes: 2 more PUBLISHes a publisher
+    # under cProfile (the loop's thread only; the executor's fetch is
+    # not in it, and the profiler's cost inflates Python-heavy parts)
+    import cProfile
+
+    for c in subs:
+        c.got.clear()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    sent3, _l, _w = await window(per_pub + 2, per_pub + 4)
+    prof.disable()
+    wall = time.perf_counter() - t0
+    n3 = sum(len(c.got) for c in subs)
+    if n3 != sum(len(hits.get(t, ())) for m in sent3.values()
+                 for t, _p in m):
+        raise AssertionError("cProfile window: deliveries differ from the "
+                             "oracle's count")
+    split = host_split(prof)
+    total = sum(sec for _g, sec in split)
+    log(f"[socket] host split of {2 * n_pub} PUBLISHes and {n3} socket "
+        f"deliveries under cProfile ({wall * 1e3:.1f} ms wall, {total:.3f} "
+        f"s of self time on the loop): " + "; ".join(
+            f"{g} {sec:.3f} s ({sec / total:.1%})" for g, sec in split)
+        + f" — {card}")
+    await asyncio.gather(*(c.close() for c in clients))
+    return out
+
+
+async def ingress_burst(node, draw, card):
+    """Phase 7a's open-loop burst on the running node, before the
+    fleet connects: more messages than ``MAX_INFLIGHT`` batches and one
+    capped batch hold, submitted to the ingress batcher in one event
+    loop step, so every pipeline slot is busy (begin on the loop, fetch
+    on the executor's threads) and the backlog flushes as a batch of
+    ``batch_cap`` messages. Checks the acks' order (submission order),
+    every delivery against the TrieOracle and each (subscriber, filter,
+    topic)'s delivery order (publish order)."""
+    from emqx_tpu_torch.ingress import MAX_INFLIGHT
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.types import Message
+
+    ing = node.ingress
+    n = MAX_INFLIGHT * ing.batch_size + ing.batch_cap + ing.batch_size // 2
+    msgs = [Message(topic=t, payload=b"x")
+            for t in zipf_topics(np.random.default_rng(3), draw, n)]
+    index = {m.id: i for i, m in enumerate(msgs)}
+    ing.max_batch = ing.device_batches = ing.device_msgs = 0
+    flushes = ing.flushes
+    order, futs = [], []
+    _build.reset_launches()
+    Sink.log = []
+    t0 = time.perf_counter()
+    for i, m in enumerate(msgs):
+        fut = ing.submit(m)
+        fut.add_done_callback(lambda _f, i=i: order.append(i))
+        futs.append(fut)
+    inflight = ing.stats()["ingress.inflight"]
+    results = await asyncio.gather(*futs)
+    wall = time.perf_counter() - t0
+    deliveries, Sink.log = Sink.log, None
+    launches = dict(_build.LAUNCHES)
+    flushes = ing.flushes - flushes
+    if inflight != MAX_INFLIGHT:
+        raise AssertionError(f"burst: {inflight} batches in flight, not "
+                             f"{MAX_INFLIGHT}")
+    if ing.max_batch != ing.batch_cap:
+        raise AssertionError(f"burst: largest batch {ing.max_batch}, the "
+                             f"cap is {ing.batch_cap}")
+    if ing.device_batches != flushes:
+        raise AssertionError(f"burst: {ing.device_batches} of {flushes} "
+                             f"batches took the device path")
+    for name in PUBLISH_KERNELS:
+        if launches[name] < flushes:
+            raise AssertionError(f"burst: {launches[name]} {name} launches "
+                                 f"for {flushes} batches")
+    if order != list(range(n)):
+        raise AssertionError("burst: the acks resolved out of submission "
+                             "order")
+    check_batches(node.broker, [(msgs, results)], deliveries)
+    last = {}
+    for mid, sid, flt in deliveries:
+        key = (sid, flt, msgs[index[mid]].topic)
+        if index[mid] < last.get(key, -1):
+            raise AssertionError(f"burst: subscriber {sid} got "
+                                 f"{key[2]!r} out of publish order")
+        last[key] = index[mid]
+    log(f"[ingress] open-loop burst: {n} messages submitted in one loop "
+        f"step, {inflight} batches in flight, {flushes} flushes, largest "
+        f"batch {ing.max_batch} (the cap), all on the device; acks in "
+        f"submission order; {len(deliveries)} deliveries equal the "
+        f"TrieOracle's, each topic's in publish order; {wall:.3f} s, "
+        f"{n / wall:.1f} msgs/s; launches {launches} — {card}")
+
+
+def phase_socket(node, wl, draw, opts, card):
+    """Phase 7a: a listener on the publish node, the open-loop ingress
+    burst, then the fleet and its run."""
+    node.add_listener(port=0)
+
+    async def go():
+        await node.start()
+        try:
+            await ingress_burst(node, draw, card)
+            return await socket_publish(node, wl, draw, opts, card)
+        finally:
+            await node.stop()
+
+    return asyncio.run(go())
+
+
+async def socket_replay(node, opts, card):
+    """Phase 7b on a running node: bursts of live clients, each a
+    CONNECT then a SUBSCRIBE; every replayed PUBLISH checked against
+    the name family."""
+    from emqx_tpu_torch.mqtt.packet import Subscribe
+    from emqx_tpu_torch.ops import _build
+
+    lst = node.listeners[-1]
+    family = NameFamily(opts.names)
+    bursts = retained_bursts(opts.names, opts.bursts, opts.burst, seed=21)
+    waits, n_del = [], 0
+    _build.reset_launches()
+    for bi, flts in enumerate(bursts):
+        clients, _s = await connect_fleet(
+            lst.port, [(f"live{bi}_{j}", 4 + j % 2)
+                       for j in range(len(flts))])
+        want = {c: len(family.match(f)) for c, f in zip(clients, flts)}
+        cd = Countdown(want)
+        subacks = []
+        for c, f in zip(clients, flts):
+            c.on_publish = cd
+            subacks.append(c.expect("suback", 1))
+            c.send(Subscribe(packet_id=1, topic_filters=[(f, {"qos": 0})]))
+        acked = []
+        for c, fut in zip(clients, subacks):
+            await fut
+            acked.append(time.perf_counter())
+        await cd.done
+        for c, f, t_ack in zip(clients, flts, acked):
+            names = sorted(t for t, _p, _r, _a in c.got)
+            if names != sorted(retained_name(int(i))
+                               for i in family.match(f)):
+                raise AssertionError(f"burst {bi}: {f!r} replayed "
+                                     f"{len(names)} messages over the "
+                                     f"socket, expected {want[c]}")
+            for t, p, retain, _a in c.got:
+                if not retain or p != t.split("/")[2][1:].encode():
+                    raise AssertionError(f"burst {bi}: {t!r} lost its "
+                                         f"retain flag or payload")
+            last = max((a for *_x, a in c.got), default=t_ack)
+            waits.append(max(0.0, last - t_ack))
+            n_del += len(c.got)
+        await asyncio.gather(*(c.close() for c in clients))
+    launches = _build.LAUNCHES["retained_match"]
+    if launches < 1:
+        raise AssertionError("the socket replay launched no B3")
+    out = {"p50_ms": _pct(waits, 50), "p99_ms": _pct(waits, 99),
+           "deliveries": n_del, "launches": launches}
+    log(f"[socket] retained replay: {len(bursts)} bursts x {opts.burst} "
+        f"live clients (CONNECT, then SUBSCRIBE), {n_del} replayed "
+        f"PUBLISHes equal the name family; SUBACK to the last retained "
+        f"message p50 {out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms; "
+        f"B3 launches {launches} — {card}")
+    return out
+
+
+def phase_socket_replay(node, opts, card):
+    """Phase 7b: a listener on the retained node after phase 6."""
+    node.add_listener(port=0)
+
+    async def go():
+        await node.start()
+        try:
+            return await socket_replay(node, opts, card)
+        finally:
+            await node.stop()
+
+    return asyncio.run(go())
+
+
 def run_retained(opts, device, card):
-    """Phases 6-7; returns the B3 kernel row."""
-    index, bursts, launches = phase_retained(opts, device, card)
-    b3 = phase_retained_kernel(index, bursts, np.random.default_rng(opts.seed),
-                               card)
+    """Phases 6 and 7b; returns the B3 kernel row."""
+    node, index, bursts, launches = timed("6 (retained)", phase_retained,
+                                          opts, device, card)
+    b3 = timed("6 (B3)", phase_retained_kernel, index, bursts,
+               np.random.default_rng(opts.seed), card)
+    sock = timed("7b (socket replay)", phase_socket_replay, node, opts, card)
     return {"name": "retained_match", "route": "cuda",
             "source": "emqx_tpu_torch/csrc/retained_match.cu",
             "replaces": "emqx_tpu/ops/retained_match.py:92",
-            "launches": launches["retained_match"], "equal": True,
+            "launches": launches["retained_match"],
+            "socket_launches": sock["launches"], "equal": True,
             "library_ms": None, **b3}
 
 
@@ -1289,6 +2023,13 @@ def main(argv=None) -> int:
                     help="retained names (the retained_1m shape: 1M)")
     ap.add_argument("--bursts", type=int, default=8)
     ap.add_argument("--burst", type=int, default=64)
+    ap.add_argument("--conns", type=int, default=2000,
+                    help="phase 7a's connections: half subscribers, half "
+                         "publishers (the fleet default)")
+    ap.add_argument("--pubs-per-conn", type=int, default=5,
+                    help="phase 7a's timed QoS 1 PUBLISHes a publisher "
+                         f"(the fleet's is {FLEET_PUBS}, cut to hold "
+                         "the run's time)")
     opts = ap.parse_args(argv)
 
     import torch

@@ -8,7 +8,11 @@ bitmap OR run as hand-written CUDA kernels for Hopper
 (``csrc/walk.cu``, ``csrc/bitmap_or.cu``); and the retained store
 with subscribe-time replay: :class:`~emqx_tpu_torch.node.Node` with
 :class:`~emqx_tpu_torch.modules.retainer.RetainerModule`, whose
-batched name match runs as kernel B3 (``csrc/retained_match.cu``).
+batched name match runs as kernel B3 (``csrc/retained_match.cu``);
+and the MQTT front door: the wire codec (:mod:`emqx_tpu_torch.mqtt`),
+the sans-IO :class:`~emqx_tpu_torch.channel.Channel`, the ingress
+batcher and a TCP listener (``Node.add_listener``), so a live PUBLISH
+or SUBSCRIBE reaches those kernels.
 Every entry point takes ``device=`` (default ``"cuda"``); on CPU
 tensors the kernels' plain PyTorch versions run, which is how the
 tests hold the port against the JAX package byte for byte.

@@ -1,0 +1,80 @@
+"""Authentication + ACL orchestration over hooks.
+
+Mirrors ``src/emqx_access_control.erl``: auth runs the
+``client.authenticate`` hook fold over an initial result derived from
+``allow_anonymous`` (:34-42); ACL checks consult a per-connection
+cache then run the ``client.check_acl`` fold with the zone's
+``acl_nomatch`` default (:52-77). Plugins/modules add hook callbacks
+to implement real backends (the internal file-based ACL lives in
+emqx_tpu_torch.modules.acl_file).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from emqx_tpu_torch.acl_cache import AclCache
+from emqx_tpu_torch.hooks import Hooks
+from emqx_tpu_torch.zone import Zone
+
+ALLOW = "allow"
+DENY = "deny"
+
+PUB = "publish"
+SUB = "subscribe"
+
+
+class ClientInfo(dict):
+    """clientid/username/peerhost/zone/... bundle (emqx_types:clientinfo)."""
+
+    @property
+    def clientid(self) -> str:
+        return self.get("clientid", "")
+
+
+class AccessControl:
+    def __init__(self, hooks: Hooks, zone: Optional[Zone] = None,
+                 metrics=None) -> None:
+        self.hooks = hooks
+        self.zone = zone or Zone()
+        self.metrics = metrics
+
+    def authenticate(self, clientinfo: ClientInfo) -> dict:
+        """Returns an auth result dict with at least
+        ``{"auth_result": "success"|<error>, "anonymous": bool}``.
+        Raises nothing; callers map failures to CONNACK codes."""
+        if self.metrics is not None:
+            self.metrics.inc("client.authenticate")
+        default = {
+            "auth_result": "success" if self.zone.allow_anonymous
+            else "not_authorized",
+            "anonymous": True,
+        }
+        if self.zone.bypass_auth_plugins:
+            # internal-listener zones skip the plugin chain and take
+            # the zone default (src/emqx_access_control.erl:37-41)
+            return default
+        result = self.hooks.run_fold(
+            "client.authenticate", (dict(clientinfo),), default)
+        return result
+
+    def check_acl(self, clientinfo: ClientInfo, pubsub: str, topic: str,
+                  cache: Optional[AclCache] = None) -> str:
+        """ALLOW or DENY (with per-connection cache)."""
+        assert pubsub in (PUB, SUB)
+        if cache is not None:
+            hit = cache.get(pubsub, topic)
+            if hit is not None:
+                if self.metrics is not None:
+                    self.metrics.inc("client.acl.cache_hit")
+                return hit
+        if self.metrics is not None:
+            self.metrics.inc("client.check_acl")
+        result = self.hooks.run_fold(
+            "client.check_acl", (dict(clientinfo), pubsub, topic),
+            self.zone.acl_nomatch)
+        if result not in (ALLOW, DENY):
+            result = self.zone.acl_nomatch
+        if cache is not None:
+            cache.put(pubsub, topic, result)
+        return result

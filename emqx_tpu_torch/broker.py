@@ -17,7 +17,11 @@ A publish batch runs in three phases, as in the JAX package:
      total overflowed and the adaptive k boost;
   3. :meth:`Broker.publish_finish` — the host delivery tail: the
      subscriber-grouped plan, or the per-row walk when a row overflowed
-     (that row is re-matched exactly on the host).
+     (that row is re-matched exactly on the host). The ingress batcher
+     streams the same tail in chunks (:meth:`publish_finish_planned`
+     over subscriber groups, :meth:`publish_finish_chunk` and
+     :meth:`publish_host_chunk` over rows), yielding to the event loop
+     between them; chunked or whole, the deliveries are the same.
 
 Subscribers are any objects with ``deliver(topic_filter, msg)``.
 """
@@ -84,6 +88,7 @@ class PendingBatch:
 
     __slots__ = (
         "done", "results", "live", "inv", "n_uniq", "plan", "plan_state",
+        "host_topics", "host_matched", "host_inv",
         "id_map", "epoch", "st", "ids_dev", "ovf_dev", "pm", "pq",
         "m_ptr_d", "ids_packed_d", "f_ptr_d", "subs_packed_d",
         "src_packed_d", "bovf_d", "sel_d", "rows_packed_d", "bm_total_d",
@@ -99,6 +104,12 @@ class PendingBatch:
         self.n_uniq = 0
         self.plan = None
         self.plan_state = None
+        # a host-regime batch whose routing waits for the finish
+        # (publish_begin(defer_host=True)): its topics, then the trie
+        # walk's result and inverse index, made on the first chunk
+        self.host_topics: Optional[List[str]] = None
+        self.host_matched = None
+        self.host_inv = None
         self.st = None
         self.ids_dev = self.ovf_dev = None
         self.m_ptr_d = self.ids_packed_d = None
@@ -140,6 +151,9 @@ class Broker:
         self._route_lock = threading.RLock()
         # learned packed-transfer budgets per batch bucket
         self._pack_budgets: Dict[int, List[int]] = {}
+        # the node's ingress batcher (ingress.py), set by Node: the
+        # channel hands it every PUBLISH, and wills go through it
+        self.ingress = None
 
     # -- subscribe / unsubscribe (emqx_broker.erl:127-196) ----------------
 
@@ -194,11 +208,24 @@ class Broker:
 
     def subscriber_down(self, sub: object) -> None:
         """Drop all of a dead subscriber's subscriptions
-        (emqx_broker.erl:331-348)."""
+        (emqx_broker.erl:331-348); a session's unacked shared-group
+        messages go to the surviving members (the reference's
+        shared-sub redispatch, emqx_shared_sub.erl:131-227)."""
         with self._route_lock:
             for key in list(self._subscriptions.get(sub, {})):
                 self.unsubscribe(sub, key)
             self.shared.subscriber_down(sub)
+        pending = getattr(sub, "take_shared_pending", None)  # a Session
+        if pending is not None:
+            for group, flt, orig, was_sent in pending():
+                # never mutate the shared original; DUP is decided per
+                # delivery in Session._enrich, after the survivor's QoS
+                # downgrade
+                msg = orig.copy()
+                if was_sent:
+                    msg.set_header("redispatch", True)
+                if self.shared.dispatch(group, flt, msg):
+                    self.metrics.inc("messages.redispatched")
 
     def subscribers(self, topic_filter: str) -> List[object]:
         return list(self._subscribers.get(topic_filter, ()))
@@ -212,6 +239,21 @@ class Broker:
         """Publish one message; returns its delivery count."""
         return self.publish_batch([msg])[0]
 
+    def publish_will(self, msg: Message) -> None:
+        """Will dispatch (channel teardown, delayed-will expiry,
+        clean-start fires): through the ingress batcher whenever it is
+        taking submissions, so a mass-disconnect wave coalesces its
+        wills into the batcher's device batches; nobody awaits a
+        will's delivery count. Without a running batcher (sync
+        callers, the shutdown tail) it publishes directly."""
+        ing = self.ingress
+        if ing is not None and ing.submit(msg, want_result=False) \
+                is not None:
+            self.metrics.inc("wills.batched")
+            return
+        self.metrics.inc("wills.direct")
+        self.publish(msg)
+
     def publish_batch(self, msgs: Sequence[Message]) -> List[int]:
         """Batch publish: begin (match + fan-out + pack on the device),
         fetch (one copy), finish (host delivery tail)."""
@@ -221,9 +263,15 @@ class Broker:
         self.publish_fetch(pb)
         return self.publish_finish(pb)
 
-    def publish_begin(self, msgs: Sequence[Message]) -> PendingBatch:
+    def publish_begin(self, msgs: Sequence[Message],
+                      defer_host: bool = False) -> PendingBatch:
         """Phase 1 — hooks, veto and metrics, then the host regime or
-        the device dispatch (no sync)."""
+        the device dispatch (no sync).
+
+        ``defer_host`` postpones a host-regime batch's routing to the
+        finish (``pb.done`` stays False): the ingress batcher uses it
+        while earlier batches are in flight, so a host batch cannot
+        deliver ahead of them."""
         pb = PendingBatch()
         pb.results = [0] * len(msgs)
         for i, msg in enumerate(msgs):
@@ -243,23 +291,12 @@ class Broker:
             return pb
         topics = [m.topic for _, m in pb.live]
         if not self.router.use_device_now():
-            return self._begin_host(pb, topics)
+            pb.host_topics = topics
+            if not defer_host:
+                self.publish_host_chunk(pb, 0, len(pb.live))
+                pb.done = True
+            return pb
         return self._begin_device(pb, topics, self.router.config)
-
-    def _begin_host(self, pb: PendingBatch, topics: List[str]) -> PendingBatch:
-        """The host regime: one trie walk per unique topic, routed
-        now."""
-        uniq, inv = dedup_topics(topics)
-        pb.n_uniq = len(uniq)
-        matched = self.router.match_filters_host(uniq)
-        for row, (i, msg) in enumerate(pb.live):
-            filters = matched[inv[row]]
-            if not filters:
-                self._drop_no_subs(msg)
-                continue
-            pb.results[i] = self._route(filters, msg)
-        pb.done = True
-        return pb
 
     def _bitmap_union(self, pb: PendingBatch, cfg, pr: int) -> None:
         """Big-filter fan-out: matched ids → bitmap rows → the packed
@@ -310,8 +347,15 @@ class Broker:
         return parts
 
     def publish_fetch(self, pb: PendingBatch) -> None:
-        """Phase 2 — the one device→host copy."""
-        if pb.done:
+        """Phase 2 — the one device→host copy (a deferred host batch
+        has nothing to fetch).
+
+        The ingress batcher runs it on an executor thread while
+        :meth:`publish_begin` runs on the event loop's: both enqueue on
+        the device's default stream (neither side enters a stream
+        context), so the copy here is ordered after every kernel the
+        begin enqueued."""
+        if pb.done or pb.host_topics is not None:
             return
         self._fetch_device(pb)
 
@@ -438,13 +482,16 @@ class Broker:
                           subs_packed, src_packed, big_map)
 
     def publish_finish(self, pb: PendingBatch) -> List[int]:
-        """Phase 3 — the host delivery tail over the packed results."""
+        """Phase 3 — the host delivery tail over the packed results,
+        in one piece."""
         if pb.done:
             return pb.results
-        if pb.plan is not None:
-            self._finish_planned(pb)
+        if pb.host_topics is not None:
+            self.publish_host_chunk(pb, 0, len(pb.live))
+        elif pb.plan is not None:
+            self.publish_finish_planned(pb, 0, pb.plan.n_groups)
         else:
-            self._finish_rows(pb)
+            self.publish_finish_chunk(pb, 0, len(pb.live))
         pb.done = True
         return pb.results
 
@@ -507,17 +554,29 @@ class Broker:
                 ps.row_fast[r] = 1
         return ps
 
-    def _finish_planned(self, pb: PendingBatch) -> None:
-        """Deliver every subscriber group, then fold the per-(message,
+    def publish_finish_planned(self, pb: PendingBatch, gstart: int,
+                               gstop: int) -> None:
+        """Deliver subscriber groups ``[gstart, gstop)`` of a planned
+        batch; every session still gets its whole batch in one
+        ``deliver_many``. The first chunk runs the routing prologue;
+        the chunk that reaches the last group folds the per-(message,
         filter) counts into metrics, hooks and results."""
-        ps = pb.plan_state = self._plan_prologue(pb)
+        if gstart == 0:
+            pb.plan_state = self._plan_prologue(pb)
+        ps = pb.plan_state
         counts = ps.counts
-        for g in range(pb.plan.n_groups):
+        n_groups = pb.plan.n_groups
+        for g in range(gstart, min(gstop, n_groups)):
             for r, flt in self._deliver_plan_group(pb, ps, g):
                 d = counts[r]
                 if d is None:
                     d = counts[r] = {}
                 d[flt] = d.get(flt, 0) + 1
+        if gstop >= n_groups:
+            self._plan_fold(pb, ps)
+
+    def _plan_fold(self, pb: PendingBatch, ps: _PlanState) -> None:
+        counts = ps.counts
         for r, (i, msg) in enumerate(pb.live):
             d = counts[r]
             if not d:
@@ -587,11 +646,30 @@ class Broker:
 
     # -- the per-row tail ---------------------------------------------------
 
-    def _finish_rows(self, pb: PendingBatch) -> None:
-        """Deliver row by row; a row whose match overflowed is
-        re-matched exactly on the host trie (parity, no truncation)."""
+    def publish_host_chunk(self, pb: PendingBatch, start: int,
+                           stop: int) -> None:
+        """Route rows ``[start, stop)`` of a host-regime batch. The
+        one trie walk over the batch's unique topics runs on the first
+        chunk and is kept on the batch."""
+        if pb.host_matched is None:
+            uniq, pb.host_inv = dedup_topics(pb.host_topics)
+            pb.n_uniq = len(uniq)
+            pb.host_matched = self.router.match_filters_host(uniq)
+        for row in range(start, stop):
+            i, msg = pb.live[row]
+            filters = pb.host_matched[pb.host_inv[row]]
+            if not filters:
+                self._drop_no_subs(msg)
+                continue
+            pb.results[i] = self._route(filters, msg)
+
+    def publish_finish_chunk(self, pb: PendingBatch, start: int,
+                             stop: int) -> None:
+        """Deliver rows ``[start, stop)`` of a fetched batch without a
+        plan; a row whose match overflowed is re-matched exactly on
+        the host trie (parity, no truncation)."""
         m_ptr = pb.m_ptr
-        for row in range(len(pb.live)):
+        for row in range(start, stop):
             i, msg = pb.live[row]
             urow = pb.inv[row]  # packed results are per UNIQUE topic
             if pb.ovf[urow]:

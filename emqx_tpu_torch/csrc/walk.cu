@@ -30,6 +30,15 @@
 // split rows), and ptxas reads some of them before it has issued the
 // last, so a wide hop can take more than one round trip.
 //
+// Past one warp's registers (k > 64, or a topic of more than 64
+// levels) the walk takes walk_kernel_gmem: the same hop and the same
+// compaction orders, with the frontier and the hop's candidates in a
+// scratch row of 3k ints a topic in device memory (the wrapper
+// allocates it), the frontier probed 32 slots at a time, and each
+// word read from the topic's row in device memory. Neither limit is on
+// the main path (k = 16, 5 levels); the register kernel stays its
+// instantiation.
+//
 // Compaction order, as the plain walk defines it: for 2k <= 32
 // candidates a descending sort (rank = number of strictly larger
 // candidates, ties broken by position); for more, an order-preserving
@@ -47,8 +56,8 @@ constexpr int kNarrowSlot = 4;   // [state, word, child, pad]
 constexpr int kWideSlot = 16;    // [state, word, take, child, cw0..cw6, pad x5]
 constexpr int kNarrowSlots = 2;  // entries in a narrow bucket row
 constexpr int kWideSlots = 4;    // entries in a wide bucket row
-constexpr int kMaxK = 64;
-constexpr int kMaxL = 64;
+constexpr int kMaxK = 64;         // the register kernel's frontier
+constexpr int kMaxL = 64;         // the register kernel's words
 constexpr int kMaxTake = 8;      // 1 key word + 7 inline chain words
 constexpr int kWarps = 4;
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -359,21 +368,165 @@ walk_kernel(const int* __restrict__ word_ids, const int* __restrict__ n_words,
   if (lane == 0) ovf_out[b] = (ovf || res) ? 1 : 0;
 }
 
+
+// the topic's word at level x from device memory (-2 past the topic)
+__device__ __forceinline__ int word_g(const int* words, int L, int x) {
+  return x < L ? __ldg(words + x) : -2;
+}
+
+// Any k and any L (module note above): frontier act[k] and candidates
+// cand[2k] (lit of slots 0..k-1, then plus) in the topic's scratch row.
+// A lane handles frontier slots lane, lane + 32, ...; __syncwarp orders
+// the warp's scratch writes before its reads.
+template <bool WIDE>
+__global__ void __launch_bounds__(kWarps * 32)
+walk_kernel_gmem(const int* __restrict__ word_ids,
+                 const int* __restrict__ n_words,
+                 const int* __restrict__ sys_mask,
+                 const int* __restrict__ seed_p, const int* __restrict__ wt,
+                 const int* __restrict__ node2, int* __restrict__ emits,
+                 int* __restrict__ ovf_out, int* __restrict__ scratch, int B,
+                 int L, int k, int steps, int take, int nb) {
+  constexpr int kSlots = WIDE ? kWideSlots : kNarrowSlots;
+  constexpr int kRow4 = kSlots * (WIDE ? kWideSlot : kNarrowSlot) / 4;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= B) return;  // whole warp leaves together
+  const uint32_t nbm = static_cast<uint32_t>(nb - 1);
+  const uint32_t seed = static_cast<uint32_t>(__ldg(seed_p));
+  const int n = __ldg(n_words + b);
+  const bool is_sys = __ldg(sys_mask + b) != 0;
+  const int* words = word_ids + static_cast<size_t>(b) * L;
+  const int4* n2 = reinterpret_cast<const int4*>(node2);
+  const int4* w4 = reinterpret_cast<const int4*>(wt);
+  const int nc = 2 * k;
+  int* out = emits + static_cast<size_t>(b) * steps * nc;
+  int* act = scratch + static_cast<size_t>(b) * 3 * k;
+  int* cand = act + k;
+  for (int i = lane; i < k; i += 32) act[i] = i == 0 ? 0 : -1;
+  __syncwarp();
+  bool ovf = false;
+
+  for (int s = 0; s < steps; ++s) {
+    const int ws = WIDE ? 0 : word_g(words, L, s);
+    for (int c0 = 0; c0 < k; c0 += 32) {
+      const int i = c0 + lane;
+      const int a = i < k ? act[i] : -1;
+      const int state = WIDE ? (a >= 0 ? (a >> kLvlBits) : -1) : a;
+      const int lvl = WIDE ? (a & kLvlMask) : s;
+      HopReads<WIDE, 2> rd;
+      rd.nd = ldg4(n2 + max(state, 0), state >= 0);
+      const int l0 = min(lvl, L - 1);
+      const int w0 = WIDE ? word_g(words, L, l0) : ws;
+      int cw[kMaxTake - 1];
+#pragma unroll
+      for (int t = 0; t < kMaxTake - 1; ++t)
+        cw[t] = (WIDE && t < take - 1) ? word_g(words, L, l0 + 1 + t) : -2;
+      const bool probe = state >= 0 && lvl < n && w0 >= 0;
+      uint32_t h1, h2;
+      hash_mix(static_cast<uint32_t>(state), static_cast<uint32_t>(w0), seed,
+               h1, h2);
+      const int4* rows[2] = {w4 + static_cast<size_t>(h1 & nbm) * kRow4,
+                             w4 + static_cast<size_t>(h2 & nbm) * kRow4};
+      issue<WIDE, 2>(rd, rows, probe, take);
+      const int4 nd = rd.nd;
+      const bool live = state >= 0;
+      const bool walking = live && lvl < n;
+      const bool ending = live && lvl == n;
+      const bool at_root_sys = is_sys && (WIDE ? a == 0 : s == 0);
+      int lit;
+      if constexpr (WIDE) {
+        int child = -1, adv = 0;
+        probe_wide<2>(rd, state, lvl, n, w0, cw, take, child, adv);
+        lit = probe && child >= 0 ? (child << kLvlBits) | (lvl + adv) : -1;
+      } else {
+        const int best = probe_narrow<2>(rd, state, w0);
+        lit = probe ? best : -1;
+      }
+      const int plus = walking && !at_root_sys && nd.x >= 0
+                           ? (WIDE ? ((nd.x << kLvlBits) | (lvl + 1)) : nd.x)
+                           : -1;
+      if (i < k) {
+        out[s * nc + i] = (walking || ending) && !at_root_sys ? nd.y : -1;
+        out[s * nc + k + i] = ending ? nd.z : -1;
+        cand[i] = lit;
+        cand[k + i] = plus;
+      }
+    }
+    __syncwarp();
+    if (nc <= 32) {
+      // the descending sort of the register kernel, candidate p on lane p
+      const int v = lane < nc ? cand[lane] : -1;
+      const unsigned vm = __ballot_sync(kFull, v >= 0);
+      int rank = 0;
+      for (unsigned m = vm; m; m &= m - 1) {
+        const int src = __ffs(m) - 1;
+        const int c = __shfl_sync(kFull, v, src);
+        rank += (c > v) || (c == v && src < lane);
+      }
+      int nxt = -1;
+      for (unsigned m = vm; m; m &= m - 1) {
+        const int src = __ffs(m) - 1;
+        const int r = __shfl_sync(kFull, rank, src);
+        const int c = __shfl_sync(kFull, v, src);
+        if (r == lane) nxt = c;
+      }
+      if (lane < k) act[lane] = nxt;
+      ovf |= __popc(vm) > k;
+    } else {
+      // the order-preserving pack, 32 candidates at a time
+      int base = 0;
+      for (int c0 = 0; c0 < nc; c0 += 32) {
+        const int p = c0 + lane;
+        const int v = p < nc ? cand[p] : -1;
+        const unsigned m = __ballot_sync(kFull, v >= 0);
+        const int d = base + __popc(m & ((1u << lane) - 1u));
+        if (v >= 0 && d < k) act[d] = v;
+        base += __popc(m);
+      }
+      for (int d = base + lane; d < k; d += 32) act[d] = -1;
+      ovf |= base > k;
+    }
+    __syncwarp();
+  }
+  bool res = false;
+  for (int i = lane; i < k; i += 32) {
+    const int a = act[i];
+    if (a >= 0) res |= WIDE ? ((a & kLvlMask) <= n) : (steps <= n);
+  }
+  res = __any_sync(kFull, res);
+  if (lane == 0) ovf_out[b] = (ovf || res) ? 1 : 0;
+}
+
 }  // namespace
 
-// slots must be the layout's entry count (2 narrow, 4 wide: take > 1)
+// slots must be the layout's entry count (2 narrow, 4 wide: take > 1);
+// scratch holds 3k ints a topic and is read only when k > kMaxK or
+// L > kMaxL (the register kernel takes every other walk)
 extern "C" int emqx_walk(const int* word_ids, const int* n_words,
                          const int* sys_mask, const int* seed, const int* wt,
-                         const int* node2, int* emits, int* ovf, int B, int L,
-                         int k, int steps, int slots, int take, int nb,
-                         void* stream) {
+                         const int* node2, int* emits, int* ovf, int* scratch,
+                         int B, int L, int k, int steps, int slots, int take,
+                         int nb, void* stream) {
   const bool wide = take > 1;
-  if (k < 1 || k > kMaxK || B < 0 || L < 1 || L > kMaxL || steps < 0 ||
+  const bool gmem = k > kMaxK || L > kMaxL;
+  if (k < 1 || B < 0 || L < 1 || (wide && L > kLvlMask) || steps < 0 ||
       take < 1 || take > kMaxTake || nb < 1 || (nb & (nb - 1)) ||
-      slots != (wide ? kWideSlots : kNarrowSlots)) {
+      slots != (wide ? kWideSlots : kNarrowSlots) ||
+      (gmem && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
+  const dim3 grid((B + kWarps - 1) / kWarps);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gmem) {
+    auto* kernel = wide ? walk_kernel_gmem<true> : walk_kernel_gmem<false>;
+    kernel<<<grid, kWarps * 32, 0, st>>>(word_ids, n_words, sys_mask, seed,
+                                         wt, node2, emits, ovf, scratch, B,
+                                         L, k, steps, take, nb);
+    return static_cast<int>(cudaGetLastError());
+  }
   // k <= 16: split rows; k <= 32: one frontier slot a lane; else two
   auto* kernel =
       wide ? (k > 32   ? walk_kernel<true, 2, false>
@@ -382,10 +535,9 @@ extern "C" int emqx_walk(const int* word_ids, const int* n_words,
            : (k > 32   ? walk_kernel<false, 2, false>
               : k > 16 ? walk_kernel<false, 1, false>
                        : walk_kernel<false, 1, true>);
-  kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      word_ids, n_words, sys_mask, seed, wt, node2, emits, ovf, B, L, k,
-      steps, take, nb);
+  kernel<<<grid, kWarps * 32, 0, st>>>(word_ids, n_words, sys_mask, seed, wt,
+                                       node2, emits, ovf, B, L, k, steps,
+                                       take, nb);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,3 +52,6 @@ class Inflight:
         if sort_key is not None:
             items.sort(key=sort_key)
         return items
+
+    def keys(self) -> List[int]:
+        return list(self._d)

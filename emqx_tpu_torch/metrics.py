@@ -11,20 +11,62 @@ from __future__ import annotations
 from typing import Dict
 
 NAMES = (
+    # the publish path
     "messages.received",
     "messages.qos0.received", "messages.qos1.received",
     "messages.qos2.received",
+    "messages.sent",
+    "messages.qos0.sent", "messages.qos1.sent", "messages.qos2.sent",
     "messages.publish", "messages.retained",
     "messages.dropped", "messages.dropped.no_subscribers",
     "messages.dropped.expired",
-    "messages.delivered",
+    "messages.delivered", "messages.acked", "messages.redispatched",
     "delivery.dropped", "delivery.dropped.no_local",
     "delivery.dropped.qos0_msg", "delivery.dropped.queue_full",
-    "delivery.dropped.expired",
+    "delivery.dropped.expired", "delivery.dropped.too_large",
+    # the front door (emqx_metrics.erl:82-183): bytes and packets on
+    # the wire, client and session lifecycle, auth and ACL
+    "bytes.received", "bytes.sent",
+    "packets.received", "packets.sent",
+    "packets.connect.received", "packets.connack.sent",
+    "packets.connack.error", "packets.connack.auth_error",
+    "packets.publish.received", "packets.publish.sent",
+    "packets.publish.error", "packets.publish.auth_error",
+    "packets.publish.dropped",
+    "packets.puback.received", "packets.puback.sent",
+    "packets.puback.inuse", "packets.puback.missed",
+    "packets.pubrec.received", "packets.pubrec.sent",
+    "packets.pubrec.inuse", "packets.pubrec.missed",
+    "packets.pubrel.received", "packets.pubrel.sent",
+    "packets.pubrel.missed",
+    "packets.pubcomp.received", "packets.pubcomp.sent",
+    "packets.pubcomp.inuse", "packets.pubcomp.missed",
+    "packets.subscribe.received", "packets.suback.sent",
+    "packets.subscribe.error", "packets.subscribe.auth_error",
+    "packets.unsubscribe.received", "packets.unsuback.sent",
+    "packets.unsubscribe.error",
+    "packets.pingreq.received", "packets.pingresp.sent",
+    "packets.disconnect.received", "packets.disconnect.sent",
+    "packets.auth.received", "packets.auth.sent",
+    "client.connect", "client.connack", "client.connected",
+    "client.authenticate", "client.check_acl", "client.subscribe",
+    "client.unsubscribe", "client.disconnected",
+    "client.auth.anonymous", "client.acl.cache_hit", "client.acl.deny",
+    "session.created", "session.resumed", "session.takeovered",
+    "session.discarded", "session.terminated",
+    # wills funnelled through the ingress batcher / published directly
+    "wills.batched", "wills.direct",
+    # connection flush wakeups after coalescing (≤ 1 per connection
+    # per batch with the dispatch planner)
+    "delivery.wakeups",
+    # oversized frames refused at header decode
+    "frame.oversize",
 )
 
 _QOS_RECV = ("messages.qos0.received", "messages.qos1.received",
              "messages.qos2.received")
+_QOS_SENT = ("messages.qos0.sent", "messages.qos1.sent",
+             "messages.qos2.sent")
 
 
 class Metrics:
@@ -45,6 +87,11 @@ class Metrics:
         """Count an inbound message by QoS."""
         self.inc("messages.received")
         self.inc(_QOS_RECV[min(msg.qos, 2)])
+
+    def inc_sent(self, msg) -> None:
+        """Count an outbound message by QoS."""
+        self.inc("messages.sent")
+        self.inc(_QOS_SENT[min(msg.qos, 2)])
 
     def val(self, name: str) -> int:
         return self._counters[name]

@@ -1,0 +1,556 @@
+"""MQTT binary codec: incremental parser + serializer for v3.1,
+v3.1.1 and v5.0.
+
+Mirrors ``src/emqx_frame.erl``: the parser is incremental — feed it
+byte chunks, it yields complete packets and retains partial state
+(the reference's continuation closures :84-156 become an explicit
+buffer + state struct); oversized frames raise ``FrameTooLarge``
+before the body arrives (:113-136); the v5 property table is in
+:mod:`emqx_tpu_torch.mqtt.props` (reference :323-393); serialization
+mirrors :401-749. The port of the JAX package's codec, byte for byte;
+its parser is the pure-Python one.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Any, Dict, List, Optional, Tuple
+
+from emqx_tpu_torch.mqtt import constants as C
+from emqx_tpu_torch.mqtt import props as P
+from emqx_tpu_torch.mqtt.packet import (
+    Auth, Connack, Connect, Disconnect, Packet, PubAck, Publish,
+    Pingreq, Pingresp, Suback, Subscribe, Unsuback, Unsubscribe)
+
+
+class FrameError(ValueError):
+    pass
+
+
+class FrameTooLarge(FrameError):
+    pass
+
+
+def _read_u8(b: bytes, i: int) -> Tuple[int, int]:
+    if i + 1 > len(b):
+        raise FrameError("truncated")
+    return b[i], i + 1
+
+
+def _read_u16(b: bytes, i: int) -> Tuple[int, int]:
+    if i + 2 > len(b):
+        raise FrameError("truncated")
+    return (b[i] << 8) | b[i + 1], i + 2
+
+
+def _read_u32(b: bytes, i: int) -> Tuple[int, int]:
+    if i + 4 > len(b):
+        raise FrameError("truncated")
+    return struct.unpack_from(">I", b, i)[0], i + 4
+
+
+def _read_varint(b: bytes, i: int) -> Tuple[int, int]:
+    mult, val = 1, 0
+    for _ in range(4):
+        byte, i = _read_u8(b, i)
+        val += (byte & 0x7F) * mult
+        if not byte & 0x80:
+            return val, i
+        mult *= 128
+    raise FrameError("malformed_variable_byte_integer")
+
+
+def _read_bin(b: bytes, i: int) -> Tuple[bytes, int]:
+    n, i = _read_u16(b, i)
+    if i + n > len(b):
+        raise FrameError("truncated")
+    return b[i:i + n], i + n
+
+
+def _read_str(b: bytes, i: int) -> Tuple[str, int]:
+    raw, i = _read_bin(b, i)
+    try:
+        return raw.decode("utf-8"), i
+    except UnicodeDecodeError as e:
+        raise FrameError("utf8_string_invalid") from e
+
+
+# -- primitive writers -----------------------------------------------------
+
+def _w_u16(n: int) -> bytes:
+    return struct.pack(">H", n)
+
+
+def _w_u32(n: int) -> bytes:
+    return struct.pack(">I", n)
+
+
+def _w_varint(n: int) -> bytes:
+    if n < 0 or n > C.MAX_PACKET_SIZE:
+        raise FrameError("bad_varint")
+    out = bytearray()
+    while True:
+        n, digit = divmod(n, 128)
+        out.append(digit | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _w_bin(b: bytes) -> bytes:
+    return _w_u16(len(b)) + b
+
+
+def _w_str(s: str) -> bytes:
+    return _w_bin(s.encode("utf-8"))
+
+
+# -- properties ------------------------------------------------------------
+
+def _parse_props(b: bytes, i: int) -> Tuple[Dict[str, Any], int]:
+    total, i = _read_varint(b, i)
+    end = i + total
+    if end > len(b):
+        raise FrameError("truncated")
+    out: Dict[str, Any] = {}
+    while i < end:
+        pid, i = _read_varint(b, i)
+        entry = P.PROPS.get(pid)
+        if entry is None:
+            raise FrameError(f"bad_property_id: {pid:#x}")
+        name, ptype, _allowed = entry
+        if ptype == P.BYTE:
+            val, i = _read_u8(b, i)
+        elif ptype == P.TWO_BYTE:
+            val, i = _read_u16(b, i)
+        elif ptype == P.FOUR_BYTE:
+            val, i = _read_u32(b, i)
+        elif ptype == P.VARINT:
+            val, i = _read_varint(b, i)
+        elif ptype == P.BINARY:
+            val, i = _read_bin(b, i)
+        elif ptype == P.UTF8:
+            val, i = _read_str(b, i)
+        else:  # UTF8_PAIR
+            k, i = _read_str(b, i)
+            v, i = _read_str(b, i)
+            out.setdefault(name, []).append((k, v))
+            continue
+        if name == "Subscription-Identifier":
+            # may repeat; keep a list once repeated
+            if name in out:
+                prev = out[name]
+                out[name] = (prev if isinstance(prev, list) else [prev]) + [val]
+            else:
+                out[name] = val
+        else:
+            out[name] = val
+    return out, i
+
+
+def _ser_props(props: Optional[Dict[str, Any]]) -> bytes:
+    if not props:
+        return _w_varint(0)
+    body = bytearray()
+    for name, val in props.items():
+        pid = P.NAME_TO_ID.get(name)
+        if pid is None:
+            raise FrameError(f"bad_property: {name}")
+        ptype = P.NAME_TO_TYPE[name]
+        if ptype == P.UTF8_PAIR:
+            for k, v in val:
+                body += _w_varint(pid) + _w_str(k) + _w_str(v)
+            continue
+        vals = val if (name == "Subscription-Identifier"
+                       and isinstance(val, list)) else [val]
+        for v in vals:
+            body += _w_varint(pid)
+            if ptype == P.BYTE:
+                body.append(v & 0xFF)
+            elif ptype == P.TWO_BYTE:
+                body += _w_u16(v)
+            elif ptype == P.FOUR_BYTE:
+                body += _w_u32(v)
+            elif ptype == P.VARINT:
+                body += _w_varint(v)
+            elif ptype == P.BINARY:
+                body += _w_bin(bytes(v))
+            else:
+                body += _w_str(v)
+    return _w_varint(len(body)) + bytes(body)
+
+
+# -- parser ----------------------------------------------------------------
+
+class Parser:
+    """Incremental packet parser. ``feed(data)`` returns complete
+    packets; partial frames are buffered across calls."""
+
+    def __init__(self, version: int = C.MQTT_V4,
+                 max_size: int = C.MAX_PACKET_SIZE,
+                 strict: bool = True) -> None:
+        self.version = version
+        self.max_size = max_size
+        self.strict = strict
+        self._buf = bytearray()
+
+    def pending(self) -> int:
+        """Bytes buffered awaiting the rest of a partial frame."""
+        return len(self._buf)
+
+    def feed(self, data: bytes) -> List[Packet]:
+        self._buf += data
+        out = []
+        # moving offset + ONE compaction at the end: B packets in a
+        # read cost O(buflen), not O(B·buflen) of per-packet del-shift.
+        # On a body-parse error `pos` still points at the failing
+        # frame's first byte, so the finally keeps it buffered —
+        # raise-before-consume, same as always.
+        pos = 0
+        try:
+            while True:
+                pkt, consumed = self._try_parse(pos)
+                if pkt is None:
+                    return out
+                pos += consumed
+                out.append(pkt)
+                if isinstance(pkt, Connect):
+                    self.version = pkt.proto_ver
+        finally:
+            if pos:
+                del self._buf[:pos]
+
+    def _try_parse(self, pos: int = 0) -> Tuple[Optional[Packet], int]:
+        buf = self._buf
+        if len(buf) - pos < 2:
+            return None, 0
+        # remaining length varint (1..4 bytes after the header byte)
+        rl, mult, i = 0, 1, pos + 1
+        while True:
+            if i >= len(buf):
+                if i - pos > 4:
+                    raise FrameError("malformed_variable_byte_integer")
+                return None, 0
+            byte = buf[i]
+            rl += (byte & 0x7F) * mult
+            i += 1
+            if not byte & 0x80:
+                break
+            if i - pos > 4:
+                raise FrameError("malformed_variable_byte_integer")
+            mult *= 128
+        hlen = i - pos
+        # v5 Maximum-Packet-Size covers the WHOLE packet, fixed
+        # header included (hlen = header + varint bytes already read)
+        if hlen + rl > self.max_size:
+            raise FrameTooLarge(f"frame_too_large: {hlen + rl}")
+        if len(buf) < i + rl:
+            return None, 0
+        header = buf[pos]
+        # memoryview slice → ONE copy of the body (a bare bytearray
+        # slice would copy twice: bytearray copy, then bytes copy)
+        with memoryview(buf) as view:
+            body = bytes(view[i:i + rl])
+        pkt = self._parse_packet(header, body)
+        return pkt, hlen + rl
+
+    def _parse_packet(self, header: int, b: bytes) -> Packet:
+        ptype = header >> 4
+        flags = header & 0x0F
+        v5 = self.version == C.MQTT_V5
+        if ptype == C.CONNECT:
+            return self._parse_connect(b)
+        if ptype == C.CONNACK:
+            ack_flags, i = _read_u8(b, 0)
+            rc, i = _read_u8(b, i)
+            props: Dict[str, Any] = {}
+            if v5 and len(b) > i:
+                props, i = _parse_props(b, i)
+            return Connack(session_present=bool(ack_flags & 0x01),
+                           reason_code=rc, properties=props)
+        if ptype == C.PUBLISH:
+            dup = bool(flags & 0x08)
+            qos = (flags >> 1) & 0x03
+            retain = bool(flags & 0x01)
+            if qos > 2:
+                raise FrameError("bad_qos")
+            topic, i = _read_str(b, 0)
+            pid = None
+            if qos > 0:
+                pid, i = _read_u16(b, i)
+                if self.strict and pid == 0:
+                    raise FrameError("bad_packet_id")
+            props: Dict[str, Any] = {}
+            if v5:
+                props, i = _parse_props(b, i)
+            return Publish(dup=dup, qos=qos, retain=retain, topic=topic,
+                           packet_id=pid, properties=props, payload=b[i:])
+        if ptype in (C.PUBACK, C.PUBREC, C.PUBREL, C.PUBCOMP):
+            if ptype == C.PUBREL and self.strict and flags != 0x02:
+                raise FrameError("bad_frame_flags")
+            pid, i = _read_u16(b, 0)
+            rc, props = 0, {}
+            if v5 and len(b) > i:
+                rc, i = _read_u8(b, i)
+                if len(b) > i:
+                    props, i = _parse_props(b, i)
+            return PubAck(type=ptype, packet_id=pid, reason_code=rc,
+                          properties=props)
+        if ptype == C.SUBSCRIBE:
+            if self.strict and flags != 0x02:
+                raise FrameError("bad_frame_flags")
+            pid, i = _read_u16(b, 0)
+            if self.strict and pid == 0:
+                raise FrameError("bad_packet_id")
+            props = {}
+            if v5:
+                props, i = _parse_props(b, i)
+            filters = []
+            while i < len(b):
+                flt, i = _read_str(b, i)
+                opts, i = _read_u8(b, i)
+                qos = opts & 0x03
+                if self.strict and qos > 2:
+                    raise FrameError("bad_subqos")
+                if v5:
+                    filters.append((flt, {
+                        "qos": qos,
+                        "nl": (opts >> 2) & 0x01,
+                        "rap": (opts >> 3) & 0x01,
+                        "rh": (opts >> 4) & 0x03,
+                    }))
+                else:
+                    # v3/v3.1.1: the byte is Requested QoS only; the
+                    # upper bits are reserved [MQTT-3.8.3-4]
+                    if self.strict and opts & 0xFC:
+                        raise FrameError("bad_subopts_reserved_bits")
+                    filters.append((flt, {"qos": qos, "nl": 0,
+                                          "rap": 0, "rh": 0}))
+            if self.strict and not filters:
+                raise FrameError("empty_topic_filters")
+            return Subscribe(packet_id=pid, properties=props,
+                             topic_filters=filters)
+        if ptype == C.SUBACK:
+            pid, i = _read_u16(b, 0)
+            props = {}
+            if v5:
+                props, i = _parse_props(b, i)
+            return Suback(packet_id=pid, properties=props,
+                          reason_codes=list(b[i:]))
+        if ptype == C.UNSUBSCRIBE:
+            if self.strict and flags != 0x02:
+                raise FrameError("bad_frame_flags")
+            pid, i = _read_u16(b, 0)
+            props = {}
+            if v5:
+                props, i = _parse_props(b, i)
+            filters = []
+            while i < len(b):
+                flt, i = _read_str(b, i)
+                filters.append(flt)
+            if self.strict and not filters:
+                raise FrameError("empty_topic_filters")
+            return Unsubscribe(packet_id=pid, properties=props,
+                               topic_filters=filters)
+        if ptype == C.UNSUBACK:
+            pid, i = _read_u16(b, 0)
+            props = {}
+            rcs: List[int] = []
+            if v5:
+                props, i = _parse_props(b, i)
+                rcs = list(b[i:])
+            return Unsuback(packet_id=pid, properties=props,
+                            reason_codes=rcs)
+        if ptype == C.PINGREQ:
+            return Pingreq()
+        if ptype == C.PINGRESP:
+            return Pingresp()
+        if ptype == C.DISCONNECT:
+            rc, props, i = 0, {}, 0
+            if v5 and len(b) > 0:
+                rc, i = _read_u8(b, 0)
+                if len(b) > i:
+                    props, i = _parse_props(b, i)
+            return Disconnect(reason_code=rc, properties=props)
+        if ptype == C.AUTH:
+            rc, props, i = 0, {}, 0
+            if len(b) > 0:
+                rc, i = _read_u8(b, 0)
+                if len(b) > i:
+                    props, i = _parse_props(b, i)
+            return Auth(reason_code=rc, properties=props)
+        raise FrameError(f"bad_packet_type: {ptype}")
+
+    def _parse_connect(self, b: bytes) -> Connect:
+        name, i = _read_str(b, 0)
+        ver, i = _read_u8(b, i)
+        # bridge mode rides the proto level's high bit
+        # (src/emqx_frame.erl:177-185 BridgeTag)
+        is_bridge = bool(ver & 0x80)
+        ver &= 0x7F
+        if (ver, name) not in ((3, "MQIsdp"), (4, "MQTT"), (5, "MQTT")):
+            raise FrameError("bad_protocol")
+        flags, i = _read_u8(b, i)
+        if self.strict and flags & 0x01:
+            raise FrameError("reserved_connect_flag")
+        clean_start = bool(flags & 0x02)
+        will_flag = bool(flags & 0x04)
+        will_qos = (flags >> 3) & 0x03
+        will_retain = bool(flags & 0x20)
+        has_password = bool(flags & 0x40)
+        has_username = bool(flags & 0x80)
+        if self.strict and not will_flag and will_qos:
+            raise FrameError("bad_will_qos")
+        keepalive, i = _read_u16(b, i)
+        props: Dict[str, Any] = {}
+        if ver == C.MQTT_V5:
+            props, i = _parse_props(b, i)
+        client_id, i = _read_str(b, i)
+        will_topic, will_payload, will_props = None, b"", {}
+        if will_flag:
+            if ver == C.MQTT_V5:
+                will_props, i = _parse_props(b, i)
+            will_topic, i = _read_str(b, i)
+            will_payload, i = _read_bin(b, i)
+        username = password = None
+        if has_username:
+            username, i = _read_str(b, i)
+        if has_password:
+            password, i = _read_bin(b, i)
+        return Connect(
+            proto_name=name, proto_ver=ver, is_bridge=is_bridge,
+            clean_start=clean_start,
+            keepalive=keepalive, client_id=client_id,
+            will_flag=will_flag, will_qos=will_qos,
+            will_retain=will_retain, will_topic=will_topic,
+            will_payload=will_payload, will_props=will_props,
+            username=username, password=password, properties=props)
+
+
+def make_parser(version: int = C.MQTT_V4,
+                max_size: int = C.MAX_PACKET_SIZE,
+                strict: bool = True,
+                mode: str = "py") -> Parser:
+    """Parser factory behind the ``[node] frame`` seam. Only the
+    pure-Python :class:`Parser` exists in this package: any other
+    ``mode`` raises (the native parser is not ported)."""
+    if mode != "py":
+        raise ValueError(f"frame mode {mode!r} is not available "
+                         f"(only 'py')")
+    return Parser(version=version, max_size=max_size, strict=strict)
+
+
+# -- serializer ------------------------------------------------------------
+
+def publish_template(pkt: Publish,
+                     version: int = C.MQTT_V4) -> Tuple[bytes, int]:
+    """Serialize a QoS>0 PUBLISH as a packet-id template: returns
+    ``(frame, pid_offset)`` where ``frame[pid_offset:pid_offset+2]``
+    is the big-endian packet id. The pid is ALWAYS exactly two bytes,
+    so the remaining-length varint is invariant across patches — one
+    ``bytearray(frame)`` copy plus a 2-byte write per subscriber
+    replaces a full :func:`serialize` on the egress fast lane
+    (docs/DISPATCH.md "Egress pre-serialization").
+
+    Offset derivation: 1 fixed-header byte, the remaining-length
+    varint (its last byte has the continuation bit clear), the 2-byte
+    topic length prefix, then the UTF-8 topic — the pid comes next
+    on every protocol version (v5 properties follow it)."""
+    if pkt.qos <= 0:
+        raise FrameError("publish_template needs qos > 0")
+    data = serialize(pkt, version)
+    i = 1
+    while data[i] & 0x80:
+        i += 1
+    off = i + 1 + 2 + len(pkt.topic.encode("utf-8"))
+    return data, off
+
+
+def serialize(pkt: Packet, version: int = C.MQTT_V4) -> bytes:
+    v5 = version == C.MQTT_V5
+    t = pkt.type
+    flags = 0
+    if isinstance(pkt, Publish):
+        flags = ((0x08 if pkt.dup else 0) | (pkt.qos << 1)
+                 | (0x01 if pkt.retain else 0))
+        body = _w_str(pkt.topic)
+        if pkt.qos > 0:
+            body += _w_u16(pkt.packet_id or 0)
+        if v5:
+            body += _ser_props(pkt.properties)
+        body += pkt.payload
+    elif isinstance(pkt, Connect):
+        flags_b = ((0x80 if pkt.username is not None else 0)
+                   | (0x40 if pkt.password is not None else 0)
+                   | (0x20 if pkt.will_retain else 0)
+                   | (pkt.will_qos << 3)
+                   | (0x04 if pkt.will_flag else 0)
+                   | (0x02 if pkt.clean_start else 0))
+        ver_b = pkt.proto_ver | (0x80 if getattr(pkt, "is_bridge",
+                                                 False) else 0)
+        body = (_w_str(C.PROTOCOL_NAMES[pkt.proto_ver])
+                + bytes([ver_b, flags_b]) + _w_u16(pkt.keepalive))
+        if pkt.proto_ver == C.MQTT_V5:
+            body += _ser_props(pkt.properties)
+        body += _w_str(pkt.client_id)
+        if pkt.will_flag:
+            if pkt.proto_ver == C.MQTT_V5:
+                body += _ser_props(pkt.will_props)
+            body += _w_str(pkt.will_topic or "") + _w_bin(pkt.will_payload)
+        if pkt.username is not None:
+            body += _w_str(pkt.username)
+        if pkt.password is not None:
+            body += _w_bin(pkt.password)
+    elif isinstance(pkt, Connack):
+        body = bytes([1 if pkt.session_present else 0, pkt.reason_code])
+        if v5:
+            body += _ser_props(pkt.properties)
+    elif isinstance(pkt, PubAck):
+        if pkt.type == C.PUBREL:
+            flags = 0x02
+        body = _w_u16(pkt.packet_id)
+        if v5 and (pkt.reason_code or pkt.properties):
+            body += bytes([pkt.reason_code]) + _ser_props(pkt.properties)
+    elif isinstance(pkt, Subscribe):
+        flags = 0x02
+        body = _w_u16(pkt.packet_id)
+        if v5:
+            body += _ser_props(pkt.properties)
+        for flt, opts in pkt.topic_filters:
+            if v5:
+                o = (opts.get("qos", 0) | (opts.get("nl", 0) << 2)
+                     | (opts.get("rap", 0) << 3)
+                     | (opts.get("rh", 0) << 4))
+            else:
+                # v3/v3.1.1: QoS only; upper bits reserved-zero
+                # [MQTT-3.8.3-4]
+                o = opts.get("qos", 0)
+            body += _w_str(flt) + bytes([o])
+    elif isinstance(pkt, Suback):
+        body = _w_u16(pkt.packet_id)
+        if v5:
+            body += _ser_props(pkt.properties)
+        body += bytes(pkt.reason_codes)
+    elif isinstance(pkt, Unsubscribe):
+        flags = 0x02
+        body = _w_u16(pkt.packet_id)
+        if v5:
+            body += _ser_props(pkt.properties)
+        for flt in pkt.topic_filters:
+            body += _w_str(flt)
+    elif isinstance(pkt, Unsuback):
+        body = _w_u16(pkt.packet_id)
+        if v5:
+            body += _ser_props(pkt.properties) + bytes(pkt.reason_codes)
+    elif isinstance(pkt, (Pingreq, Pingresp)):
+        body = b""
+    elif isinstance(pkt, Disconnect):
+        body = b""
+        if v5 and (pkt.reason_code or pkt.properties):
+            body = bytes([pkt.reason_code]) + _ser_props(pkt.properties)
+    elif isinstance(pkt, Auth):
+        body = b""
+        if pkt.reason_code or pkt.properties:
+            body = bytes([pkt.reason_code]) + _ser_props(pkt.properties)
+    else:
+        raise FrameError(f"cannot_serialize: {pkt!r}")
+    return bytes([(t << 4) | flags]) + _w_varint(len(body)) + body

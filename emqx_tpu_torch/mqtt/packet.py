@@ -1,0 +1,208 @@
+"""MQTT control packets as dataclasses + packet-level helpers.
+
+Mirrors the records of ``include/emqx_mqtt.hrl`` and the helpers of
+``src/emqx_packet.erl``: validation (``check``), packet↔message
+conversion (``to_message``/``from_message``), will-message extraction.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+from emqx_tpu_torch import topic as T
+from emqx_tpu_torch.mqtt import constants as C
+from emqx_tpu_torch.mqtt import reason_codes as RC
+from emqx_tpu_torch.types import Message
+
+
+@dataclass
+class Packet:
+    """Base; `type` overridden per subclass."""
+    type: int = 0
+
+
+@dataclass
+class Connect(Packet):
+    type: int = C.CONNECT
+    proto_name: str = "MQTT"
+    proto_ver: int = C.MQTT_V4
+    # MQTT bridge mode: the CONNECT proto level's high bit
+    # (src/emqx_frame.erl:185 BridgeTag); bridges get rap=1 so
+    # retained flags survive re-publication across brokers
+    is_bridge: bool = False
+    clean_start: bool = True
+    keepalive: int = 60
+    client_id: str = ""
+    will_flag: bool = False
+    will_qos: int = 0
+    will_retain: bool = False
+    will_topic: Optional[str] = None
+    will_payload: bytes = b""
+    will_props: Dict[str, Any] = field(default_factory=dict)
+    username: Optional[str] = None
+    password: Optional[bytes] = None
+    properties: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class Connack(Packet):
+    type: int = C.CONNACK
+    session_present: bool = False
+    reason_code: int = RC.SUCCESS
+    properties: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class Publish(Packet):
+    type: int = C.PUBLISH
+    dup: bool = False
+    qos: int = 0
+    retain: bool = False
+    topic: str = ""
+    packet_id: Optional[int] = None
+    properties: Dict[str, Any] = field(default_factory=dict)
+    payload: bytes = b""
+
+
+@dataclass
+class PubAck(Packet):
+    """Shared shape for PUBACK/PUBREC/PUBREL/PUBCOMP."""
+    type: int = C.PUBACK
+    packet_id: int = 0
+    reason_code: int = RC.SUCCESS
+    properties: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class Subscribe(Packet):
+    type: int = C.SUBSCRIBE
+    packet_id: int = 0
+    properties: Dict[str, Any] = field(default_factory=dict)
+    # [(topic_filter, {qos, nl, rap, rh})]
+    topic_filters: List[Tuple[str, Dict[str, int]]] = field(default_factory=list)
+
+
+@dataclass
+class Suback(Packet):
+    type: int = C.SUBACK
+    packet_id: int = 0
+    properties: Dict[str, Any] = field(default_factory=dict)
+    reason_codes: List[int] = field(default_factory=list)
+
+
+@dataclass
+class Unsubscribe(Packet):
+    type: int = C.UNSUBSCRIBE
+    packet_id: int = 0
+    properties: Dict[str, Any] = field(default_factory=dict)
+    topic_filters: List[str] = field(default_factory=list)
+
+
+@dataclass
+class Unsuback(Packet):
+    type: int = C.UNSUBACK
+    packet_id: int = 0
+    properties: Dict[str, Any] = field(default_factory=dict)
+    reason_codes: List[int] = field(default_factory=list)
+
+
+@dataclass
+class Pingreq(Packet):
+    type: int = C.PINGREQ
+
+
+@dataclass
+class Pingresp(Packet):
+    type: int = C.PINGRESP
+
+
+@dataclass
+class Disconnect(Packet):
+    type: int = C.DISCONNECT
+    reason_code: int = RC.NORMAL_DISCONNECTION
+    properties: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class Auth(Packet):
+    type: int = C.AUTH
+    reason_code: int = RC.SUCCESS
+    properties: Dict[str, Any] = field(default_factory=dict)
+
+
+class PacketError(ValueError):
+    pass
+
+
+def check(pkt: Packet) -> None:
+    """Packet-level validity checks (emqx_packet:check/1).
+    Raises PacketError (topic problems included)."""
+    try:
+        _check(pkt)
+    except T.TopicError as e:
+        raise PacketError(str(e)) from e
+
+
+def _check(pkt: Packet) -> None:
+    if isinstance(pkt, Publish):
+        if pkt.qos > 0 and pkt.packet_id is None:
+            raise PacketError("missing_packet_id")
+        if pkt.topic == "" and "Topic-Alias" not in pkt.properties:
+            raise PacketError("empty_topic")
+        if pkt.topic:
+            T.validate(pkt.topic, "name")
+    elif isinstance(pkt, Subscribe):
+        if not pkt.topic_filters:
+            raise PacketError("empty_topic_filters")
+        for flt, opts in pkt.topic_filters:
+            T.validate(flt, "filter")
+            if not 0 <= opts.get("qos", 0) <= 2:
+                raise PacketError("bad_qos")
+    elif isinstance(pkt, Unsubscribe):
+        if not pkt.topic_filters:
+            raise PacketError("empty_topic_filters")
+        for flt in pkt.topic_filters:
+            T.validate(flt, "filter")
+
+
+def to_message(pkt: Publish, client_id: str,
+               headers: Optional[dict] = None) -> Message:
+    """PUBLISH packet -> routable message (emqx_packet:to_message/2)."""
+    msg = Message(
+        topic=pkt.topic, payload=pkt.payload, qos=pkt.qos,
+        from_=client_id,
+        flags={"dup": pkt.dup, "retain": pkt.retain},
+    )
+    if pkt.properties:
+        msg.set_header("properties", dict(pkt.properties))
+    for k, v in (headers or {}).items():
+        msg.set_header(k, v)
+    return msg
+
+
+def from_message(packet_id: Optional[int], msg: Message) -> Publish:
+    """Message -> PUBLISH packet for delivery
+    (emqx_message:to_packet/2)."""
+    return Publish(
+        dup=msg.get_flag("dup"), qos=msg.qos,
+        retain=msg.get_flag("retain"), topic=msg.topic,
+        packet_id=packet_id,
+        properties=dict(msg.get_header("properties") or {}),
+        payload=msg.payload,
+    )
+
+
+def will_msg(pkt: Connect) -> Optional[Message]:
+    """Extract the will message from CONNECT
+    (emqx_packet:will_msg/1)."""
+    if not pkt.will_flag:
+        return None
+    msg = Message(
+        topic=pkt.will_topic or "", payload=pkt.will_payload,
+        qos=pkt.will_qos, from_=pkt.client_id,
+        flags={"dup": False, "retain": pkt.will_retain},
+    )
+    if pkt.will_props:
+        msg.set_header("properties", dict(pkt.will_props))
+    return msg

@@ -2,36 +2,46 @@
 the ported paths.
 
 Builds the kernel services (hooks, metrics, stats), the router and
-broker on one device, the channel registry and the module host, in
-the reference's boot order (src/emqx_app.erl:31-44,
-src/emqx_sup.erl:64-80). Listeners, ingress batching, alarms,
-overload protection, durability, tracing, ``$SYS`` topics, plugins
-and the cluster come with their slices.
+broker on one device, the ingress batcher, the connection manager,
+the module host and the MQTT listeners, in the reference's boot order
+(src/emqx_app.erl:31-44, src/emqx_sup.erl:64-80). Alarms, overload
+protection, durability, tracing, ``$SYS`` topics, plugins, several
+front-door loops and the cluster come with their slices.
 
     node = Node(device="cuda")
     node.modules.load(RetainerModule)
-    await node.start()
+    node.add_listener(port=1883)
+    await node.start()      # accepts MQTT clients on the running loop
+    ...
+    await node.stop()
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import asyncio
+from typing import List, Optional
 
 from emqx_tpu_torch.broker import Broker, DispatchConfig
 from emqx_tpu_torch.cm import ConnectionManager
+from emqx_tpu_torch.connection import Listener
 from emqx_tpu_torch.hooks import Hooks
+from emqx_tpu_torch.ingress import IngressBatcher
 from emqx_tpu_torch.metrics import Metrics
 from emqx_tpu_torch.modules import ModuleRegistry
 from emqx_tpu_torch.router import MatcherConfig, Router
 from emqx_tpu_torch.stats import Stats
+from emqx_tpu_torch.zone import Zone, get_zone
 
 
 class Node:
     def __init__(self, name: str = "emqx_tpu@127.0.0.1",
+                 zone: Optional[Zone] = None,
                  matcher: Optional[MatcherConfig] = None,
                  dispatch_config: Optional[DispatchConfig] = None,
+                 batch_size: int = 256,
                  device=None) -> None:
         self.name = name
+        self.zone = zone or get_zone()
         # kernel services (emqx_kernel_sup)
         self.hooks = Hooks()
         self.metrics = Metrics()
@@ -42,23 +52,67 @@ class Node:
         self.broker = Broker(router=self.router, hooks=self.hooks,
                              metrics=self.metrics, node=name,
                              dispatch_config=dispatch_config)
+        # ingress batcher: PUBLISHes from all connections aggregate
+        # into one device publish batch per tick (ingress.py)
+        self.ingress = IngressBatcher(self.broker, batch_size=batch_size,
+                                      device=self.device)
+        self.broker.ingress = self.ingress
         # connection/session management (emqx_cm_sup)
         self.cm = ConnectionManager(broker=self.broker)
         # extension system
         self.modules = ModuleRegistry(self)
+        self.listeners: List[Listener] = []
         self._started = False
+        self._bg_tasks: list = []
+
+    def add_listener(self, host: str = "127.0.0.1", port: int = 1883,
+                     zone: Optional[Zone] = None,
+                     name: str = "tcp:default",
+                     proxy_protocol: bool = False,
+                     access_rules=None) -> Listener:
+        """A plain-TCP MQTT listener on the node's broker; it accepts
+        from the next :meth:`start` on (``port=0`` takes a free port,
+        read back from ``listener.port`` after the start)."""
+        lst = Listener(self.broker, self.cm, host=host, port=port,
+                       zone=zone or self.zone, name=name,
+                       proxy_protocol=proxy_protocol,
+                       access_rules=access_rules, device=self.device)
+        self.listeners.append(lst)
+        return lst
 
     async def start(self) -> None:
-        """Start the modules' loop-bound work on the running loop."""
-        if not self._started:
-            self._started = True
-            self.modules.on_loop_start()
+        """Start the listeners, the modules' loop-bound work and the
+        session housekeeping on the running loop."""
+        if self._started:
+            return
+        for lst in self.listeners:
+            await lst.start()
+        self.modules.on_loop_start()
+        self._bg_tasks.append(
+            asyncio.get_running_loop().create_task(self._housekeeping()))
+        self._started = True
 
     async def stop(self) -> None:
-        """Quiesce the modules' loop-bound work; modules stay loaded."""
-        if self._started:
-            self._started = False
-            self.modules.on_loop_stop()
+        """Close the listeners and their connections, drain the ingress
+        batcher, quiesce the modules' loop-bound work (modules stay
+        loaded)."""
+        if not self._started:
+            return
+        self._started = False
+        for t in self._bg_tasks:
+            t.cancel()
+        self._bg_tasks.clear()
+        self.modules.on_loop_stop()
+        # listeners first: the drain waits for quiescence, which never
+        # comes while live connections keep submitting publishes
+        for lst in self.listeners:
+            await lst.stop()
+        await self.ingress.drain()
+
+    async def _housekeeping(self) -> None:
+        while True:
+            await asyncio.sleep(5.0)
+            self.cm.expire_sessions()
 
     # -- facade (src/emqx.erl:26-64) --------------------------------------
 

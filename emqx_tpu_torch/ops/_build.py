@@ -75,7 +75,7 @@ def build(verbose: bool = False) -> float:
             os.environ["PATH"] = saved_path
         lib = ctypes.CDLL(path)
         for fn, args in (
-                (lib.emqx_walk, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7),
+                (lib.emqx_walk, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7),
                 (lib.emqx_bitmap_or, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5),
                 (lib.emqx_retained_match,
                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3)):

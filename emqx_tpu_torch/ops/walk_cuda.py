@@ -16,7 +16,13 @@ hop costs one round trip: every load of the hop (the node2 row and the
 bucket entries, chain words included) is issued before any compare,
 with the layout's slot count (2 narrow, 4 wide) fixed at compile time;
 the topic's words sit in registers from the start, and the frontier is
-compacted in registers by warp shuffles and ballots.
+compacted in registers by warp shuffles and ballots. A frontier past
+:data:`MAX_K` or a topic past :data:`MAX_L` levels takes the kernel's
+second instantiation, which keeps the frontier and the candidates in a
+scratch row of ``3k`` ints a topic that this wrapper allocates and
+reads the words from device memory: the kernel walks any ``k`` and
+``L`` the plain walk walks (the wide layout stops at 31 levels, as the
+plain walk does).
 
 :func:`match_batch_auto` picks by the device of the tensors it is
 given — CUDA tensors launch the kernel (or raise), CPU tensors run the
@@ -36,9 +42,9 @@ from emqx_tpu_torch.ops.csr import (MAX_TAKE, NARROW_SLOT, NARROW_SLOTS,
 from emqx_tpu_torch.ops.match import (_LVL_MASK, MatchResult, finish,
                                       match_batch)
 
-#: frontier capacity one warp holds (two slots per lane)
+#: frontier capacity the register instantiation holds (two slots a lane)
 MAX_K = 64
-#: topic levels one warp holds in registers (two words per lane)
+#: topic levels the register instantiation holds (two words a lane)
 MAX_L = 64
 
 
@@ -63,15 +69,15 @@ def match_batch_cuda(
     if wide and L > _LVL_MASK:
         raise ValueError(
             f"wide walk supports at most {_LVL_MASK} levels, got {L}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"walk kernel supports 1 <= k <= {MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"walk kernel needs k >= 1, got {k}")
     if take > MAX_TAKE:
         raise ValueError(f"walk kernel supports take <= {MAX_TAKE}")
     if slots != (WIDE_SLOTS if wide else NARROW_SLOTS):
         raise ValueError(f"walk kernel supports {NARROW_SLOTS} slots "
                          f"(narrow) or {WIDE_SLOTS} (wide), got {slots}")
-    if not 1 <= L <= MAX_L:
-        raise ValueError(f"walk kernel supports 1 <= L <= {MAX_L}, got {L}")
+    if L < 1:
+        raise ValueError(f"walk kernel needs L >= 1, got {L}")
     dev = word_ids.device
     tensors = (word_ids, n_words, sys_mask, auto.wt, auto.wt_seed,
                auto.node2)
@@ -96,12 +102,18 @@ def match_batch_cuda(
     sysm = sys_mask.to(torch.int32).contiguous()
     emits = torch.empty((B, steps, 2 * k), dtype=torch.int32, device=dev)
     ovf = torch.empty((B,), dtype=torch.int32, device=dev)  # every row written
+    # the frontier and candidates of the instantiation past the
+    # registers' limits; written before read
+    scratch = (torch.empty((B, 3 * k), dtype=torch.int32, device=dev)
+               if (k > MAX_K or L > MAX_L) and B else None)
     if B:
         lib = _build.library()
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.emqx_walk(
             *(ctypes.c_void_p(t.data_ptr()) for t in (
                 words, n, sysm, auto.wt_seed, wt, node2, emits, ovf)),
+            ctypes.c_void_p(None if scratch is None
+                            else scratch.data_ptr()),
             B, L, k, steps, slots, take, nb, ctypes.c_void_p(stream))
         _build.check(lib, rc, "walk")
         _build.LAUNCHES["walk"] += 1

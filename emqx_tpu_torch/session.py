@@ -1,24 +1,26 @@
-"""Per-client session: subscriptions, QoS flows, delivery window,
-message queue.
+"""Per-client session state machine: subscriptions, QoS flows,
+delivery window, message queue.
 
 The port of the JAX package's ``Session`` (``src/emqx_session.erl``,
-#session record :96-124) for the paths ported so far:
+#session record :96-124). Covers:
 
-  - subscribe/unsubscribe with the max_subscriptions quota (:238-276);
-  - outbound delivery: subopts enrichment (qos downgrade/upgrade, nl,
-    rap, subid, :505-530), packet-id assignment, inflight window with
+  - subscribe/unsubscribe with max_subscriptions quota (:238-276)
+  - inbound publish with QoS2 awaiting_rel two-phase flow (:281-301)
+  - outbound delivery: subopts enrichment (qos min/upgrade, nl, rap,
+    subid :505-530), packet-id assignment, inflight window with
     mqueue overflow (:419-457); ``deliver_many`` is the dispatch
-    planner's grouped enqueue;
-  - puback/pubrec/pubcomp (:314-376) with dequeue-on-ack;
-  - retry with the dup flag and delivery expiry (:543-577).
+    planner's grouped enqueue
+  - puback/pubrec/pubrel/pubcomp (:314-376) with dequeue-on-ack
+  - retry with dup flag + delivery expiry (:543-577)
+  - awaiting_rel expiry (:582-599)
+  - takeover/resume/replay (:606-629)
 
-Inbound QoS2 (awaiting_rel), takeover/resume/replay and the wire and
-durability members come with the front door and the connection
-manager's takeover.
+The cluster's wire transfer and the durability journal come with
+their slices.
 
-A Session is a broker subscriber: ``deliver(filter, msg)`` enriches
-and windows the message and appends ready-to-send publishes to
-``outbox`` for the channel to drain.
+A Session is also a broker subscriber: ``deliver(filter, msg)``
+enriches + windows the message and appends ready-to-send publishes to
+``outbox`` for the channel/connection to drain.
 """
 
 from __future__ import annotations
@@ -30,12 +32,15 @@ from emqx_tpu_torch import topic as T
 from emqx_tpu_torch.concurrency import owner_loop
 from emqx_tpu_torch.inflight import Inflight
 from emqx_tpu_torch.mqueue import MQueue
-from emqx_tpu_torch.types import QOS_0, Message, SubOpts
+from emqx_tpu_torch.types import QOS_0, QOS_2, Message, SubOpts
 
-# reason codes used at the session boundary
+# reason codes used at the session boundary (mqtt/reason_codes has
+# the full table)
+RC_SUCCESS = 0x00
 RC_NO_SUBSCRIPTION_EXISTED = 0x11
 RC_PACKET_IDENTIFIER_IN_USE = 0x91
 RC_PACKET_IDENTIFIER_NOT_FOUND = 0x92
+RC_RECEIVE_MAXIMUM_EXCEEDED = 0x93
 RC_QUOTA_EXCEEDED = 0x97
 
 PUBREL_MARKER = "pubrel"
@@ -61,6 +66,8 @@ class Session:
         mqueue_default_priority: float = 0,
         upgrade_qos: bool = False,
         retry_interval: float = 30.0,
+        max_awaiting_rel: int = 100,
+        await_rel_timeout: float = 300.0,
     ) -> None:
         self.client_id = client_id
         self.broker = broker
@@ -68,9 +75,11 @@ class Session:
         self.created_at = time.time()
         self.subscriptions: Dict[str, SubOpts] = {}
         # reverse share-suffix map: bare filter -> the full
-        # "$share/<g>/…" / "$queue/…" subscription key, so a shared
-        # delivery resolves its subopts in one dict fetch (_enrich).
-        # The first subscription wins on a bare-filter collision.
+        # "$share/<g>/…" / "$queue/…" subscription key, so shared
+        # deliveries resolve their subopts in one dict fetch instead
+        # of a linear scan over every subscription (_enrich). First
+        # subscription wins on a bare-filter collision, matching the
+        # old scan's insertion-order pick.
         self._share_keys: Dict[str, str] = {}
         self.max_subscriptions = max_subscriptions
         self.upgrade_qos = upgrade_qos
@@ -79,8 +88,21 @@ class Session:
                              mqueue_priorities, mqueue_default_priority)
         self.next_pkt_id = 1
         self.retry_interval = retry_interval
+        self.awaiting_rel: Dict[int, float] = {}
+        self.max_awaiting_rel = max_awaiting_rel
+        self.await_rel_timeout = await_rel_timeout
         # (packet_id | None, Message) or (PUBREL_MARKER, packet_id)
         self.outbox: List[Tuple[Any, Any]] = []
+        # wakeup hook: the owning connection sets this so broker-driven
+        # deliveries flush to the socket (the BEAM's message-send wakeup
+        # has no implicit analogue in asyncio)
+        self.notify = None
+        # False while the owner is disconnected (persistent session):
+        # deliveries then enqueue instead of entering the send window
+        # (the reference channel's `disconnected` state)
+        self.connected = True
+
+    # -- info --------------------------------------------------------------
 
     def info(self) -> dict:
         return {
@@ -90,6 +112,7 @@ class Session:
             "inflight_cnt": len(self.inflight),
             "mqueue_len": len(self.mqueue),
             "mqueue_dropped": self.mqueue.dropped,
+            "awaiting_rel_cnt": len(self.awaiting_rel),
             "next_pkt_id": self.next_pkt_id,
             "created_at": self.created_at,
         }
@@ -127,10 +150,42 @@ class Session:
     def _rebuild_share_keys(self) -> None:
         keys: Dict[str, str] = {}
         for key, o in self.subscriptions.items():
-            if o.share is not None or key.startswith(("$share/", "$queue/")):
+            if o.share is not None or key.startswith(
+                    ("$share/", "$queue/")):
                 bare, _ = T.parse(key)
                 keys.setdefault(bare, key)
         self._share_keys = keys
+
+    # -- inbound PUBLISH (client -> broker) -------------------------------
+
+    @owner_loop
+    def publish(self, packet_id: Optional[int], msg: Message) -> int:
+        """Returns the delivery count from the broker."""
+        if msg.qos == QOS_2:
+            self.check_awaiting_rel(packet_id)
+            n = self.broker.publish(msg) if self.broker else 0
+            self.record_awaiting_rel(packet_id)
+            return n
+        return self.broker.publish(msg) if self.broker else 0
+
+    def check_awaiting_rel(self, packet_id: Optional[int]) -> None:
+        """QoS2 receive-window checks, split from :meth:`publish` so
+        the batched ingress path can validate synchronously while the
+        broker call itself is deferred to the batch flush."""
+        if (self.max_awaiting_rel
+                and len(self.awaiting_rel) >= self.max_awaiting_rel):
+            raise SessionError(RC_RECEIVE_MAXIMUM_EXCEEDED)
+        if packet_id in self.awaiting_rel:
+            raise SessionError(RC_PACKET_IDENTIFIER_IN_USE)
+
+    def record_awaiting_rel(self, packet_id: Optional[int]) -> None:
+        self.awaiting_rel[packet_id] = time.time()
+
+    @owner_loop
+    def pubrel(self, packet_id: int) -> None:
+        if packet_id not in self.awaiting_rel:
+            raise SessionError(RC_PACKET_IDENTIFIER_NOT_FOUND)
+        del self.awaiting_rel[packet_id]
 
     # -- outbound acks (client acks our deliveries) -----------------------
 
@@ -145,6 +200,16 @@ class Session:
         self.inflight.delete(packet_id)
         self.dequeue()
         return msg
+
+    def discard_delivery(self, packet_id: int) -> None:
+        """Release an inflight slot for a PUBLISH the transport could
+        not legally send (client Maximum-Packet-Size, MQTT-3.1.2-24:
+        the message is 'discarded but treated as acknowledged') —
+        without this the slot leaks and the retry timer re-drops the
+        same message forever."""
+        if self.inflight.lookup(packet_id) is not None:
+            self.inflight.delete(packet_id)
+            self.dequeue()
 
     @owner_loop
     def pubrec(self, packet_id: int) -> Message:
@@ -169,28 +234,44 @@ class Session:
 
     # -- outbound delivery (broker -> client) -----------------------------
 
-    @owner_loop
     def deliver(self, topic_filter: str, msg: Message) -> None:
         """Broker subscriber protocol: enrich, window, queue."""
-        self._deliver_msg(self._enrich(topic_filter, msg))
+        m = self._enrich(topic_filter, msg)
+        if not self.connected:
+            self.enqueue(m)
+            return
+        self._deliver_msg(m)
+        if self.outbox and self.notify is not None:
+            self.notify()
 
     @owner_loop
     def deliver_many(self, items: Iterable[tuple]) -> None:
         """Batched broker→client delivery — the dispatch planner's
-        grouped enqueue. Each item is ``(topic_filter, msg, opts,
-        fast)``: ``opts`` is the SubOpts object ``subscriptions``
-        holds (resolved by the caller), and ``fast`` pre-classifies
-        the QoS0/plain-subopts broadcast fast path."""
+        grouped enqueue. Each item is
+        ``(topic_filter, msg, opts, fast)``: the broker already
+        resolved this session's subopts from its own table (the same
+        SubOpts object ``subscriptions`` holds, so the per-delivery
+        dict fetch is hoisted out), and ``fast`` pre-classifies the
+        QoS0/plain-subopts broadcast fast path per (row, filter)
+        group. Everything enqueues, then ONE notify fires for the
+        whole group — the batch-wide wakeup coalescing that turns
+        N-deliveries-per-batch into one flush per connection."""
         now = None  # one inflight timestamp per delivery group
         for flt, msg, opts, fast in items:
-            if fast:
+            if fast and self.connected:
                 # the _enrich fast path, pre-decided: nothing to
                 # rewrite, every session shares the same object
                 self.outbox.append((None, msg))
                 continue
-            if now is None:
-                now = time.time()
-            self._deliver_msg(self._enrich(flt, msg, opts), now)
+            m = msg if fast else self._enrich(flt, msg, opts)
+            if not self.connected:
+                self.enqueue(m)
+            else:
+                if now is None:
+                    now = time.time()
+                self._deliver_msg(m, now)
+        if self.outbox and self.notify is not None:
+            self.notify()
 
     def _enrich(self, topic_filter: str, msg: Message,
                 opts: Optional[SubOpts] = None) -> Message:
@@ -202,12 +283,14 @@ class Session:
                 and opts.subid is None
                 and (opts.qos == 0 or not self.upgrade_qos)):
             # broadcast fast path: a QoS0, non-retained delivery with
-            # plain subopts has nothing to rewrite — every session
+            # plain subopts has NOTHING to rewrite — every session
             # shares the SAME message object; downstream treats it as
             # immutable
             return msg
-        # a shared delivery carries the bare filter: resolve its
-        # subscription key through the reverse share-suffix map
+        # look up the shared form too: the session keys by full
+        # filter string; the reverse share-suffix map (maintained on
+        # subscribe/unsubscribe) replaces the old linear scan over
+        # every subscription
         if opts is None:
             key = self._share_keys.get(topic_filter)
             if key is not None:
@@ -232,11 +315,14 @@ class Session:
             m.set_header("properties", props)
         if opts.share:
             # mark for group redispatch if this session dies before
-            # acking; the pre-enrichment message rides along
+            # acking (emqx_shared_sub redispatch protocol). The
+            # *pre-enrichment* message rides along: redispatch must
+            # hand the survivor the original, not this copy with our
+            # subid/downgraded qos baked in
             m.set_header("shared", (opts.share, topic_filter, msg))
             if m.get_header("redispatch") and m.qos > 0:
                 # retransmission of a possibly-seen message — DUP only
-                # at QoS>0 after our downgrade (MQTT-3.3.1-2)
+                # at QoS>0 after OUR downgrade (MQTT-3.3.1-2)
                 m.set_flag("dup", True)
         return m
 
@@ -279,8 +365,8 @@ class Session:
             self._deliver_msg(msg)
 
     def _next_pkt_id(self) -> int:
-        # skip ids still in flight (wrap-around safety; the reference
-        # wraps at 0xFFFF and relies on window < 65535)
+        # skip ids still awaited (wrap-around safety; reference wraps
+        # at 0xFFFF and relies on window < 65535)
         for _ in range(0x10000):
             pid = self.next_pkt_id
             self.next_pkt_id = 1 if pid == 0xFFFF else pid + 1
@@ -317,6 +403,80 @@ class Session:
                 self.inflight.update(pid, (msg, now))
                 self.outbox.append((pid, msg))
         return next_delay
+
+    def expire_awaiting_rel(self, now: Optional[float] = None) -> None:
+        now = time.time() if now is None else now
+        expired = [pid for pid, ts in self.awaiting_rel.items()
+                   if now - ts >= self.await_rel_timeout]
+        for pid in expired:
+            del self.awaiting_rel[pid]
+        if expired and self.broker is not None:
+            self.broker.metrics.inc("messages.dropped", len(expired))
+            self.broker.metrics.inc("messages.dropped.expired", len(expired))
+
+    # -- takeover / resume / replay (emqx_session:606-629) ----------------
+
+    @owner_loop
+    def take_shared_pending(self) -> List[Tuple[str, str, Message, bool]]:
+        """Drain unacked/queued shared-group messages for redispatch
+        when this session terminates: [(group, topic, original_msg,
+        was_transmitted)]. QoS2 messages already PUBREC'd
+        (PUBREL_MARKER) are past the point of redispatch, matching the
+        reference's ack protocol."""
+        out: List[Tuple[str, str, Message, bool]] = []
+        for _pid, val in self.inflight.to_list():
+            msg = val[0]
+            if msg == PUBREL_MARKER or not isinstance(msg, Message):
+                continue
+            sh = msg.get_header("shared")
+            if sh and not msg.is_expired():
+                out.append((sh[0], sh[1], sh[2], True))
+        kept: List[Message] = []
+        while not self.mqueue.is_empty():
+            msg = self.mqueue.pop()
+            if msg is None:
+                break
+            sh = msg.get_header("shared")
+            if sh:
+                if not msg.is_expired():
+                    out.append((sh[0], sh[1], sh[2], False))
+                # expired shared messages drop here — they must not
+                # re-occupy queue capacity in a handed-over session
+            else:
+                kept.append(msg)  # non-shared queued messages stay:
+                # the session may be handed over, not destroyed
+        for m in kept:
+            self.mqueue.push(m)
+        return out
+
+    def takeover(self) -> None:
+        """Old owner: detach from the broker, keep state for handoff."""
+        if self.broker is not None:
+            for topic_filter in self.subscriptions:
+                self.broker.unsubscribe(self, topic_filter)
+
+    def resume(self, broker) -> None:
+        """New owner: reattach subscriptions to the (possibly new)
+        broker."""
+        self.broker = broker
+        self.connected = True
+        for topic_filter, opts in self.subscriptions.items():
+            broker.subscribe(self, topic_filter, opts)
+        if broker is not None:
+            broker.metrics.inc("session.resumed")
+            broker.hooks.run("session.resumed", (self.client_id, self.info()))
+
+    @owner_loop
+    def replay(self) -> None:
+        """Re-emit all inflight entries (dup) then drain the queue."""
+        for pid, (msg, _ts) in self.inflight.to_list(
+                sort_key=lambda kv: kv[0]):
+            if msg == PUBREL_MARKER:
+                self.outbox.append((PUBREL_MARKER, pid))
+            else:
+                msg.set_flag("dup", True)
+                self.outbox.append((pid, msg))
+        self.dequeue()
 
     @owner_loop
     def drain_outbox(self) -> List[Tuple[Any, Any]]:

@@ -189,6 +189,18 @@ def test_port_never_imports_jax_or_the_jax_package():
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
         mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
                     else rel)
+    # the front door's modules are among those imported
+    assert {"emqx_tpu_torch.mqtt", "emqx_tpu_torch.mqtt.constants",
+            "emqx_tpu_torch.mqtt.reason_codes", "emqx_tpu_torch.mqtt.props",
+            "emqx_tpu_torch.mqtt.packet", "emqx_tpu_torch.mqtt.frame",
+            "emqx_tpu_torch.channel", "emqx_tpu_torch.connection",
+            "emqx_tpu_torch.ingress", "emqx_tpu_torch.cm",
+            "emqx_tpu_torch.session", "emqx_tpu_torch.utils.base62",
+            "emqx_tpu_torch.zone", "emqx_tpu_torch.logger",
+            "emqx_tpu_torch.keepalive", "emqx_tpu_torch.limiter",
+            "emqx_tpu_torch.mountpoint", "emqx_tpu_torch.mqtt_caps",
+            "emqx_tpu_torch.acl_cache", "emqx_tpu_torch.access_control",
+            "emqx_tpu_torch.node", "chip_smoke"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'emqx_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -255,3 +267,27 @@ def test_router_match_filters_matches_jax_router_and_oracle():
                 ref.add_route(f)
                 port.add_route(f)
                 oracle.insert(f)
+
+
+def test_front_door_entry_points_need_cuda_unless_asked_for_the_cpu(
+        monkeypatch):
+    """Node, Listener and IngressBatcher default to CUDA and raise
+    without it; with device="cpu" they build on the CPU."""
+    from emqx_tpu_torch.connection import Listener
+    from emqx_tpu_torch.ingress import IngressBatcher
+    from emqx_tpu_torch.node import Node
+
+    cpu_node = Node(device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: Node(),
+                 lambda: Node(device="cuda"),
+                 lambda: Listener(cpu_node.broker, cpu_node.cm),
+                 lambda: IngressBatcher(cpu_node.broker)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    node = Node(device="cpu")
+    assert node.ingress.broker is node.broker
+    lst = node.add_listener(port=0)
+    assert lst.broker is node.broker
+    assert IngressBatcher(node.broker, device="cpu").broker is node.broker
+    assert Listener(node.broker, node.cm, device="cpu").cm is node.cm

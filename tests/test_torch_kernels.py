@@ -124,6 +124,75 @@ def test_walk_kernel_matches_plain_walk(cuda_device, mode):
             assert torch.equal(x, y), (len(batch), "steps=0")
 
 
+def _wide_frontier(rs):
+    """Filters over {a, b, +} of up to 10 levels, half of the words
+    wildcards: an all-``a`` topic's frontier grows past 64 lanes."""
+    filters = set()
+    while len(filters) < 1500:
+        ws = list(rs.choice(list("aaab++++"), size=int(rs.randint(1, 11))))
+        if rs.rand() < 0.15:
+            ws[-1] = "#"
+        filters.add("/".join(ws))
+    filters = sorted(filters)
+    topics = ["/".join(rs.choice(list("aaabc"), size=int(rs.randint(1, 12))))
+              for _ in range(40)]
+    return filters, topics + [f.replace("+", "a").replace("#", "b")
+                              for f in filters[::9]]
+
+
+def _deep(rs, L):
+    """Spines of 60 to ``L`` levels with wildcards sprinkled in."""
+    filters = set()
+    while len(filters) < 120:
+        depth = int(rs.randint(60, L + 1))
+        ws = ["s%d" % i for i in rs.randint(0, 3, size=depth)]
+        for _ in range(int(rs.randint(0, 4))):
+            ws[int(rs.randint(0, depth))] = "+"
+        if rs.rand() < 0.3:
+            ws[-1] = "#"
+        filters.add("/".join(ws))
+    filters = sorted(filters)
+    topics = ["/".join("s%d" % i for i in
+                       rs.randint(0, 3, size=int(rs.randint(1, L + 1))))
+              for _ in range(24)]
+    return filters, topics + [f.replace("+", "s1").replace("#", "s2")
+                              for f in filters] + ["/".join(["s0"] * L)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["k65-narrow", "k128-narrow", "k200-narrow",
+                                  "k65-wide", "k128-wide", "k200-wide",
+                                  "L65", "L100"])
+def test_walk_kernel_past_the_register_limits(cuda_device, case):
+    """Frontiers of 65 to 200 lanes and topics of 65 and 100 levels
+    (the kernel's scratch-row instantiation) against the plain walk,
+    at a batch of one topic, of the inputs and of 4,093."""
+    rs = np.random.RandomState(14)
+    if case.startswith("k"):
+        k, mode = case[1:].split("-")
+        k, L = int(k), 16
+        filters, topics = _wide_frontier(rs)
+    else:
+        k, L, mode = 16, int(case[1:]), "narrow"
+        filters, topics = _deep(rs, L)
+    auto, table = _automaton(filters, mode)
+    ta = convert.automaton(auto, cuda_device)
+    for batch in (topics, topics[-1:], (topics * 30)[:4093]):
+        ids, n, sysm = encode_batch(table, batch, L)
+        args = [torch.from_numpy(a).to(cuda_device) for a in (ids, n, sysm)]
+        for pack_ids in (True, False):
+            kw = dict(k=k, m=512, pack_ids=pack_ids,
+                      **walk_params(auto, ids.shape[1]))
+            want = match_batch(ta, *args, **kw)
+            _build.reset_launches()
+            got = match_batch_cuda(ta, *args, **kw)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["walk"] == 1
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), (case, len(batch), pack_ids)
+        assert not bool(want.overflow.all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["narrow", "wide"])
 def test_walk_kernel_refuses_a_slot_count_of_another_layout(cuda_device,
@@ -309,3 +378,76 @@ def test_broker_on_card_delivers_like_the_cpu_broker(cuda_device):
         _filters(rs, 200)
         _topics(rs, 100)
     assert boxes[0] == boxes[1]
+
+
+class PayloadSink:
+    """Subscriber double recording ``(topic, filter, payload)``."""
+
+    def __init__(self, name):
+        self.client_id = name
+        self.inbox = []
+
+    def deliver(self, topic_filter, msg):
+        self.inbox.append((msg.topic, topic_filter, msg.payload))
+
+
+@pytest.mark.gpu
+def test_ingress_burst_on_card_delivers_like_the_cpu_broker(cuda_device):
+    """An open-loop burst into the card node's ingress batcher, all of
+    it in one event-loop step: every pipeline slot busy (begin on the
+    loop, fetch on the executor's threads), the backlog flushed as one
+    batch of ``batch_cap`` messages. The delivery counts and the
+    per-subscriber multisets equal the CPU broker's ``publish_batch``,
+    the acks resolve in submission order and each topic reaches a
+    subscriber in publish order."""
+    import asyncio
+    from collections import Counter
+
+    from emqx_tpu_torch.ingress import MAX_INFLIGHT
+    from emqx_tpu_torch.node import Node
+
+    cfg = dict(device_min_filters=1, fanout_threshold=4)
+    rs = np.random.RandomState(11)
+    pairs = [(f, int(i)) for f in _filters(rs, 200)
+             for i in rs.choice(10, size=2, replace=False)]
+    pairs += [("a/b/c", i) for i in range(6)]
+    node = Node(matcher=MatcherConfig(**cfg), batch_size=64,
+                device=cuda_device)
+    ing = node.ingress
+    topics = _topics(rs, MAX_INFLIGHT * ing.batch_size + ing.batch_cap + 32)
+    ref = Broker(config=MatcherConfig(**cfg), device="cpu")
+    boxes = []
+    for b in (node.broker, ref):
+        sinks = [PayloadSink(f"c{i}") for i in range(10)]
+        for f, i in pairs:
+            b.subscribe(sinks[i], f)
+        boxes.append(sinks)
+    msgs = [Message(topic=t, payload=b"%d" % i) for i, t in enumerate(topics)]
+
+    async def burst():
+        order, futs = [], []
+        for i, m in enumerate(msgs):
+            fut = ing.submit(m)
+            fut.add_done_callback(lambda _f, i=i: order.append(i))
+            futs.append(fut)
+        inflight = ing.stats()["ingress.inflight"]
+        res = await asyncio.gather(*futs)
+        await ing.drain()
+        return list(res), order, inflight
+
+    _build.reset_launches()
+    res, order, inflight = asyncio.run(asyncio.wait_for(burst(), 120))
+    assert inflight == MAX_INFLIGHT
+    assert ing.stats()["ingress.max_batch"] == ing.batch_cap
+    assert ing.device_batches == ing.flushes == MAX_INFLIGHT + 2
+    assert _build.LAUNCHES["walk"] >= ing.device_batches
+    assert order == list(range(len(msgs)))
+    want = ref.publish_batch([Message(topic=m.topic, payload=m.payload)
+                              for m in msgs])
+    assert res == list(want)
+    for got, exp in zip(*boxes):
+        assert Counter(got.inbox) == Counter(exp.inbox), got.client_id
+        last = {}
+        for t, f, p in got.inbox:
+            assert int(p) >= last.get((t, f), -1), (got.client_id, t)
+            last[(t, f)] = int(p)

@@ -154,3 +154,88 @@ def test_hash_mix_matches_uint32_numpy():
                       int(seed))
     np.testing.assert_array_equal(g1.numpy(), h1.astype(np.int64))
     np.testing.assert_array_equal(g2.numpy(), h2.astype(np.int64))
+
+
+def _wide_frontier_inputs(seed, mode):
+    """Filters over {a, b, +} of up to 10 levels, half of the words
+    wildcards, so the frontier of an all-``a`` topic grows past 64
+    lanes; topics made from each filter walk every edge, those in
+    their second bucket row too."""
+    rng = random.Random(seed)
+    filters = set()
+    while len(filters) < 1500:
+        depth = rng.randint(1, 10)
+        ws = [rng.choice("aaab++++") for _ in range(depth)]
+        if rng.random() < 0.15:
+            ws[-1] = "#"
+        filters.add("/".join(ws))
+    filters = sorted(filters)
+    topics = ["/".join(rng.choice("aaabc") for _ in range(rng.randint(1, 11)))
+              for _ in range(40)]
+    topics += [f.replace("+", "a").replace("#", "b") for f in filters[::9]]
+    trie, table, auto, inv = _build(filters, mode=mode)
+    ids, n, sysm = encode_batch(table, topics, 16)
+    return trie, auto, inv, topics, ids, n, sysm
+
+
+def _deep_inputs(seed, L):
+    """Narrow automaton over spines of 60 to ``L`` levels with
+    wildcards sprinkled in, and topics as deep as ``L``."""
+    rng = random.Random(seed)
+    filters = set()
+    while len(filters) < 120:
+        depth = rng.randint(60, L)
+        ws = ["s%d" % rng.randint(0, 2) for _ in range(depth)]
+        for _ in range(rng.randint(0, 3)):
+            ws[rng.randrange(depth)] = "+"
+        if rng.random() < 0.3:
+            ws[-1] = "#"
+        filters.add("/".join(ws))
+    filters = sorted(filters)
+    topics = ["/".join("s%d" % rng.randint(0, 2)
+                       for _ in range(rng.randint(1, L)))
+              for _ in range(24)]
+    topics += [f.replace("+", "s1").replace("#", "s2") for f in filters]
+    topics.append("/".join(["s0"] * L))
+    trie, table, auto, inv = _build(filters, mode="narrow")
+    ids, n, sysm = encode_batch(table, topics, L)
+    return trie, auto, inv, topics, ids, n, sysm
+
+
+def _check_oracle(trie, inv, topics, got):
+    for i, t in enumerate(topics):
+        if got.overflow[i]:
+            continue
+        row = [inv[j] for j in got.ids[i].tolist() if j >= 0]
+        assert sorted(row) == sorted(trie.match(t)), t
+
+
+@pytest.mark.parametrize("mode", ["narrow", "wide"])
+@pytest.mark.parametrize("k", [65, 128, 200])
+def test_plain_walk_matches_lax_walk_past_64_lanes(mode, k):
+    """The frontier sizes the CUDA kernel's register instantiation
+    cannot hold: the plain walk (the kernel's twin) equals the lax walk
+    and the oracle, with frontiers past 64 lanes that fit k or
+    overflow it."""
+    trie, auto, inv, topics, ids, n, sysm = _wide_frontier_inputs(
+        6500 + k, mode)
+    for pack_ids in (True, False):
+        kw = dict(k=k, m=512, pack_ids=pack_ids,
+                  **walk_params(auto, ids.shape[1]))
+        ref, got = _both(auto, ids, n, sysm, **kw)
+        _assert_same(ref, got)
+    _check_oracle(trie, inv, topics, got)
+    assert not bool(got.overflow.all())
+
+
+@pytest.mark.parametrize("L", [65, 100])
+def test_plain_walk_matches_lax_walk_past_64_levels(L):
+    trie, auto, inv, topics, ids, n, sysm = _deep_inputs(6600 + L, L)
+    assert ids.shape[1] == L and int(n.max()) == L
+    for pack_ids in (True, False):
+        kw = dict(k=16, m=64, pack_ids=pack_ids,
+                  **walk_params(auto, ids.shape[1]))
+        ref, got = _both(auto, ids, n, sysm, **kw)
+        _assert_same(ref, got)
+    _check_oracle(trie, inv, topics, got)
+    assert not bool(got.overflow.all())
