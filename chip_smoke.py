@@ -44,7 +44,10 @@ kernels against their plain PyTorch versions:
      path and launched both kernels, checks every batch's per-message
      (subscriber, filter) sets against the port's ``TrieOracle``, and
      prints msgs/s, p50/p99 batch latency, the overflow-row share, the
-     phase's peak device memory and the subscribe / rebuild seconds;
+     phase's peak device memory and the subscribe / rebuild seconds —
+     twice on the same batches: at the defaults (match cache and delta
+     automaton on; with the cache hit rate) and in the plain configuration
+     (``match_cache=False, delta=False``, one rebuild);
   6. the retained slice: ``Node(device="cuda")`` with ``RetainerModule``
      at its defaults stores 1,000,000 retained messages
      (``s{i % 499}/g{(i // 499) % 97}/d{i}/state``) through
@@ -79,7 +82,30 @@ kernels against their plain PyTorch versions:
      (7b) a listener on phase 6's node and 8 bursts of 64 live clients,
      each a CONNECT then a SUBSCRIBE; every replayed message checked
      against the name family; SUBACK-to-last-retained p50/p99 and the
-     B3 launches.
+     B3 launches;
+  8. route churn at full width, on phase 5's node: (8c) patch in
+     place (``delta=False``): 1,000 adds and deletes of matching
+     filters, the drains' times and the bytes each clones, one drain
+     on the card against the same drain on CPU copies, parity, then
+     ``set_delta(True)``; the delta walk on B1 against the plain walk
+     (k = ``snap.k`` and 1), 2 B1 launches on a batch with pending
+     delta adds, the cache's insert and merge, the tombstone mask and
+     the packed union on the card against the CPU, with their device
+     times and the host probe's; (8a) the reference's churn bench
+     (``bench.py:1701-1960``): batches of 256 Zipf(1.1) topics through
+     ``Router.match_ids`` without churn and under a churner at 10,000
+     route ops/s (strict add→delete pairs) for ``churn/{i}/leaf``,
+     ``+/churnrw/{i}`` and ``$share/churngrp/churnsh{i}/leaf``: p50/p99
+     both ways, the achieved rate, the cache hit rate and the route-op
+     p99, every result against the TrieOracle of the static set;
+     (8b) 4,096 matching filters cross ``delta_max_filters``: match
+     batches and route ops (deletes of frozen filters, new adds)
+     during the off-lock flatten, parity during and after the swap,
+     the flatten seconds, lock stall and peak device memory; (8d) 5
+     publish batches of 4,096 through the broker with 64 subscribers
+     in and 64 out between batches, every delivery against the
+     oracle, no re-flatten, the fan-out rebuild
+     (``FanoutManager.state``) timed apart.
 
 The last two lines are one JSON object per kernel row
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Every
@@ -91,6 +117,7 @@ at once and prints no result.
     python3 chip_smoke.py --subs 100000   # a smaller tree
     python3 chip_smoke.py --names 100000  # a smaller retained store
     python3 chip_smoke.py --conns 200 --pubs-per-conn 5   # a smaller fleet
+    python3 chip_smoke.py --churn-iters 20   # shorter 8a passes
 """
 
 from __future__ import annotations
@@ -865,8 +892,9 @@ def check_batches(broker, batches, deliveries):
     return n_big
 
 
-def phase_slice(broker, batches, card):
-    """The timed main-path run; every count starts at 0 here."""
+def phase_slice(broker, batches, card, label="slice"):
+    """The timed main-path run; every count starts at 0 here. Prints
+    the match cache's hit rate over the run when the cache is on."""
     import torch
 
     from emqx_tpu_torch.ops import _build
@@ -878,6 +906,8 @@ def phase_slice(broker, batches, card):
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+    cache = broker.router._match_cache()
+    c0 = (cache.hits, cache.misses) if cache is not None else (0, 0)
     _build.reset_launches()
     lat, n_ovf, n_uniq = [], 0, 0
     split = np.zeros(3)  # begin (host + enqueue), fetch (+ wait), finish
@@ -909,6 +939,11 @@ def phase_slice(broker, batches, card):
     n_big = check_batches(broker, checks, deliveries)
     n_msgs = sum(len(b) for b in msgs)
     lat_ms = np.sort(np.array(lat) * 1e3)
+    hit_rate = None
+    if cache is not None:
+        hd, md = cache.hits - c0[0], cache.misses - c0[1]
+        hit_rate = hd / max(1, hd + md)
+    cfg = broker.router.config
     out = {
         "msgs_per_s": n_msgs / sum(lat),
         "p50_ms": float(np.percentile(lat_ms, 50)),
@@ -917,22 +952,26 @@ def phase_slice(broker, batches, card):
         "unique_per_batch": n_uniq / len(msgs),
         "launches": launches,
         "peak_mib": peak,
+        "cache_hit_rate": hit_rate,
     }
-    log(f"[slice] {len(msgs)} batches x {len(msgs[0])} msgs: "
+    log(f"[{label}] match_cache={cfg.match_cache} delta={cfg.delta}: "
+        f"{len(msgs)} batches x {len(msgs[0])} msgs: "
         f"{out['msgs_per_s']:.1f} msgs/s, p50 {out['p50_ms']:.3f} ms, "
-        f"p99 {out['p99_ms']:.3f} ms, overflow rows "
+        f"p99 {out['p99_ms']:.3f} ms, cache hit rate "
+        f"{'off' if hit_rate is None else f'{hit_rate:.4f}'}, B1 launches "
+        f"{launches['walk']}, overflow rows "
         f"{out['overflow_row_share']:.6f}, unique topics/batch "
         f"{out['unique_per_batch']:.1f}, launches {launches} — {card}")
     split_ms = split / len(msgs) * 1e3
-    log(f"[slice] per batch: begin (encode, dedup, enqueue) "
+    log(f"[{label}] per batch: begin (encode, dedup, enqueue) "
         f"{split_ms[0]:.3f} ms, fetch (device wait, copy, plan) "
         f"{split_ms[1]:.3f} ms, finish (delivery tail) {split_ms[2]:.3f} ms"
         f" — {card}")
     out["split_ms"] = split_ms.tolist()
     if on_card:
-        log(f"[slice] peak device memory of the publish phase {peak:.1f} MiB "
-            f"({resident / 2**20:.1f} MiB resident at its start) — {card}")
-    log(f"[slice] all {n_msgs} messages: {len(deliveries)} deliveries "
+        log(f"[{label}] peak device memory of the publish phase {peak:.1f} "
+            f"MiB ({resident / 2**20:.1f} MiB resident at its start) — {card}")
+    log(f"[{label}] all {n_msgs} messages: {len(deliveries)} deliveries "
         f"({n_big} through the bitmap path, {big_rows} union rows) match "
         f"the TrieOracle")
     return out
@@ -998,7 +1037,7 @@ def timed(label, fn, *args):
 
 
 def run(opts, device, card):
-    """Phases 3-5 and 7a on ``device``; returns the kernel rows."""
+    """Phases 3-5, 8 and 7a on ``device``; returns the kernel rows."""
     from emqx_tpu_torch.node import Node
     from emqx_tpu_torch.types import Message
 
@@ -1030,13 +1069,22 @@ def run(opts, device, card):
     bmp, b4 = timed("4 (B2)", phase_bitmap, broker, batches, rng, card)
     sl = timed("5 (slice)", phase_slice, broker, batches, card)
     timed("5 (profile)", phase_profile, broker, batches, card)
+    sl_plain = timed("5 (slice, plain config)", phase_slice_plain, broker,
+                     batches, topics[:opts.batch], card)
+    p8 = run_phase8(broker, draw, batches, rng, opts, card)
     sock = timed("7a (socket publish)", phase_socket, node, wl, draw, opts,
                  card)
+    walk["max_abs_err"] = max(walk["max_abs_err"],
+                              p8["kernels"]["max_abs_err"])
     return [
         {"name": "walk", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/walk.cu",
          "replaces": "emqx_tpu/ops/walk_pallas.py:87",
          "launches": sl["launches"]["walk"],
+         "plain_config_launches": sl_plain["launches"]["walk"],
+         "churn_launches": p8["launches"]["walk"],
+         "delta_ms": p8["kernels"]["delta_ms"],
+         "delta_plain_ms": p8["kernels"]["delta_plain_ms"],
          "socket_launches": sock["launches"]["walk"], "equal": True,
          "bound_by": "bytes", "library_ms": None, **walk},
         {"name": "bitmap_or", "route": "cuda",
@@ -1053,6 +1101,670 @@ def run(opts, device, card):
          "launches": sl["launches"]["or_bitmaps"], "on_path": False,
          "equal": True, "bound_by": "bytes", "library_ms": None, **b4},
     ]
+
+
+# -- phase 8: route churn at full width -------------------------------------
+
+#: churn filter shapes of the reference's churn bench (bench.py:1701-1960):
+#: a literal root no config-2 topic has, a root '+', a $share prefix
+CHURN_SHAPES = (("disjoint", lambda i: f"churn/{i}/leaf"),
+                ("root_wildcard", lambda i: f"+/churnrw/{i}"),
+                ("share", lambda i: f"$share/churngrp/churnsh{i}/leaf"))
+#: phase 8's time budget, seconds (cut iterations, never the table)
+PHASE8_BUDGET_S = 60.0
+#: wall-clock cap of one 8a pass, seconds: a pass stops early (and
+#: says so) when the churner starves the matcher of the router lock
+CHURN_PASS_S = 2.5
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def result_filters(router, topics, ids_np, ovf_np, id_map):
+    """The matched filter set of each topic from one ``match_ids``
+    result: the id row through the snapshot's id map, or the exact
+    host re-match of an overflowed row."""
+    out = []
+    for i, t in enumerate(topics):
+        if ovf_np[i]:
+            out.append(frozenset(router.host_match(t)))
+        else:
+            out.append(frozenset(f for f in (id_map[j] for j in ids_np[i]
+                                             if j >= 0) if f is not None))
+    return out
+
+
+def matching_filters(rng, topics, n, taken, plus=2):
+    """``n`` new filters that match config-2 topics: a topic of
+    ``topics`` with ``plus`` of its 5 levels made '+' (the static set
+    has one '+' a filter at most, so two '+' are always new)."""
+    out = []
+    seen = set(taken)
+    i = 0
+    while len(out) < n:
+        ws = topics[i % len(topics)].split("/")
+        i += 1
+        if len(ws) != LEVELS:
+            continue
+        for lv in rng.choice(LEVELS, size=plus, replace=False):
+            ws[int(lv)] = "+"
+        f = "/".join(ws)
+        if f not in seen:
+            seen.add(f)
+            out.append(f)
+    return out
+
+
+def churn_pass(router, batches, iters, mk=None, rate=10_000):
+    """One timed pass of ``iters`` batches (at most
+    :data:`CHURN_PASS_S` seconds) through ``Router.match_ids``;
+    with ``mk``, a churner thread adds and deletes ``mk(i)`` filters at
+    ``rate`` route ops/s in strict add→delete pairs (the reference's
+    churn bench; it also yields the GIL after every op) and the
+    trailing add is deleted after the join, so
+    every pass leaves the filter set as it found it. Returns the
+    latencies, the results (topics, ids, overflow, id map), the route
+    ops' latencies, the achieved rate and the cache hit rate of the
+    pass."""
+    import threading
+
+    cache = router._match_cache_obj
+    h0, m0 = (cache.hits, cache.misses) if cache is not None else (0, 0)
+    stop = threading.Event()
+    op_lat, pending, churned = [], [None], [0]
+
+    def churner():
+        i = 0
+        interval = 1.0 / rate
+        next_t = time.perf_counter()
+        while not stop.is_set():
+            t_op = time.perf_counter()
+            if pending[0] is None:
+                pending[0] = mk(i)
+                router.add_route(pending[0])
+                i += 1
+            else:
+                router.delete_route(pending[0])
+                pending[0] = None
+            op_lat.append(time.perf_counter() - t_op)
+            churned[0] += 1
+            next_t += interval
+            # behind schedule, still yield the GIL once an op, as an
+            # event loop does between callbacks: a churner that never
+            # sleeps re-takes the router lock before a waiting matcher
+            # can, and starves it for seconds
+            time.sleep(max(0.0, next_t - time.perf_counter()))
+
+    th = threading.Thread(target=churner, daemon=True) if mk else None
+    lat, results = [], []
+    t1 = time.perf_counter()
+    if th is not None:
+        th.start()
+    for it in range(iters):
+        if time.perf_counter() - t1 > CHURN_PASS_S:
+            break
+        batch = batches[it % len(batches)]
+        t0 = time.perf_counter()
+        _, ids_np, ovf_np, id_map, _ = router.match_ids(batch)
+        lat.append(time.perf_counter() - t0)
+        results.append((batch, ids_np, ovf_np, id_map))
+    if th is not None:
+        stop.set()
+        th.join(timeout=10)
+        if th.is_alive():
+            raise AssertionError("churner did not stop")
+    wall = time.perf_counter() - t1
+    if pending[0] is not None:
+        router.delete_route(pending[0])
+    hd = (cache.hits - h0) if cache is not None else 0
+    md = (cache.misses - m0) if cache is not None else 0
+    return {"lat": lat, "results": results, "op_lat": op_lat,
+            "rate": churned[0] / max(wall, 1e-9),
+            "hit_rate": hd / max(1, hd + md)}
+
+
+def check_static(router, passes, want_cache):
+    """Every result of ``passes`` against the router's trie once the
+    churn stopped — the static filter set, since every churn add was
+    paired with its delete (memoized per topic)."""
+    n = 0
+    for p in passes:
+        for topics, ids_np, ovf_np, id_map in p["results"]:
+            got = result_filters(router, topics, ids_np, ovf_np, id_map)
+            for t, g in zip(topics, got):
+                w = want_cache.get(t)
+                if w is None:
+                    with router._lock:
+                        w = want_cache[t] = frozenset(router._trie.match(t))
+                if g != w:
+                    raise AssertionError(f"churn: {t!r} matched {sorted(g)}, "
+                                         f"the TrieOracle {sorted(w)}")
+                n += 1
+    return n
+
+
+def phase_churn(router, draw, rng, iters, card):
+    """8a: the reference's churn bench at full width — batches of 256
+    Zipf(1.1) config-2 topics through ``Router.match_ids``, a pass
+    without churn and a pass under 10,000 route ops/s for each filter
+    shape; every result checked against the TrieOracle of the static
+    set."""
+    from emqx_tpu_torch.oracle import TrieOracle
+
+    topics = zipf_topics(rng, draw, 256 * 8)
+    batches = [topics[i * 256:(i + 1) * 256] for i in range(8)]
+    probe = TrieOracle()
+    for _, mk in CHURN_SHAPES:
+        for i in range(3):
+            probe.insert(mk(i))
+    if any(probe.match(t) for t in topics):
+        raise AssertionError("a churn filter matches a config-2 topic")
+    want, out, n_checked = {}, {}, 0
+    for name, mk in CHURN_SHAPES:
+        base = churn_pass(router, batches, iters)
+        churn = churn_pass(router, batches, iters, mk)
+        n_checked += check_static(router, (base, churn), want)
+        for kind, p in (("without churn", base), ("under churn", churn)):
+            if len(p["lat"]) < iters:
+                log(f"[8a] cut: the {name} pass {kind} ran {len(p['lat'])} "
+                    f"of {iters} batches, at its {CHURN_PASS_S} s cap")
+        row = {"p50_ms": _pct(base["lat"], 50),
+               "p99_ms": _pct(base["lat"], 99),
+               "churn_p50_ms": _pct(churn["lat"], 50),
+               "churn_p99_ms": _pct(churn["lat"], 99),
+               "rate": churn["rate"], "hit_rate": churn["hit_rate"],
+               "base_hit_rate": base["hit_rate"],
+               "route_op_p99_ms": _pct(churn["op_lat"], 99)}
+        out[name] = row
+        log(f"[8a] {name} ({mk(0)}): {len(churn['lat'])} batches of 256 "
+            f"— match p50 "
+            f"{row['p50_ms']:.3f} / p99 {row['p99_ms']:.3f} ms without "
+            f"churn (hit rate {row['base_hit_rate']:.4f}), p50 "
+            f"{row['churn_p50_ms']:.3f} / p99 {row['churn_p99_ms']:.3f} ms "
+            f"under {row['rate']:.1f} route ops/s (target 10,000; hit "
+            f"rate {row['hit_rate']:.4f}), route-op p99 "
+            f"{row['route_op_p99_ms']:.3f} ms — {card}")
+    info = router.delta_info()
+    log(f"[8a] {n_checked} results equal the TrieOracle of the static set; "
+        f"no churn filter matches a config-2 topic; delta {info}")
+    return out
+
+
+def phase_compaction(router, draw, rng, card):
+    """8b: one off-lock compaction at full width. 4,096 new filters
+    that match config-2 topics cross ``delta_max_filters``; while the
+    background flatten runs, match batches and route ops (deletes of
+    512 of them, 256 more adds) go on and every result is checked
+    against the static set plus the live new filters. After the swap:
+    parity again, one more merge, and the flatten seconds, the lock
+    stall and the peak device memory across it."""
+    import torch
+
+    from emqx_tpu_torch.oracle import TrieOracle
+
+    dev = router.device
+    topics = zipf_topics(rng, draw, 256 * 8)
+    batches = [topics[i * 256:(i + 1) * 256] for i in range(8)]
+    n_new = router.config.delta_max_filters
+    pending0 = router.delta_info()["pending"]
+    new = matching_filters(rng, topics, n_new + 256, router._routes)
+    first, later = new[:n_new - pending0], new[n_new - pending0:]
+    live = TrieOracle()
+    new_all = set()
+    orig = router._flatten_main
+    flat = {}
+
+    def timed_flatten(cap, nb):
+        t = time.perf_counter()
+        out = orig(cap, nb)
+        flat["s"] = time.perf_counter() - t
+        return out
+
+    router._flatten_main = timed_flatten
+
+    def expected(batch):
+        with router._lock:
+            return [frozenset(f for f in router._trie.match(t)
+                              if f not in new_all) | frozenset(live.match(t))
+                    for t in batch]
+
+    def check(batch, res, when):
+        got = result_filters(router, batch, *res)
+        for t, g, w in zip(batch, got, expected(batch)):
+            if g != w:
+                raise AssertionError(f"8b {when}: {t!r} matched {sorted(g)}, "
+                                     f"want {sorted(w)}")
+        return len(batch)
+
+    try:
+        info0 = router.delta_info()
+        if dev.type == "cuda":
+            _sync(dev)
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        add_lat = []
+        for f in first:
+            t0 = time.perf_counter()
+            router.add_route(f)
+            add_lat.append(time.perf_counter() - t0)
+            live.insert(f)
+            new_all.add(f)
+        t_trig = time.perf_counter()
+        if not router._compacting and router.delta_info()["merges"] == \
+                info0["merges"]:
+            raise AssertionError("8b: 4,096 pending adds started no "
+                                 "compaction")
+        ops = [("-", f) for f in first[:512]] + [("+", f) for f in later]
+        rng.shuffle(ops)
+        match_lat, op_lat, n_checked, i = [], [], 0, 0
+        while router._compacting:
+            batch = batches[i % len(batches)]
+            i += 1
+            t0 = time.perf_counter()
+            _, ids_np, ovf_np, id_map, _ = router.match_ids(batch)
+            match_lat.append(time.perf_counter() - t0)
+            n_checked += check(batch, (ids_np, ovf_np, id_map), "during")
+            for _ in range(4):
+                if not ops:
+                    break
+                op, f = ops.pop()
+                t0 = time.perf_counter()
+                if op == "+":
+                    router.add_route(f)
+                else:
+                    router.delete_route(f)
+                op_lat.append(time.perf_counter() - t0)
+                if op == "+":
+                    live.insert(f)
+                    new_all.add(f)
+                else:
+                    live.delete(f)
+        t_swap = time.perf_counter()
+        n_during = len(op_lat)
+        for op, f in ops:  # what the flatten did not outlast
+            (router.add_route if op == "+" else router.delete_route)(f)
+            if op == "+":
+                live.insert(f)
+                new_all.add(f)
+            else:
+                live.delete(f)
+        _sync(dev)
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 2**20 \
+            if dev.type == "cuda" else None
+        info = router.delta_info()
+        if info["merges"] < info0["merges"] + 1:
+            raise AssertionError(f"8b: no merge ({info})")
+        for batch in batches:
+            _, ids_np, ovf_np, id_map, _ = router.match_ids(batch)
+            n_checked += check(batch, (ids_np, ovf_np, id_map), "after")
+        stall = info["rebuild_stall_ms"] - info0["rebuild_stall_ms"]
+        log(f"[8b] {len(first)} adds crossed delta_max_filters "
+            f"{n_new}: add p99 {_pct(add_lat, 99):.3f} ms; off-lock "
+            f"flatten {flat.get('s', float('nan')):.3f} s, trigger to swap "
+            f"{t_swap - t_trig:.3f} s, lock stall {stall:.3f} ms, peak "
+            f"device memory {peak if peak is None else f'{peak:.1f}'} MiB "
+            f"over the {mem0 / 2**20 if dev.type == 'cuda' else 0:.1f} MiB "
+            f"resident — {card}")
+        log(f"[8b] during the flatten: {len(match_lat)} match batches of "
+            f"256, p50 {_pct(match_lat, 50):.3f} / p99 "
+            f"{_pct(match_lat, 99):.3f} ms; {n_during} route ops "
+            f"(deletes of frozen filters, new adds), p99 "
+            f"{_pct(op_lat, 99):.3f} ms — {card}")
+        log(f"[8b] {n_checked} results (during and after the swap, the new "
+            f"and deleted filters included) equal the oracle; delta {info}")
+        out = {"flatten_s": flat.get("s"), "swap_s": t_swap - t_trig,
+               "stall_ms": stall, "peak_mib": peak,
+               "match_p50_ms": _pct(match_lat, 50),
+               "match_p99_ms": _pct(match_lat, 99),
+               "op_p99_ms": _pct(op_lat, 99),
+               "add_p99_ms": _pct(add_lat, 99)}
+    finally:
+        del router._flatten_main
+    # back to the static set: every new filter still routed goes
+    for f in sorted(new_all):
+        if router.has_route(f):
+            router.delete_route(f)
+    return out
+
+
+def phase_patch(router, draw, rng, card):
+    """8c: patch in place (``delta=False``, set by the caller): 1,000
+    adds and deletes of matching filters; the drains' times and the
+    bytes each clones; one drain re-applied on CPU copies of the
+    tables and held equal; parity against the oracle. Ends with
+    ``set_delta(True)`` and the cache back on."""
+    import torch
+
+    dev = router.device
+    topics = zipf_topics(rng, draw, 256 * 4)
+    batches = [topics[i * 256:(i + 1) * 256] for i in range(4)]
+    new = matching_filters(rng, topics, 500, router._routes)
+    drains = []
+    orig = router._apply_patches_locked
+
+    def timed_drain():
+        old = router._auto
+        _sync(dev)
+        t0 = time.perf_counter()
+        orig()
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        cloned = sum(t.numel() * t.element_size()
+                     for t, o in ((router._auto.wt, old.wt),
+                                  (router._auto.node2, old.node2))
+                     if t is not o)
+        drains.append((dt, cloned))
+
+    router._apply_patches_locked = timed_drain
+    try:
+        rebuilds0 = router._rebuilds
+        # 500 adds, then the deletes of every second one; the other 250
+        # go after the parity check: 1,000 route ops
+        ops = [("+", f) for f in new] + [("-", f) for f in new[::2]] + \
+            [None] + [("-", f) for f in new[1::2]]
+        op_lat, n_checked, checked_drain = [], 0, False
+        p = router._patcher
+        for i, step in enumerate(ops):
+            if step is None:
+                for batch in batches:
+                    _, ids_np, ovf_np, id_map, _ = router.match_ids(batch)
+                    got = result_filters(router, batch, ids_np, ovf_np,
+                                         id_map)
+                    with router._lock:
+                        want = [frozenset(router._trie.match(t))
+                                for t in batch]
+                    for t, g, w in zip(batch, got, want):
+                        if g != w:
+                            raise AssertionError(f"8c: {t!r} matched "
+                                                 f"{sorted(g)}, want "
+                                                 f"{sorted(w)}")
+                    n_checked += len(batch)
+                continue
+            op, f = step
+            t0 = time.perf_counter()
+            (router.add_route if op == "+" else router.delete_route)(f)
+            op_lat.append(time.perf_counter() - t0)
+            if i >= 400 and not checked_drain and p.queued:
+                # one drain held against the same queue on CPU copies
+                with router._lock:
+                    q_col, q_slot = list(p._col), list(p._slot)
+                    before = router._auto
+                    router._apply_patches_locked()
+                    after = router._auto
+                    p._col, p._slot = q_col, q_slot
+                    cpu = p.apply_updates(before._replace(
+                        wt=before.wt.cpu(), node2=before.node2.cpu()))
+                if not (torch.equal(cpu.wt, after.wt.cpu())
+                        and torch.equal(cpu.node2, after.node2.cpu())):
+                    raise AssertionError("8c: a patch drain on the card "
+                                         "differs from the same drain on "
+                                         "the CPU")
+                log(f"[8c] a drain of {len(q_col)} column and "
+                    f"{len(q_slot)} slot updates on the card equals the "
+                    f"same drain on CPU copies of the tables")
+                checked_drain = True
+        if not checked_drain:
+            raise AssertionError("8c: no queued drain to check")
+        if router._rebuilds != rebuilds0:
+            raise AssertionError("8c: a route op re-flattened the table")
+    finally:
+        del router._apply_patches_locked
+    times = [d[0] * 1e3 for d in drains]
+    log(f"[8c] patch in place: {len(op_lat)} route ops (p99 "
+        f"{_pct(op_lat, 99):.3f} ms), {len(drains)} drains "
+        f"(patch_drain_batch={router.config.patch_drain_batch}): "
+        f"{', '.join(f'{t:.3f}' for t in times)} ms, "
+        f"{drains[0][1] if drains else 0} bytes cloned a drain; "
+        f"{n_checked} results equal the oracle; no re-flatten — {card}")
+    t0 = time.perf_counter()
+    router.set_delta(True)
+    router.config.match_cache = True
+    log(f"[8c] set_delta(True): one rebuild, {time.perf_counter() - t0:.1f} s "
+        f"— {card}")
+    return {"drain_ms": times, "bytes": drains[0][1] if drains else 0,
+            "op_p99_ms": _pct(op_lat, 99)}
+
+
+def phase_delta_kernels(router, draw, rng, card):
+    """Phase 8's kernel checks at the main path's shapes: the delta
+    walk on B1 against the plain walk, bit for bit; 2 B1 launches on a
+    batch with pending delta adds; the cache's insert and merge, the
+    tombstone mask and the packed union on the card against the same
+    calls on CPU copies; their device times."""
+    import torch
+
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.ops.delta import mask_ids, union_packed
+    from emqx_tpu_torch.ops.match import match_batch
+    from emqx_tpu_torch.ops.match_cache import (MatchCache, insert_rows,
+                                                merge_rows)
+    from emqx_tpu_torch.ops.walk_cuda import match_batch_cuda
+
+    # launches made to compare or time a kernel do not count
+    saved = dict(_build.LAUNCHES)
+    topics = zipf_topics(rng, draw, 4096)
+    uniq = list(dict.fromkeys(topics))
+    new = matching_filters(rng, uniq, 300, router._routes)
+    # 50 routed filters with one local route: their deletes are
+    # tombstones against the main tables (re-added at the end)
+    dropped = [f for f in draw[:2000]
+               if router._routes.get(f) == {router.node: 1}][:50]
+    for f in new:
+        router.add_route(f)
+    for f in dropped:
+        router.delete_route(f)
+    cfg = router.config
+    main, snap = router._snapshot_pair()
+    if snap is None or snap.auto is None or snap.mask is None:
+        raise AssertionError("no pending adds or tombstones in the delta")
+    args, kw = router.walk_inputs(uniq)
+    B, L = args[0].shape
+    dkw = dict(k=snap.k, m=kw["m"], steps=snap.steps_for(L), slots=2,
+               take=1)
+    err = 0
+    for pack in (True, False):
+        err = max(err, check_walk(snap.auto, args, dict(dkw, pack_ids=pack),
+                                  f"delta automaton ({snap.n_pending} pending "
+                                  f"adds, k={snap.k}) B={B} L={L} "
+                                  f"pack_ids={pack}"))
+    err = max(err, check_walk(snap.auto, args, dict(dkw, k=1),
+                              f"delta automaton B={B} L={L} k=1"))
+    d_ms = kernel_ms(lambda: match_batch_cuda(snap.auto, *args, **dkw),
+                     "walk_kernel")
+    d_plain = time_cuda_ms(lambda: match_batch(snap.auto, *args, **dkw),
+                           iters=3, warmup=1)
+    cache = router._match_cache()
+    m0 = cache.misses
+    before = _build.LAUNCHES["walk"]
+    router.match_dispatch(uniq)
+    _sync(router.device)
+    n_walk = _build.LAUNCHES["walk"] - before
+    if cache.misses == m0 or n_walk != 2:
+        raise AssertionError(f"a batch with pending delta adds launched B1 "
+                             f"{n_walk} times ({cache.misses - m0} misses)")
+    log(f"[8] delta walk on B1: kernel {d_ms:.5f} ms, plain {d_plain:.4f} "
+        f"ms at B={B}; one dispatch with {snap.n_pending} pending adds and "
+        f"{len(snap.mask.nonzero())} tombstones launched B1 {n_walk} times "
+        f"— {card}")
+    # the glue ops: card against CPU copies, at the main path's shapes
+    res = match_batch_cuda(main[0], *args, **dict(kw, pack_ids=True))
+    dres = match_batch_cuda(snap.auto, *args, **dict(dkw, pack_ids=True))
+    raw = match_batch_cuda(main[0], *args, **kw).ids
+    m = cfg.max_matches
+    rows, ovf = union_packed(res.ids, dres.ids, m=m)
+    slots = [int(s) for s in rng.permutation(cache.slots)[:B]]
+    table = cache._table_now()
+    hits = [int(s) for s in rng.permutation(cache.slots)[:B // 2]]
+    hpos = [int(x) for x in rng.permutation(B)]
+    mpos, hpos = hpos[B // 2:], hpos[:B // 2]
+    calls = {
+        "union_packed": lambda t: union_packed(t[0], t[1], m=m),
+        "mask_ids": lambda t: (mask_ids(t[2], t[3]),),
+        "insert_rows": lambda t: (insert_rows(t[4], slots, t[5], t[6]),),
+        "merge_rows": lambda t: merge_rows(t[4], hits, hpos, t[5], t[6],
+                                           mpos, B),
+    }
+    on_card = (res.ids, dres.ids, raw, snap.mask, table, rows, ovf)
+    on_cpu = tuple(x.cpu() for x in on_card)
+    glue = {}
+    for name, fn in calls.items():
+        for x, y in zip(fn(on_card), fn(on_cpu)):
+            if not torch.equal(x.cpu(), y):
+                raise AssertionError(f"{name} on the card != on the CPU")
+        glue[name] = device_ms(lambda fn=fn: fn(on_card))
+    # the probe is host work: a hit probe and a stale probe of the
+    # batch on a cache of the same size
+    c = MatchCache(cfg.match_cache_slots, m, router.device)
+    p = c.probe(uniq, 0)
+    c.insert(p, rows, ovf)
+    t0 = time.perf_counter()
+    c.probe(uniq, 0)
+    hit_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    c.probe(uniq, 1)
+    stale_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[8] glue on the card equals the CPU: "
+        + ", ".join(f"{k} {v:.5f} ms" for k, v in glue.items())
+        + f" of device time at B={B}, m={m}, {cache.slots} slots; cache "
+        f"probe (host) {hit_ms:.3f} ms all hits, {stale_ms:.3f} ms all "
+        f"stale — {card}")
+    for f in dropped:
+        router.add_route(f)
+    for f in new:
+        router.delete_route(f)
+    _build.LAUNCHES.update(saved)
+    _build.LAUNCHES["walk"] += n_walk
+    return {"delta_ms": d_ms, "delta_plain_ms": d_plain, "max_abs_err": err,
+            "glue_ms": glue, "probe_hit_ms": hit_ms,
+            "probe_stale_ms": stale_ms}
+
+
+def phase_broker_churn(broker, batches, rng, card):
+    """8d: the broker with the defaults — 5 publish batches of 4,096;
+    between batches 64 real subscribers subscribe to new matching
+    filters and the previous 64 unsubscribe. Every delivery checked
+    against the oracle; no re-flatten; the fan-out rebuild
+    (``FanoutManager.state``, on every membership change) timed apart
+    from begin, fetch and finish."""
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.types import Message
+
+    router = broker.router
+    rebuilds0 = router._rebuilds
+    orig = broker.helper.state
+    fan = []
+
+    def timed_state(epoch, id_map):
+        t0 = time.perf_counter()
+        st = orig(epoch, id_map)
+        fan.append(time.perf_counter() - t0)
+        return st
+
+    broker.helper.state = timed_state
+    prev = []
+    split = np.zeros(4)  # begin less fan-out, fan-out, fetch, finish
+    n_del, launches = 0, 0
+    try:
+        for bi, batch in enumerate(batches[:5]):
+            for s, f in prev:
+                broker.unsubscribe(s, f)
+            uniq = list(dict.fromkeys(batch))
+            prev = [(Sink(10_000_000 + bi * 64 + j), f) for j, f in
+                    enumerate(matching_filters(rng, uniq, 64,
+                                               router._routes))]
+            for s, f in prev:
+                broker.subscribe(s, f)
+            msgs = [Message(topic=t, payload=b"x") for t in batch]
+            Sink.log = []
+            before = _build.LAUNCHES["walk"]
+            n_fan = len(fan)
+            t0 = time.perf_counter()
+            pb = broker.publish_begin(msgs)
+            t1 = time.perf_counter()
+            broker.publish_fetch(pb)
+            t2 = time.perf_counter()
+            res = broker.publish_finish(pb)
+            t3 = time.perf_counter()
+            if pb.done is not True or pb.host_topics is not None:
+                raise AssertionError(f"8d batch {bi}: not the device path")
+            f_s = sum(fan[n_fan:])
+            split += (t1 - t0 - f_s, f_s, t2 - t1, t3 - t2)
+            launches += _build.LAUNCHES["walk"] - before
+            deliveries, Sink.log = Sink.log, None
+            check_batches(broker, [(msgs, res)], deliveries)
+            n_del += len(deliveries)
+            if not any(sid >= 10_000_000 for _, sid, _ in deliveries):
+                raise AssertionError(f"8d batch {bi}: no new subscriber "
+                                     f"got a delivery")
+        for s, f in prev:
+            broker.unsubscribe(s, f)
+    finally:
+        del broker.helper.state
+        Sink.log = None
+    if router._rebuilds != rebuilds0:
+        raise AssertionError("8d: a subscription re-flattened the table")
+    ms = split / 5 * 1e3
+    log(f"[8d] 5 batches of 4,096, 64 subscribers in and 64 out between "
+        f"batches: {n_del} deliveries equal the oracle, no re-flatten "
+        f"(rebuilds {router._rebuilds}), B1 launches {launches}; per batch "
+        f"begin {ms[0]:.3f} ms + fan-out rebuild {ms[1]:.3f} ms "
+        f"(FanoutManager.state, on every membership change), fetch "
+        f"{ms[2]:.3f} ms, finish {ms[3]:.3f} ms — {card}")
+    return {"split_ms": ms.tolist(), "launches": launches}
+
+
+def run_phase8(broker, draw, batches, rng, opts, card):
+    """Phase 8 on phase 5's node, which the plain configuration run left
+    on patch in place: 8c (which ends with the defaults back on), the
+    kernel checks, 8a, 8b and 8d. The B1 launches are counted from 0
+    at the phase's start; 8a's passes stop at :data:`CHURN_PASS_S`
+    each to hold the phase near :data:`PHASE8_BUDGET_S` (a cut is
+    printed)."""
+    from emqx_tpu_torch.ops import _build
+
+    router = broker.router
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = {"8c": timed("8c (patch in place)", phase_patch, router, draw,
+                       rng, card)}
+    out["kernels"] = timed("8 (delta kernels)", phase_delta_kernels, router,
+                           draw, rng, card)
+    out["8a"] = timed("8a (route churn)", phase_churn, router, draw, rng,
+                      opts.churn_iters, card)
+    out["8b"] = timed("8b (off-lock compaction)", phase_compaction, router,
+                      draw, rng, card)
+    out["8d"] = timed("8d (broker under churn)", phase_broker_churn, broker,
+                      batches, rng, card)
+    out["launches"] = dict(_build.LAUNCHES)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[8] phase 8 took {out['seconds']:.1f} s (budget "
+        f"{PHASE8_BUDGET_S:.0f} s); B1 launches {out['launches']['walk']} "
+        f"— {card}")
+    return out
+
+
+def phase_slice_plain(broker, batches, warm, card):
+    """Phase 5 again on the same batches in the plain configuration
+    (``match_cache=False, delta=False``: one rebuild, printed); a warm
+    batch first rebuilds the fan-out tables for the new epoch, as the
+    setup's first batch did."""
+    from emqx_tpu_torch.types import Message
+
+    router = broker.router
+    router.config.match_cache = False
+    t0 = time.perf_counter()
+    router.set_delta(False)
+    rebuild_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    broker.publish_batch([Message(topic=t) for t in warm])
+    log(f"[slice, plain config] set_delta(False): one rebuild {rebuild_s:.1f} "
+        f"s; warm batch (fan-out tables) {time.perf_counter() - t0:.1f} s "
+        f"— {card}")
+    return phase_slice(broker, batches, card, label="slice, plain config")
 
 
 # -- the retained slice: the retained_1m shape -------------------------------
@@ -2030,6 +2742,9 @@ def main(argv=None) -> int:
                     help="phase 7a's timed QoS 1 PUBLISHes a publisher "
                          f"(the fleet's is {FLEET_PUBS}, cut to hold "
                          "the run's time)")
+    ap.add_argument("--churn-iters", type=int, default=60,
+                    help="phase 8a's batches of 256 a pass (the "
+                         "reference's churn bench: 60)")
     opts = ap.parse_args(argv)
 
     import torch

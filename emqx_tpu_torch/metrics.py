@@ -61,6 +61,17 @@ NAMES = (
     "delivery.wakeups",
     # oversized frames refused at header decode
     "frame.oversize",
+    # the publish match cache and its epoch bumps
+    # (Router.drain_cache_stats, folded by the node's housekeeping)
+    "cache.match.hit", "cache.match.miss",
+    "cache.match.insert", "cache.match.stale",
+    "cache.match.bump.global", "cache.match.bump.partition",
+    # the delta automaton and its compactions
+    # (Router.drain_automaton_stats); compaction.* are table-state
+    # gauges carried as deltas (a rebuild may shrink them)
+    "automaton.delta.probes", "automaton.delta.filters",
+    "automaton.delta.merges", "automaton.rebuild.stall_ms",
+    "automaton.compaction.fused_edges", "automaton.compaction.chains",
 )
 
 _QOS_RECV = ("messages.qos0.received", "messages.qos1.received",
@@ -92,6 +103,18 @@ class Metrics:
         """Count an outbound message by QoS."""
         self.inc("messages.sent")
         self.inc(_QOS_SENT[min(msg.qos, 2)])
+
+    def fold_cache_stats(self, stats: Dict[str, int]) -> None:
+        """Fold drained match-cache counter deltas
+        (``Router.drain_cache_stats``)."""
+        for key, val in stats.items():
+            self.inc(f"cache.match.{key}", int(val))
+
+    def fold_automaton_stats(self, stats: Dict[str, int]) -> None:
+        """Fold drained delta-automaton / rebuild counter deltas
+        (``Router.drain_automaton_stats``)."""
+        for key, val in stats.items():
+            self.inc(f"automaton.{key}", int(val))
 
     def val(self, name: str) -> int:
         return self._counters[name]

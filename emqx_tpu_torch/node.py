@@ -49,6 +49,11 @@ class Node:
         # routing + pubsub core, on the node's device
         self.router = Router(config=matcher, node=name, device=device)
         self.device = self.router.device
+        # a crashed background compaction: the router's thread records
+        # the error here (a plain attribute store — thread-safe); the
+        # housekeeping tick retries the compaction after its backoff
+        self._flatten_err: Optional[str] = None
+        self.router.on_bg_error = self._note_flatten_error
         self.broker = Broker(router=self.router, hooks=self.hooks,
                              metrics=self.metrics, node=name,
                              dispatch_config=dispatch_config)
@@ -113,6 +118,25 @@ class Node:
         while True:
             await asyncio.sleep(5.0)
             self.cm.expire_sessions()
+            self.tick()
+
+    def tick(self) -> None:
+        """The housekeeping tick's router share: fold the match-cache
+        and automaton counters into :attr:`metrics` (as the JAX node's
+        stats flush does) and retry a crashed background compaction
+        once its backoff elapsed."""
+        cache = self.router.drain_cache_stats()
+        if any(cache.values()):
+            self.metrics.fold_cache_stats(cache)
+        auto = self.router.drain_automaton_stats()
+        if any(auto.values()):
+            self.metrics.fold_automaton_stats(auto)
+        self.router.retry_compaction()
+
+    def _note_flatten_error(self, exc) -> None:
+        """Router background-compaction outcome callback — may run ON
+        the compaction thread, so it only stores."""
+        self._flatten_err = repr(exc) if exc is not None else None
 
     # -- facade (src/emqx.erl:26-64) --------------------------------------
 

@@ -1,26 +1,45 @@
 """The router: authoritative route state + the device matcher.
 
-The port of the JAX package's ``Router`` on its plain single-device
-path (``match_cache=False``, ``delta=False``, no mesh): routes are a
-host map ``filter → {dest: refcount}`` (the reference's
-``emqx_route`` bag, src/emqx_router.erl:113-133) over a host
-:class:`~emqx_tpu_torch.oracle.TrieOracle`, and the match side is the
-compressed automaton placed on the router's torch device. Any route
-change that adds or drops a filter marks the automaton dirty; the next
-match re-flattens it in full (no incremental patcher in this port
-yet). Filter ids are assigned exactly as the JAX package assigns them,
-so the same subscribe order gives the same ids.
+The port of the JAX package's single-device ``Router`` with its
+defaults: routes are a host map ``filter → {dest: refcount}`` (the
+reference's ``emqx_route`` bag, src/emqx_router.erl:113-133) over a
+host :class:`~emqx_tpu_torch.oracle.TrieOracle`, and the match side is
+the compressed automaton placed on the router's torch device. Filter
+ids are assigned exactly as the JAX package assigns them, so the same
+subscribe order gives the same ids. A route add or delete never
+re-flattens the table on the caller's thread:
 
-Topics the walk cannot finish (more than ``max_levels`` levels, an
-active set past k, lanes left after the last hop) are flagged and
-re-matched exactly on the host trie — parity, never truncation.
+  - **delta** (``delta=True``, the default; :mod:`.ops.delta`): adds
+    land in a small side automaton walked alongside the main tables
+    (kernel B1 twice a batch), deletes in a tombstone mask. Past
+    ``delta_max_filters`` pending adds a background thread flattens
+    the trie OFF the lock (the freeze protocol below) and swaps the
+    new tables in under a short lock;
+  - **patch in place** (``delta=False``; :mod:`.ops.patch`): an
+    O(depth) patch of a host mirror of the main tables, drained into
+    a copy-on-write clone of ``wt``/``node2`` once
+    ``patch_drain_batch`` updates queue up;
+  - **match cache** (``match_cache=True``, the default;
+    :mod:`.ops.match_cache`): repeat topics are served from an
+    epoch-guarded device table; only misses walk. A mutation bumps
+    its partition's revision (a literal first level) or the global
+    one, so stale rows are never served.
+
+Matchers read one published snapshot reference and take no router
+lock on the fast path. Topics the walk cannot finish (more than
+``max_levels`` levels, an active set past k, lanes left after the last
+hop) are flagged and re-matched exactly on the host trie — parity,
+never truncation.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
+import time
+import zlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,17 +48,19 @@ from emqx_tpu_torch import topic as T
 from emqx_tpu_torch.device import resolve
 from emqx_tpu_torch.oracle import TrieOracle
 from emqx_tpu_torch.ops import convert
-from emqx_tpu_torch.ops.csr import build_automaton
+from emqx_tpu_torch.ops.csr import WIDE_SLOT, build_automaton
 from emqx_tpu_torch.ops.match import depth_bucket
+from emqx_tpu_torch.ops.patch import AutoPatcher, PatchOverflow
 from emqx_tpu_torch.ops.tokenize import WordTable, encode_batch
 from emqx_tpu_torch.ops.walk_cuda import match_batch_auto
 from emqx_tpu_torch.types import Route
 
+log = logging.getLogger("emqx_tpu_torch.router")
+
 
 @dataclass
 class MatcherConfig:
-    """The matcher knobs this path reads, with the JAX package's
-    defaults."""
+    """The matcher knobs, with the JAX package's defaults."""
 
     max_levels: int = 16    # L — deeper topics go to the host trie
     active_k: int = 16      # NFA active-set capacity (overflow → host)
@@ -58,6 +79,87 @@ class MatcherConfig:
     pack_m: int = 8
     pack_q: int = 16
     pack_rows: int = 8
+    # patch in place (delta=False): once this many device updates
+    # are queued, the MUTATOR drains them into a copy-on-write clone
+    # of the walk tables, so matchers rarely find a queue to drain
+    patch_drain_batch: int = 256
+    # publish match cache (ops/match_cache.py): repeat topics are
+    # served from an epoch-guarded device table of
+    # slots × (max_matches + 1) int32 (64K slots ≈ 17 MB); False
+    # restores the uncached dispatch byte for byte
+    match_cache: bool = True
+    match_cache_slots: int = 65536
+    # match-cache invalidation granularity: a filter mutation whose
+    # first level is a literal bumps only that level's partition
+    # revision; root wildcards bump the global one. Power of two;
+    # 1 = whole-epoch invalidation
+    cache_partitions: int = 64
+    # delta automaton (ops/delta.py): adds go to a side automaton
+    # walked beside the main tables, deletes to a tombstone mask, and
+    # a background flatten folds them in off the lock. False restores
+    # patch in place byte for byte
+    delta: bool = True
+    # pending delta adds that trigger the background compaction
+    # (also bounds the side automaton's walk cost)
+    delta_max_filters: int = 4096
+
+
+def topic_partition(topic: str, parts: int) -> int:
+    """Match-cache partition of a concrete topic: a stable hash of its
+    first level (``parts`` is a power of two; crc32, not ``hash``, so
+    the key is the same in every process)."""
+    return zlib.crc32(topic.partition("/")[0].encode()) & (parts - 1)
+
+
+def filter_partitions(filter_: str, parts: int) -> Optional[Tuple[int, ...]]:
+    """Invalidation scope of a filter mutation under partitioned
+    epochs: the partition indices to bump, or ``None`` when only a
+    global bump is safe.
+
+    A filter whose first level is a literal ``L`` can only change the
+    match set of topics whose first level is ``L``, so bumping
+    partition ``h(L)`` suffices; a root ``+`` or ``#`` → ``None``. A
+    ``$share``/``$queue`` filter reaching the router verbatim bumps
+    the partition of the level after the prefix *plus* the raw
+    ``$share`` root; a malformed or wildcard-rooted inner filter
+    falls back to ``None``."""
+    root = filter_.partition("/")[0]
+    if root == T.PLUS or root == T.HASH:
+        return None
+    p0 = zlib.crc32(root.encode()) & (parts - 1)
+    if not filter_.startswith((T.SHARE_PREFIX, T.QUEUE_PREFIX)):
+        return (p0,)
+    try:
+        inner, _opts = T.parse(filter_)
+    except T.TopicError:
+        return None
+    iroot = inner.partition("/")[0]
+    if iroot == T.PLUS or iroot == T.HASH:
+        return None
+    p1 = zlib.crc32(iroot.encode()) & (parts - 1)
+    return (p0,) if p1 == p0 else (p0, p1)
+
+
+class _FrozenIds:
+    """The filter → id lookup of a frozen trie, read off the router
+    lock while route ops run: the freeze-time id of a filter deleted
+    since the freeze (``deleted``), else its live id."""
+
+    __slots__ = ("live", "deleted")
+
+    def __init__(self, live: Dict[str, int], deleted: Dict[str, int]):
+        self.live = live
+        self.deleted = deleted
+
+    def __getitem__(self, filter_: str) -> int:
+        fid = self.live.get(filter_)
+        # the deleted map is read AFTER the live one: a delete records
+        # the freeze-time id there before it drops the live entry, so
+        # a delete (and re-add) racing this lookup is always seen
+        fid = self.deleted.get(filter_, fid)
+        if fid is None:
+            raise KeyError(filter_)
+        return fid
 
 
 class Router:
@@ -69,30 +171,183 @@ class Router:
         self.node = node
         self.device = resolve(device)
         self._lock = threading.RLock()
+        # word-table guard, finer than _lock: matchers take ONLY this
+        # lock (around encode), so a long flatten under _lock never
+        # stalls them. Order: _lock before _wt_lock, never the reverse
+        self._wt_lock = threading.RLock()
         self._trie = TrieOracle()
         self._table = WordTable()
         # filter -> {dest: refcount}; bag semantics (emqx_route)
         self._routes: Dict[str, Dict[object, int]] = {}
         self._filter_ids: Dict[str, int] = {}
         self._id_to_filter: List[Optional[str]] = []
-        # a freed id waits in _pending_free until the next flatten
-        # replaces the published id map (immediate reuse when no
-        # automaton was ever built)
+        # ids recycle only across rebuild generations: a freed id
+        # waits in _pending_free until the next full flatten replaces
+        # the published id map, so any map a matcher holds is
+        # append-only + tombstone-only
         self._free_ids: List[int] = []
         self._pending_free: List[int] = []
-        # (node2 rows, wt buckets) of the live tables: a rebuild keeps
-        # them as floors, so shapes stay stable across rebuilds
-        self._caps = (None, None)
-        self._auto = None        # TorchAutomaton on self.device
+        self._auto: Optional[convert.TorchAutomaton] = None
+        # id→filter list the live automaton encodes: appended and
+        # tombstoned in place, REPLACED (new object) on rebuild
         self._auto_map: List[Optional[str]] = []
+        # (auto, map, epoch, cache_rev): one-reference read for
+        # matchers (attribute assignment is atomic)
+        self._published: Optional[tuple] = None
         self._dirty = True
         self._rebuilds = 0
-        # static walk parameters of the live tables; no '+' edge at
-        # all ⇒ the active set is provably ≤ 1 lane, so k = 1
+        self._patches = 0
+        # vocabulary revision: bumped when a filter INSERT completes
+        # (inserts intern new words; the word table is append-only) —
+        # a batch encoded at revision R is valid to dispatch only at R
+        # (the mesh's pre-placed batches check it, item 13)
+        self._mut_rev = 0
+        # patch in place: host mirror of the live tables; None until
+        # the first flatten and in delta mode
+        self._patcher: Optional[AutoPatcher] = None
+        self._grow = {"state": 1, "edge": 1}  # rebuild growth factors
+        # static walk parameters of the LIVE tables (host values):
+        # slot layout, max take, step bounds, and whether any '+'
+        # edge exists (no '+' ⇒ the active set is ≤ 1 lane, so k = 1)
         self._walk_meta = {"slots": 2, "take": 1, "hops": None,
                            "has_plus": True}
+        # level-compression facts of the LIVE tables
+        self._compaction = {"mode": "narrow", "chains": 0,
+                            "fused_edges": 0, "ratio": 0}
+        self._compacting = False  # background compaction in flight
+        # a background flatten that raised arms an exponential backoff
+        # before the next attempt; on_bg_error(exc|None) reports the
+        # outcome — it may run ON the compaction thread, so the
+        # callback must only store
+        self._compact_failures = 0
+        self._compact_backoff_until = 0.0
+        self.on_bg_error = None
         # learned active-set boost (overflow storms double k, ≤ 64)
         self._k_boost = 0
+        # match cache: _cache_rev is the GLOBAL epoch guard; _part_revs
+        # scope literal-rooted filter mutations to one partition. Both
+        # are bumped under _lock and read by probes BEFORE the
+        # automaton snapshot, so a racing mutation can only make
+        # entries look stale, never fresh
+        P = self.config.cache_partitions
+        if P < 1 or (P & (P - 1)):
+            raise ValueError(
+                f"cache_partitions must be a power of two >= 1, "
+                f"got {P}")
+        if self.config.delta_max_filters < 1:
+            raise ValueError(
+                f"delta_max_filters must be >= 1, "
+                f"got {self.config.delta_max_filters}")
+        self._cache_rev = 0
+        self._part_revs: List[int] = [0] * P
+        self._bump_global = 0
+        self._bump_partition = 0
+        self._bump_drained = (0, 0)
+        self._match_cache_obj = None
+        # delta automaton: None = empty. _pub2 is the published
+        # (main snapshot, delta snapshot, delta version, k_boost) pair
+        # matchers read in ONE reference; _freeze is the trie defer
+        # log active while an off-lock flatten reads the trie
+        self._delta = None
+        self._delta_ver = 0
+        self._pub2: Optional[tuple] = None
+        self._freeze: Optional[dict] = None
+        self._rebuild_inflight = False
+        # automaton.delta.* / automaton.rebuild.* counters
+        self._delta_probes = 0
+        self._delta_filters = 0
+        self._delta_merges = 0
+        self._rebuild_stall_ms = 0.0
+        self._auto_drained = (0, 0, 0, 0, 0, 0)
+
+    # -- trie and delta plumbing ------------------------------------------
+
+    def _ensure_delta(self):
+        if self._delta is None:
+            from emqx_tpu_torch.ops.delta import DeltaAutomaton
+
+            # the side automaton shares the main word-id space: both
+            # walks consume the same encoded batch
+            self._delta = DeltaAutomaton(self._table.intern, self.device)
+        return self._delta
+
+    def _t_insert(self, filter_: str) -> None:
+        with self._wt_lock:  # interning mutates the word table
+            self._trie.insert(filter_)
+            # pre-intern literal words so the flatten (which may run
+            # on the compaction thread) never mutates the word table
+            for w in T.words(filter_):
+                if w not in (T.PLUS, T.HASH):
+                    self._table.intern(w)
+
+    # -- freeze protocol (off-lock compaction) ----------------------------
+    #
+    # While a background flatten reads the trie OFF-lock, the trie must
+    # not be mutated. Route ops landing in that window defer into
+    # _freeze: the ordered log replays into the trie at swap time, and
+    # the small side trie/set compensate host matches meanwhile. Word
+    # interning still happens at once, so concurrently encoded batches
+    # resolve the new vocabulary.
+
+    def _t_insert_route(self, filter_: str, fid: int) -> None:
+        fz = self._freeze
+        if fz is None:
+            self._t_insert(filter_)
+            return
+        fz["log"].append(("+", filter_, fid))
+        fz["adds"].insert(filter_)
+        fz["add_fids"][filter_] = fid
+        fz["dels"].discard(filter_)
+        with self._wt_lock:
+            for w in T.words(filter_):
+                if w not in (T.PLUS, T.HASH):
+                    self._table.intern(w)
+
+    def _t_delete_route(self, filter_: str, fid: int) -> None:
+        fz = self._freeze
+        if fz is None:
+            self._trie.delete(filter_)
+            return
+        fz["log"].append(("-", filter_, fid))
+        if filter_ in fz["add_fids"]:
+            fz["adds"].delete(filter_)
+            del fz["add_fids"][filter_]
+        else:
+            fz["dels"].add(filter_)
+            # the frozen trie still holds the filter: the flatten
+            # reads its id from here once _filter_ids dropped it
+            fz["del_fids"].setdefault(filter_, fid)
+
+    def _unfreeze_locked(self) -> None:
+        """Replay the deferred trie mutations in order and lift the
+        freeze (under the lock, after the flatten is done with the
+        trie)."""
+        fz = self._freeze
+        if fz is None:
+            return
+        self._freeze = None
+        self._rebuild_inflight = False
+        for op, f, fid in fz["log"]:
+            if op == "+":
+                self._t_insert(f)
+            else:
+                self._trie.delete(f)
+
+    def _host_match_locked(self, topic: str) -> List[str]:
+        """The trie's exact match plus the freeze-window compensation:
+        while an off-lock flatten holds the trie frozen, deferred adds
+        come from the freeze side-trie and deferred deletes are
+        subtracted. Exact at every instant."""
+        out = self._trie.match(topic)
+        fz = self._freeze
+        if fz is not None:
+            if fz["dels"]:
+                out = [f for f in out if f not in fz["dels"]]
+            if fz["add_fids"]:
+                seen = set(out)
+                out = out + [f for f in fz["adds"].match(topic)
+                             if f not in seen]
+        return out
 
     # -- route table mutation (emqx_router:do_add_route/delete_route) ----
 
@@ -107,6 +362,22 @@ class Router:
                 self._id_to_filter.append(filter_)
             self._filter_ids[filter_] = fid
         return fid
+
+    def _bump_cache_rev(self, filter_: Optional[str] = None) -> None:
+        """Invalidate cached match rows a mutation can affect (under
+        the lock): ``None``, a filter whose scope can't be narrowed,
+        or ``cache_partitions = 1`` bumps the global revision; a
+        literal-rooted filter bumps only its partition(s)."""
+        if filter_ is not None and self.config.cache_partitions > 1:
+            parts = filter_partitions(filter_,
+                                      self.config.cache_partitions)
+            if parts is not None:
+                for p in parts:
+                    self._part_revs[p] += 1
+                self._bump_partition += 1
+                return
+        self._cache_rev += 1
+        self._bump_global += 1
 
     def add_route(self, filter_: str, dest: object = None) -> int:
         """Add a route; returns the filter's dense id. ``dest`` is this
@@ -123,13 +394,99 @@ class Router:
             if dests is None:
                 dests = {}
                 self._routes[filter_] = dests
-                self._trie.insert(filter_)
-                for w in T.words(filter_):
-                    if w not in (T.PLUS, T.HASH):
-                        self._table.intern(w)
-                self._dirty = True
+                self._t_insert_route(filter_, fid)
+                if self.config.delta and self._auto is not None \
+                        and not self._dirty:
+                    # the main tables stay unchanged: the add lands in
+                    # the side automaton walked beside them
+                    self._delta_add_locked(filter_, fid)
+                else:
+                    self._patch_insert(filter_, fid)
+                # bump AFTER the insert interned its words: a batch
+                # encoded concurrently then reads the OLD revision and
+                # looks stale — never the reverse
+                self._mut_rev += 1
+                self._bump_cache_rev(filter_)
             dests[dest] = dests.get(dest, 0) + 1
             return fid
+
+    def _delta_add_locked(self, filter_: str, fid: int) -> None:
+        d = self._ensure_delta()
+        with self._wt_lock:  # side-patcher insert interns new words
+            d.add(filter_, fid)
+        self._map_set(fid, filter_)
+        self._delta_ver += 1
+        self._delta_filters += 1
+        if d.n_pending >= self.config.delta_max_filters:
+            self._maybe_compact_locked()
+
+    def _delta_delete_locked(self, filter_: str, fid: int) -> None:
+        d = self._ensure_delta()
+        with self._wt_lock:  # retracting a pending add walks words
+            d.delete(filter_, fid)
+        self._map_set(fid, None)
+        self._delta_ver += 1
+        if d.needs_compaction(self.config.delta_max_filters,
+                              len(self._filter_ids)):
+            self._maybe_compact_locked()
+
+    def _maybe_compact_locked(self) -> None:
+        if not self._compacting and not self._dirty \
+                and self._needs_compaction_locked():
+            self._schedule_compaction()
+
+    def _patch_insert(self, filter_: str, fid: int) -> None:
+        """O(depth) patch of the live automaton; falls back to a full
+        rebuild flag on capacity overflow (under the lock)."""
+        # a '+' edge revokes the k=1 fast path BEFORE the patch can
+        # reach any matcher
+        if not self._walk_meta["has_plus"] and T.PLUS in T.words(filter_):
+            self._walk_meta["has_plus"] = True
+        p = None if self._dirty else self._patcher
+        if p is None:
+            self._dirty = True
+            return
+        try:
+            with self._wt_lock:  # patcher.insert interns new words
+                p.insert(filter_, fid)
+            self._map_set(fid, filter_)
+            self._patches += 1
+            self._drain_if_backlogged()
+        except PatchOverflow as e:
+            # the patcher may hold a dangling partial insert (broken
+            # flag set); _dirty forces a re-flatten before any apply
+            self._grow[e.kind] = 2
+            self._dirty = True
+
+    def _patch_delete(self, filter_: str, fid: int) -> None:
+        p = None if self._dirty else self._patcher
+        if p is None:
+            self._dirty = True
+            return
+        with self._wt_lock:  # delete's word walk may intern
+            p.delete(filter_)
+        self._map_set(fid, None)
+        self._patches += 1
+        self._drain_if_backlogged()
+        if p.needs_compaction(len(self._filter_ids)):
+            # tombstones dominate; the tombstoned automaton is still
+            # correct, so compaction runs on a background thread
+            self._schedule_compaction()
+
+    def _drain_if_backlogged(self) -> None:
+        """Apply queued device patches once the backlog reaches the
+        drain batch — on the MUTATOR's thread, under the lock it
+        already holds, so the published snapshot stays hot for
+        lock-free matchers."""
+        if self._dirty or self._auto is None or self._patcher is None:
+            return
+        if self._patcher.queued >= self.config.patch_drain_batch:
+            self._apply_patches_locked()
+
+    def _map_set(self, fid: int, filter_: Optional[str]) -> None:
+        while fid >= len(self._auto_map):
+            self._auto_map.append(None)
+        self._auto_map[fid] = filter_
 
     def delete_route(self, filter_: str, dest: object = None) -> None:
         dest = self.node if dest is None else dest
@@ -141,15 +498,36 @@ class Router:
             if dests[dest] <= 0:
                 del dests[dest]
             if not dests:
+                # no revision bump: the word table is append-only, so
+                # removing a filter never invalidates an encoding
                 del self._routes[filter_]
-                self._trie.delete(filter_)
-                fid = self._filter_ids.pop(filter_)
-                self._id_to_filter[fid] = None
-                if self._auto is None:
-                    self._free_ids.append(fid)
-                else:
-                    self._pending_free.append(fid)
-                self._dirty = True
+                self._drop_filter_locked(filter_)
+
+    def _drop_filter_locked(self, filter_: str) -> None:
+        """The last route for ``filter_`` went away: tombstone it out
+        of the matcher (delta tombstone mask or patch in place) and
+        retire its id (under the lock, AFTER removing it from
+        ``_routes``)."""
+        self._t_delete_route(filter_, self._filter_ids[filter_])
+        fid = self._filter_ids.pop(filter_)
+        self._id_to_filter[fid] = None
+        self._retire_id(fid)
+        if self.config.delta and self._auto is not None \
+                and not self._dirty:
+            self._delta_delete_locked(filter_, fid)
+        else:
+            self._patch_delete(filter_, fid)
+        # cached rows may hold this fid — only rows of topics the
+        # filter matched, all inside its partition
+        self._bump_cache_rev(filter_)
+
+    def _retire_id(self, fid: int) -> None:
+        """Freed filter id → quarantine until the next flatten, or
+        immediate recycle when no automaton was ever built."""
+        if self._auto is None:
+            self._free_ids.append(fid)
+        else:
+            self._pending_free.append(fid)
 
     def has_route(self, filter_: str) -> bool:
         return filter_ in self._routes
@@ -161,52 +539,353 @@ class Router:
     def filter_id(self, filter_: str) -> Optional[int]:
         return self._filter_ids.get(filter_)
 
+    def stats(self) -> Dict[str, int]:
+        return {
+            "routes.count": sum(len(d) for d in self._routes.values()),
+            "topics.count": len(self._routes),
+            "rebuilds": self._rebuilds,
+            "patches": self._patches,
+        }
+
     # -- automaton lifecycle ---------------------------------------------
 
     def rebuild(self):
-        """Flatten the trie into a fresh automaton on the device."""
+        """Flatten the trie into a fresh automaton on the device (the
+        previous one stays live for concurrent matchers until the
+        swap). While an off-lock compaction flatten is in flight the
+        trie is frozen — that compaction IS the rebuild, so return the
+        live automaton instead of racing it."""
         with self._lock:
-            host_auto = build_automaton(
-                self._trie, self._filter_ids, self._table,
-                v2_state_capacity=self._caps[0], v2_n_buckets=self._caps[1])
-            self._walk_meta = {
-                "slots": int(host_auto.wt_slots),
-                "take": int(host_auto.wt_take),
-                "hops": np.array(host_auto.hops_for_level),
-                "has_plus": bool(
-                    (host_auto.node2[:max(host_auto.v2_states, 1), 0] >= 0)
-                    .any()),
-            }
-            self._caps = (host_auto.node2.shape[0], host_auto.wt.shape[0])
-            self._auto = convert.automaton(host_auto, self.device)
-            self._auto_map = list(self._id_to_filter)  # a NEW object
-            self._free_ids.extend(self._pending_free)
-            self._pending_free.clear()
-            self._dirty = False
-            self._rebuilds += 1
-            return self._auto
+            if self._freeze is not None:
+                return self._auto
+            return self._rebuild_locked()
 
-    def automaton(self) -> tuple:
-        """(automaton, id→filter snapshot, epoch); re-flattens first
-        when a route change left the automaton dirty. The epoch (the
-        rebuild counter) keys the fan-out tables to this id space."""
-        with self._lock:
-            if self._dirty or self._auto is None:
-                self.rebuild()
-            return self._auto, self._auto_map, self._rebuilds
+    def _flatten_caps(self):
+        """Capacity floors of the next flatten: the live tables' rows
+        and buckets times the growth a PatchOverflow requested, so
+        shapes stay stable across rebuilds."""
+        prev = self._auto
+        if prev is None:
+            return None, None
+        return (prev.node2.shape[0] * self._grow["state"],
+                prev.wt.shape[0] * self._grow["edge"])
+
+    def _rebuild_locked(self):
+        cap_s2, nb = self._flatten_caps()
+        host_auto = build_automaton(
+            self._trie, self._filter_ids, self._table,
+            v2_state_capacity=cap_s2, v2_n_buckets=nb)
+        self._install_walk_meta(host_auto)
+        auto = convert.automaton(host_auto, self.device)
+        if self.config.delta:
+            # delta mode keeps no main-table mirror; the trie had
+            # every mutation applied, so this flatten folds the delta
+            self._patcher = None
+            self._delta = None
+            self._delta_ver += 1
+        else:
+            self._patcher = AutoPatcher(host_auto, self._table.intern)
+        self._auto = auto
+        self._auto_map = list(self._id_to_filter)  # NEW object: old
+        # snapshots freeze, so quarantined ids may recycle now
+        self._free_ids.extend(self._pending_free)
+        self._pending_free.clear()
+        self._dirty = False
+        self._grow = {"state": 1, "edge": 1}
+        self._rebuilds += 1
+        self._bump_cache_rev()  # fresh id map: quarantined ids recycle
+        self._published = (auto, self._auto_map, self._rebuilds,
+                           self._cache_rev)
+        self._publish_pair_locked()
+        return auto
+
+    def _install_walk_meta(self, host_auto) -> None:
+        """Record the live tables' static walk parameters and their
+        level-compression facts (under the lock)."""
+        self._walk_meta = {
+            "slots": int(host_auto.wt_slots),
+            "take": int(host_auto.wt_take),
+            "hops": np.array(host_auto.hops_for_level),
+            "has_plus": bool(
+                (np.asarray(host_auto.node2)[
+                    :max(host_auto.v2_states, 1), 0] >= 0).any()),
+        }
+        chains = fused = 0
+        if int(host_auto.wt_take) > 1:
+            wt = np.asarray(host_auto.wt).reshape(-1, WIDE_SLOT)
+            takes = wt[wt[:, 0] >= 0, 2]
+            chains = int((takes > 1).sum())
+            fused = int((takes - 1).sum())
+        hops = self._walk_meta["hops"]
+        levels = len(hops)
+        deepest = int(hops[-1]) if levels else 0
+        self._compaction = {
+            "mode": "wide" if int(host_auto.wt_take) > 1 else "narrow",
+            "chains": chains,
+            "fused_edges": fused,
+            "ratio": (1000 * (levels - deepest)) // levels
+            if levels else 0,
+        }
 
     def _steps_for(self, lb: int) -> int:
-        hl = self._walk_meta["hops"]
+        """Scan-step bound for a batch sliced to ``lb`` levels — read
+        from the live patcher (it grows the bound when a patch deepens
+        a walk path) or the rebuild-time snapshot."""
+        p = self._patcher
+        hl = (p.hops_for_level if p is not None
+              else self._walk_meta["hops"])
         if hl is None:
             return lb + 1
         return int(hl[min(lb, len(hl) - 1)])
+
+    def _walk_kw(self, lb: int) -> dict:
+        """Static kernel kwargs for the live tables at batch depth
+        ``lb``."""
+        m = self._walk_meta
+        return {"steps": self._steps_for(lb), "slots": m["slots"],
+                "take": m["take"]}
+
+    def _patchers_dirty(self) -> bool:
+        """Does the live patcher hold queued device updates?"""
+        return self._patcher is not None and self._patcher.dirty
+
+    def _needs_compaction_locked(self) -> bool:
+        if self.config.delta and self._delta is not None \
+                and self._auto is not None:
+            return self._delta.needs_compaction(
+                self.config.delta_max_filters, len(self._filter_ids))
+        if self._patcher is not None:
+            return self._patcher.needs_compaction(len(self._filter_ids))
+        return False
+
+    def _apply_patches_locked(self) -> None:
+        """Drain the patcher's queue into a fresh device automaton and
+        publish it (under the lock)."""
+        self._auto = self._patcher.apply_updates(self._auto)
+        self._published = (self._auto, self._auto_map,
+                           self._rebuilds, self._cache_rev)
+
+    def _schedule_compaction(self) -> None:
+        if self._compacting:
+            return
+        if self._compact_failures \
+                and time.monotonic() < self._compact_backoff_until:
+            # a recent compaction crashed: hold the retry until the
+            # backoff elapses (correctness never depends on the
+            # flatten, only memory and latency headroom do)
+            return
+        self._compacting = True
+        offlock = self.config.delta
+
+        def _bg():
+            try:
+                if offlock:
+                    # delta mode: flatten OFF-lock with the freeze
+                    # protocol — route ops and matchers never wait on
+                    # the multi-second build
+                    self._compact_offlock()
+                else:
+                    with self._lock:
+                        # a sync rebuild may have beaten us to it
+                        if not self._dirty \
+                                and self._needs_compaction_locked():
+                            # drain queued patches FIRST, so matchers
+                            # arriving during the flatten stay on the
+                            # lock-free fast path
+                            if self._patchers_dirty():
+                                self._apply_patches_locked()
+                            self._rebuild_locked()
+                self._compact_failures = 0
+                cb = self.on_bg_error
+                if cb is not None:
+                    cb(None)
+            except Exception as e:
+                # the compaction thread must not die silently: the
+                # crash arms a backoff-retry and reaches on_bg_error
+                # (the freeze path already unfroze on its own)
+                log.exception("background compaction crashed")
+                self._compact_failures += 1
+                self._compact_backoff_until = time.monotonic() + min(
+                    2.0 ** self._compact_failures, 60.0)
+                cb = self.on_bg_error
+                if cb is not None:
+                    cb(e)
+            finally:
+                self._compacting = False
+
+        threading.Thread(target=_bg, daemon=True,
+                         name="router-compaction").start()
+
+    def retry_compaction(self) -> None:
+        """Re-attempt a crashed background compaction once its backoff
+        elapsed (the node's housekeeping tick calls it) — without
+        this, a traffic lull after the crash would leave the rebuild
+        pending until the next route op."""
+        if not self._compact_failures or self._compacting \
+                or time.monotonic() < self._compact_backoff_until:
+            return
+        with self._lock:
+            need = self._auto is not None \
+                and self._needs_compaction_locked()
+        if need:
+            self._schedule_compaction()
+
+    def _flatten_main(self, cap_s2, nb):
+        """Flatten the trie into a fresh host automaton — the ONLY
+        long step of a compaction, and (under the freeze protocol) the
+        only one that runs off-lock. Split out so tests can interpose
+        a slow build.
+
+        Under the freeze the trie is the freeze-time filter set, but
+        ``_filter_ids`` is live: a filter deleted mid-flatten is gone
+        from it. Its id comes from the freeze's ``del_fids`` instead
+        (the JAX package's Python-engine flatten raises ``KeyError``
+        there and its compaction fails; its native engine keeps the
+        ids in the trie)."""
+        fz = self._freeze
+        ids = self._filter_ids if fz is None \
+            else _FrozenIds(self._filter_ids, fz["del_fids"])
+        return build_automaton(
+            self._trie, ids, self._table,
+            v2_state_capacity=cap_s2, v2_n_buckets=nb)
+
+    def _compact_offlock(self) -> None:
+        """Delta-mode background compaction: freeze the trie + mark
+        the delta log under a SHORT lock, flatten OFF-lock (concurrent
+        route ops defer into the freeze log and the next delta
+        generation, concurrent matchers keep the published pair),
+        then swap + replay under another short lock.
+        ``automaton.rebuild.stall_ms`` counts the lock holds."""
+        with self._lock:
+            t0 = time.perf_counter()
+            if self._dirty or self._auto is None \
+                    or not self.config.delta \
+                    or not self._needs_compaction_locked():
+                return
+            self._freeze = {"log": [], "adds": TrieOracle(),
+                            "add_fids": {}, "dels": set(),
+                            "del_fids": {}}
+            self._rebuild_inflight = True
+            mark = self._delta.mark() if self._delta is not None else 0
+            n_pend = len(self._pending_free)
+            cap_s2, nb = self._flatten_caps()
+            stall = time.perf_counter() - t0
+        try:
+            host_auto = self._flatten_main(cap_s2, nb)
+            # the upload runs on this thread, on the default stream
+            auto = convert.automaton(host_auto, self.device)
+        except BaseException:
+            with self._lock:
+                self._unfreeze_locked()
+            raise
+        with self._lock:
+            t1 = time.perf_counter()
+            self._install_walk_meta(host_auto)
+            self._auto = auto
+            self._patcher = None  # delta mode: no main-table mirror
+            self._auto_map = list(self._id_to_filter)
+            # recycle ONLY ids quarantined before the freeze: an id
+            # freed DURING the flatten may still be emitted by the new
+            # tables (its path was in the snapshot) — it waits a
+            # generation
+            self._free_ids.extend(self._pending_free[:n_pend])
+            del self._pending_free[:n_pend]
+            self._dirty = False
+            self._grow = {"state": 1, "edge": 1}
+            self._rebuilds += 1
+            self._bump_cache_rev()
+            self._published = (auto, self._auto_map, self._rebuilds,
+                               self._cache_rev)
+            # fold: log entries before the mark are in the new tables;
+            # the rest replay into a fresh delta generation
+            if self._delta is not None:
+                self._delta = self._delta.split_after(mark)
+            self._delta_ver += 1
+            self._delta_merges += 1
+            self._unfreeze_locked()
+            self._publish_pair_locked()
+            stall += time.perf_counter() - t1
+        self._rebuild_stall_ms += stall * 1000.0
+
+    def automaton(self) -> tuple:
+        """``(automaton, id→filter snapshot, epoch)`` — a consistent
+        triple. The epoch (rebuild counter) keys the fan-out tables to
+        this snapshot's id space. The fast path is one lock-free
+        reference read; the lock is taken only to flatten (first
+        build, or a capacity overflow) or to drain queued patches."""
+        return self.snapshot_cached()[:3]
+
+    def snapshot_cached(self) -> tuple:
+        """:meth:`automaton` plus the snapshot's cache revision,
+        stamped at publish time under the lock."""
+        pub = self._published
+        if pub is not None and not self._dirty \
+                and not self._patchers_dirty():
+            return pub
+        with self._lock:
+            return self._sync_locked()
+
+    def _sync_locked(self) -> tuple:
+        """Bring the published snapshot current (under the lock). The
+        dirty check comes FIRST: a broken patcher's partial queue is
+        discarded by the rebuild before it could ever be applied. A
+        frozen trie defers the rebuild to that compaction's swap."""
+        if self._dirty or self._auto is None:
+            if self._freeze is None:
+                self._rebuild_locked()
+        elif self._patchers_dirty():
+            self._apply_patches_locked()
+        return self._published
+
+    # -- published (main, delta) pair -------------------------------------
+
+    def _publish_pair_locked(self) -> None:
+        """Re-publish the (main snapshot, delta snapshot, version,
+        k_boost) tuple matchers read in one reference (under the lock,
+        after a main swap or, lazily from the match path, after delta
+        mutations)."""
+        if not self.config.delta:
+            self._pub2 = None
+            return
+        main = self._published
+        if main is not None and main[3] != self._cache_rev:
+            # re-stamp the main snapshot's cache revision: in delta
+            # mode a mutation never dirties the main tables, so the
+            # snapshot would otherwise keep its flatten-time revision
+            # and globally bumped cache entries would probe as fresh
+            main = (main[0], main[1], main[2], self._cache_rev)
+            self._published = main
+        d = self._delta
+        snap = None
+        if d is not None and (d.n_pending or d.tombs):
+            k_cap = max(self.config.active_k, self._k_boost)
+            with self._wt_lock:  # a deferred-build flatten may intern
+                snap = d.snapshot(len(self._id_to_filter), k_cap)
+        self._pub2 = (main, snap, self._delta_ver, self._k_boost)
+
+    def _snapshot_pair(self):
+        """Consistent ``((auto, id_map, epoch, rev), delta_snap)`` for
+        the two-probe match path: one reference read, or the lock to
+        refresh a stale delta snapshot (milliseconds) or build the
+        first automaton."""
+        pair = self._pub2
+        if pair is not None and not self._dirty \
+                and pair[0] is self._published \
+                and pair[2] == self._delta_ver \
+                and pair[3] == self._k_boost:
+            return pair[0], pair[1]
+        with self._lock:
+            self._sync_locked()
+            self._publish_pair_locked()
+            pair = self._pub2
+            return pair[0], pair[1]
 
     # -- matching (emqx_router:match_routes/1) ----------------------------
 
     def host_match(self, topic: str) -> List[str]:
         """Host-side exact match (the overflow re-match path)."""
         with self._lock:
-            return self._trie.match(topic)
+            return self._host_match_locked(topic)
 
     def use_device_now(self) -> bool:
         """Device matching pays a fixed round trip, so it runs only
@@ -219,61 +898,180 @@ class Router:
 
     def match_filters_host(self, topics: Sequence[str]) -> List[List[str]]:
         """Host-only batch match."""
-        with self._lock:
-            return [self._trie.match(t) for t in topics]
-
-    def walk_inputs(self, topics: Sequence[str]):
-        """The walk's inputs for a topic batch: pad to a power-of-two
-        bucket with ``"\x00/pad"``, encode, slice to the batch's depth
-        and place on the device. Returns ``((word_ids, n_words,
-        sys_mask), walk kwargs)`` for the live tables (call after
-        :meth:`automaton`)."""
-        cfg = self.config
-        bucket = cfg.min_batch
-        while bucket < len(topics):
-            bucket *= 2
-        padded = list(topics) + ["\x00/pad"] * (bucket - len(topics))
-        ids, n, sysm = encode_batch(self._table, padded, cfg.max_levels)
-        ids, n = depth_bucket(ids, n)
-        args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in (ids, n, sysm))
-        m = self._walk_meta
-        kw = {"k": self.effective_k(), "m": cfg.max_matches,
-              "pack_ids": False, "steps": self._steps_for(ids.shape[1]),
-              "slots": m["slots"], "take": m["take"]}
-        return args, kw
-
-    def match_dispatch(self, topics: Sequence[str]):
-        """Device match of a topic batch, with no device→host sync:
-        the walk (:func:`~emqx_tpu_torch.ops.walk_cuda.match_batch_auto`
-        — kernel B1 on CUDA) over :meth:`walk_inputs` with
-        ``pack_ids=False``. Returns ``(ids, ovf, id_map, epoch)``: raw
-        emit slots ``[B_pad, steps*2k]`` and overflow flags ``[B_pad]``
-        on the device, plus the snapshot that gives the ids meaning."""
-        auto, id_map, epoch = self.automaton()
-        args, kw = self.walk_inputs(topics)
-        res = match_batch_auto(auto, *args, **kw)
-        return res.ids, res.overflow, id_map, epoch
-
-    def match_filters(self, topics: Sequence[str]) -> List[List[str]]:
-        """Batch: matched filter list per topic (device + exact host
-        re-match of overflowed rows)."""
         if not topics:
             return []
-        if not self.use_device_now():
-            return self.match_filters_host(topics)
-        B = len(topics)
-        ids_d, ovf_d, id_map, _ = self.match_dispatch(topics)
-        ids = ids_d[:B].cpu().numpy()
-        ovf = ovf_d[:B].cpu().numpy()
-        out: List[List[str]] = []
-        for i in range(B):
-            if ovf[i]:
-                out.append(self.host_match(topics[i]))
-            else:
-                row = [id_map[j] for j in ids[i] if j >= 0]
-                out.append([f for f in row if f is not None])
+        with self._lock:
+            return [self._host_match_locked(t) for t in topics]
+
+    def _bucket(self, n: int) -> int:
+        bucket = self.config.min_batch
+        while bucket < n:
+            bucket *= 2
+        return bucket
+
+    def _encode_padded(self, topics: Sequence[str]):
+        """Pad to a power-of-two bucket with ``"\\x00/pad"``, encode
+        (under the word-table lock) and slice to the batch's depth:
+        host arrays ``(ids, n, sysm)``."""
+        padded = list(topics) + \
+            ["\x00/pad"] * (self._bucket(len(topics)) - len(topics))
+        with self._wt_lock:
+            ids, n, sysm = encode_batch(self._table, padded,
+                                        self.config.max_levels)
+        ids, n = depth_bucket(ids, n)
+        return ids, n, sysm
+
+    def _place(self, ids, n, sysm):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in (ids, n, sysm))
+
+    def walk_inputs(self, topics: Sequence[str]):
+        """The main walk's inputs for a topic batch, as the uncached
+        dispatch builds them: ``((word_ids, n_words, sys_mask) on the
+        device, walk kwargs)`` for the live tables (call after
+        :meth:`automaton`)."""
+        ids, n, sysm = self._encode_padded(topics)
+        kw = {"k": self.effective_k(), "m": self.config.max_matches,
+              "pack_ids": False, **self._walk_kw(ids.shape[1])}
+        return self._place(ids, n, sysm), kw
+
+    def match_dispatch(self, topics: Sequence[str]):
+        """Device match of a topic batch, with no device→host sync.
+
+        Returns ``(ids, ovf, id_map, epoch)``: id rows ``[B_pad, W]``
+        and overflow flags ``[B_pad]`` on the device, plus the
+        snapshot that gives the ids meaning. With the match cache the
+        rows are packed (``W = max_matches``); without it they are the
+        walk's raw emit slots (``W = steps·2k``), with the delta
+        walk's raw emits concatenated after them when a delta is
+        pending. The walks are
+        :func:`~emqx_tpu_torch.ops.walk_cuda.match_batch_auto` —
+        kernel B1 on CUDA."""
+        cfg = self.config
+        cache = self._match_cache()
+        if cache is not None:
+            return self._match_dispatch_cached(topics, cache)
+        dsnap = None
+        if self.config.delta:
+            main, dsnap = self._snapshot_pair()
+            auto, id_map, epoch = main[:3]
+        else:
+            auto, id_map, epoch = self.automaton()
+        ids, n, sysm = self._encode_padded(topics)
+        args = self._place(ids, n, sysm)
+        res = match_batch_auto(auto, *args, k=self.effective_k(),
+                               m=cfg.max_matches, pack_ids=False,
+                               **self._walk_kw(ids.shape[1]))
+        out_ids, out_ovf = res.ids, res.overflow
+        if dsnap is not None:
+            # two-probe: union the side automaton's raw emits and
+            # tombstone-mask deleted fids
+            from emqx_tpu_torch.ops.delta import probe_raw
+
+            self._delta_probes += 1
+            out_ids, out_ovf = probe_raw(dsnap, *args, out_ids, out_ovf,
+                                         m=cfg.max_matches)
+        return out_ids, out_ovf, id_map, epoch
+
+    # -- publish match cache (ops/match_cache.py) -------------------------
+
+    def _match_cache(self):
+        """The publish match cache, built lazily (None = disabled)."""
+        cfg = self.config
+        if not cfg.match_cache or cfg.match_cache_slots <= 0:
+            return None
+        if self._match_cache_obj is None:
+            from emqx_tpu_torch.ops.match_cache import MatchCache
+
+            self._match_cache_obj = MatchCache(
+                cfg.match_cache_slots, cfg.max_matches, self.device)
+        return self._match_cache_obj
+
+    def _match_dispatch_cached(self, topics: Sequence[str], cache):
+        """Cache-split device match: probe the epoch-guarded cache,
+        walk ONLY the misses (``pack_ids=True``), insert their rows
+        and merge one ``[B_pad, max_matches]`` id array. Same contract
+        as the uncached dispatch: all device values, no sync.
+
+        Ordering: ``k_boost`` and the partition revisions are read
+        BEFORE the automaton snapshot, so a racing mutation can only
+        make fresh results look stale (re-walked, safe) — never stale
+        results look fresh."""
+        cfg = self.config
+        k_boost = self._k_boost
+        part_snap = (tuple(self._part_revs)
+                     if cfg.cache_partitions > 1 else None)
+        dsnap = None
+        if self.config.delta:
+            main, dsnap = self._snapshot_pair()
+            auto, id_map, epoch, rev = main
+        else:
+            auto, id_map, epoch, rev = self.snapshot_cached()
+        key = (epoch, rev, k_boost)
+        keys = None
+        if part_snap is not None:
+            mask = cfg.cache_partitions - 1
+            keys = [key + (part_snap[zlib.crc32(
+                t.partition("/")[0].encode()) & mask],)
+                for t in topics]
+        bucket = self._bucket(len(topics))
+        probe = cache.probe(topics, key, keys)
+        miss_rows = miss_ovf = None
+        if probe.miss_topics:
+            ids, n, sysm = self._encode_padded(probe.miss_topics)
+            args = self._place(ids, n, sysm)
+            res = match_batch_auto(auto, *args, k=self.effective_k(),
+                                   m=cfg.max_matches, pack_ids=True,
+                                   **self._walk_kw(ids.shape[1]))
+            miss_rows, miss_ovf = res.ids, res.overflow
+            if dsnap is not None:
+                # two-probe: fold the side automaton and tombstone
+                # mask into the rows the cache stores — a later delta
+                # mutation bumps the revision, so they never serve
+                # stale
+                from emqx_tpu_torch.ops.delta import probe_packed
+
+                self._delta_probes += 1
+                miss_rows, miss_ovf = probe_packed(
+                    dsnap, *args, miss_rows, miss_ovf, m=cfg.max_matches)
+            cache.insert(probe, miss_rows, miss_ovf)
+        ids_dev, ovf_dev = cache.merge(bucket, probe, miss_rows, miss_ovf)
+        return ids_dev, ovf_dev, id_map, epoch
+
+    def drain_cache_stats(self) -> Dict[str, int]:
+        """Match-cache counter deltas since the last drain (hit, miss,
+        insert, stale) plus the epoch-bump split (``bump.global`` /
+        ``bump.partition``) — folded into Metrics under the
+        ``cache.match.`` prefix."""
+        out: Dict[str, int] = {}
+        c = self._match_cache_obj
+        if c is not None:
+            out.update(c.drain_stats())
+        cfg = self.config
+        if cfg.match_cache and cfg.match_cache_slots > 0:
+            g, p = self._bump_global, self._bump_partition
+            out["bump.global"] = g - self._bump_drained[0]
+            out["bump.partition"] = p - self._bump_drained[1]
+            self._bump_drained = (g, p)
         return out
+
+    def cache_bump_totals(self) -> Dict[str, int]:
+        """Cumulative epoch-bump split (not deltas)."""
+        return {"global": self._bump_global,
+                "partition": self._bump_partition}
+
+    def cache_entries(self) -> int:
+        """Live entries in the publish match cache (gauge)."""
+        c = self._match_cache_obj
+        return c.entries() if c is not None else 0
+
+    def cache_partitions_live(self) -> int:
+        """Partition epoch keys in effect: 0 = cache disabled, 1 =
+        whole-epoch, else ``cache_partitions``."""
+        cfg = self.config
+        if not cfg.match_cache or cfg.match_cache_slots <= 0:
+            return 0
+        return cfg.cache_partitions
 
     def effective_k(self) -> int:
         """Active-set capacity: configured + learned boost, or 1 when
@@ -293,8 +1091,97 @@ class Router:
             return True
 
     def note_match_fallbacks(self, n: int) -> None:
-        """The publish path re-matched ``n`` topics on the host. The
-        JAX package forwards this to its incremental patcher's
-        compaction trigger; this port re-flattens on every route
-        change, so its walk bounds are always exact and there is
-        nothing to schedule."""
+        """The publish path re-matched ``n`` topics on the host. In
+        the stale-hop regime (a patch split deepened walk paths past
+        the mirror's hop accounting) those fallbacks are the signal
+        the automaton needs a compacting rebuild: forward the count to
+        the live patcher and schedule compaction once it dominates."""
+        if n <= 0:
+            return
+        with self._lock:
+            p = self._patcher
+            if p is None:
+                return
+            p.note_hop_fallbacks(n)
+            if not self._dirty and not self._compacting \
+                    and self._needs_compaction_locked():
+                self._schedule_compaction()
+
+    def set_delta(self, enabled: bool) -> None:
+        """Flip delta mode at runtime: wait out any background
+        compaction, then one synchronous rebuild folds whatever the
+        outgoing mode had pending and re-publishes under the new
+        mode."""
+        while self._compacting:
+            time.sleep(0.005)
+        with self._lock:
+            self.config.delta = bool(enabled)
+            if self._auto is not None and self._freeze is None:
+                self._rebuild_locked()
+            else:
+                self._publish_pair_locked()
+
+    def drain_automaton_stats(self) -> Dict[str, int]:
+        """Delta/rebuild counter deltas since the last drain — folded
+        into Metrics under the ``automaton.`` prefix."""
+        comp = self._compaction
+        cur = (self._delta_probes, self._delta_filters,
+               self._delta_merges, int(self._rebuild_stall_ms),
+               comp["fused_edges"], comp["chains"])
+        prev = self._auto_drained
+        self._auto_drained = cur
+        return {
+            "delta.probes": cur[0] - prev[0],
+            "delta.filters": cur[1] - prev[1],
+            "delta.merges": cur[2] - prev[2],
+            "rebuild.stall_ms": cur[3] - prev[3],
+            # table-state gauges carried as deltas (a rebuild may
+            # shrink them)
+            "compaction.fused_edges": cur[4] - prev[4],
+            "compaction.chains": cur[5] - prev[5],
+        }
+
+    def delta_info(self) -> Dict[str, object]:
+        """Live delta-automaton state (cumulative counters)."""
+        d = self._delta
+        return {
+            "active": self.config.delta,
+            "pending": d.n_pending if d is not None else 0,
+            "tombstones": d.n_tombstones if d is not None else 0,
+            "probes": self._delta_probes,
+            "filters": self._delta_filters,
+            "merges": self._delta_merges,
+            "rebuild_stall_ms": round(self._rebuild_stall_ms, 3),
+            "rebuild_inflight": self._rebuild_inflight,
+        }
+
+    def match_ids(self, topics: Sequence[str]):
+        """Device match of a topic batch in snapshot-id space.
+
+        Returns ``(ids_dev, ids_np, ovf_np, id_map, epoch)``:
+        ``ids_dev`` is the device id array, ``ids_np``/``ovf_np`` host
+        copies sliced to ``len(topics)``, and ``(id_map, epoch)`` the
+        snapshot that gives the ids meaning. Rows with ``ovf_np`` set
+        exceeded a kernel bound — resolve them via :meth:`host_match`."""
+        B = len(topics)
+        ids_dev, ovf_dev, id_map, epoch = self.match_dispatch(topics)
+        ids_np = ids_dev[:B].cpu().numpy()
+        ovf_np = ovf_dev[:B].cpu().numpy()
+        return ids_dev, ids_np, ovf_np, id_map, epoch
+
+    def match_filters(self, topics: Sequence[str]) -> List[List[str]]:
+        """Batch: matched filter list per topic (device + exact host
+        re-match of overflowed rows)."""
+        if not topics:
+            return []
+        if not self.use_device_now():
+            return self.match_filters_host(topics)
+        _, mid, ovf, id_map, _ = self.match_ids(topics)
+        out: List[List[str]] = []
+        for i in range(len(topics)):
+            if ovf[i]:
+                out.append(self.host_match(topics[i]))
+            else:
+                row = [id_map[j] for j in mid[i] if j >= 0]
+                out.append([f for f in row if f is not None])
+        return out

@@ -35,6 +35,9 @@ from test_walk_pallas import _rand_filters, _rand_topics
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KNOBS = dict(device_min_filters=1, fanout_threshold=4, active_k=2)
+#: the JAX package's plain path, which these tests hold the port to:
+#: no match cache, no delta automaton
+PLAIN = dict(match_cache=False, delta=False)
 
 
 @pytest.fixture(autouse=True)
@@ -72,8 +75,8 @@ class Sink:
 
 def _brokers():
     ref = JaxBroker(config=JaxMatcherConfig(
-        match_cache=False, delta=False, use_native=False, **KNOBS))
-    port = Broker(config=MatcherConfig(**KNOBS), device="cpu")
+        use_native=False, **PLAIN, **KNOBS))
+    port = Broker(config=MatcherConfig(**PLAIN, **KNOBS), device="cpu")
     return ref, port
 
 
@@ -189,7 +192,7 @@ def test_port_never_imports_jax_or_the_jax_package():
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
         mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
                     else rel)
-    # the front door's modules are among those imported
+    # the front door's and the router's modules are among those imported
     assert {"emqx_tpu_torch.mqtt", "emqx_tpu_torch.mqtt.constants",
             "emqx_tpu_torch.mqtt.reason_codes", "emqx_tpu_torch.mqtt.props",
             "emqx_tpu_torch.mqtt.packet", "emqx_tpu_torch.mqtt.frame",
@@ -200,7 +203,9 @@ def test_port_never_imports_jax_or_the_jax_package():
             "emqx_tpu_torch.keepalive", "emqx_tpu_torch.limiter",
             "emqx_tpu_torch.mountpoint", "emqx_tpu_torch.mqtt_caps",
             "emqx_tpu_torch.acl_cache", "emqx_tpu_torch.access_control",
-            "emqx_tpu_torch.node", "chip_smoke"} <= set(mods)
+            "emqx_tpu_torch.node", "emqx_tpu_torch.ops.patch",
+            "emqx_tpu_torch.ops.delta", "emqx_tpu_torch.ops.match_cache",
+            "chip_smoke"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'emqx_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -217,7 +222,7 @@ def test_port_never_imports_jax_or_the_jax_package():
 def test_both_delivery_tails_agree(planner):
     from emqx_tpu_torch.broker import DispatchConfig
 
-    port = Broker(config=MatcherConfig(**KNOBS), device="cpu",
+    port = Broker(config=MatcherConfig(**PLAIN, **KNOBS), device="cpu",
                   dispatch_config=DispatchConfig(planner=planner))
     sinks = [Sink(f"c{i}") for i in range(8)]
     _subscribe_all(port, sinks, 5)
@@ -242,9 +247,10 @@ def test_router_match_filters_matches_jax_router_and_oracle():
     across route churn that re-flattens the port's tables while the
     JAX router patches its own."""
     rng = random.Random(808)
-    ref = JaxRouter(JaxMatcherConfig(match_cache=False, delta=False,
-                                     use_native=False, device_min_filters=0))
-    port = Router(MatcherConfig(device_min_filters=0), device="cpu")
+    ref = JaxRouter(JaxMatcherConfig(use_native=False,
+                                     device_min_filters=0, **PLAIN))
+    port = Router(MatcherConfig(device_min_filters=0, **PLAIN),
+                  device="cpu")
     oracle = TrieOracle()
     live = _rand_filters(rng, 120)
     for f in live:

@@ -40,6 +40,9 @@ from emqx_tpu_torch.router import MatcherConfig
 from emqx_tpu_torch.types import Message
 
 KNOBS = dict(device_min_filters=1, fanout_threshold=4, active_k=2)
+#: the JAX package's plain path, which these tests hold the port to:
+#: no match cache, no delta automaton
+PLAIN = dict(match_cache=False, delta=False)
 LIMIT = 60.0
 WORDS = ["a", "b", "c", "d"]
 
@@ -79,7 +82,7 @@ def _workload(seed, n_msgs):
 
 def _jax_deliveries(subs, topics):
     broker = JaxBroker(config=JaxMatcherConfig(
-        match_cache=False, delta=False, use_native=False, **KNOBS))
+        use_native=False, **PLAIN, **KNOBS))
     sinks = [Sink(f"c{i}") for i in range(8)]
     for f, s in subs:
         broker.subscribe(sinks[s], f)
@@ -102,7 +105,7 @@ async def _burst(node, sinks, topics):
 
 
 def test_open_loop_burst_fills_the_pipeline_and_keeps_order():
-    node = Node(matcher=MatcherConfig(**KNOBS), batch_size=8, device="cpu")
+    node = Node(matcher=MatcherConfig(**PLAIN, **KNOBS), batch_size=8, device="cpu")
     ing = node.ingress
     # four batches of batch_size in flight, one capped batch behind
     # them, and a short last batch

@@ -451,3 +451,111 @@ def test_ingress_burst_on_card_delivers_like_the_cpu_broker(cuda_device):
         for t, f, p in got.inbox:
             assert int(p) >= last.get((t, f), -1), (got.client_id, t)
             last[(t, f)] = int(p)
+
+
+# -- the router's torch glue on the card: delta, match cache, patch ---------
+
+
+def _router_pair(cuda_device, **kw):
+    """A CPU router and a card router fed the same routes."""
+    from emqx_tpu_torch.router import Router
+
+    rs = np.random.RandomState(21)
+    filters = _filters(rs, 300)
+    topics = _topics(rs, 200)
+    routers = [Router(MatcherConfig(device_min_filters=1, **kw), device=d)
+               for d in ("cpu", cuda_device)]
+    for r in routers:
+        for f in filters[:250]:
+            r.add_route(f)
+        r.automaton()
+    return routers, filters, topics
+
+
+@pytest.mark.gpu
+def test_delta_walk_on_kernel_matches_plain_walk(cuda_device):
+    """The side automaton's walk (narrow, take 1, slots 2, k =
+    ``snap.k``) through kernel B1 equals the plain walk bit for bit,
+    raw and packed, with tombstones masked; a batch with pending delta
+    adds launches B1 twice (main tables, then the delta)."""
+    from emqx_tpu_torch.ops.delta import probe_packed, probe_raw
+
+    routers, filters, topics = _router_pair(cuda_device, match_cache=False)
+    for r in routers:
+        for f in filters[250:]:
+            r.add_route(f)          # pending adds: the side automaton
+        for f in filters[:250:9]:
+            r.delete_route(f)       # tombstones
+    outs = []
+    for r in routers:
+        main, snap = r._snapshot_pair()
+        assert snap.auto is not None and snap.mask is not None
+        args, kw = r.walk_inputs(topics)
+        res = (match_batch_cuda if args[0].is_cuda else match_batch)(
+            main[0], *args, **kw)
+        packed = (match_batch_cuda if args[0].is_cuda else match_batch)(
+            main[0], *args, **dict(kw, pack_ids=True))
+        _build.reset_launches()
+        raw = probe_raw(snap, *args, res.ids, res.overflow, m=kw["m"])
+        pk = probe_packed(snap, *args, packed.ids, packed.overflow,
+                          m=kw["m"])
+        outs.append((raw, pk, dict(_build.LAUNCHES)))
+        _build.reset_launches()
+        r.match_dispatch(topics)
+        outs[-1] += (dict(_build.LAUNCHES),)
+    (c_raw, c_pk, _, _), (g_raw, g_pk, g_launch, g_disp) = outs
+    for x, y in zip(c_raw + c_pk, g_raw + g_pk):
+        assert torch.equal(x, y.cpu())
+    assert g_launch["walk"] == 2      # one per probe call
+    assert g_disp["walk"] == 2        # main tables + the delta
+
+
+@pytest.mark.gpu
+def test_cache_tombstone_union_and_patch_ops_on_card_equal_cpu(cuda_device):
+    """The cache's insert and merge, the tombstone mask, the packed
+    union and one patch drain, on CUDA tensors, equal their CPU
+    results."""
+    from emqx_tpu_torch.ops.delta import mask_ids, union_packed
+    from emqx_tpu_torch.ops.match_cache import insert_rows, merge_rows
+
+    rs = np.random.RandomState(5)
+    table = torch.from_numpy(rs.randint(-1, 99, (64, 9)).astype(np.int32))
+    rows = torch.from_numpy(rs.randint(-1, 99, (16, 8)).astype(np.int32))
+    ovf = torch.from_numpy(rs.rand(16) < 0.2)
+    slots = [int(s) for s in rs.choice(64, 11, replace=False)] + [7, 7]
+    mask = torch.from_numpy(rs.rand(40) < 0.3)
+    ids = torch.from_numpy(rs.randint(-1, 60, (32, 20)).astype(np.int32))
+    b = torch.from_numpy(rs.randint(-1, 60, (32, 12)).astype(np.int32))
+    res = []
+    for d in ("cpu", cuda_device):
+        res.append([
+            insert_rows(table.to(d), slots, rows.to(d), ovf.to(d)),
+            *merge_rows(table.to(d), [3, 9, 1], [0, 5, 17], rows.to(d),
+                        ovf.to(d), [2, 4, 30, 31], 32),
+            mask_ids(ids.to(d), mask.to(d)),
+            *union_packed(ids.to(d), b.to(d), m=24),
+        ])
+    for x, y in zip(*res):
+        assert torch.equal(x, y.cpu())
+    # one patch drain: the same queue applied on each device
+    from emqx_tpu_torch.router import Router
+
+    routers = [Router(MatcherConfig(device_min_filters=1, delta=False,
+                                    match_cache=False,
+                                    patch_drain_batch=10**9), device=d)
+               for d in ("cpu", cuda_device)]
+    filters = _filters(np.random.RandomState(8), 260)
+    tables = []
+    for r in routers:
+        for f in filters[:200]:
+            r.add_route(f)
+        r.automaton()
+        for f in filters[200:]:
+            r.add_route(f)
+        for f in filters[:200:7]:
+            r.delete_route(f)
+        assert r._patcher.queued > 0
+        auto = r.automaton()[0]
+        tables.append((auto.wt, auto.node2))
+    for x, y in zip(*tables):
+        assert torch.equal(x, y.cpu())
