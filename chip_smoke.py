@@ -10,9 +10,12 @@ kernels against their plain PyTorch versions:
      limit (``nvidia-smi``);
   2. build: compiles ``emqx_tpu_torch/csrc/*.cu`` (one ``nvcc`` per
      source, in parallel) and prints the build seconds and the
-     compiler's register report;
+     compiler's register report; then the host library
+     (``csrc/host_native.cpp``, ``g++``: the router's trie, flatten
+     and encoder, and the frame scanner) and its seconds;
   3. B1 (the NFA walk) against the plain walk, byte for byte: the
-     1M-filter narrow automaton of phase 5 at the main path's batch,
+     1M-filter narrow automaton of phase 5 (built by the native
+     engine) at the main path's batch,
      a wide (chain-compressed) automaton, k ∈ {15, 16, 17, 32, 64}
      (both compaction orders and their edge) with ``pack_ids`` on and
      off, batches of 1 and 4,093 topics, tiny-k overflow, ``$SYS`` and
@@ -42,23 +45,35 @@ kernels against their plain PyTorch versions:
      through ``publish_begin`` / ``publish_fetch`` / ``publish_finish``
      (what ``publish_batch`` runs); asserts every batch took the device
      path and launched both kernels, checks every batch's per-message
-     (subscriber, filter) sets against the port's ``TrieOracle``, and
-     prints msgs/s, p50/p99 batch latency, the overflow-row share, the
-     phase's peak device memory and the subscribe / rebuild seconds —
-     twice on the same batches: at the defaults (match cache and delta
-     automaton on; with the cache hit rate) and in the plain configuration
-     (``match_cache=False, delta=False``, one rebuild);
+     (subscriber, filter) sets against a host ``TrieOracle`` of the
+     same filters, built apart from the router's engine, and prints
+     msgs/s, p50/p99 batch latency, the overflow-row share, the
+     phase's peak device memory and the subscribe / build seconds —
+     twice on the same batches: on a node at the defaults (the native
+     engine, match cache, delta automaton and pre-serialization on;
+     with the cache hit rate), and, after phases 8 and 7a, on a second
+     node with the same subscriptions in the plain configuration, the
+     path before the host engines (``match_cache=False, delta=False,
+     use_native=False, preserialize=False``: the Python trie and
+     flatten, timed), which then runs 8b once more on its Python
+     engine with 8b's draws;
   6. the retained slice: ``Node(device="cuda")`` with ``RetainerModule``
      at its defaults stores 1,000,000 retained messages
      (``s{i % 499}/g{(i // 499) % 97}/d{i}/state``) through
      ``broker.publish_batch``, then replays 8 bursts of 64
      subscriptions inside one asyncio loop, each subscription a
-     SUBSCRIBE handed to its own sans-IO ``Channel``; asserts per burst one
-     replay batch, one B3 launch and every session's deliveries equal
-     to the stored names its filter matches (8 filters of the first
-     burst also against the host ``T.match`` scan); prints store and
-     upload seconds, p50/p99 replay latency, subscriptions/s and the
-     bytes fetched per burst;
+     SUBSCRIBE handed to its own sans-IO ``Channel`` (taking wire bytes,
+     as a socket's does), then each channel's ``handle_deliver``;
+     asserts per burst one replay batch, one B3 launch and every
+     session's deliveries equal to the stored names its filter matches
+     (8 filters of the first burst also against the host ``T.match``
+     scan); the same bursts with ``preserialize`` on, off, off and on
+     (:data:`REPLAY_ORDER`), every subscriber's wire bytes equal in
+     every run; prints store and
+     upload seconds, p50/p99 replay latency (to the last wire byte),
+     with and without the collector's pauses, subscriptions/s, the
+     on-loop serialize count (``delivery.serialize.onloop``) and the
+     bytes fetched per burst, per setting over its two runs;
      Then B3 (the retained match) against the plain
      ``match_names_many``, bit for bit, on the 1M-name index at F = 32
      and F = 64 and on small indexes with ``$`` names, 20-level names,
@@ -77,12 +92,19 @@ kernels against their plain PyTorch versions:
      reached), its acks' order and every delivery checked;
      every socket delivery checked against the TrieOracle; CONNACKs/s,
      delivered msgs/s, publish→delivery and PUBACK latencies, the
+     deliveries serialized on the loop (pre-serialization on), the
      ingress batcher's device batches, the B1 and B2 launches of the
      socket path and the device idle share over a profiled window;
+     then 200 of the fleet's connections through a second listener
+     with the native frame parser (``frame="native"``), every
+     delivery against the TrieOracle and every packet the clients
+     sent framed by the C parser (``frame.native.frames``);
      (7b) a listener on phase 6's node and 8 bursts of 64 live clients,
-     each a CONNECT then a SUBSCRIBE; every replayed message checked
-     against the name family; SUBACK-to-last-retained p50/p99 and the
-     B3 launches;
+     each a CONNECT then a SUBSCRIBE, with ``preserialize`` in
+     :data:`REPLAY_ORDER`; every replayed message checked against the
+     name family and every client's received bytes equal in every run;
+     SUBACK-to-last-retained and per-burst p50/p99, subscriptions/s,
+     the on-loop serialize count and the B3 launches;
   8. route churn at full width, on phase 5's node: (8c) patch in
      place (``delta=False``): 1,000 adds and deletes of matching
      filters, the drains' times and the bytes each clones, one drain
@@ -101,7 +123,10 @@ kernels against their plain PyTorch versions:
      (8b) 4,096 matching filters cross ``delta_max_filters``: match
      batches and route ops (deletes of frozen filters, new adds)
      during the off-lock flatten, parity during and after the swap,
-     the flatten seconds, lock stall and peak device memory; (8d) 5
+     the flatten seconds, lock stall and peak device memory — on the
+     native engine here, and again on the plain node's Python engine
+     with the same draws (phase 5's second run), the two printed side
+     by side; (8d) 5
      publish batches of 4,096 through the broker with 64 subscribers
      in and 64 out between batches, every delivery against the
      oracle, no re-flatten, the fan-out rebuild
@@ -124,6 +149,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import gc
 import json
 import random
 import subprocess
@@ -145,6 +171,10 @@ VOCAB = 40
 PUBLISH_KERNELS = ("walk", "bitmap_or")
 #: QoS 1 PUBLISHes a publisher of the 2,000-connection fleet sends
 FLEET_PUBS = 20
+#: phase 7a's connections through the native frame parser
+NATIVE_CONNS = 200
+#: ``preserialize`` of the replay runs of phases 6 and 7b, in order
+REPLAY_ORDER = (True, False, False, True)
 
 
 def log(*a) -> None:
@@ -221,10 +251,11 @@ def make_workload(rng, n_plus: int, n_other: int, n_big: int,
 
 
 def subscribe_all(broker, wl, rng):
-    """Subscribe every class; returns the sinks and the drawable
-    filters (inner filter strings, big filters at Zipf ranks
-    1000-1007 so a batch hits a few of them)."""
-    sinks = []
+    """Subscribe every class; returns the sinks, the drawable filters
+    (inner filter strings, big filters at Zipf ranks 1000-1007 so a
+    batch hits a few of them) and the ``(sink, filter)`` pairs in
+    subscription order (:func:`subscribe_pairs` replays them)."""
+    sinks, pairs = [], []
 
     def new_sink():
         s = Sink(len(sinks))
@@ -232,21 +263,67 @@ def subscribe_all(broker, wl, rng):
         return s
 
     for f in wl["plus"]:
-        broker.subscribe(new_sink(), f)
+        pairs.append((new_sink(), f))
     for f in wl["literal"] + wl["hash"]:
-        broker.subscribe(new_sink(), f)
+        pairs.append((new_sink(), f))
     for f in wl["shared"]:
         for _ in range(4):
-            broker.subscribe(new_sink(), f"$share/g/{f}")
+            pairs.append((new_sink(), f"$share/g/{f}"))
     n_plus = len(wl["plus"])
     for f in wl["big"]:
         for i in rng.choice(n_plus, size=wl["big_members"], replace=False):
-            broker.subscribe(sinks[int(i)], f)
+            pairs.append((sinks[int(i)], f))
+    subscribe_pairs(broker, pairs)
     draw = wl["plus"] + wl["literal"] + wl["hash"] + wl["shared"]
     draw = [draw[i] for i in rng.permutation(len(draw))]
     at = min(1000, len(draw))
     draw[at:at] = wl["big"]
-    return sinks, draw
+    return sinks, draw, pairs
+
+
+def subscribe_pairs(broker, pairs) -> float:
+    """``broker.subscribe`` every ``(sink, filter)`` pair in order;
+    returns the seconds it took."""
+    t0 = time.perf_counter()
+    for sink, f in pairs:
+        broker.subscribe(sink, f)
+    return time.perf_counter() - t0
+
+
+def route_oracle(router):
+    """An independent host ``TrieOracle`` of ``router``'s live filter
+    set (the router's own trie may be the native engine's, the thing
+    under test)."""
+    from emqx_tpu_torch.oracle import TrieOracle
+
+    oracle = TrieOracle()
+    with router._lock:
+        filters = list(router._filter_ids)
+    for f in filters:
+        oracle.insert(f)
+    return oracle
+
+
+class OracleUnion:
+    """Matches of several tries (a static set plus the filters a phase
+    added)."""
+
+    def __init__(self, *tries) -> None:
+        self.tries = tries
+
+    def match(self, topic: str):
+        return [f for t in self.tries for f in t.match(topic)]
+
+
+def encode_for(router, topics, L):
+    """``(ids, n, sysm)`` of ``topics`` in the router's word-id space,
+    from whichever engine it runs."""
+    from emqx_tpu_torch.ops.tokenize import encode_batch
+
+    with router._wt_lock:
+        if router._native is not None:
+            return router._native.encode_batch(topics, L)
+        return encode_batch(router._table, topics, L)
 
 
 def zipf_topics(rng, draw, n: int, a: float = 1.1):
@@ -344,13 +421,15 @@ def device_ms(fn, iters: int = 20) -> float:
     return sum(_dev_us(e) for e in events) / iters / 1e3
 
 
-def walk_lanes(router, topics, k: int, steps: int):
+def walk_lanes(router, trie, topics, k: int, steps: int):
     """``(live, probing)`` lane-hops of a narrow walk of ``topics``
-    (the padded batch), replayed on the router's host trie: per hop,
-    every live lane reads its state's node2 row and every lane that
-    walks a known word probes two bucket rows. A frontier past k keeps
-    k lanes, so an overflow row's count is approximate."""
-    trie, table = router._trie, router._table
+    (the padded batch), replayed on ``trie`` (a host TrieOracle of the
+    router's filters): per hop, every live lane reads its state's
+    node2 row and every lane that walks a word the router knows
+    probes two bucket rows. A frontier past k keeps k lanes, so an
+    overflow row's count is approximate."""
+    lookup = (router._native.lookup if router._native is not None
+              else router._table.lookup)
     max_levels = router.config.max_levels
     live = probing = 0
     for t in topics:
@@ -362,7 +441,7 @@ def walk_lanes(router, topics, k: int, steps: int):
             live += len(front)
             if s >= n:
                 break  # ending (or too deep): no edge is walked
-            known = table.lookup(ws[s]) >= 0
+            known = lookup(ws[s]) >= 0
             nxt = []
             for node in front:
                 if known:
@@ -427,6 +506,9 @@ def phase_build(card):
     secs = _build.build(verbose=True)
     log(f"[build] {len(_build.KERNELS)} kernel sources built in {secs:.1f} s "
         f"({card})")
+    secs = _build.build_host()
+    log(f"[build] the host library ({_build.HOST_SRC.name}, "
+        f"{' '.join(_build.HOST_CXX)}) built in {secs:.1f} s ({card})")
 
 
 def check_walk(auto, args, kw, label):
@@ -448,10 +530,11 @@ def check_walk(auto, args, kw, label):
     return err
 
 
-def phase_walk(broker, batch_topics, rng, card):
-    """B1 against the plain walk: the main automaton at the main
-    path's inputs, k/pack variants, tiny k, $SYS, too-deep topics, and
-    a wide automaton. Returns the kernel row's numbers."""
+def phase_walk(broker, batch_topics, rng, card, oracle):
+    """B1 against the plain walk: the main automaton (built by the
+    router's engine, native at the defaults) at the main path's
+    inputs, k/pack variants, tiny k, $SYS, too-deep topics, and a wide
+    automaton. Returns the kernel row's numbers."""
     import torch
 
     from emqx_tpu_torch.ops import convert
@@ -467,7 +550,9 @@ def phase_walk(broker, batch_topics, rng, card):
     uniq = list(dict.fromkeys(batch_topics))
     args, kw = router.walk_inputs(uniq)
     B, L = args[0].shape
-    main = f"main automaton ({'wide' if kw['take'] > 1 else 'narrow'})"
+    main = (f"main automaton ({'wide' if kw['take'] > 1 else 'narrow'}, "
+            f"{'native' if router._native is not None else 'Python'} "
+            f"flatten)")
     err = check_walk(auto, args, kw,
                      f"{main}, main path inputs B={B} L={L} "
                      f"k={kw['k']} steps={kw['steps']}")
@@ -544,7 +629,7 @@ def phase_walk(broker, batch_topics, rng, card):
         topics = [t if i % 2
                   else t + "/" + "/".join(["w0_1"] * (depth - LEVELS))
                   for i, t in enumerate(uniq[:2000])]
-        ids, n, sysm = encode_batch(router._table, topics, depth)
+        ids, n, sysm = encode_for(router, topics, depth)
         a_main = [torch.from_numpy(a).to(router.device)
                   for a in (ids, n, sysm)]
         ids, n, sysm = encode_batch(
@@ -573,7 +658,8 @@ def phase_walk(broker, batch_topics, rng, card):
     if kw["take"] > 1:
         raise RuntimeError("walk_lanes replays the narrow layout only")
     padded = uniq + ["\x00/pad"] * (B - len(uniq))
-    live, probing = walk_lanes(router, padded, kw["k"], kw["steps"])
+    live, probing = walk_lanes(router, oracle, padded, kw["k"],
+                               kw["steps"])
     bound = walk_bound_ms(B, L, kw["steps"], kw["k"], live, probing,
                           auto.wt.shape[1] * 4)
     log(f"[B1] main path inputs B={B}: kernel {ms:.5f} ms, "
@@ -850,14 +936,17 @@ def phase_bitmap(broker, batches, rng, card):
             "bound_ms": bound, "pr": pr, "live_rows": live_rows}, b4
 
 
-def check_batches(broker, batches, deliveries):
+def check_batches(broker, batches, deliveries, oracle=None):
     """Every batch's per-message (subscriber, filter) multisets against
-    the port's TrieOracle: every local subscriber of every matched
-    filter exactly once, one member per shared group, nothing else.
+    ``oracle`` (a host TrieOracle of the broker's filters; built here
+    when not given): every local subscriber of every matched filter
+    exactly once, one member per shared group, nothing else.
     ``batches`` holds ``(messages, results)`` pairs. Returns the count
     of checked deliveries that took the bitmap (big-filter) path."""
     from collections import Counter
 
+    if oracle is None:
+        oracle = route_oracle(broker.router)
     by_msg = {}
     for mid, sid, flt in deliveries:
         by_msg.setdefault(mid, Counter())[(sid, flt)] += 1
@@ -865,7 +954,7 @@ def check_batches(broker, batches, deliveries):
     n_big = 0
     for msgs, results in batches:
         for i, msg in enumerate(msgs):
-            filters = broker.router.host_match(msg.topic)
+            filters = oracle.match(msg.topic)
             local = Counter()
             groups = []
             for f in filters:
@@ -892,7 +981,7 @@ def check_batches(broker, batches, deliveries):
     return n_big
 
 
-def phase_slice(broker, batches, card, label="slice"):
+def phase_slice(broker, batches, card, oracle, label="slice"):
     """The timed main-path run; every count starts at 0 here. Prints
     the match cache's hit rate over the run when the cache is on."""
     import torch
@@ -936,7 +1025,7 @@ def phase_slice(broker, batches, card, label="slice"):
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else None
     deliveries, Sink.log = Sink.log, None
-    n_big = check_batches(broker, checks, deliveries)
+    n_big = check_batches(broker, checks, deliveries, oracle)
     n_msgs = sum(len(b) for b in msgs)
     lat_ms = np.sort(np.array(lat) * 1e3)
     hit_rate = None
@@ -954,7 +1043,9 @@ def phase_slice(broker, batches, card, label="slice"):
         "peak_mib": peak,
         "cache_hit_rate": hit_rate,
     }
-    log(f"[{label}] match_cache={cfg.match_cache} delta={cfg.delta}: "
+    log(f"[{label}] match_cache={cfg.match_cache} delta={cfg.delta} "
+        f"use_native={cfg.use_native} preserialize="
+        f"{broker.dispatch_config.preserialize}: "
         f"{len(msgs)} batches x {len(msgs[0])} msgs: "
         f"{out['msgs_per_s']:.1f} msgs/s, p50 {out['p50_ms']:.3f} ms, "
         f"p99 {out['p99_ms']:.3f} ms, cache hit rate "
@@ -1043,37 +1134,50 @@ def run(opts, device, card):
 
     rng = np.random.default_rng(opts.seed)
     wl = make_workload(rng, opts.subs, opts.others, 8, 4096)
-    # one node holds the table: phase 5 drives its broker, phase 7a
-    # its listener; the ingress batcher takes up to a slice batch
+    # one node holds the table at the defaults (the native engine,
+    # pre-serialization): phase 5 drives its broker, phases 8 and 7a
+    # its router and listener; the ingress batcher takes up to a
+    # slice batch
     node = Node(device=device, batch_size=opts.batch)
     broker = node.broker
     t0 = time.perf_counter()
-    sinks, draw = subscribe_all(broker, wl, rng)
+    sinks, draw, pairs = subscribe_all(broker, wl, rng)
     sub_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     broker.router.automaton()
     rebuild_s = time.perf_counter() - t0
+    # the checks' oracle: a host TrieOracle of the same filters, apart
+    # from the engine under test
+    t0 = time.perf_counter()
+    oracle = route_oracle(broker.router)
+    oracle_s = time.perf_counter() - t0
     topics = zipf_topics(rng, draw, opts.batch * (opts.batches + 1))
     t0 = time.perf_counter()
     broker.publish_batch([Message(topic=t) for t in topics[:opts.batch]])
     first_s = time.perf_counter() - t0
     log(f"[setup] {len(sinks)} subscribers, "
         f"{len(broker.router._filter_ids)} filters: subscribe "
-        f"{sub_s:.1f} s, rebuild {rebuild_s:.1f} s, first batch "
-        f"(fan-out tables) {first_s:.1f} s — {card}")
+        f"{sub_s:.1f} s, build of the automaton on the native engine "
+        f"{rebuild_s:.1f} s, first batch (fan-out tables) {first_s:.1f} "
+        f"s; the checks' TrieOracle {oracle_s:.1f} s — {card}")
     batches = [topics[(i + 1) * opts.batch:(i + 2) * opts.batch]
                for i in range(opts.batches)]
     walk = timed("3 (B1)", phase_walk, broker, topics[:opts.batch], rng,
-                 card)
+                 card, oracle)
     timed("3 (C.1)", phase_c1, device, card)
     bmp, b4 = timed("4 (B2)", phase_bitmap, broker, batches, rng, card)
-    sl = timed("5 (slice)", phase_slice, broker, batches, card)
+    sl = timed("5 (slice)", phase_slice, broker, batches, card, oracle)
     timed("5 (profile)", phase_profile, broker, batches, card)
-    sl_plain = timed("5 (slice, plain config)", phase_slice_plain, broker,
-                     batches, topics[:opts.batch], card)
-    p8 = run_phase8(broker, draw, batches, rng, opts, card)
+    p8 = run_phase8(broker, draw, batches, rng, opts, card, oracle)
     sock = timed("7a (socket publish)", phase_socket, node, wl, draw, opts,
-                 card)
+                 card, oracle)
+    # one 1M-filter node at a time, as before the A/B: the plain node
+    # starts once the collector has freed this one
+    del node, broker
+    gc.collect()
+    timed("5 and 8b (plain config)", run_plain, pairs, batches,
+          topics[:opts.batch], draw, opts, device, card, oracle, p8)
+    gc.collect()
     walk["max_abs_err"] = max(walk["max_abs_err"],
                               p8["kernels"]["max_abs_err"])
     return [
@@ -1081,7 +1185,7 @@ def run(opts, device, card):
          "source": "emqx_tpu_torch/csrc/walk.cu",
          "replaces": "emqx_tpu/ops/walk_pallas.py:87",
          "launches": sl["launches"]["walk"],
-         "plain_config_launches": sl_plain["launches"]["walk"],
+         "plain_config_launches": p8["plain_launches"]["walk"],
          "churn_launches": p8["launches"]["walk"],
          "delta_ms": p8["kernels"]["delta_ms"],
          "delta_plain_ms": p8["kernels"]["delta_plain_ms"],
@@ -1227,10 +1331,10 @@ def churn_pass(router, batches, iters, mk=None, rate=10_000):
             "hit_rate": hd / max(1, hd + md)}
 
 
-def check_static(router, passes, want_cache):
-    """Every result of ``passes`` against the router's trie once the
-    churn stopped — the static filter set, since every churn add was
-    paired with its delete (memoized per topic)."""
+def check_static(router, passes, want_cache, static):
+    """Every result of ``passes`` against ``static``, the TrieOracle of
+    the static filter set (every churn add was paired with its
+    delete; memoized per topic)."""
     n = 0
     for p in passes:
         for topics, ids_np, ovf_np, id_map in p["results"]:
@@ -1238,8 +1342,7 @@ def check_static(router, passes, want_cache):
             for t, g in zip(topics, got):
                 w = want_cache.get(t)
                 if w is None:
-                    with router._lock:
-                        w = want_cache[t] = frozenset(router._trie.match(t))
+                    w = want_cache[t] = frozenset(static.match(t))
                 if g != w:
                     raise AssertionError(f"churn: {t!r} matched {sorted(g)}, "
                                          f"the TrieOracle {sorted(w)}")
@@ -1247,7 +1350,7 @@ def check_static(router, passes, want_cache):
     return n
 
 
-def phase_churn(router, draw, rng, iters, card):
+def phase_churn(router, draw, rng, iters, card, static):
     """8a: the reference's churn bench at full width — batches of 256
     Zipf(1.1) config-2 topics through ``Router.match_ids``, a pass
     without churn and a pass under 10,000 route ops/s for each filter
@@ -1267,7 +1370,7 @@ def phase_churn(router, draw, rng, iters, card):
     for name, mk in CHURN_SHAPES:
         base = churn_pass(router, batches, iters)
         churn = churn_pass(router, batches, iters, mk)
-        n_checked += check_static(router, (base, churn), want)
+        n_checked += check_static(router, (base, churn), want, static)
         for kind, p in (("without churn", base), ("under churn", churn)):
             if len(p["lat"]) < iters:
                 log(f"[8a] cut: the {name} pass {kind} ran {len(p['lat'])} "
@@ -1294,7 +1397,7 @@ def phase_churn(router, draw, rng, iters, card):
     return out
 
 
-def phase_compaction(router, draw, rng, card):
+def phase_compaction(router, draw, rng, card, static):
     """8b: one off-lock compaction at full width. 4,096 new filters
     that match config-2 topics cross ``delta_max_filters``; while the
     background flatten runs, match batches and route ops (deletes of
@@ -1327,10 +1430,8 @@ def phase_compaction(router, draw, rng, card):
     router._flatten_main = timed_flatten
 
     def expected(batch):
-        with router._lock:
-            return [frozenset(f for f in router._trie.match(t)
-                              if f not in new_all) | frozenset(live.match(t))
-                    for t in batch]
+        return [frozenset(static.match(t)) | frozenset(live.match(t))
+                for t in batch]
 
     def check(batch, res, when):
         got = result_filters(router, batch, *res)
@@ -1402,7 +1503,9 @@ def phase_compaction(router, draw, rng, card):
             _, ids_np, ovf_np, id_map, _ = router.match_ids(batch)
             n_checked += check(batch, (ids_np, ovf_np, id_map), "after")
         stall = info["rebuild_stall_ms"] - info0["rebuild_stall_ms"]
-        log(f"[8b] {len(first)} adds crossed delta_max_filters "
+        engine = "native" if router._native is not None else "Python"
+        log(f"[8b] {engine} engine: {len(first)} adds crossed "
+            f"delta_max_filters "
             f"{n_new}: add p99 {_pct(add_lat, 99):.3f} ms; off-lock "
             f"flatten {flat.get('s', float('nan')):.3f} s, trigger to swap "
             f"{t_swap - t_trig:.3f} s, lock stall {stall:.3f} ms, peak "
@@ -1431,13 +1534,15 @@ def phase_compaction(router, draw, rng, card):
     return out
 
 
-def phase_patch(router, draw, rng, card):
+def phase_patch(router, draw, rng, card, static):
     """8c: patch in place (``delta=False``, set by the caller): 1,000
     adds and deletes of matching filters; the drains' times and the
     bytes each clones; one drain re-applied on CPU copies of the
     tables and held equal; parity against the oracle. Ends with
     ``set_delta(True)`` and the cache back on."""
     import torch
+
+    from emqx_tpu_torch.oracle import TrieOracle
 
     dev = router.device
     topics = zipf_topics(rng, draw, 256 * 4)
@@ -1467,6 +1572,7 @@ def phase_patch(router, draw, rng, card):
         ops = [("+", f) for f in new] + [("-", f) for f in new[::2]] + \
             [None] + [("-", f) for f in new[1::2]]
         op_lat, n_checked, checked_drain = [], 0, False
+        live = TrieOracle()   # the new filters routed now
         p = router._patcher
         for i, step in enumerate(ops):
             if step is None:
@@ -1474,9 +1580,8 @@ def phase_patch(router, draw, rng, card):
                     _, ids_np, ovf_np, id_map, _ = router.match_ids(batch)
                     got = result_filters(router, batch, ids_np, ovf_np,
                                          id_map)
-                    with router._lock:
-                        want = [frozenset(router._trie.match(t))
-                                for t in batch]
+                    want = [frozenset(static.match(t))
+                            | frozenset(live.match(t)) for t in batch]
                     for t, g, w in zip(batch, got, want):
                         if g != w:
                             raise AssertionError(f"8c: {t!r} matched "
@@ -1488,7 +1593,10 @@ def phase_patch(router, draw, rng, card):
             t0 = time.perf_counter()
             (router.add_route if op == "+" else router.delete_route)(f)
             op_lat.append(time.perf_counter() - t0)
-            if i >= 400 and not checked_drain and p.queued:
+            (live.insert if op == "+" else live.delete)(f)
+            p = router._patcher   # a capacity overflow re-flattens
+            if i >= 400 and not checked_drain and not router._dirty \
+                    and p.queued:
                 # one drain held against the same queue on CPU copies
                 with router._lock:
                     q_col, q_slot = list(p._col), list(p._slot)
@@ -1643,7 +1751,7 @@ def phase_delta_kernels(router, draw, rng, card):
             "probe_stale_ms": stale_ms}
 
 
-def phase_broker_churn(broker, batches, rng, card):
+def phase_broker_churn(broker, batches, rng, card, static):
     """8d: the broker with the defaults — 5 publish batches of 4,096;
     between batches 64 real subscribers subscribe to new matching
     filters and the previous 64 unsubscribe. Every delivery checked
@@ -1651,6 +1759,7 @@ def phase_broker_churn(broker, batches, rng, card):
     (``FanoutManager.state``, on every membership change) timed apart
     from begin, fetch and finish."""
     from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.oracle import TrieOracle
     from emqx_tpu_torch.types import Message
 
     router = broker.router
@@ -1676,8 +1785,10 @@ def phase_broker_churn(broker, batches, rng, card):
             prev = [(Sink(10_000_000 + bi * 64 + j), f) for j, f in
                     enumerate(matching_filters(rng, uniq, 64,
                                                router._routes))]
+            fresh = TrieOracle()
             for s, f in prev:
                 broker.subscribe(s, f)
+                fresh.insert(f)
             msgs = [Message(topic=t, payload=b"x") for t in batch]
             Sink.log = []
             before = _build.LAUNCHES["walk"]
@@ -1695,7 +1806,8 @@ def phase_broker_churn(broker, batches, rng, card):
             split += (t1 - t0 - f_s, f_s, t2 - t1, t3 - t2)
             launches += _build.LAUNCHES["walk"] - before
             deliveries, Sink.log = Sink.log, None
-            check_batches(broker, [(msgs, res)], deliveries)
+            check_batches(broker, [(msgs, res)], deliveries,
+                          OracleUnion(static, fresh))
             n_del += len(deliveries)
             if not any(sid >= 10_000_000 for _, sid, _ in deliveries):
                 raise AssertionError(f"8d batch {bi}: no new subscriber "
@@ -1717,28 +1829,35 @@ def phase_broker_churn(broker, batches, rng, card):
     return {"split_ms": ms.tolist(), "launches": launches}
 
 
-def run_phase8(broker, draw, batches, rng, opts, card):
-    """Phase 8 on phase 5's node, which the plain configuration run left
-    on patch in place: 8c (which ends with the defaults back on), the
-    kernel checks, 8a, 8b and 8d. The B1 launches are counted from 0
-    at the phase's start; 8a's passes stop at :data:`CHURN_PASS_S`
-    each to hold the phase near :data:`PHASE8_BUDGET_S` (a cut is
-    printed)."""
+def run_phase8(broker, draw, batches, rng, opts, card, oracle):
+    """Phase 8 on phase 5's node (the native engine), switched to patch
+    in place first: 8c (which ends with the defaults back on), the
+    kernel checks, 8a, 8b and 8d (:func:`run_plain` repeats 8b on the
+    Python engine with the same draws). The B1 launches are counted
+    from 0 at the phase's start; 8a's passes stop at
+    :data:`CHURN_PASS_S` each to hold the phase near
+    :data:`PHASE8_BUDGET_S` (a cut is printed)."""
     from emqx_tpu_torch.ops import _build
 
     router = broker.router
+    router.config.match_cache = False
+    t0 = time.perf_counter()
+    router.set_delta(False)
+    log(f"[8] set_delta(False) on the native engine: one rebuild "
+        f"{time.perf_counter() - t0:.1f} s — {card}")
     _build.reset_launches()
     t0 = time.perf_counter()
     out = {"8c": timed("8c (patch in place)", phase_patch, router, draw,
-                       rng, card)}
+                       rng, card, oracle)}
     out["kernels"] = timed("8 (delta kernels)", phase_delta_kernels, router,
                            draw, rng, card)
     out["8a"] = timed("8a (route churn)", phase_churn, router, draw, rng,
-                      opts.churn_iters, card)
-    out["8b"] = timed("8b (off-lock compaction)", phase_compaction, router,
-                      draw, rng, card)
+                      opts.churn_iters, card, oracle)
+    out["8b"] = timed("8b (off-lock compaction, native engine)",
+                      phase_compaction, router, draw,
+                      np.random.default_rng(opts.seed + 8), card, oracle)
     out["8d"] = timed("8d (broker under churn)", phase_broker_churn, broker,
-                      batches, rng, card)
+                      batches, rng, card, oracle)
     out["launches"] = dict(_build.LAUNCHES)
     out["seconds"] = time.perf_counter() - t0
     log(f"[8] phase 8 took {out['seconds']:.1f} s (budget "
@@ -1747,24 +1866,65 @@ def run_phase8(broker, draw, batches, rng, opts, card):
     return out
 
 
-def phase_slice_plain(broker, batches, warm, card):
-    """Phase 5 again on the same batches in the plain configuration
-    (``match_cache=False, delta=False``: one rebuild, printed); a warm
-    batch first rebuilds the fan-out tables for the new epoch, as the
-    setup's first batch did."""
+def run_plain(pairs, batches, warm, draw, opts, device, card, oracle, p8):
+    """The A/B's other side, the path before the host engines: phase 5
+    on the same batches (:func:`phase_slice_plain`), then 8b on the
+    same node's Python engine with the match cache and the delta
+    automaton on, as the native run had them, and 8b's draws (the
+    same new filters and topics). Adds ``plain_launches`` and
+    ``8b_py`` to ``p8``."""
+    node, sl = phase_slice_plain(pairs, batches, warm, opts, device, card,
+                                 oracle)
+    p8["plain_launches"] = sl["launches"]
+    router = node.broker.router
+    router.config.match_cache = True
+    t0 = time.perf_counter()
+    router.set_delta(True)
+    log(f"[8] set_delta(True) on the Python engine: one rebuild "
+        f"{time.perf_counter() - t0:.1f} s — {card}")
+    py = p8["8b_py"] = timed(
+        "8b (off-lock compaction, Python engine)", phase_compaction,
+        router, draw, np.random.default_rng(opts.seed + 8), card, oracle)
+    nat = p8["8b"]
+    log(f"[8b] native against Python engine at {len(router._filter_ids)} "
+        f"filters, the same draws: flatten {nat['flatten_s']:.3f} / "
+        f"{py['flatten_s']:.3f} s, lock stall {nat['stall_ms']:.3f} / "
+        f"{py['stall_ms']:.3f} ms, match p50 {nat['match_p50_ms']:.3f} / "
+        f"{py['match_p50_ms']:.3f} ms, p99 {nat['match_p99_ms']:.3f} / "
+        f"{py['match_p99_ms']:.3f} ms, route-op p99 {nat['op_p99_ms']:.3f} "
+        f"/ {py['op_p99_ms']:.3f} ms during the flatten — {card}")
+
+
+def phase_slice_plain(pairs, batches, warm, opts, device, card, oracle):
+    """Phase 5 again on the same batches in the plain configuration,
+    the path before the host engines: a second node with
+    ``match_cache=False, delta=False, use_native=False`` and
+    ``preserialize=False`` takes the same subscriptions (the Python
+    trie and flatten, both timed); a warm batch first builds its
+    fan-out tables, as the setup's first batch did. Returns the node
+    and the slice's numbers."""
+    from emqx_tpu_torch.broker import DispatchConfig
+    from emqx_tpu_torch.node import Node
+    from emqx_tpu_torch.router import MatcherConfig
     from emqx_tpu_torch.types import Message
 
-    router = broker.router
-    router.config.match_cache = False
+    node = Node(device=device, batch_size=opts.batch,
+                matcher=MatcherConfig(match_cache=False, delta=False,
+                                      use_native=False),
+                dispatch_config=DispatchConfig(preserialize=False))
+    broker = node.broker
+    sub_s = subscribe_pairs(broker, pairs)
     t0 = time.perf_counter()
-    router.set_delta(False)
+    broker.router.automaton()
     rebuild_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     broker.publish_batch([Message(topic=t) for t in warm])
-    log(f"[slice, plain config] set_delta(False): one rebuild {rebuild_s:.1f} "
-        f"s; warm batch (fan-out tables) {time.perf_counter() - t0:.1f} s "
-        f"— {card}")
-    return phase_slice(broker, batches, card, label="slice, plain config")
+    log(f"[slice, plain config] the same {len(pairs)} subscriptions on a "
+        f"Python-engine node: subscribe {sub_s:.1f} s, build of the "
+        f"automaton on the Python engine {rebuild_s:.1f} s; warm batch "
+        f"(fan-out tables) {time.perf_counter() - t0:.1f} s — {card}")
+    return node, phase_slice(broker, batches, card, oracle,
+                             label="slice, plain config")
 
 
 # -- the retained slice: the retained_1m shape -------------------------------
@@ -1844,16 +2004,22 @@ def store_retained(node, n_names: int, batch: int = 4096) -> float:
 
 
 async def one_burst(node, flts, tag):
-    """One subscribe burst: a sans-IO ``Channel`` per filter, connected
-    first, then handed its SUBSCRIBE, all in one loop tick; then the
-    loop runs the replay flush. Returns the sessions and the seconds
-    of the SUBSCRIBEs' channel work and of the flush."""
+    """One subscribe burst: a sans-IO ``Channel`` per filter (taking
+    wire bytes, as a socket transport's does), connected first, then
+    handed its SUBSCRIBE, all in one loop tick; then the loop runs the
+    replay flush; then each channel's ``handle_deliver``, its packets
+    serialized as the connection would (the on-loop wire work).
+    Returns the outboxes as the flush left them, each channel's wire
+    bytes, and the seconds of the SUBSCRIBEs' channel work, of the
+    flush and of the wire work."""
     from emqx_tpu_torch.channel import Channel
+    from emqx_tpu_torch.mqtt.frame import serialize
     from emqx_tpu_torch.mqtt.packet import Connect, Subscribe
 
     chans = []
     for j in range(len(flts)):
         ch = Channel(node.broker, node.cm)
+        ch.wire_fast = True
         ch.handle_in(Connect(client_id=f"{tag}_{j}"))
         chans.append(ch)
     t0 = time.perf_counter()
@@ -1862,17 +2028,25 @@ async def one_burst(node, flts, tag):
                                                             {"qos": 0})]))
     t1 = time.perf_counter()
     await asyncio.sleep(0)  # the burst's replay flush runs here
-    return [ch.session for ch in chans], t1 - t0, time.perf_counter() - t1
+    t2 = time.perf_counter()
+    boxes = [list(ch.session.outbox) for ch in chans]
+    t3 = time.perf_counter()
+    wire = [b"".join(p if type(p) is bytes else serialize(p, ch.proto_ver)
+                     for p in ch.handle_deliver()) for ch in chans]
+    wire_s = time.perf_counter() - t3
+    return boxes, wire, t1 - t0, t2 - t1, wire_s
 
 
-async def replay_bursts(node, index, bursts, family):
+async def replay_bursts(node, index, bursts, family, tag="r"):
     """The replay run, every count at 0 at its start: per burst exactly
     one replay batch and one B3 launch, and every session's outbox
     equal to the stored messages its filter matches (``family``), each
     with the retain flag and its payload. Returns per-burst latencies
-    and their split (channel calls, index match, plan and delivery),
-    the hit bytes fetched (8 per hit: the device match copies its hits
-    as int64 flat indices), the deliveries and the launch counts."""
+    (first channel call to the last wire byte) and their split
+    (channel calls, index match, plan and delivery, wire), the hit
+    bytes fetched (8 per hit: the device match copies its hits as
+    int64 flat indices), the deliveries, the launch counts, the wire
+    bytes per burst and subscriber and the on-loop serialize count."""
     from emqx_tpu_torch.ops import _build
 
     metrics = node.metrics
@@ -1891,18 +2065,21 @@ async def replay_bursts(node, index, bursts, family):
         return out
 
     index.match_many = timed_match
-    lat, split, fetched, n_deliveries, gc_s = [], [], [], 0, []
+    lat, split, fetched, n_deliveries, gc_s, wires = [], [], [], 0, [], []
+    onloop0 = metrics.val("delivery.serialize.onloop")
     _build.reset_launches()
     try:
         for bi, flts in enumerate(bursts):
             batches = metrics.val("retained.replay.batches")
             launches = _build.LAUNCHES["retained_match"]
             with GcPauses() as gcp:
-                sessions, calls_s, flush_s = await one_burst(node, flts,
-                                                             f"r{bi}")
+                boxes, wire, calls_s, flush_s, wire_s = await one_burst(
+                    node, flts, f"{tag}{bi}")
             gc_s.append(sum(gcp.secs))
-            lat.append(calls_s + flush_s)
-            split.append((calls_s, match_s[-1], flush_s - match_s[-1]))
+            wires.append(wire)
+            lat.append(calls_s + flush_s + wire_s)
+            split.append((calls_s, match_s[-1], flush_s - match_s[-1],
+                          wire_s))
             if failures:
                 raise RuntimeError(f"burst {bi}: the loop caught "
                                    f"{failures!r}")
@@ -1913,8 +2090,7 @@ async def replay_bursts(node, index, bursts, family):
                 raise AssertionError(f"burst {bi}: B3 did not launch "
                                      f"exactly once")
             fetched.append(8 * hits[-1])
-            for s, flt in zip(sessions, flts):
-                box = s.drain_outbox()
+            for box, flt in zip(boxes, flts):
                 want = family.match(flt)
                 topics = sorted(m.topic for _pid, m in box)
                 if topics != sorted(retained_name(int(i)) for i in want):
@@ -1931,7 +2107,9 @@ async def replay_bursts(node, index, bursts, family):
     finally:
         del index.match_many
         loop.set_exception_handler(None)
-    return lat, split, fetched, n_deliveries, gc_s, dict(_build.LAUNCHES)
+    onloop = metrics.val("delivery.serialize.onloop") - onloop0
+    return (lat, split, fetched, n_deliveries, gc_s, dict(_build.LAUNCHES),
+            wires, onloop)
 
 
 def check_host_scan(index, bursts, family, k: int = 8):
@@ -1984,34 +2162,83 @@ def phase_retained(opts, device, card):
     bursts = retained_bursts(opts.names, opts.bursts, opts.burst)
     family = NameFamily(opts.names)
 
+    cfg = node.broker.dispatch_config
+
     async def replay():
         await node.start()
         try:
-            return await replay_bursts(node, mod._index, bursts, family)
+            # the same bursts with pre-serialization on (the default)
+            # and off, in the order on, off, off, on, so neither setting
+            # always runs first
+            runs = []
+            try:
+                for i, pre in enumerate(REPLAY_ORDER):
+                    cfg.preserialize = pre
+                    runs.append(await replay_bursts(
+                        node, mod._index, bursts, family, f"r{i}_"))
+            finally:
+                cfg.preserialize = True
+            return runs
         finally:
             await node.stop()
 
-    lat, split, fetched, n_del, gc_s, launches = asyncio.run(replay())
-    lat_ms = np.sort(np.array(lat) * 1e3)
-    split_ms = np.mean(split, axis=0) * 1e3
-    n_subs = sum(len(b) for b in bursts)
+    runs = asyncio.run(replay())
     log(f"[retained] store {opts.names} retained messages: {store_s:.1f} s; "
         f"first upload of the index ({mod._index._cap} rows): "
         f"{upload_s * 1e3:.3f} ms — {card}")
-    log(f"[retained] {len(bursts)} bursts x {opts.burst} subscriptions: p50 "
-        f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
-        f"{np.percentile(lat_ms, 99):.3f} ms per burst (first channel call "
-        f"to the last deliver_many), {n_subs / sum(lat):.1f} subs/s, "
-        f"{n_del} deliveries, hit bytes fetched per burst "
-        f"{[int(b) for b in fetched]}, launches {launches} — {card}")
-    log(f"[retained] per burst: channel calls {split_ms[0]:.3f} ms, index "
-        f"match (encode, B3, hit fetch) {split_ms[1]:.3f} ms, plan and "
-        f"delivery {split_ms[2]:.3f} ms; bursts in order "
-        f"{[round(x * 1e3, 3) for x in lat]} ms, of which garbage-collector "
-        f"pauses {[round(x * 1e3, 3) for x in gc_s]} ms — {card}")
+    n_subs = sum(len(b) for b in bursts)
+    out = {}
+    for pre in (True, False):
+        mine = [r for r, p in zip(runs, REPLAY_ORDER) if p == pre]
+        lat = [x for r in mine for x in r[0]]
+        gc_s = [x for r in mine for x in r[4]]
+        lat_ms = np.sort(np.array(lat) * 1e3)
+        # the bursts less their garbage-collector pauses: a full
+        # collection lands in whichever run reaches its threshold
+        net_ms = (np.array(lat) - np.array(gc_s)) * 1e3
+        split_ms = np.mean([x for r in mine for x in r[1]], axis=0) * 1e3
+        onloop = [r[7] for r in mine]
+        label = "on" if pre else "off"
+        out[label] = {"p50_ms": float(np.percentile(lat_ms, 50)),
+                      "p99_ms": float(np.percentile(lat_ms, 99)),
+                      "net_p50_ms": float(np.percentile(net_ms, 50)),
+                      "net_p99_ms": float(np.percentile(net_ms, 99)),
+                      "subs_per_s": len(mine) * n_subs / sum(lat),
+                      "onloop": onloop}
+        log(f"[retained] preserialize={label}: {len(mine)} runs of "
+            f"{len(bursts)} bursts x {opts.burst} subscriptions: p50 "
+            f"{out[label]['p50_ms']:.3f} ms, p99 {out[label]['p99_ms']:.3f} "
+            f"ms per burst (first channel call to the last wire byte), "
+            f"less the garbage collector's pauses p50 "
+            f"{out[label]['net_p50_ms']:.3f} ms, p99 "
+            f"{out[label]['net_p99_ms']:.3f} ms; "
+            f"{out[label]['subs_per_s']:.1f} subs/s, {mine[0][3]} "
+            f"deliveries a run, {onloop} serialized on the event loop, "
+            f"hit bytes fetched per burst {[int(b) for b in mine[0][2]]}, "
+            f"launches {mine[0][5]} — {card}")
+        log(f"[retained] preserialize={label}, per burst: channel calls "
+            f"{split_ms[0]:.3f} ms, index match (encode, B3, hit fetch) "
+            f"{split_ms[1]:.3f} ms, plan and delivery {split_ms[2]:.3f} ms, "
+            f"wire (handle_deliver and serialize) {split_ms[3]:.3f} ms; "
+            f"bursts in order {[round(x * 1e3, 3) for x in lat]} ms, of "
+            f"which garbage-collector pauses "
+            f"{[round(x * 1e3, 3) for x in gc_s]} ms — {card}")
+    on, off = runs[0], runs[1]
+    if any(r[6] != on[6] for r in runs):
+        raise AssertionError("replay: the wire bytes differ with "
+                             "preserialize on and off")
+    if not max(out["on"]["onloop"]) < min(out["off"]["onloop"]):
+        raise AssertionError(f"replay: pre-serialization left "
+                             f"{out['on']['onloop']} of "
+                             f"{out['off']['onloop']} serializes on the "
+                             f"loop")
+    log(f"[retained] every subscriber's replayed wire bytes equal in all "
+        f"{len(runs)} runs, preserialize on and off "
+        f"({sum(len(b) for w in on[6] for b in w)} bytes a run)")
+    launches = on[5]
     check_host_scan(mod._index, bursts, family)
     phase_retained_profile(node, opts, card)
-    return node, mod._index, bursts, launches
+    return node, mod._index, bursts, launches, out
 
 
 def phase_retained_profile(node, opts, card):
@@ -2176,6 +2403,8 @@ class WireClient:
         self.version = version
         self.parser = Parser(version=version)
         self.got = []          # (topic, payload, retain, arrival)
+        self.raw = bytearray()  # every byte received
+        self.sent = 0          # packets sent
         self.waiting = {}      # ("connack"|"suback"|"puback", pid) -> future
         self.on_publish = None
         self.closed = None
@@ -2204,6 +2433,7 @@ class WireClient:
         from emqx_tpu_torch.mqtt.frame import serialize
 
         self.writer.write(serialize(pkt, self.version))
+        self.sent += 1
 
     async def _read(self) -> None:
         from emqx_tpu_torch.mqtt import constants as C
@@ -2216,6 +2446,7 @@ class WireClient:
                 if not data:
                     break
                 now = time.perf_counter()
+                self.raw += data
                 for pkt in self.parser.feed(data):
                     if isinstance(pkt, Publish):
                         self.got.append((pkt.topic, pkt.payload, pkt.retain,
@@ -2352,7 +2583,7 @@ def _pct(xs, q) -> float:
     return float(np.percentile(np.asarray(xs) * 1e3, q)) if len(xs) else 0.0
 
 
-async def socket_publish(node, wl, draw, opts, card):
+async def socket_publish(node, wl, draw, opts, card, oracle):
     """Phase 7a on a running node: the fleet, the timed publish run
     and a profiled window; returns the numbers and the launches."""
     import torch
@@ -2406,7 +2637,7 @@ async def socket_publish(node, wl, draw, opts, card):
             subs_of.setdefault(f, []).append(c)
     hits = {}
     for t in set(topics):
-        got = [c for f in router.host_match(t) for c in subs_of.get(f, ())]
+        got = [c for f in oracle.match(t) for c in subs_of.get(f, ())]
         if got:
             hits[t] = got
     # warm-up: the fan-out tables the subscriptions changed
@@ -2450,8 +2681,10 @@ async def socket_publish(node, wl, draw, opts, card):
         c.got.clear()
     ing.device_batches = ing.device_msgs = 0
     _build.reset_launches()
+    onloop0 = node.metrics.val("delivery.serialize.onloop")
     with GcPauses() as gcp:
         sent, puback_lat, wall = await window(0, per_pub)
+    onloop = node.metrics.val("delivery.serialize.onloop") - onloop0
     launches = dict(_build.LAUNCHES)
     batches, batch_msgs = ing.device_batches, ing.device_msgs
     for name in PUBLISH_KERNELS:
@@ -2485,7 +2718,7 @@ async def socket_publish(node, wl, draw, opts, card):
            "puback_p99_ms": _pct(puback_lat, 99),
            "device_batches": batches,
            "mean_batch": batch_msgs / max(1, batches),
-           "launches": launches}
+           "launches": launches, "serialize_onloop": onloop}
     log(f"[socket] {n_msgs} QoS 1 PUBLISHes ({per_pub} a publisher) in "
         f"{wall:.3f} s: {out['publishes_per_s']:.1f} publishes/s, "
         f"{n_del} socket deliveries ({out['delivered_per_s']:.1f}/s) equal "
@@ -2493,7 +2726,10 @@ async def socket_publish(node, wl, draw, opts, card):
         f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms; PUBACK p50 "
         f"{out['puback_p50_ms']:.3f} ms, p99 {out['puback_p99_ms']:.3f} ms; "
         f"ingress device batches {batches}, mean {out['mean_batch']:.1f} "
-        f"messages; launches {launches}; garbage-collector pauses "
+        f"messages; launches {launches}; preserialize="
+        f"{node.broker.dispatch_config.preserialize}: {onloop} of {n_del} "
+        f"deliveries serialized on the event loop; garbage-collector "
+        f"pauses "
         f"{sum(gcp.secs):.3f} s ({gcp.count[2]} full collections, "
         f"{gcp.secs[2]:.3f} s) — {card}")
     # a profiled window: 2 more PUBLISHes a publisher
@@ -2555,7 +2791,90 @@ async def socket_publish(node, wl, draw, opts, card):
     return out
 
 
-async def ingress_burst(node, draw, card):
+async def socket_native(node, lst, wl, draw, n_conn, card, oracle):
+    """``n_conn`` of the fleet's connections (half QoS 1 subscribers on
+    a most-drawn '+' filter and a big filter, half publishers of 5
+    QoS 1 PUBLISHes) through ``lst``, a listener with the native frame
+    parser: every socket delivery against the TrieOracle, and every
+    packet the clients sent framed by the C parser
+    (``frame.native.frames``)."""
+    from collections import Counter
+
+    from emqx_tpu_torch.mqtt.packet import Publish, Subscribe
+
+    n_sub = n_conn // 2
+    plus_set = set(wl["plus"])
+    top_plus = [f for f in draw if f in plus_set][:n_sub]
+    specs = ([(f"nsub{i}", 4 + i % 2) for i in range(n_sub)]
+             + [(f"npub{i}", 4 + i % 2) for i in range(n_conn - n_sub)])
+    frames0 = node.metrics.val("frame.native.frames")
+    clients, conn_s = await connect_fleet(lst.port, specs)
+    subs, pubs = clients[:n_sub], clients[n_sub:]
+    subs_of = {}
+    acks = []
+    for i, c in enumerate(subs):
+        flts = (top_plus[i % len(top_plus)], wl["big"][i % len(wl["big"])])
+        for f in flts:
+            subs_of.setdefault(f, []).append(c)
+        acks.append(c.expect("suback", 1))
+        c.send(Subscribe(packet_id=1,
+                         topic_filters=[(f, {"qos": 1}) for f in flts]))
+    await asyncio.gather(*acks)
+    topics = zipf_topics(np.random.default_rng(5), draw, 5 * len(pubs))
+    hits = {t: [c for f in oracle.match(t) for c in subs_of.get(f, ())]
+            for t in set(topics)}
+    want = {c: Counter() for c in subs}
+    sent = []
+    for k, c in enumerate(pubs):
+        for j, t in enumerate(topics[5 * k:5 * k + 5]):
+            payload = b"%s:%d:%.9f" % (c.cid.encode(), j, 0.0)
+            sent.append((c, j + 1, t, payload))
+            for s_ in hits[t]:
+                want[s_][(t, payload)] += 1
+    cd = Countdown({c: sum(want[c].values()) for c in subs})
+    for c in subs:
+        c.on_publish = cd
+
+    async def publisher(c, mine):
+        for _c, j, t, payload in mine:
+            fut = c.expect("puback", j)
+            c.send(Publish(topic=t, qos=1, packet_id=j, payload=payload))
+            await fut
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(publisher(c, [x for x in sent if x[0] is c])
+                           for c in pubs))
+    await cd.done
+    wall = time.perf_counter() - t0
+    n_del = 0
+    for c in subs:
+        got = Counter((t, p) for t, p, _r, _a in c.got)
+        if got != want[c]:
+            raise AssertionError(f"{c.cid}: received {sum(got.values())} "
+                                 f"PUBLISHes through the native parser's "
+                                 f"listener, the oracle gives "
+                                 f"{sum(want[c].values())}")
+        n_del += len(c.got)
+    n_sent = sum(c.sent for c in clients)
+    await asyncio.gather(*(c.close() for c in clients))
+    deadline = time.monotonic() + 30
+    while lst._conns or lst._handshaking:
+        if time.monotonic() > deadline:
+            raise AssertionError("native listener: connections never closed")
+        await asyncio.sleep(0.01)
+    framed = node.metrics.val("frame.native.frames") - frames0
+    if framed != n_sent:
+        raise AssertionError(f"native listener: {framed} frames framed by "
+                             f"the C parser, the clients sent {n_sent}")
+    log(f"[socket] native frame parser: {n_conn} connections "
+        f"({n_conn / conn_s:.1f} CONNACKs/s), {len(sent)} QoS 1 "
+        f"PUBLISHes in {wall:.3f} s, {n_del} socket deliveries equal the "
+        f"TrieOracle's; all {n_sent} packets the clients sent framed by "
+        f"the C parser (frame.native.frames) — {card}")
+    return {"conns": n_conn, "deliveries": n_del, "frames": framed}
+
+
+async def ingress_burst(node, draw, card, oracle):
     """Phase 7a's open-loop burst on the running node, before the
     fleet connects: more messages than ``MAX_INFLIGHT`` batches and one
     capped batch hold, submitted to the ingress batcher in one event
@@ -2605,7 +2924,7 @@ async def ingress_burst(node, draw, card):
     if order != list(range(n)):
         raise AssertionError("burst: the acks resolved out of submission "
                              "order")
-    check_batches(node.broker, [(msgs, results)], deliveries)
+    check_batches(node.broker, [(msgs, results)], deliveries, oracle)
     last = {}
     for mid, sid, flt in deliveries:
         key = (sid, flt, msgs[index[mid]].topic)
@@ -2621,38 +2940,52 @@ async def ingress_burst(node, draw, card):
         f"{n / wall:.1f} msgs/s; launches {launches} — {card}")
 
 
-def phase_socket(node, wl, draw, opts, card):
+def phase_socket(node, wl, draw, opts, card, oracle):
     """Phase 7a: a listener on the publish node, the open-loop ingress
-    burst, then the fleet and its run."""
+    burst, then the fleet and its run, then 200 connections through a
+    second listener with the native frame parser."""
+    from emqx_tpu_torch.connection import Listener
+
     node.add_listener(port=0)
 
     async def go():
         await node.start()
         try:
-            await ingress_burst(node, draw, card)
-            return await socket_publish(node, wl, draw, opts, card)
+            await ingress_burst(node, draw, card, oracle)
+            out = await socket_publish(node, wl, draw, opts, card, oracle)
+            lst = Listener(node.broker, node.cm, port=0, zone=node.zone,
+                           name="tcp:native", device=node.device,
+                           frame="native")
+            await lst.start()
+            node.listeners.append(lst)
+            out["native"] = await socket_native(node, lst, wl, draw,
+                                                NATIVE_CONNS, card, oracle)
+            return out
         finally:
             await node.stop()
 
     return asyncio.run(go())
 
 
-async def socket_replay(node, opts, card):
+async def socket_replay(node, opts, card, tag="live"):
     """Phase 7b on a running node: bursts of live clients, each a
     CONNECT then a SUBSCRIBE; every replayed PUBLISH checked against
-    the name family."""
+    the name family. Returns the numbers and each client's received
+    bytes."""
     from emqx_tpu_torch.mqtt.packet import Subscribe
     from emqx_tpu_torch.ops import _build
 
     lst = node.listeners[-1]
     family = NameFamily(opts.names)
     bursts = retained_bursts(opts.names, opts.bursts, opts.burst, seed=21)
-    waits, n_del = [], 0
+    waits, n_del, raw, spans = [], 0, [], []
+    onloop0 = node.metrics.val("delivery.serialize.onloop")
     _build.reset_launches()
     for bi, flts in enumerate(bursts):
         clients, _s = await connect_fleet(
-            lst.port, [(f"live{bi}_{j}", 4 + j % 2)
+            lst.port, [(f"{tag}{bi}_{j}", 4 + j % 2)
                        for j in range(len(flts))])
+        t_burst = time.perf_counter()
         want = {c: len(family.match(f)) for c, f in zip(clients, flts)}
         cd = Countdown(want)
         subacks = []
@@ -2679,38 +3012,87 @@ async def socket_replay(node, opts, card):
             last = max((a for *_x, a in c.got), default=t_ack)
             waits.append(max(0.0, last - t_ack))
             n_del += len(c.got)
+        spans.append(max((a for c in clients for *_x, a in c.got),
+                         default=t_burst) - t_burst)
+        raw.append([bytes(c.raw) for c in clients])
         await asyncio.gather(*(c.close() for c in clients))
     launches = _build.LAUNCHES["retained_match"]
     if launches < 1:
         raise AssertionError("the socket replay launched no B3")
+    n_subs = sum(len(b) for b in bursts)
+    pre = node.broker.dispatch_config.preserialize
     out = {"p50_ms": _pct(waits, 50), "p99_ms": _pct(waits, 99),
-           "deliveries": n_del, "launches": launches}
-    log(f"[socket] retained replay: {len(bursts)} bursts x {opts.burst} "
-        f"live clients (CONNECT, then SUBSCRIBE), {n_del} replayed "
-        f"PUBLISHes equal the name family; SUBACK to the last retained "
-        f"message p50 {out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms; "
-        f"B3 launches {launches} — {card}")
-    return out
+           "burst_p50_ms": _pct(spans, 50), "burst_p99_ms": _pct(spans, 99),
+           "subs_per_s": n_subs / max(sum(spans), 1e-9),
+           "deliveries": n_del, "launches": launches,
+           "onloop": node.metrics.val("delivery.serialize.onloop")
+           - onloop0, "waits": waits, "spans": spans}
+    log(f"[socket] retained replay, preserialize={pre}: {len(bursts)} "
+        f"bursts x {opts.burst} live clients (CONNECT, then SUBSCRIBE), "
+        f"{n_del} replayed PUBLISHes equal the name family; SUBACK to the "
+        f"last retained message p50 {out['p50_ms']:.3f} ms, p99 "
+        f"{out['p99_ms']:.3f} ms; per burst (first SUBSCRIBE sent to the "
+        f"last PUBLISH in) p50 {out['burst_p50_ms']:.3f} ms, p99 "
+        f"{out['burst_p99_ms']:.3f} ms, {out['subs_per_s']:.1f} subs/s; "
+        f"{out['onloop']} serialized on the event loop; B3 launches "
+        f"{launches} — {card}")
+    return out, raw
 
 
 def phase_socket_replay(node, opts, card):
-    """Phase 7b: a listener on the retained node after phase 6."""
+    """Phase 7b: a listener on the retained node after phase 6; the
+    same bursts with pre-serialization on and off in
+    :data:`REPLAY_ORDER`, every client's received bytes equal in every
+    run."""
     node.add_listener(port=0)
+    cfg = node.broker.dispatch_config
 
     async def go():
         await node.start()
+        runs = []
         try:
-            return await socket_replay(node, opts, card)
+            for i, pre in enumerate(REPLAY_ORDER):
+                cfg.preserialize = pre
+                runs.append(await socket_replay(node, opts, card,
+                                                f"live{i}_"))
+            return runs
         finally:
+            cfg.preserialize = True
             await node.stop()
 
-    return asyncio.run(go())
+    runs = asyncio.run(go())
+    if any(raw != runs[0][1] for _o, raw in runs):
+        raise AssertionError("socket replay: the received bytes differ with "
+                             "preserialize on and off")
+    out = {}
+    for pre in (True, False):
+        mine = [o for (o, _r), p in zip(runs, REPLAY_ORDER) if p == pre]
+        waits = [x for o in mine for x in o["waits"]]
+        spans = [x for o in mine for x in o["spans"]]
+        out["on" if pre else "off"] = {
+            "p50_ms": _pct(waits, 50), "p99_ms": _pct(waits, 99),
+            "burst_p50_ms": _pct(spans, 50), "burst_p99_ms": _pct(spans, 99),
+            "onloop": [o["onloop"] for o in mine]}
+    if not max(out["on"]["onloop"]) < min(out["off"]["onloop"]):
+        raise AssertionError(f"socket replay: pre-serialization left "
+                             f"{out['on']['onloop']} of "
+                             f"{out['off']['onloop']} serializes on the "
+                             f"loop")
+    for label, o in out.items():
+        log(f"[socket] retained replay, preserialize={label}, both runs: "
+            f"SUBACK to the last retained message p50 {o['p50_ms']:.3f} ms, "
+            f"p99 {o['p99_ms']:.3f} ms; per burst p50 "
+            f"{o['burst_p50_ms']:.3f} ms, p99 {o['burst_p99_ms']:.3f} ms; "
+            f"serialized on the event loop {o['onloop']} — {card}")
+    log(f"[socket] retained replay: every client's received bytes equal in "
+        f"all {len(runs)} runs, preserialize on and off — {card}")
+    return {**out, "launches": runs[0][0]["launches"]}
 
 
 def run_retained(opts, device, card):
     """Phases 6 and 7b; returns the B3 kernel row."""
-    node, index, bursts, launches = timed("6 (retained)", phase_retained,
-                                          opts, device, card)
+    node, index, bursts, launches, _pre = timed(
+        "6 (retained)", phase_retained, opts, device, card)
     b3 = timed("6 (B3)", phase_retained_kernel, index, bursts,
                np.random.default_rng(opts.seed), card)
     sock = timed("7b (socket replay)", phase_socket_replay, node, opts, card)

@@ -40,7 +40,8 @@ from emqx_tpu_torch.broker_helper import FanoutManager, unpack_sids
 from emqx_tpu_torch.hooks import Hooks
 from emqx_tpu_torch.metrics import Metrics
 from emqx_tpu_torch.ops.bitmap import or_union_rows_auto, rows_for_matches
-from emqx_tpu_torch.ops.dispatch_plan import big_rows_for, build_plan
+from emqx_tpu_torch.ops.dispatch_plan import (big_rows_for, build_plan,
+                                              preserialize_plan)
 from emqx_tpu_torch.ops.fanout import expand_packed
 from emqx_tpu_torch.ops.pack import (budget_for, bundle_i32, mask_pad_rows,
                                      pack_matches, union_slots)
@@ -59,16 +60,16 @@ class DispatchConfig:
     ``planner`` groups the fetched deliveries by subscriber (one
     resolve and one ``deliver_many`` per subscriber per batch); False
     keeps the per-(filter, subscriber) walk. ``preserialize`` (egress
-    wire images) needs the front door, which this port does not carry
-    yet: True raises rather than being ignored."""
+    pre-serialization): after the plan is built, on the same (possibly
+    executor) fetch thread, QoS 0 shared wire images and QoS 1/2
+    packet-id templates are built per (message, proto_ver, flags
+    variant), so the event loop's delivery tail patches two packet-id
+    bytes into a copy instead of serializing each frame. False gives
+    the on-loop per-delivery serialization, with the same bytes. No
+    effect when the planner is off (there is no plan to walk)."""
 
     planner: bool = True
-    preserialize: bool = False
-
-    def __post_init__(self) -> None:
-        if self.preserialize:
-            raise ValueError("DispatchConfig.preserialize needs the front "
-                             "door, which emqx_tpu_torch does not port yet")
+    preserialize: bool = True
 
 
 class _PlanState:
@@ -453,6 +454,14 @@ class Broker:
             pb.bovf = bovf
             if self.dispatch_config.planner:
                 pb.plan = self._build_plan(pb, subs_occ, src_occ)
+                if pb.plan is not None \
+                        and self.dispatch_config.preserialize:
+                    # prime the messages' shared wire images and pid
+                    # templates here — off the event loop when fetch
+                    # runs on the ingress executor
+                    preserialize_plan(pb.plan, pb.live, pb.id_map,
+                                      self._subscribers,
+                                      self.helper.registry.lookup)
             if pb.plan is not None:
                 pb.subs_packed = subs_occ
                 pb.src_packed = src_occ
@@ -619,6 +628,9 @@ class Broker:
                 self.metrics.inc("delivery.dropped")
                 self.metrics.inc("delivery.dropped.no_local")
                 continue
+            if "_wire" not in msg.headers:
+                # the shared wire-image cache, as _deliver_one primes
+                msg.headers["_wire"] = {}
             flt = id_map[fid]
             fast = bool(ps.row_fast[r]) and opts.share is None \
                 and not opts.nl and opts.subid is None \
@@ -809,6 +821,14 @@ class Broker:
             self.metrics.inc("delivery.dropped")
             self.metrics.inc("delivery.dropped.no_local")
             return 0
+        if "_wire" not in msg.headers:
+            # shared wire-image cache: Session._enrich either returns
+            # this very object (fast path) or copies headers SHALLOWLY,
+            # so delivering sessions share this inner dict and reuse
+            # one serialized QoS 0 frame (Channel.handle_deliver)
+            # instead of serializing per subscriber. Message.copy()
+            # copies nested dicts: a copy gets a private cache
+            msg.headers["_wire"] = {}
         try:
             sub.deliver(topic_filter, msg)
             return 1

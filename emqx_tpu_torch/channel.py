@@ -42,6 +42,7 @@ from emqx_tpu_torch.logger import set_metadata_clientid, set_metadata_peername
 from emqx_tpu_torch.mountpoint import mount, replvar, unmount
 from emqx_tpu_torch.mqtt import constants as C
 from emqx_tpu_torch.mqtt import reason_codes as RC
+from emqx_tpu_torch.mqtt.frame import publish_template as wire_template
 from emqx_tpu_torch.mqtt.frame import serialize as wire_serialize
 from emqx_tpu_torch.mqtt_caps import PUB_DROP_CODES, check_pub, check_sub
 from emqx_tpu_torch.mqtt.packet import (Auth, Connack, Connect, Disconnect,
@@ -105,6 +106,11 @@ class Channel:
         self.on_close = None          # force-close the socket
         self.on_deliver = None        # new outbox items are ready
         self.send_oob = None          # out-of-band packet send (kick)
+        # raw wire bytes welcome (set by the transport): handle_deliver
+        # may then return pre-serialized frames — one QoS 0 frame
+        # shared by every subscriber of a message, or a copy of a
+        # QoS 1/2 template with the packet id patched in
+        self.wire_fast = False
         # publish futures whose acks are still pending at the ingress
         # batcher — error-path acks queue behind them to preserve
         # MQTT-4.6.0 ack ordering
@@ -289,6 +295,14 @@ class Channel:
             return self._connack_error(RC.SERVER_BUSY)
         self.session.broker = self.broker
         self.session.notify = self._notify_deliver
+        # egress pre-serialization hints (read off-loop by
+        # ops/dispatch_plan.preserialize_plan): pre-build wire bytes
+        # only for transports the fast lanes can serve — mountpoint
+        # unmounting and outbound topic aliasing rewrite per delivery
+        self.session.proto_ver = self.proto_ver
+        self.session.wire_fast_hint = bool(
+            self.wire_fast and not self.mountpoint
+            and not self.client_alias_max)
         # keepalive (server may override via zone)
         interval = pkt.keepalive
         props: Dict[str, Any] = {}
@@ -750,6 +764,11 @@ class Channel:
             return []
         out: List[Packet] = []
         n_sent = 0
+        # the fast lanes' counters, batched per drain: the planner
+        # hands a session its whole batch in one enqueue
+        n_fast = n_tpl1 = n_tpl2 = 0
+        wire_ok = (self.wire_fast and not self.mountpoint
+                   and not self.client_alias_max)
         for pid, item in self.session.drain_outbox():
             if pid == PUBREL_MARKER:
                 out.append(self._ack(C.PUBREL, item))
@@ -759,6 +778,30 @@ class Channel:
                 self.broker.metrics.inc("delivery.dropped")
                 self.broker.metrics.inc("delivery.dropped.expired")
                 continue
+            if wire_ok and pid is None:
+                data = self._wire_cached(msg)
+                if data is not None:
+                    if self.client_max_packet and \
+                            len(data) > self.client_max_packet:
+                        self.broker.metrics.inc("delivery.dropped")
+                        self.broker.metrics.inc(
+                            "delivery.dropped.too_large")
+                        continue
+                    n_fast += 1
+                    out.append(data)
+                    continue
+            elif wire_ok and not self.client_max_packet:
+                # QoS 1/2 pre-serialized lane: patch the packet id into
+                # a copy of the shared template (no size gate needed:
+                # the client set no cap)
+                data = self._wire_template(pid, msg)
+                if data is not None:
+                    if msg.qos == C.QOS_2:
+                        n_tpl2 += 1
+                    else:
+                        n_tpl1 += 1
+                    out.append(data)
+                    continue
             # copy before wire-mutation: the same object stays in the
             # inflight window for retry/replay
             msg = msg.copy()
@@ -812,9 +855,91 @@ class Channel:
             self.broker.metrics.inc_sent(msg)
             n_sent += 1
             out.append(pub)
+        m = self.broker.metrics
         if n_sent:
-            self.broker.metrics.inc("packets.publish.sent", n_sent)
+            m.inc("packets.publish.sent", n_sent)
+            # PUBLISHes that paid a full serialize on the event loop
+            # (ineligible traffic, or pre-serialization off)
+            m.inc("delivery.serialize.onloop", n_sent)
+        if n_fast:
+            # the shared-frame lane is QoS 0 by construction
+            m.inc("packets.publish.sent", n_fast)
+            m.inc("messages.sent", n_fast)
+            m.inc("messages.qos0.sent", n_fast)
+        if n_tpl1 or n_tpl2:
+            m.inc("packets.publish.sent", n_tpl1 + n_tpl2)
+            m.inc("messages.sent", n_tpl1 + n_tpl2)
+            if n_tpl1:
+                m.inc("messages.qos1.sent", n_tpl1)
+            if n_tpl2:
+                m.inc("messages.qos2.sent", n_tpl2)
         return out
+
+    def _wire_cached(self, msg) -> Optional[bytes]:
+        """One serialized QoS 0 PUBLISH per (message, proto version,
+        flags), shared by every subscriber session through the
+        message's ``_wire`` header dict (shared across enrich copies,
+        see Broker._deliver_one). None = not eligible: take the
+        per-delivery path."""
+        wire = msg.headers.get("_wire")
+        if wire is None:
+            return None
+        props = msg.headers.get("properties")
+        if props and ("Message-Expiry-Interval" in props
+                      or "Subscription-Identifier" in props):
+            # a per-delivery rewrite (expiry countdown) or a
+            # per-SESSION value (subid) must never enter the shared
+            # cache — another subscriber would replay it
+            return None
+        # enriched copies share this dict but can differ in the
+        # byte-affecting flags (RAP keeps retain, shared redispatch
+        # sets dup); the effective QoS is part of the key, so a
+        # downgraded-to-QoS 0 copy never serves a QoS>0 frame
+        key = (self.proto_ver, msg.qos, msg.flags.get("retain", False),
+               msg.flags.get("dup", False))
+        data = wire.get(key)
+        if data is None:
+            pub = from_message(None, msg)
+            if self.proto_ver != C.MQTT_V5:
+                pub.properties = {}
+            data = wire[key] = wire_serialize(pub, self.proto_ver)
+            # an image the pre-serialization did not prime, built ON
+            # the loop
+            self.broker.metrics.inc("delivery.serialize.onloop")
+        return data
+
+    def _wire_template(self, pid: int, msg) -> Optional[bytes]:
+        """QoS 1/2 pre-serialized lane: a copy of the message's shared
+        template (``_wiretpl``, built off-loop by
+        ops/dispatch_plan.preserialize_plan) with ``pid`` patched in.
+        None = no template cache on this message, or a per-delivery
+        rewrite applies: take the per-delivery path."""
+        tpl = msg.headers.get("_wiretpl")
+        if tpl is None:
+            return None
+        if msg.headers.get("shared") is not None:
+            # group redispatch carries per-delivery original/dup state
+            return None
+        props = msg.headers.get("properties")
+        if props and ("Message-Expiry-Interval" in props
+                      or "Subscription-Identifier" in props):
+            return None
+        key = (self.proto_ver, msg.qos, msg.flags.get("retain", False),
+               msg.flags.get("dup", False))
+        entry = tpl.get(key)
+        if entry is None:
+            # a variant miss (a retry's DUP, another proto version):
+            # built once ON the loop and cached for the next frames
+            pub = from_message(pid, msg)
+            if self.proto_ver != C.MQTT_V5:
+                pub.properties = {}
+            entry = tpl[key] = wire_template(pub, self.proto_ver)
+            self.broker.metrics.inc("delivery.serialize.onloop")
+        data, off = entry
+        buf = bytearray(data)
+        buf[off] = (pid >> 8) & 0xFF
+        buf[off + 1] = pid & 0xFF
+        return bytes(buf)
 
     # -- timers -----------------------------------------------------------
 

@@ -54,7 +54,7 @@ class Connection:
                  writer: asyncio.StreamWriter,
                  broker, cm, zone: Optional[Zone] = None,
                  listener: str = "tcp:default",
-                 peername=None) -> None:
+                 peername=None, frame: str = "py") -> None:
         self.reader = reader
         self.writer = writer
         self.zone = zone or get_zone()
@@ -67,7 +67,13 @@ class Connection:
         self.channel.on_close = self._close_transport
         self.channel.on_deliver = self._schedule_flush
         self.channel.send_oob = self._send_packets
-        self.parser = make_parser(max_size=self.zone.max_packet_size)
+        # the transport takes raw wire bytes: handle_deliver may hand
+        # it shared pre-serialized frames (Channel.wire_fast)
+        self.channel.wire_fast = True
+        # [node] frame: "py" or "native" (the C framing); a native
+        # parser that cannot be built raises here, never downgrades
+        self.parser = make_parser(max_size=self.zone.max_packet_size,
+                                  mode=frame)
         self.broker = broker
         self.recv_bytes = 0
         self.send_bytes = 0
@@ -104,6 +110,15 @@ class Connection:
         frames: list = []
         try:
             for pkt in pkts:
+                if type(pkt) is bytes:
+                    # a pre-serialized frame: the channel already built
+                    # (and size-gated) the wire bytes
+                    self.send_bytes += len(pkt)
+                    self.send_pkts += 1
+                    n_pkts += 1
+                    n_bytes += len(pkt)
+                    frames.append(pkt)
+                    continue
                 data = serialize(pkt, self.channel.proto_ver)
                 if max_out and len(data) > max_out:
                     # MQTT-3.1.2-24 covers EVERY packet. PUBLISHes are
@@ -396,6 +411,10 @@ class Connection:
         except FrameError as e:
             log.debug("frame error from %s: %s", self.channel.peername, e)
             return None
+        nf = getattr(self.parser, "native_frames", 0)
+        if nf:
+            self.broker.metrics.inc("frame.native.frames", nf)
+            self.parser.native_frames = 0
         return pkts
 
     async def _process(self, pkt) -> bool:
@@ -569,7 +588,7 @@ class Listener:
                  name: str = "tcp:default",
                  proxy_protocol: bool = False,
                  access_rules=None,
-                 device=None) -> None:
+                 device=None, frame: str = "py") -> None:
         dev = resolve(device)
         if dev != broker.device:
             raise ValueError(f"Listener on {dev} for a broker on "
@@ -580,6 +599,8 @@ class Listener:
         self.port = port
         self.zone = zone or get_zone()
         self.name = name
+        # parser variant of the accepted connections ([node] frame)
+        self.frame = frame
         # PROXY protocol v1/v2 (esockd proxy_protocol): a fronting LB
         # prepends the REAL client address; the header must arrive
         # within PROXY_PROTOCOL_TIMEOUT or the socket closes
@@ -617,7 +638,7 @@ class Listener:
                     return
             conn = Connection(reader, writer, self.broker, self.cm,
                               zone=self.zone, listener=self.name,
-                              peername=peername)
+                              peername=peername, frame=self.frame)
             self._conns.add(conn)
             self._handshaking.discard(writer)
             await conn.run()

@@ -59,8 +59,12 @@ NAMES = (
     # connection flush wakeups after coalescing (≤ 1 per connection
     # per batch with the dispatch planner)
     "delivery.wakeups",
-    # oversized frames refused at header decode
-    "frame.oversize",
+    # oversized frames refused at header decode; frames the C parser
+    # framed (``Node(frame="native")``)
+    "frame.oversize", "frame.native.frames",
+    # PUBLISHes that paid a full serialize on the event loop (not
+    # eligible for a pre-serialized frame, or preserialize off)
+    "delivery.serialize.onloop",
     # the publish match cache and its epoch bumps
     # (Router.drain_cache_stats, folded by the node's housekeeping)
     "cache.match.hit", "cache.match.miss",

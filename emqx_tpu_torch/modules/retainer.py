@@ -36,7 +36,7 @@ import torch
 from emqx_tpu_torch import topic as T
 from emqx_tpu_torch.device import resolve
 from emqx_tpu_torch.modules import Module
-from emqx_tpu_torch.ops.dispatch_plan import DispatchPlan
+from emqx_tpu_torch.ops.dispatch_plan import DispatchPlan, preserialize_plan
 from emqx_tpu_torch.ops.retained_match import PLUS_ID, match_names_auto
 from emqx_tpu_torch.ops.tokenize import PAD, WordTable
 from emqx_tpu_torch.session import Session
@@ -407,7 +407,11 @@ class RetainerModule(Module):
             return None
         if msg.topic not in self._store:
             self.node.metrics.inc("retained.count")
-        self._put(msg.topic, msg.copy())
+        stored = msg.copy()
+        # the broadcast wire cache is per-live-delivery state, not
+        # part of the retained record
+        stored.headers.pop("_wire", None)
+        self._put(msg.topic, stored)
         return None  # the message still routes normally
 
     def sweep_expired(self) -> int:
@@ -470,8 +474,11 @@ class RetainerModule(Module):
         filters are a dict probe, every stored topic materializes ONE
         out-copy per burst (retain flag kept, expiry filtered here with
         lazy eviction), and each session takes its whole group in one
-        ``deliver_many``. With ``dispatch_config.planner`` off, the
-        per-delivery ``deliver`` walk runs instead."""
+        ``deliver_many``. With ``dispatch_config.preserialize`` the
+        burst's wire frames are built first, once per subscriber class
+        and stored topic, over the burst's shared row copies. With
+        ``dispatch_config.planner`` off, the per-delivery ``deliver``
+        walk runs instead."""
         store = self._store
         if not store:
             return
@@ -553,6 +560,15 @@ class RetainerModule(Module):
         plan = DispatchPlan(np.asarray(sids, np.int64),
                             np.asarray(fids, np.int64),
                             np.asarray(rids, np.int64))
+        if cfg.preserialize:
+            # the classes come from the sessions' real SubOpts
+            subscribers: Dict[str, dict] = {}
+            for (sid, fid), opts in opts_of.items():
+                if opts is not None:
+                    subscribers.setdefault(
+                        flt_list[fid], {})[sessions[sid]] = opts
+            preserialize_plan(plan, list(enumerate(rows)), flt_list,
+                              subscribers, sessions.__getitem__)
         g_ptr = plan.g_ptr
         for g in range(plan.n_groups):
             sid = plan.g_sids[g]

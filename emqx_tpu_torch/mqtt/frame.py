@@ -426,16 +426,116 @@ class Parser:
             username=username, password=password, properties=props)
 
 
+class NativeParser(Parser):
+    """:class:`Parser` backed by the stateful per-connection C handle
+    (``mqtt_parser_new/feed/consume`` in ``csrc/host_native.cpp``).
+
+    The retained partial-frame remainder lives C-side; each feed ships
+    only the new bytes across the ctypes boundary and gets back frame
+    descriptors (7 ints a frame) over the handle's buffer, which
+    PUBLISH topic and payload slice through a memoryview. Packet
+    bodies are decoded in Python by the same ``_parse_packet`` the
+    pure parser runs, so only the framing differs — and it is held
+    frame for frame against :class:`Parser` and the JAX package's
+    parser (tests/test_torch_frame_native.py).
+
+    Construct via :func:`make_parser`; raises when the host library
+    cannot be built."""
+
+    def __init__(self, version: int = C.MQTT_V4,
+                 max_size: int = C.MAX_PACKET_SIZE,
+                 strict: bool = True) -> None:
+        super().__init__(version=version, max_size=max_size,
+                         strict=strict)
+        from emqx_tpu_torch.ops.native import FrameHandle
+
+        self._h = FrameHandle(max_size)
+        #: frames framed natively since the last harvest — the
+        #: connection folds this into the frame.native.frames counter
+        self.native_frames = 0
+
+    def pending(self) -> int:
+        """Bytes buffered C-side (the Python parser's len(_buf))."""
+        return self._h.pending()
+
+    def feed(self, data) -> List[Packet]:
+        out: List[Packet] = []
+        h = self._h
+        chunk = data
+        while True:
+            nf = h.feed(chunk)
+            chunk = b""
+            state = h.state
+            err, err_size = int(state[4]), int(state[1])
+            consumed = 0
+            view = h.view() if nf else None
+            try:
+                for k in range(nf):
+                    header, boff, blen, toff, tlen, pid, pp = \
+                        h.out[k * 7:k * 7 + 7]
+                    if toff >= 0 and header >> 4 == C.PUBLISH:
+                        qos = (header >> 1) & 0x03
+                        if qos > 0 and self.strict and pid == 0:
+                            raise FrameError("bad_packet_id")
+                        try:
+                            topic = bytes(
+                                view[toff:toff + tlen]).decode("utf-8")
+                        except UnicodeDecodeError as e:
+                            raise FrameError(
+                                "utf8_string_invalid") from e
+                        props: Dict[str, Any] = {}
+                        if self.version == C.MQTT_V5:
+                            body = bytes(view[boff:boff + blen])
+                            props, j = _parse_props(body, pp - boff)
+                            payload = body[j:]
+                        else:
+                            payload = bytes(view[pp:boff + blen])
+                        pkt = Publish(
+                            dup=bool(header & 0x08), qos=qos,
+                            retain=bool(header & 0x01), topic=topic,
+                            packet_id=pid if qos > 0 else None,
+                            properties=props, payload=payload)
+                    else:
+                        pkt = self._parse_packet(
+                            header, bytes(view[boff:boff + blen]))
+                    out.append(pkt)
+                    if isinstance(pkt, Connect):
+                        self.version = pkt.proto_ver
+                    consumed = boff + blen
+            finally:
+                # raise-before-consume: a frame whose body fails to
+                # parse (and everything after it) stays buffered,
+                # exactly like the Python loop
+                if view is not None:
+                    view.release()
+                h.consume(consumed)
+                self.native_frames += nf
+            if nf >= h.cap:
+                # descriptor array full — more complete frames may
+                # remain buffered; rescan without new bytes
+                continue
+            if err == -1:
+                raise FrameError("malformed_variable_byte_integer")
+            if err == -2:
+                raise FrameTooLarge(f"frame_too_large: {err_size}")
+            return out
+
+
 def make_parser(version: int = C.MQTT_V4,
                 max_size: int = C.MAX_PACKET_SIZE,
                 strict: bool = True,
                 mode: str = "py") -> Parser:
-    """Parser factory behind the ``[node] frame`` seam. Only the
-    pure-Python :class:`Parser` exists in this package: any other
-    ``mode`` raises (the native parser is not ported)."""
+    """Parser factory behind the ``[node] frame`` seam: ``"py"`` is the
+    pure-Python :class:`Parser`, ``"native"`` the C framing of
+    :class:`NativeParser`. Unlike the JAX package's factory, a native
+    parser that cannot be built raises instead of downgrading to
+    Python; any other ``mode`` raises ``ValueError``."""
+    if mode == "native":
+        return NativeParser(version=version, max_size=max_size,
+                            strict=strict)
     if mode != "py":
-        raise ValueError(f"frame mode {mode!r} is not available "
-                         f"(only 'py')")
+        raise ValueError(f'frame mode must be "py" or "native", '
+                         f"got {mode!r}")
     return Parser(version=version, max_size=max_size, strict=strict)
 
 

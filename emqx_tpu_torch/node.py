@@ -39,9 +39,20 @@ class Node:
                  matcher: Optional[MatcherConfig] = None,
                  dispatch_config: Optional[DispatchConfig] = None,
                  batch_size: int = 256,
-                 device=None) -> None:
+                 device=None, frame: str = "py") -> None:
         self.name = name
         self.zone = zone or get_zone()
+        # [node] frame: the wire-framing parser of every connection,
+        # "py" (the default, as in the JAX package) or "native". The
+        # native one is built here, so a failed build raises at boot
+        if frame not in ("py", "native"):
+            raise ValueError(f'frame must be "py" or "native", '
+                             f"got {frame!r}")
+        if frame == "native":
+            from emqx_tpu_torch.ops.native import load_library
+
+            load_library()
+        self.frame = frame
         # kernel services (emqx_kernel_sup)
         self.hooks = Hooks()
         self.metrics = Metrics()
@@ -81,7 +92,8 @@ class Node:
         lst = Listener(self.broker, self.cm, host=host, port=port,
                        zone=zone or self.zone, name=name,
                        proxy_protocol=proxy_protocol,
-                       access_rules=access_rules, device=self.device)
+                       access_rules=access_rules, device=self.device,
+                       frame=self.frame)
         self.listeners.append(lst)
         return lst
 

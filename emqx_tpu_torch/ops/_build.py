@@ -10,6 +10,12 @@ The library is then bound with ``ctypes``. Nothing here runs at import time: the
 first wrapper call on a CUDA tensor builds, and a CPU-only run never
 needs ``nvcc``.
 
+The host library (``csrc/host_native.cpp``: the word table, the trie,
+its flatten, the batch encoder and the frame scanner) is plain C++ and
+needs no CUDA: :func:`build_host` compiles it with ``g++`` into the same
+directory, so a CPU-only run needs ``g++`` and nothing else. The CUDA
+build lists its sources by name and never picks up the ``.cpp``.
+
 ``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one
 where it launches its kernel, and nowhere else. ``or_bitmaps`` counts
 the launches of the bitmap-OR kernel made through B4's entry point
@@ -20,8 +26,10 @@ counts too.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
+import subprocess
 import sys
 import threading
 import time
@@ -33,6 +41,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("walk", "bitmap_or", "retained_match")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-Xptxas=-v"]
+HOST_SRC = CSRC / "host_native.cpp"
+HOST_LIB = BUILD_DIR / "libemqx_host.so"
+HOST_CXX = ["g++", "-O2", "-fPIC", "-std=c++17", "-shared"]
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS + ("or_bitmaps",), 0)
@@ -85,6 +96,45 @@ def build(verbose: bool = False) -> float:
         lib.emqx_cuda_error.restype = ctypes.c_char_p
         _lib = lib
         return time.perf_counter() - t0
+
+
+def build_host(src: Optional[Path] = None,
+               lib: Optional[Path] = None) -> float:
+    """Compile the host library ``src`` (default :data:`HOST_SRC`) into
+    ``lib`` (default :data:`HOST_LIB`) when ``lib`` is missing or older
+    than ``src``; returns the seconds it took. Processes building at
+    once serialize on a file lock beside ``lib``; the compiler writes a
+    private temporary file that is renamed over ``lib`` in one step, so
+    a reader never maps a half-written library. Raises with the
+    compiler's output when the build fails."""
+    src = Path(src or HOST_SRC)
+    lib = Path(lib or HOST_LIB)
+    t0 = time.perf_counter()
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib.parent / (lib.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib.exists() and \
+                    lib.stat().st_mtime >= src.stat().st_mtime:
+                return time.perf_counter() - t0
+            tmp = lib.with_name(f".{lib.name}.{os.getpid()}."
+                                f"{threading.get_ident()}.tmp")
+            try:
+                r = subprocess.run([*HOST_CXX, "-o", str(tmp), str(src)],
+                                   capture_output=True, text=True)
+            except OSError as e:  # no compiler on PATH
+                raise RuntimeError(f"emqx_tpu_torch: cannot run "
+                                   f"{HOST_CXX[0]}: {e}") from e
+            if r.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"emqx_tpu_torch: host library build failed "
+                    f"({HOST_CXX[0]} exit {r.returncode}):\n"
+                    f"{r.stdout}{r.stderr}")
+            os.replace(tmp, lib)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return time.perf_counter() - t0
 
 
 def library() -> ctypes.CDLL:

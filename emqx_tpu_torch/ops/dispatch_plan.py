@@ -31,6 +31,11 @@ session once per batch, hands it its whole group in one
 ``deliver_many`` call, and fires one notify wakeup per connection per
 batch.
 
+:func:`preserialize_plan` then primes the batch's wire images on the
+same thread (the egress pre-serialization: one shared QoS 0 frame, or
+one packet-id template, per subscriber class and message), so the
+event loop's delivery tail copies bytes instead of serializing.
+
 A batch with any match/bitmap capacity overflow row plans as ``None``
 and takes the legacy per-delivery path unchanged (overflow rows host-
 re-match mid-walk; interleaving that with grouped delivery would
@@ -45,6 +50,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from emqx_tpu_torch.broker_helper import unpack_sids
+from emqx_tpu_torch.mqtt.constants import MQTT_V5
+from emqx_tpu_torch.mqtt.frame import publish_template
+from emqx_tpu_torch.mqtt.frame import serialize as wire_serialize
+from emqx_tpu_torch.mqtt.packet import Publish, from_message
 
 
 class DispatchPlan:
@@ -87,6 +96,151 @@ class DispatchPlan:
     @property
     def n_groups(self) -> int:
         return len(self.g_sids)
+
+
+#: ftab memo sentinel — a filter whose subscriber table resolved to
+#: None must not be re-resolved per delivery
+_NO_FTAB = object()
+
+
+def preserialize_plan(plan: "DispatchPlan",
+                      live: Sequence[Tuple[int, object]],
+                      id_map: Sequence[Optional[str]],
+                      subscribers: Dict[str, dict],
+                      lookup) -> int:
+    """Egress pre-serialization: collect the plan's distinct
+    subscriber-filter classes, then prime each live message's wire
+    caches BEFORE the finish tail runs:
+
+      - QoS0 broadcast deliveries share one serialized frame per
+        (proto_ver, flags variant) through the message's ``_wire``
+        dict — built here instead of lazily on-loop by
+        ``Channel._wire_cached``;
+      - QoS1/2 deliveries get a packet-id-placeholder template per
+        (proto_ver, effective qos, retain, dup) in ``_wiretpl``
+        (:func:`~emqx_tpu_torch.mqtt.frame.publish_template`): the
+        pid is always 2 bytes at a fixed offset, so the loop-side tail
+        is a ``bytearray`` copy + 2-byte patch per subscriber.
+
+    Per-session rewrites the template cannot carry — shared-group
+    redispatch state, Subscription-Identifier, the Message-Expiry
+    countdown — are detected here and skipped; those deliveries take
+    the existing per-delivery serialize path unchanged.
+
+    Runs wherever :meth:`~emqx_tpu_torch.broker.Broker.publish_fetch`
+    runs (possibly an ingress executor thread): every broker read is a
+    plain dict get (GIL-atomic, same discipline as the plan build's
+    member snapshot), the session hints (``proto_ver`` /
+    ``wire_fast_hint``) are stamped once at CONNECT, and the primed
+    caches are best-effort — a variant the finish tail needs but
+    doesn't find simply builds on-loop (counted by
+    ``delivery.serialize.onloop``). Returns the number of frames
+    built."""
+    # Pass 1 — subscriber-filter CLASSES. The wire variant a delivery
+    # needs is fully determined by (proto_ver, upgrade_qos, granted
+    # qos, rap) plus the message's own flags, so instead of walking
+    # every (subscriber, delivery) pair — O(deliveries) Python work
+    # per batch — collect the distinct classes over the plan's
+    # (group, fid) pairs and build per (class, message) in pass 2.
+    # Variants dedupe by cache key, so a class that happens not to
+    # touch a message over-builds a frame at worst (harmless); every
+    # ACTUAL delivery's variant is covered. The delivery walk itself
+    # shrinks to a fid-change probe per slot.
+    classes: Dict[tuple, None] = {}
+    g_ptr = plan.g_ptr
+    fids = plan.fids
+    ftab_of: Dict[int, object] = {}
+    for g in range(plan.n_groups):
+        sub = lookup(plan.g_sids[g])
+        if sub is None:
+            continue
+        ver = getattr(sub, "proto_ver", None)
+        if ver is None or not getattr(sub, "wire_fast_hint", False):
+            continue
+        upgrade = getattr(sub, "upgrade_qos", False)
+        last_fid = -1          # within a group the same fid repeats
+        seen: Optional[set] = None   # row-major — catch runs cheaply
+        for k in range(g_ptr[g], g_ptr[g + 1]):
+            fid = fids[k]
+            if fid == last_fid:
+                continue
+            last_fid = fid
+            if seen is None:
+                seen = set()
+            elif fid in seen:
+                continue
+            seen.add(fid)
+            ftab = ftab_of.get(fid)
+            if ftab is None:
+                flt = id_map[fid]
+                ftab = (subscribers.get(flt) or _NO_FTAB) \
+                    if flt is not None else _NO_FTAB
+                ftab_of[fid] = ftab
+            opts = ftab.get(sub) if ftab is not _NO_FTAB else None
+            if opts is None or opts.share is not None \
+                    or opts.subid is not None:
+                continue  # per-session rewrites: slow path
+            classes[(ver, upgrade, opts.qos, opts.rap)] = None
+    if not classes:
+        return 0
+    # Pass 2 — build per (class, live message): O(classes × batch)
+    # serializes, each shared by every subscriber of that variant.
+    built = 0
+    class_list = list(classes)
+    for _i, msg in live:
+        headers = msg.headers
+        props = headers.get("properties")
+        if props and ("Message-Expiry-Interval" in props
+                      or "Subscription-Identifier" in props):
+            continue  # per-delivery countdown / per-session subid
+        flags = msg.flags
+        mqos = msg.qos
+        retain = flags.get("retain", False)
+        dup = flags.get("dup", False)
+        retained = bool(headers.get("retained"))
+        wire = tpl = None
+        for ver, upgrade, oqos, rap in class_list:
+            qos = max(oqos, mqos) if upgrade else min(oqos, mqos)
+            if qos == 0:
+                if mqos == 0 and not retain:
+                    # broadcast fast path: the ORIGINAL message is
+                    # shared, its own flags key the image
+                    key = (ver, 0, retain, dup)
+                else:
+                    # downgraded-to-QoS0 enriched copy: _enrich
+                    # clears retain unless rap/retained; the qos-in-
+                    # key rule keeps it apart from any QoS>0 frame
+                    key = (ver, 0,
+                           retain and bool(rap or retained), dup)
+                if wire is None:
+                    wire = headers.get("_wire")
+                    if wire is None:
+                        wire = headers["_wire"] = {}
+                if key not in wire:
+                    pub = from_message(None, msg)
+                    pub.qos = 0
+                    pub.retain = key[2]
+                    if ver != MQTT_V5:
+                        pub.properties = {}
+                    wire[key] = wire_serialize(pub, ver)
+                    built += 1
+                continue
+            key = (ver, qos,
+                   retain and bool(rap or retained), dup)
+            if tpl is None:
+                tpl = headers.get("_wiretpl")
+                if tpl is None:
+                    tpl = headers["_wiretpl"] = {}
+            if key not in tpl:
+                pub = Publish(
+                    dup=dup, qos=qos, retain=key[2], topic=msg.topic,
+                    packet_id=0,
+                    properties=dict(props)
+                    if (ver == MQTT_V5 and props) else {},
+                    payload=msg.payload)
+                tpl[key] = publish_template(pub, ver)
+                built += 1
+    return built
 
 
 def big_rows_for(ids_packed: Sequence[int], m_ptr: np.ndarray,

@@ -1,0 +1,405 @@
+"""ctypes binding for the port's host library (word table, batch
+encoder, trie + CSR flatten + level compression, host match, MQTT
+frame scanner).
+
+The library is compiled at first use from ``csrc/host_native.cpp`` with
+``g++`` (:func:`emqx_tpu_torch.ops._build.build_host`), into
+``emqx_tpu_torch/_build/``. Unlike the JAX package's binding there is
+no silent fallback: when the build fails, :func:`load_library` raises
+with the compiler's output, and so does every constructor here. A
+caller that wants the pure-Python engine asks for it
+(``MatcherConfig(use_native=False)``, ``make_parser(mode="py")``).
+
+A call into a ``ctypes.CDLL`` releases the GIL, so a long flatten on a
+background thread leaves the interpreter to matchers and route ops.
+"""
+
+from __future__ import annotations
+
+import ctypes as C
+import threading
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from emqx_tpu_torch.ops import _build
+
+_lib: Optional[C.CDLL] = None
+_lib_lock = threading.Lock()
+
+_i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+
+
+def load_library() -> C.CDLL:
+    """The host library, (re)built when missing or older than its
+    source. Raises ``RuntimeError`` with the compiler's output when
+    the build fails."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        _build.build_host()
+        lib = C.CDLL(str(_build.HOST_LIB))
+        lib.wt_new.restype = C.c_void_p
+        lib.wt_free.argtypes = [C.c_void_p]
+        lib.wt_size.argtypes = [C.c_void_p]
+        lib.wt_size.restype = C.c_int32
+        lib.wt_intern.argtypes = [C.c_void_p, C.c_char_p, C.c_int32]
+        lib.wt_intern.restype = C.c_int32
+        lib.wt_lookup.argtypes = [C.c_void_p, C.c_char_p, C.c_int32]
+        lib.wt_lookup.restype = C.c_int32
+        lib.wt_word_at.argtypes = [C.c_void_p, C.c_int32, C.c_char_p,
+                                   C.c_int32]
+        lib.wt_word_at.restype = C.c_int32
+        lib.encode_topics.argtypes = [
+            C.c_void_p, C.c_char_p, _i64p, C.c_int32, C.c_int32,
+            _i32p, _i32p, _u8p]
+        lib.trie_new.argtypes = [C.c_void_p]
+        lib.trie_new.restype = C.c_void_p
+        lib.trie_free.argtypes = [C.c_void_p]
+        lib.trie_num_filters.argtypes = [C.c_void_p]
+        lib.trie_num_filters.restype = C.c_int32
+        lib.trie_insert.argtypes = [C.c_void_p, C.c_char_p, C.c_int32,
+                                    C.c_int32]
+        lib.trie_insert.restype = C.c_int32
+        lib.trie_delete.argtypes = [C.c_void_p, C.c_char_p, C.c_int32]
+        lib.trie_delete.restype = C.c_int32
+        lib.trie_counts.argtypes = [C.c_void_p,
+                                    C.POINTER(C.c_int64),
+                                    C.POINTER(C.c_int64)]
+        lib.trie_counts_scan.argtypes = [C.c_void_p,
+                                         C.POINTER(C.c_int64),
+                                         C.POINTER(C.c_int64)]
+        lib.trie_flatten.argtypes = [
+            C.c_void_p, C.c_int64, C.c_int64, _i32p, _i32p, _i32p,
+            _i32p, _i32p, _i32p]
+        lib.trie_flatten.restype = C.c_int64
+        lib.csr_compress.argtypes = [
+            _i32p, _i32p, _i32p, _i32p, _i32p, _i32p,
+            C.c_int64, C.c_int32, C.c_int64, C.c_int64, C.c_int64,
+            _i32p, _i32p, _i32p, _i32p, _i32p,
+            _i32p, _i16p, _i16p, _i32p, _i64p]
+        lib.csr_compress.restype = C.c_int32
+        lib.trie_match.argtypes = [C.c_void_p, C.c_char_p, C.c_int32,
+                                   _i32p, C.c_int32]
+        lib.trie_match.restype = C.c_int32
+        lib.mqtt_scan.argtypes = [C.c_char_p, C.c_int64, C.c_int64,
+                                  C.c_int32, C.POINTER(C.c_int32),
+                                  C.POINTER(C.c_int64)]
+        lib.mqtt_scan.restype = C.c_int32
+        lib.mqtt_parser_new.argtypes = [C.c_int64]
+        lib.mqtt_parser_new.restype = C.c_void_p
+        lib.mqtt_parser_free.argtypes = [C.c_void_p]
+        lib.mqtt_parser_pending.argtypes = [C.c_void_p]
+        lib.mqtt_parser_pending.restype = C.c_int64
+        lib.mqtt_parser_feed.argtypes = [
+            C.c_void_p, C.c_char_p, C.c_int64, C.c_int32,
+            C.POINTER(C.c_int32), C.POINTER(C.c_int64)]
+        lib.mqtt_parser_feed.restype = C.c_int32
+        lib.mqtt_parser_consume.argtypes = [C.c_void_p, C.c_int64]
+        _lib = lib
+        return _lib
+
+
+_SCAN_CAP = 512  # frames per scan call (the parser loops on more)
+_scan_tls = threading.local()
+
+
+def mqtt_scan(buf, max_size: int):
+    """Scan MQTT frames out of ``buf`` (bytes-like) with the C
+    scanner. Returns ``(flat int list [n*7], n, consumed, err,
+    err_size)``; err: 0 ok, -1 malformed varint, -2 frame over
+    ``max_size`` (with its total in err_size).
+
+    Scratch buffers are per-thread and reused."""
+    lib = load_library()
+    scratch = getattr(_scan_tls, "v", None)
+    if scratch is None:
+        scratch = ((C.c_int32 * (_SCAN_CAP * 7))(),
+                   (C.c_int64 * 2)())
+        _scan_tls.v = scratch
+    out, state = scratch
+    if isinstance(buf, bytearray):
+        # zero-copy view, held only for the duration of the C call
+        cbuf = (C.c_char * len(buf)).from_buffer(buf)
+    else:
+        cbuf = bytes(buf)
+    rc = lib.mqtt_scan(cbuf, len(buf), max_size, _SCAN_CAP, out, state)
+    if rc < 0:
+        return [], 0, int(state[0]), int(rc), int(state[1])
+    return out[: rc * 7], rc, int(state[0]), 0, 0
+
+
+# zero-copy read view over the handle's C-side buffer (released by
+# the caller before the next feed/consume — the vector may realloc)
+_view_from_memory = C.pythonapi.PyMemoryView_FromMemory
+_view_from_memory.restype = C.py_object
+_view_from_memory.argtypes = [C.c_void_p, C.c_ssize_t, C.c_int]
+_PyBUF_READ = 0x100
+
+
+class FrameHandle:
+    """Raw ctypes surface of one per-connection C parser handle.
+
+    Owns the retained partial-frame remainder C-side, so each socket
+    read ships only its NEW bytes across the FFI boundary. Packet-body
+    semantics stay in :class:`emqx_tpu_torch.mqtt.frame.NativeParser`,
+    which drives this handle."""
+
+    __slots__ = ("_lib", "_h", "out", "state", "cap")
+
+    def __init__(self, max_size: int) -> None:
+        lib = load_library()
+        self._lib = lib
+        self.cap = _SCAN_CAP
+        self.out = (C.c_int32 * (_SCAN_CAP * 7))()
+        self.state = (C.c_int64 * 5)()
+        self._h = lib.mqtt_parser_new(max_size)
+
+    def close(self) -> None:
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            self._lib.mqtt_parser_free(h)
+
+    __del__ = close
+
+    def feed(self, data) -> int:
+        """Append ``data``, scan, fill ``self.out``/``self.state``;
+        returns the complete-frame count (never negative — scan
+        errors ride ``state[4]`` after their preceding frames)."""
+        if isinstance(data, bytearray):
+            cbuf = (C.c_char * len(data)).from_buffer(data) \
+                if data else b""
+        elif isinstance(data, bytes):
+            cbuf = data
+        else:
+            cbuf = bytes(data)
+        return self._lib.mqtt_parser_feed(
+            self._h, cbuf, len(data), self.cap, self.out, self.state)
+
+    def view(self):
+        """Zero-copy read-only memoryview of the buffered bytes."""
+        return _view_from_memory(self.state[2], self.state[3],
+                                 _PyBUF_READ)
+
+    def consume(self, n: int) -> None:
+        self._lib.mqtt_parser_consume(self._h, n)
+
+    def pending(self) -> int:
+        """Bytes currently retained (partial-frame remainder)."""
+        return int(self._lib.mqtt_parser_pending(self._h))
+
+
+class NativeEngine:
+    """Owns a native word table + trie; produces Automaton arrays.
+
+    The router's engine in place of the WordTable + TrieOracle +
+    numpy-flatten trio; the arrays equal the JAX package's native
+    engine's byte for byte (tests/test_torch_native.py)."""
+
+    def __init__(self) -> None:
+        lib = load_library()
+        self._lib = lib
+        self._wt = lib.wt_new()
+        self._trie = lib.trie_new(self._wt)
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        if lib is not None:
+            if getattr(self, "_trie", None):
+                lib.trie_free(self._trie)
+            if getattr(self, "_wt", None):
+                lib.wt_free(self._wt)
+
+    # -- word table -------------------------------------------------------
+
+    def intern(self, word: str) -> int:
+        b = word.encode()
+        return self._lib.wt_intern(self._wt, b, len(b))
+
+    def lookup(self, word: str) -> int:
+        b = word.encode()
+        return self._lib.wt_lookup(self._wt, b, len(b))
+
+    def words(self):
+        """All interned words in id order (checkpoint export)."""
+        out = []
+        buf = C.create_string_buffer(4096)
+        for i in range(self.vocab_size()):
+            n = self._lib.wt_word_at(self._wt, i, buf, len(buf))
+            if n < 0:
+                break
+            if n > len(buf):
+                big = C.create_string_buffer(n)
+                self._lib.wt_word_at(self._wt, i, big, n)
+                out.append(big.raw[:n].decode())
+            else:
+                out.append(buf.raw[:n].decode())
+        return out
+
+    def vocab_size(self) -> int:
+        return self._lib.wt_size(self._wt)
+
+    # -- trie -------------------------------------------------------------
+
+    def insert(self, filter_: str, filter_id: int) -> bool:
+        b = filter_.encode()
+        return bool(self._lib.trie_insert(self._trie, b, len(b),
+                                          filter_id))
+
+    def delete(self, filter_: str) -> bool:
+        b = filter_.encode()
+        return bool(self._lib.trie_delete(self._trie, b, len(b)))
+
+    def num_filters(self) -> int:
+        return self._lib.trie_num_filters(self._trie)
+
+    def counts(self) -> Tuple[int, int]:
+        """Live (states, edges) — O(1) incremental counters (the
+        capacity sizing every flatten pays)."""
+        s, e = C.c_int64(), C.c_int64()
+        self._lib.trie_counts(self._trie, C.byref(s), C.byref(e))
+        return s.value, e.value
+
+    def counts_scan(self) -> Tuple[int, int]:
+        """The full-DFS count — the parity oracle for :meth:`counts`
+        (tests only; O(nodes))."""
+        s, e = C.c_int64(), C.c_int64()
+        self._lib.trie_counts_scan(self._trie, C.byref(s), C.byref(e))
+        return s.value, e.value
+
+    def match(self, topic: str, cap: int = 4096) -> np.ndarray:
+        """All matching filter ids — grows the buffer until complete
+        (the host re-match must be exact, never truncated)."""
+        b = topic.encode()
+        while True:
+            out = np.empty((cap,), dtype=np.int32)
+            n = self._lib.trie_match(self._trie, b, len(b), out, cap)
+            if n < cap:
+                return out[:n].copy()
+            cap *= 4
+
+    # -- flatten ----------------------------------------------------------
+
+    def flatten(self, state_capacity: Optional[int] = None,
+                edge_capacity: Optional[int] = None,
+                v2_state_capacity: Optional[int] = None,
+                n_buckets: Optional[int] = None,
+                skip_hash: bool = False):
+        """Flatten the trie into a host :class:`~.csr.Automaton`: the
+        CSR arrays and (narrow layout excepted) the level compression
+        in C++, the bucket placement through :mod:`.csr`."""
+        from emqx_tpu_torch.ops.csr import (Automaton, attach_walk_tables,
+                                            capacity_for,
+                                            finalize_automaton)
+
+        S, E = self.counts()
+        s_cap = capacity_for(S, state_capacity)
+        e_cap = capacity_for(E + 1, edge_capacity)
+        row_ptr = np.empty((s_cap + 1,), dtype=np.int32)
+        edge_word = np.empty((e_cap,), dtype=np.int32)
+        edge_child = np.empty((e_cap,), dtype=np.int32)
+        plus_child = np.empty((s_cap,), dtype=np.int32)
+        hash_filter = np.empty((s_cap,), dtype=np.int32)
+        end_filter = np.empty((s_cap,), dtype=np.int32)
+        n_states = self._lib.trie_flatten(
+            self._trie, s_cap, e_cap, row_ptr, edge_word, edge_child,
+            plus_child, hash_filter, end_filter)
+        if n_states < 0:
+            raise RuntimeError("flatten capacity underestimated")
+        auto = Automaton(
+            row_ptr=row_ptr, edge_word=edge_word, edge_child=edge_child,
+            plus_child=plus_child, hash_filter=hash_filter,
+            end_filter=end_filter, n_states=int(n_states), n_edges=E)
+        if skip_hash:
+            return auto
+        compressed = _compress_native(
+            self._lib, auto, state_capacity=v2_state_capacity)
+        if compressed is not None:
+            auto2, edges = compressed
+            return attach_walk_tables(auto2, edges, n_buckets=n_buckets)
+        return finalize_automaton(auto,
+                                  state_capacity=v2_state_capacity,
+                                  n_buckets=n_buckets)
+
+    # -- batch encode -----------------------------------------------------
+
+    def encode_batch(self, topics: Sequence[str], max_levels: int):
+        return _encode_batch(self._lib, self._wt, topics, max_levels)
+
+
+def _compress_native(lib, auto, state_capacity: Optional[int] = None):
+    """Level-compress ``auto`` with the C++ chain fuser.
+
+    Returns ``(compressed_auto, V2Edges)``, byte-identical to
+    :func:`~.csr.compress_automaton`, or None for a narrow-layout trie
+    (no chains worth fusing: :func:`~.csr.finalize_automaton`'s cheap
+    renumber builds it, as in the JAX package)."""
+    from emqx_tpu_torch.ops.csr import (MAX_TAKE, WIDE_SLOTS, V2Edges,
+                                        capacity_for)
+
+    S = int(auto.n_states)
+    E = int(auto.n_edges)
+    R = MAX_TAKE
+    e_cap = max(E, 1)
+    e_src = np.empty(e_cap, np.int32)
+    e_word = np.empty(e_cap, np.int32)
+    e_take = np.empty(e_cap, np.int32)
+    e_child = np.empty(e_cap, np.int32)
+    e_cw = np.empty((e_cap, R - 1), np.int32)
+    node2 = np.empty((S, 4), np.int32)
+    v2_hop = np.empty(S, np.int16)
+    v2_depth = np.empty(S, np.int16)
+    hl = np.empty(S + 1, np.int32)
+    info = np.zeros(4, np.int64)
+    rc = lib.csr_compress(
+        np.ascontiguousarray(auto.row_ptr[:S + 1], np.int32),
+        np.ascontiguousarray(auto.edge_word, np.int32),
+        np.ascontiguousarray(auto.edge_child, np.int32),
+        np.ascontiguousarray(auto.plus_child[:S], np.int32),
+        np.ascontiguousarray(auto.hash_filter[:S], np.int32),
+        np.ascontiguousarray(auto.end_filter[:S], np.int32),
+        S, R, e_cap, S, S + 1,
+        e_src, e_word, e_take, e_child, e_cw.reshape(-1),
+        node2.reshape(-1), v2_hop, v2_depth, hl, info)
+    if rc != 0:
+        # compression never grows a trie: S2 <= S, E2 <= E
+        raise RuntimeError("csr_compress: capacity underestimated")
+    S2, E2, maxdepth, mode = (int(x) for x in info)
+    if mode != 1:
+        return None
+    edges = V2Edges(src=e_src[:E2].copy(), word=e_word[:E2].copy(),
+                    take=e_take[:E2].copy(), child=e_child[:E2].copy(),
+                    cw=e_cw[:E2].copy())
+    S2_cap = capacity_for(S2, state_capacity)
+    node2_p = np.full((S2_cap, 4), -1, np.int32)
+    node2_p[:S2] = node2[:S2]
+    hop_p = np.full(S2_cap, -1, np.int16)
+    hop_p[:S2] = v2_hop[:S2]
+    depth_p = np.full(S2_cap, -1, np.int16)
+    depth_p[:S2] = v2_depth[:S2]
+    return auto._replace(
+        node2=node2_p, hops_for_level=hl[:maxdepth + 1].copy(),
+        v2_hop=hop_p, v2_depth=depth_p,
+        v2_states=S2, v2_edges=E2,
+        wt_slots=WIDE_SLOTS, wt_take=R), edges
+
+
+def _encode_batch(lib, wt, topics: Sequence[str], max_levels: int):
+    """``(ids int32[n, max_levels], n_words int32[n], sys_mask
+    bool[n])``, equal to :func:`~.tokenize.encode_batch` over the same
+    vocabulary."""
+    n = len(topics)
+    blobs = [t.encode() for t in topics]
+    offsets = np.zeros((n + 1,), dtype=np.int64)
+    np.cumsum([len(b) for b in blobs], out=offsets[1:])
+    blob = b"".join(blobs)
+    ids = np.empty((n, max_levels), dtype=np.int32)
+    out_n = np.empty((n,), dtype=np.int32)
+    sysm = np.empty((n,), dtype=np.uint8)
+    lib.encode_topics(wt, blob, offsets, n, max_levels,
+                      ids.reshape(-1), out_n, sysm)
+    return ids, out_n, sysm.astype(bool)

@@ -3,8 +3,13 @@
 The port of the JAX package's single-device ``Router`` with its
 defaults: routes are a host map ``filter → {dest: refcount}`` (the
 reference's ``emqx_route`` bag, src/emqx_router.erl:113-133) over a
-host :class:`~emqx_tpu_torch.oracle.TrieOracle`, and the match side is
-the compressed automaton placed on the router's torch device. Filter
+host trie, and the match side is the compressed automaton placed on
+the router's torch device. The trie, its word table, the flatten and
+the batch encoder run in C++ (``use_native=True``, the default:
+:class:`~emqx_tpu_torch.ops.native.NativeEngine`, whose calls release
+the GIL) or in Python (``use_native=False``:
+:class:`~emqx_tpu_torch.oracle.TrieOracle`, :class:`WordTable` and
+:func:`~emqx_tpu_torch.ops.csr.build_automaton`). Filter
 ids are assigned exactly as the JAX package assigns them, so the same
 subscribe order gives the same ids. A route add or delete never
 re-flattens the table on the caller's thread:
@@ -102,6 +107,10 @@ class MatcherConfig:
     # pending delta adds that trigger the background compaction
     # (also bounds the side automaton's walk cost)
     delta_max_filters: int = 4096
+    # the trie, word table, flatten and encoder in C++ (the host
+    # library, built with g++ at first use). A failed build raises:
+    # there is no silent fall back to the Python engine
+    use_native: bool = True
 
 
 def topic_partition(topic: str, parts: int) -> int:
@@ -175,8 +184,17 @@ class Router:
         # lock (around encode), so a long flatten under _lock never
         # stalls them. Order: _lock before _wt_lock, never the reverse
         self._wt_lock = threading.RLock()
-        self._trie = TrieOracle()
-        self._table = WordTable()
+        self._native = None
+        if self.config.use_native:
+            from emqx_tpu_torch.ops.native import NativeEngine
+
+            self._native = NativeEngine()
+        self._trie = TrieOracle() if self._native is None else None
+        self._table = WordTable() if self._native is None else None
+        # the engine's word-intern callable: the patcher and the delta
+        # side automaton share the main word-id space
+        self._intern = (self._native.intern if self._native is not None
+                        else self._table.intern)
         # filter -> {dest: refcount}; bag semantics (emqx_route)
         self._routes: Dict[str, Dict[object, int]] = {}
         self._filter_ids: Dict[str, int] = {}
@@ -268,17 +286,41 @@ class Router:
 
             # the side automaton shares the main word-id space: both
             # walks consume the same encoded batch
-            self._delta = DeltaAutomaton(self._table.intern, self.device)
+            self._delta = DeltaAutomaton(self._intern, self.device)
         return self._delta
 
-    def _t_insert(self, filter_: str) -> None:
+    def _t_insert(self, filter_: str, fid: int) -> None:
         with self._wt_lock:  # interning mutates the word table
+            if self._native is not None:
+                self._native.insert(filter_, fid)
+                return
             self._trie.insert(filter_)
             # pre-intern literal words so the flatten (which may run
             # on the compaction thread) never mutates the word table
             for w in T.words(filter_):
                 if w not in (T.PLUS, T.HASH):
                     self._table.intern(w)
+
+    def _t_delete(self, filter_: str) -> None:
+        if self._native is not None:
+            with self._wt_lock:  # the C++ delete resolves words by intern
+                self._native.delete(filter_)
+        else:
+            self._trie.delete(filter_)
+
+    def _t_match(self, topic: str) -> List[str]:
+        """The trie's exact match (under the lock). The native trie
+        keeps filter ids: a filter deleted under a freeze is still in
+        it, and its id maps to ``None`` here."""
+        if self._native is None:
+            return self._trie.match(topic)
+        id_to_filter = self._id_to_filter
+        out = []
+        for fid in self._native.match(topic).tolist():
+            f = id_to_filter[fid] if fid < len(id_to_filter) else None
+            if f is not None:
+                out.append(f)
+        return out
 
     # -- freeze protocol (off-lock compaction) ----------------------------
     #
@@ -287,12 +329,13 @@ class Router:
     # _freeze: the ordered log replays into the trie at swap time, and
     # the small side trie/set compensate host matches meanwhile. Word
     # interning still happens at once, so concurrently encoded batches
-    # resolve the new vocabulary.
+    # resolve the new vocabulary (the native flatten never reads the
+    # word table; the Python one finds every word pre-interned).
 
     def _t_insert_route(self, filter_: str, fid: int) -> None:
         fz = self._freeze
         if fz is None:
-            self._t_insert(filter_)
+            self._t_insert(filter_, fid)
             return
         fz["log"].append(("+", filter_, fid))
         fz["adds"].insert(filter_)
@@ -301,12 +344,12 @@ class Router:
         with self._wt_lock:
             for w in T.words(filter_):
                 if w not in (T.PLUS, T.HASH):
-                    self._table.intern(w)
+                    self._intern(w)
 
     def _t_delete_route(self, filter_: str, fid: int) -> None:
         fz = self._freeze
         if fz is None:
-            self._trie.delete(filter_)
+            self._t_delete(filter_)
             return
         fz["log"].append(("-", filter_, fid))
         if filter_ in fz["add_fids"]:
@@ -314,8 +357,9 @@ class Router:
             del fz["add_fids"][filter_]
         else:
             fz["dels"].add(filter_)
-            # the frozen trie still holds the filter: the flatten
-            # reads its id from here once _filter_ids dropped it
+            # the frozen Python trie still holds the filter: its
+            # flatten reads the id from here once _filter_ids dropped
+            # it (the native trie stores the id itself)
             fz["del_fids"].setdefault(filter_, fid)
 
     def _unfreeze_locked(self) -> None:
@@ -329,19 +373,20 @@ class Router:
         self._rebuild_inflight = False
         for op, f, fid in fz["log"]:
             if op == "+":
-                self._t_insert(f)
+                self._t_insert(f, fid)
             else:
-                self._trie.delete(f)
+                self._t_delete(f)
 
     def _host_match_locked(self, topic: str) -> List[str]:
         """The trie's exact match plus the freeze-window compensation:
         while an off-lock flatten holds the trie frozen, deferred adds
         come from the freeze side-trie and deferred deletes are
-        subtracted. Exact at every instant."""
-        out = self._trie.match(topic)
+        subtracted (the native engine's are already dropped by the id
+        map's ``None``). Exact at every instant."""
+        out = self._t_match(topic)
         fz = self._freeze
         if fz is not None:
-            if fz["dels"]:
+            if self._native is None and fz["dels"]:
                 out = [f for f in out if f not in fz["dels"]]
             if fz["add_fids"]:
                 seen = set(out)
@@ -572,9 +617,13 @@ class Router:
 
     def _rebuild_locked(self):
         cap_s2, nb = self._flatten_caps()
-        host_auto = build_automaton(
-            self._trie, self._filter_ids, self._table,
-            v2_state_capacity=cap_s2, v2_n_buckets=nb)
+        if self._native is not None:
+            host_auto = self._native.flatten(v2_state_capacity=cap_s2,
+                                             n_buckets=nb)
+        else:
+            host_auto = build_automaton(
+                self._trie, self._filter_ids, self._table,
+                v2_state_capacity=cap_s2, v2_n_buckets=nb)
         self._install_walk_meta(host_auto)
         auto = convert.automaton(host_auto, self.device)
         if self.config.delta:
@@ -584,7 +633,7 @@ class Router:
             self._delta = None
             self._delta_ver += 1
         else:
-            self._patcher = AutoPatcher(host_auto, self._table.intern)
+            self._patcher = AutoPatcher(host_auto, self._intern)
         self._auto = auto
         self._auto_map = list(self._id_to_filter)  # NEW object: old
         # snapshots freeze, so quarantined ids may recycle now
@@ -734,14 +783,18 @@ class Router:
         """Flatten the trie into a fresh host automaton — the ONLY
         long step of a compaction, and (under the freeze protocol) the
         only one that runs off-lock. Split out so tests can interpose
-        a slow build.
+        a slow build. The native flatten is one C++ call that releases
+        the GIL; the Python one holds it throughout.
 
-        Under the freeze the trie is the freeze-time filter set, but
+        Under the freeze the trie is the freeze-time filter set. The
+        native trie keeps each filter's id. For the Python trie
         ``_filter_ids`` is live: a filter deleted mid-flatten is gone
-        from it. Its id comes from the freeze's ``del_fids`` instead
-        (the JAX package's Python-engine flatten raises ``KeyError``
-        there and its compaction fails; its native engine keeps the
-        ids in the trie)."""
+        from it, and its id comes from the freeze's ``del_fids``
+        instead (the JAX package's Python-engine flatten raises
+        ``KeyError`` there and its compaction fails)."""
+        if self._native is not None:
+            return self._native.flatten(v2_state_capacity=cap_s2,
+                                        n_buckets=nb)
         fz = self._freeze
         ids = self._filter_ids if fz is None \
             else _FrozenIds(self._filter_ids, fz["del_fids"])
@@ -916,8 +969,12 @@ class Router:
         padded = list(topics) + \
             ["\x00/pad"] * (self._bucket(len(topics)) - len(topics))
         with self._wt_lock:
-            ids, n, sysm = encode_batch(self._table, padded,
-                                        self.config.max_levels)
+            if self._native is not None:
+                ids, n, sysm = self._native.encode_batch(
+                    padded, self.config.max_levels)
+            else:
+                ids, n, sysm = encode_batch(self._table, padded,
+                                            self.config.max_levels)
         ids, n = depth_bucket(ids, n)
         return ids, n, sysm
 

@@ -101,6 +101,14 @@ class Session:
         # deliveries then enqueue instead of entering the send window
         # (the reference channel's `disconnected` state)
         self.connected = True
+        # egress pre-serialization hints, stamped by the owning
+        # channel at CONNECT (ops/dispatch_plan.preserialize_plan
+        # reads them off-loop): the negotiated protocol version, and
+        # whether the transport can take shared wire bytes at all
+        # (wire_fast, no mountpoint, no outbound topic aliasing).
+        # None/False = never pre-build for this subscriber
+        self.proto_ver: Optional[int] = None
+        self.wire_fast_hint = False
 
     # -- info --------------------------------------------------------------
 

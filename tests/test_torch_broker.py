@@ -36,8 +36,8 @@ from test_walk_pallas import _rand_filters, _rand_topics
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KNOBS = dict(device_min_filters=1, fanout_threshold=4, active_k=2)
 #: the JAX package's plain path, which these tests hold the port to:
-#: no match cache, no delta automaton
-PLAIN = dict(match_cache=False, delta=False)
+#: no match cache, no delta automaton, the Python trie engine
+PLAIN = dict(match_cache=False, delta=False, use_native=False)
 
 
 @pytest.fixture(autouse=True)
@@ -74,8 +74,7 @@ class Sink:
 
 
 def _brokers():
-    ref = JaxBroker(config=JaxMatcherConfig(
-        use_native=False, **PLAIN, **KNOBS))
+    ref = JaxBroker(config=JaxMatcherConfig(**PLAIN, **KNOBS))
     port = Broker(config=MatcherConfig(**PLAIN, **KNOBS), device="cpu")
     return ref, port
 
@@ -192,7 +191,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
         mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
                     else rel)
-    # the front door's and the router's modules are among those imported
+    # the front door's, the router's and the host engine's modules
+    # are among those imported
     assert {"emqx_tpu_torch.mqtt", "emqx_tpu_torch.mqtt.constants",
             "emqx_tpu_torch.mqtt.reason_codes", "emqx_tpu_torch.mqtt.props",
             "emqx_tpu_torch.mqtt.packet", "emqx_tpu_torch.mqtt.frame",
@@ -205,7 +205,7 @@ def test_port_never_imports_jax_or_the_jax_package():
             "emqx_tpu_torch.acl_cache", "emqx_tpu_torch.access_control",
             "emqx_tpu_torch.node", "emqx_tpu_torch.ops.patch",
             "emqx_tpu_torch.ops.delta", "emqx_tpu_torch.ops.match_cache",
-            "chip_smoke"} <= set(mods)
+            "emqx_tpu_torch.ops.native", "chip_smoke"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'emqx_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -232,8 +232,10 @@ def test_both_delivery_tails_agree(planner):
     pb = port.publish_begin([Message(topic=t) for t in topics])
     port.publish_fetch(pb)
     assert (pb.plan is not None) == planner
-    with pytest.raises(ValueError, match="front door"):
-        DispatchConfig(planner=planner, preserialize=True)
+    # egress pre-serialization is on by default, as in the JAX package;
+    # the Sink subscribers here carry no wire hints, so it builds
+    # nothing and the deliveries are the plain tail's
+    assert DispatchConfig(planner=planner).preserialize
     res = port.publish_finish(pb)
     ref, ref_sinks = _brokers()[0], [Sink(f"c{i}") for i in range(8)]
     _subscribe_all(ref, ref_sinks, 5)
@@ -247,8 +249,7 @@ def test_router_match_filters_matches_jax_router_and_oracle():
     across route churn that re-flattens the port's tables while the
     JAX router patches its own."""
     rng = random.Random(808)
-    ref = JaxRouter(JaxMatcherConfig(use_native=False,
-                                     device_min_filters=0, **PLAIN))
+    ref = JaxRouter(JaxMatcherConfig(device_min_filters=0, **PLAIN))
     port = Router(MatcherConfig(device_min_filters=0, **PLAIN),
                   device="cpu")
     oracle = TrieOracle()

@@ -3,9 +3,10 @@ package's ``Router``, on the CPU.
 
 Each case runs one seeded filter and topic script through
 ``emqx_tpu.router.Router(MatcherConfig(use_native=False, ...))`` and
-``emqx_tpu_torch.router.Router(device="cpu")`` (the :class:`Pair`
-below, which the patch and match-cache suites share) and checks: the
-same filter ids; byte-equal ``match_dispatch`` ids and overflow flags;
+``emqx_tpu_torch.router.Router(use_native=False, device="cpu")`` (the
+:class:`Pair` below, which the patch, match-cache and native-engine
+suites share; ``Pair(native=True)`` puts both on the C++ engine) and
+checks: the same filter ids; byte-equal ``match_dispatch`` ids and overflow flags;
 equal cache counters, ``delta_info()``, epoch-bump totals and patcher
 mirrors (main and side automaton); and results equal to the
 ``TrieOracle``. The cases are the single-chip ones of
@@ -58,10 +59,10 @@ class Pair:
     """The JAX package's Router and the port's, driven in lockstep,
     plus the TrieOracle of the same route set."""
 
-    def __init__(self, **kw):
+    def __init__(self, native=False, **kw):
         kw.setdefault("device_min_filters", 0)
-        self.ref = JaxRouter(JaxMatcherConfig(use_native=False, **kw),
-                             node="node1")
+        kw["use_native"] = native  # both routers on the same engine
+        self.ref = JaxRouter(JaxMatcherConfig(**kw), node="node1")
         self.port = Router(MatcherConfig(**kw), node="node1", device="cpu")
         self.oracle = TrieOracle()
 

@@ -143,9 +143,14 @@ def test_frame_too_large_before_the_body():
 
 
 def test_make_parser_has_only_the_python_parser():
-    assert isinstance(PF.make_parser(), PF.Parser)
+    """The default is the pure-Python parser; ``mode="native"`` is the
+    C framing (tests/test_torch_frame_native.py); any other mode
+    raises instead of picking one."""
+    p = PF.make_parser()
+    assert type(p) is PF.Parser
+    assert isinstance(PF.make_parser(mode="native"), PF.NativeParser)
     with pytest.raises(ValueError, match="native"):
-        PF.make_parser(mode="native")
+        PF.make_parser(mode="turbo")
 
 
 @pytest.mark.parametrize("version", [4, 5])

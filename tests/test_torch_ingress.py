@@ -41,8 +41,8 @@ from emqx_tpu_torch.types import Message
 
 KNOBS = dict(device_min_filters=1, fanout_threshold=4, active_k=2)
 #: the JAX package's plain path, which these tests hold the port to:
-#: no match cache, no delta automaton
-PLAIN = dict(match_cache=False, delta=False)
+#: no match cache, no delta automaton, the Python trie engine
+PLAIN = dict(match_cache=False, delta=False, use_native=False)
 LIMIT = 60.0
 WORDS = ["a", "b", "c", "d"]
 
@@ -81,8 +81,7 @@ def _workload(seed, n_msgs):
 
 
 def _jax_deliveries(subs, topics):
-    broker = JaxBroker(config=JaxMatcherConfig(
-        use_native=False, **PLAIN, **KNOBS))
+    broker = JaxBroker(config=JaxMatcherConfig(**PLAIN, **KNOBS))
     sinks = [Sink(f"c{i}") for i in range(8)]
     for f, s in subs:
         broker.subscribe(sinks[s], f)

@@ -171,15 +171,22 @@ def test_route_ops_matches_and_compactions_race_without_a_lost_update():
     and repeated off-lock compactions (``delta_max_filters=16``): every
     match of a static topic equals the static set at every instant,
     and once the threads join every surviving route matches exactly
-    (a lost add, delete or id would break one or the other)."""
+    (a lost add, delete or id would break one or the other). The
+    Python engine here; tests/test_torch_native.py runs the same race
+    on the native engine."""
+    race_route_ops_matches_and_compactions(use_native=False)
+
+
+def race_route_ops_matches_and_compactions(use_native):
+    """The race of the test above on the given trie engine."""
     import os
     import sys
 
     from emqx_tpu_torch.oracle import TrieOracle
     from emqx_tpu_torch.router import Router
 
-    r = Router(MatcherConfig(device_min_filters=0, delta_max_filters=16),
-               device="cpu")
+    r = Router(MatcherConfig(device_min_filters=0, delta_max_filters=16,
+                             use_native=use_native), device="cpu")
     static = [f"s/{i}/+" for i in range(64)] + ["s/#"]
     for f in static:
         r.add_route(f)
