@@ -130,7 +130,30 @@ kernels against their plain PyTorch versions:
      publish batches of 4,096 through the broker with 64 subscribers
      in and 64 out between batches, every delivery against the
      oracle, no re-flatten, the fan-out rebuild
-     (``FanoutManager.state``) timed apart.
+     (``FanoutManager.state``) timed apart;
+  9. the device-path breaker and device-loss recovery (every node runs
+     the default ``OverloadConfig``; phases 5-8 and 6-7b each assert
+     and print 0 breaker trips, 0 fallback batches, 0 injected faults,
+     and the retained node 0 failed retained matches; the phase 7
+     clients retry a CONNECT refused with ServerBusy and each socket
+     phase prints the monitor's transitions, what it shed and the
+     refusals), with the breaker's cooldown and first rebuild backoff
+     cut to :data:`P9_COOLDOWN_S` and :data:`P9_BACKOFF_S` (printed):
+     (9a) on phase 5's node, 20 fresh batches: ``device.fetch`` armed
+     for 3 batches, served exactly from the host trie, the breaker
+     opens with its alarm; 2 batches while open launch neither B1 nor
+     B2; after the cooldown the probe launches both and closes it;
+     host-served against device batch latency; (9b) ``device.lost``
+     armed: 3 failed begins trip it, the sentinel classifies the card
+     lost, rebuild attempts fail; disarmed, the 1.02M-filter rebuild
+     and the re-warm run while a churner issues route ops and
+     1,024-message batches are host-matched; the probe closes it;
+     rebuild seconds, re-warm ms and launches, route-op p99, the first
+     live batch after recovery; every message of every batch against
+     the TrieOracle; (9c) on phase 6's node: a burst while the router
+     is suspended is served by the host scan, then the rebuild, then a
+     burst launches B3, both exact; (9d) ``sentinel_alive`` on the
+     card, timed.
 
 The last two lines are one JSON object per kernel row
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Every
@@ -175,6 +198,11 @@ FLEET_PUBS = 20
 NATIVE_CONNS = 200
 #: ``preserialize`` of the replay runs of phases 6 and 7b, in order
 REPLAY_ORDER = (True, False, False, True)
+#: CONNECTs the broker refused with ServerBusy (0x89; 3, server
+#: unavailable, on MQTT 3.1.1) at critical overload, each retried
+#: after a short back-off as a client library does: the socket
+#: clients' and the sans-IO channels' of the replay bursts
+REFUSED = {"connects": 0}
 
 
 def log(*a) -> None:
@@ -383,8 +411,10 @@ def device_events(prof):
 def kernel_ms(fn, name: str, iters: int = 20):
     """Device time of one launch of the kernel whose name contains
     ``name``, from torch.profiler's CUDA trace (the wrapper's host
-    work and the torch ops around it excluded). Raises when the trace
-    holds no device time for it."""
+    work and the torch ops around it excluded). When the trace holds
+    no device time for it (the profiler's tracing stopped once, late
+    in a full-width run), CUDA events around the wrapper call time it
+    instead, and the line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -397,7 +427,10 @@ def kernel_ms(fn, name: str, iters: int = 20):
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages() if name in e.key and _dev_us(e) > 0]
     if not hits:
-        raise RuntimeError(f"torch.profiler traced no device time for {name}")
+        ms = time_cuda_ms(fn, iters)
+        log(f"[profile] torch.profiler traced no device time for {name}: "
+            f"CUDA events around the whole wrapper call give {ms:.5f} ms")
+        return ms
     return sum(_dev_us(e) for e in hits) / sum(e.count for e in hits) / 1e3
 
 
@@ -1168,9 +1201,16 @@ def run(opts, device, card):
     bmp, b4 = timed("4 (B2)", phase_bitmap, broker, batches, rng, card)
     sl = timed("5 (slice)", phase_slice, broker, batches, card, oracle)
     timed("5 (profile)", phase_profile, broker, batches, card)
+    check_quiet(node, "5")
     p8 = run_phase8(broker, draw, batches, rng, opts, card, oracle)
+    check_quiet(node, "8")
+    mark = overload_mark(node)
     sock = timed("7a (socket publish)", phase_socket, node, wl, draw, opts,
                  card, oracle)
+    log_overload(node, "7a", mark)
+    check_quiet(node, "7a")
+    p9 = timed("9a and 9b (breaker, device loss)", phase_devloss, node,
+               draw, opts.batch, card, oracle)
     # one 1M-filter node at a time, as before the A/B: the plain node
     # starts once the collector has freed this one
     del node, broker
@@ -1189,13 +1229,15 @@ def run(opts, device, card):
          "churn_launches": p8["launches"]["walk"],
          "delta_ms": p8["kernels"]["delta_ms"],
          "delta_plain_ms": p8["kernels"]["delta_plain_ms"],
-         "socket_launches": sock["launches"]["walk"], "equal": True,
+         "socket_launches": sock["launches"]["walk"],
+         "devloss_launches": p9["launches"]["walk"], "equal": True,
          "bound_by": "bytes", "library_ms": None, **walk},
         {"name": "bitmap_or", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/bitmap_or.cu",
          "replaces": "emqx_tpu/ops/bitmap.py:199",
          "launches": sl["launches"]["bitmap_or"],
-         "socket_launches": sock["launches"]["bitmap_or"], "equal": True,
+         "socket_launches": sock["launches"]["bitmap_or"],
+         "devloss_launches": p9["launches"]["bitmap_or"], "equal": True,
          "bound_by": "bytes", "library_ms": None, **bmp},
         # B4 lies on no path: its launches on the publish path (0) are
         # read like the others; it runs the B2 kernel
@@ -1203,6 +1245,7 @@ def run(opts, device, card):
          "source": "emqx_tpu_torch/csrc/bitmap_or.cu",
          "replaces": "emqx_tpu/ops/bitmap.py:137",
          "launches": sl["launches"]["or_bitmaps"], "on_path": False,
+         "devloss_launches": p9["launches"]["or_bitmaps"],
          "equal": True, "bound_by": "bytes", "library_ms": None, **b4},
     ]
 
@@ -1885,6 +1928,7 @@ def run_plain(pairs, batches, warm, draw, opts, device, card, oracle, p8):
     py = p8["8b_py"] = timed(
         "8b (off-lock compaction, Python engine)", phase_compaction,
         router, draw, np.random.default_rng(opts.seed + 8), card, oracle)
+    check_quiet(node, "5 and 8b, plain config")
     nat = p8["8b"]
     log(f"[8b] native against Python engine at {len(router._filter_ids)} "
         f"filters, the same draws: flatten {nat['flatten_s']:.3f} / "
@@ -2005,7 +2049,8 @@ def store_retained(node, n_names: int, batch: int = 4096) -> float:
 
 async def one_burst(node, flts, tag):
     """One subscribe burst: a sans-IO ``Channel`` per filter (taking
-    wire bytes, as a socket transport's does), connected first, then
+    wire bytes, as a socket transport's does), connected first (a
+    CONNECT refused with ServerBusy is retried, see :data:`REFUSED`), then
     handed its SUBSCRIBE, all in one loop tick; then the loop runs the
     replay flush; then each channel's ``handle_deliver``, its packets
     serialized as the connection would (the on-loop wire work).
@@ -2018,9 +2063,18 @@ async def one_burst(node, flts, tag):
 
     chans = []
     for j in range(len(flts)):
-        ch = Channel(node.broker, node.cm)
-        ch.wire_fast = True
-        ch.handle_in(Connect(client_id=f"{tag}_{j}"))
+        for attempt in range(101):
+            ch = Channel(node.broker, node.cm)
+            ch.wire_fast = True
+            ch.handle_in(Connect(client_id=f"{tag}_{j}"))
+            if ch.session is not None:
+                break
+            # refused with ServerBusy at critical overload: retry after
+            # a back-off, as a client does (counted in REFUSED)
+            REFUSED["connects"] += 1
+            await asyncio.sleep(min(0.5, 0.05 * (attempt + 1)))
+        else:
+            raise AssertionError(f"{tag}_{j}: CONNECT refused 101 times")
         chans.append(ch)
     t0 = time.perf_counter()
     for ch, flt in zip(chans, flts):
@@ -2397,11 +2451,8 @@ class WireClient:
     a PUBACK, and resolves a future per CONNACK, SUBACK and PUBACK."""
 
     def __init__(self, cid: str, version: int) -> None:
-        from emqx_tpu_torch.mqtt.frame import Parser
-
         self.cid = cid
         self.version = version
-        self.parser = Parser(version=version)
         self.got = []          # (topic, payload, retain, arrival)
         self.raw = bytearray()  # every byte received
         self.sent = 0          # packets sent
@@ -2409,20 +2460,34 @@ class WireClient:
         self.on_publish = None
         self.closed = None
 
-    async def connect(self, port: int) -> None:
+    async def connect(self, port: int, retries: int = 100) -> None:
+        """CONNECT; a CONNECT refused with ServerBusy (the overload
+        monitor at critical) is counted in :data:`REFUSED` and retried
+        after a short back-off, as a client library does."""
+        from emqx_tpu_torch.mqtt.frame import Parser
         from emqx_tpu_torch.mqtt.packet import Connect
 
         loop = asyncio.get_running_loop()
-        self.reader, self.writer = await asyncio.open_connection(
-            "127.0.0.1", port)
-        self.closed = loop.create_future()
-        fut = self.expect("connack", 0)
-        self.send(Connect(client_id=self.cid, proto_ver=self.version,
-                          proto_name="MQTT", keepalive=0))
-        self._task = loop.create_task(self._read())
-        pkt = await fut
-        if pkt.reason_code != 0:
-            raise AssertionError(f"{self.cid}: CONNACK {pkt.reason_code}")
+        for attempt in range(retries + 1):
+            self.parser = Parser(version=self.version)
+            self.reader, self.writer = await asyncio.open_connection(
+                "127.0.0.1", port)
+            self.closed = loop.create_future()
+            fut = self.expect("connack", 0)
+            self.send(Connect(client_id=self.cid, proto_ver=self.version,
+                              proto_name="MQTT", keepalive=0))
+            self._task = loop.create_task(self._read())
+            pkt = await fut
+            if pkt.reason_code == 0:
+                return
+            if pkt.reason_code not in (0x89, 3) or attempt == retries:
+                raise AssertionError(f"{self.cid}: CONNACK "
+                                     f"{pkt.reason_code}")
+            REFUSED["connects"] += 1
+            self.writer.close()
+            await self.closed
+            self.raw.clear()
+            await asyncio.sleep(min(0.5, 0.05 * (attempt + 1)))
 
     def expect(self, kind: str, pid: int):
         fut = asyncio.get_running_loop().create_future()
@@ -3090,18 +3155,436 @@ def phase_socket_replay(node, opts, card):
 
 
 def run_retained(opts, device, card):
-    """Phases 6 and 7b; returns the B3 kernel row."""
+    """Phases 6, 7b and 9c; returns the B3 kernel row."""
+    from emqx_tpu_torch.ops import _build
+
+    mark = (dict.fromkeys(OVERLOAD_KEYS, 0), REFUSED["connects"])
     node, index, bursts, launches, _pre = timed(
         "6 (retained)", phase_retained, opts, device, card)
+    log_overload(node, "6", mark)
+    check_quiet(node, "6", index)
     b3 = timed("6 (B3)", phase_retained_kernel, index, bursts,
                np.random.default_rng(opts.seed), card)
+    mark = overload_mark(node)
     sock = timed("7b (socket replay)", phase_socket_replay, node, opts, card)
+    log_overload(node, "7b", mark)
+    check_quiet(node, "7b", index)
+    _build.reset_launches()
+    timed("9c (replay riding the suspension)", phase_retained_devloss, node,
+          index, bursts, NameFamily(opts.names), card)
     return {"name": "retained_match", "route": "cuda",
             "source": "emqx_tpu_torch/csrc/retained_match.cu",
             "replaces": "emqx_tpu/ops/retained_match.py:92",
             "launches": launches["retained_match"],
-            "socket_launches": sock["launches"], "equal": True,
-            "library_ms": None, **b3}
+            "socket_launches": sock["launches"],
+            "devloss_launches": _build.LAUNCHES["retained_match"],
+            "equal": True, "library_ms": None, **b3}
+
+# -- phase 9: the device-path breaker and device-loss recovery ---------------
+
+#: phase 9's breaker cooldown and first rebuild backoff (the defaults are
+#: 5 s and 0.5 s; a few hundred milliseconds keep the phase short). The
+#: cooldown holds 9a's two open batches (about 150 ms each at full
+#: width) after the trip's own delivery tail
+P9_COOLDOWN_S = 0.8
+P9_BACKOFF_S = 0.2
+#: fault triggers phase 9 made (the registry is process-wide): the
+#: phases after it are checked for none beyond these
+P9_INJECTED = {"n": 0}
+
+
+def check_quiet(node, label, index=None):
+    """Phases 1-8: no number is taken on the breaker's host path — no
+    trip, no fallback batch, no fault injected, and (retained node) no
+    failed retained match."""
+    from emqx_tpu_torch import faults
+
+    m = node.metrics
+    got = {"trips": m.val("breaker.trips"),
+           "fallback_batches": m.val("breaker.fallback.batches"),
+           "injected_faults": faults.info()["injected_total"]
+           - P9_INJECTED["n"]}
+    if index is not None:
+        got["retained_device_failures"] = index._device_broken
+    log(f"[{label}] breaker state "
+        f"{node.broker.breaker.STATE_NAMES[node.broker.breaker.state]}: "
+        + ", ".join(f"{k.replace('_', ' ')} {v}" for k, v in got.items()))
+    if any(got.values()) or node.broker.breaker.state:
+        raise AssertionError(f"[{label}] the breaker's host path ran: {got}")
+
+
+OVERLOAD_KEYS = ("overload.transitions", "overload.shed.connect",
+                 "overload.shed.qos0", "overload.shed.ingress_timeout",
+                 "overload.force_shutdown")
+
+
+def overload_mark(node):
+    """The overload counters and the retried refusals, now."""
+    return ({k: node.metrics.val(k) for k in OVERLOAD_KEYS},
+            REFUSED["connects"])
+
+
+def log_overload(node, label, mark):
+    """The overload monitor's moves over a phase, since ``mark``
+    (:func:`overload_mark`): its level changes, the work it shed and
+    the CONNECTs the clients had refused and retried."""
+    counts, refused = overload_mark(node)
+    moved = {k: v - mark[0][k] for k, v in counts.items()}
+    log(f"[{label}] overload level at the end "
+        f"{('ok', 'warn', 'critical')[node.overload.level]}; over the "
+        f"phase: {moved}, CONNECTs refused with ServerBusy and retried "
+        f"{refused - mark[1]}")
+
+
+class Breaker9:
+    """Times and counts phase 9's recovery: wraps the router's rebuild
+    and the broker's re-warm with timers, and snapshots the launch
+    counters when the breaker moves."""
+
+    def __init__(self, node) -> None:
+        self.rebuild_s, self.warm_s, self.warm_batches = [], [], []
+        self.warm_launches = None
+        broker, router = node.broker, node.router
+        rebuild, warm = router.rebuild_device_state, broker.warm_device_path
+
+        def timed_rebuild():
+            t0 = time.perf_counter()
+            out = rebuild()
+            self.rebuild_s.append(time.perf_counter() - t0)
+            return out
+
+        def timed_warm():
+            from emqx_tpu_torch.ops import _build
+
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            n = warm()
+            self.warm_s.append(time.perf_counter() - t0)
+            self.warm_batches.append(n)
+            self.warm_launches = {k: _build.LAUNCHES[k] - before[k]
+                                  for k in PUBLISH_KERNELS}
+            return n
+
+        router.rebuild_device_state = timed_rebuild
+        broker.warm_device_path = timed_warm
+        self._undo = (router, broker)
+
+    def close(self) -> None:
+        router, broker = self._undo
+        del router.rebuild_device_state
+        del broker.warm_device_path
+
+
+def wait_until(cond, timeout: float, what: str) -> float:
+    """Poll ``cond`` every 5 ms up to ``timeout`` seconds; returns the
+    seconds waited, raises when it never held."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"phase 9: {what} did not happen within "
+                                 f"{timeout:.0f} s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+class Churner:
+    """Route ops on a thread (strict add → delete pairs of filters no
+    config-2 topic matches), each op timed."""
+
+    def __init__(self, router, rate: float = 1000.0) -> None:
+        import threading
+
+        self.router, self.rate = router, rate
+        self.lat = []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True,
+                                   name="phase9-churn")
+
+    def _run(self) -> None:
+        i = 0
+        gap = 1.0 / self.rate
+        while not self._stop.is_set():
+            f = f"churn9/{i}/leaf"
+            for op in (self.router.add_route, self.router.delete_route):
+                t0 = time.perf_counter()
+                op(f)
+                self.lat.append(time.perf_counter() - t0)
+            i += 1
+            self._stop.wait(gap)
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._t.join(10)
+        if self._t.is_alive():
+            raise AssertionError("phase 9: the churner did not stop")
+
+
+def phase_devloss(node, draw, n_batch, card, oracle):
+    """9a and 9b on phase 5's node at full width, the match cache back
+    on (phase 8 turned it off), over 20 batches of ``n_batch`` fresh
+    Zipf(1.1) topics (seed 9: every batch holds topics the cache has
+    not seen, so a device batch walks): every batch's deliveries
+    against the TrieOracle."""
+    import torch
+
+    from emqx_tpu_torch import faults
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.ops.warmup import stamp_first_batch
+    from emqx_tpu_torch.overload import DeviceBreaker
+    from emqx_tpu_torch.types import Message
+
+    broker, router = node.broker, node.router
+    br, rec = broker.breaker, broker.breaker.recovery
+    topics = zipf_topics(np.random.default_rng(9), draw, 21 * n_batch)
+    batches = [topics[i * n_batch:(i + 1) * n_batch] for i in range(20)]
+    router.config.match_cache = True
+    br.cooldown_s = P9_COOLDOWN_S
+    rec.backoff_s = P9_BACKOFF_S
+    # phase 7a's node.stop() stopped the recovery; re-arm it, as the
+    # node's start() does
+    rec.start()
+    log(f"[9] breaker: {br.threshold} failures trip it, cooldown "
+        f"{br.cooldown_s} s, first rebuild backoff {rec.backoff_s} s, "
+        f"sentinel timeout {rec.sentinel_timeout_s} s; "
+        f"{len(router._filter_ids)} filters — {card}")
+    checks, lat = [], {"device": [], "host": []}
+    Sink.log = []
+
+    def state():
+        return DeviceBreaker.STATE_NAMES[br.state]
+
+    def publish(topics, path):
+        msgs = [Message(topic=t, payload=b"x") for t in topics]
+        t0 = time.perf_counter()
+        res = broker.publish_batch(msgs)
+        if router.device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if path is not None:
+            lat[path].append(ms)
+        checks.append((msgs, res))
+        return ms
+
+    def launched():
+        return {k: _build.LAUNCHES[k] for k in PUBLISH_KERNELS}
+
+    # the node's first batch after 7a rebuilds the fan-out tables its
+    # subscriptions changed: run it untimed
+    publish(topics[20 * n_batch:21 * n_batch], None)
+
+    try:
+        # -- 9a: transient failures ------------------------------------
+        _build.reset_launches()
+        for i in range(2):
+            publish(batches[i], "device")
+        faults.arm("device.fetch", times=br.threshold)
+        for i in range(2, 2 + br.threshold):
+            publish(batches[i], "host")   # begin on the card, fetch fails
+        if state() != "open" or "device_path_breaker" not in \
+                [a.name for a in node.alarms.get_alarms("activated")]:
+            raise AssertionError(f"9a: {br.threshold} failed fetches left "
+                                 f"the breaker {state()}")
+        wait_until(lambda: rec.last_classification == "transient", 30,
+                   "the sentinel's transient verdict")
+        before = launched()
+        probes = node.metrics.val("breaker.probes")
+        k = 2 + br.threshold
+        for i in range(k, k + 2):
+            publish(batches[i], "host")   # open: the host trie only
+        if node.metrics.val("breaker.probes") != probes:
+            raise AssertionError(f"9a: the cooldown of {br.cooldown_s} s "
+                                 f"ended before the open batches did")
+        if launched() != before:
+            raise AssertionError(f"9a: kernels launched while the breaker "
+                                 f"was open: {before} → {launched()}")
+        time.sleep(max(0.0, br._open_until - time.monotonic()) + 0.01)
+        publish(batches[k + 2], "device")    # the half-open probe
+        probe = launched()
+        if state() != "closed" or any(probe[n] <= before[n]
+                                      for n in PUBLISH_KERNELS):
+            raise AssertionError(f"9a: the probe left the breaker "
+                                 f"{state()}, launches {before} → {probe}")
+        if any(a.name == "device_path_breaker"
+               for a in node.alarms.get_alarms("activated")):
+            raise AssertionError("9a: the device_path_breaker alarm stayed")
+        publish(batches[k + 3], "device")
+        out = {"9a": {f"{p}_{q}_ms": float(np.percentile(v, q))
+                      for p, v in lat.items() for q in (50, 99)}}
+        out["9a"]["batches"] = {p: len(v) for p, v in lat.items()}
+        log(f"[9a] {br.threshold} injected fetch failures: the breaker "
+            f"opened; {len(lat['host'])} batches of {len(batches[0])} "
+            f"served by the host trie (the failed-fetch ones after a begin "
+            f"on the card) p50 {out['9a']['host_50_ms']:.3f} ms, p99 "
+            f"{out['9a']['host_99_ms']:.3f} ms against "
+            f"{len(lat['device'])} device batches p50 "
+            f"{out['9a']['device_50_ms']:.3f} ms, p99 "
+            f"{out['9a']['device_99_ms']:.3f} ms; B1/B2 launches "
+            f"{before} while open, {probe} after the probe closed it — "
+            f"{card}")
+        # -- 9b: device loss -------------------------------------------
+        rebuilds0 = node.metrics.val("breaker.rebuilds")
+        fails0 = node.metrics.val("breaker.rebuild.failures")
+        timer = Breaker9(node)
+        outage = [b[:1024] for b in batches[k + 4:19]]
+        n_out = 0
+        at_arm = launched()
+        try:
+            faults.arm("device.lost", times=0)
+            try:
+                for b in outage[:br.threshold]:
+                    n_out += len(b)
+                    publish(b, None)   # each begin fails: host-served
+                wait_until(lambda: br.state == DeviceBreaker.REBUILDING,
+                           30, "REBUILDING")
+                wait_until(lambda: node.metrics.val(
+                    "breaker.rebuild.failures") > fails0, 30,
+                    "a failed rebuild attempt")
+                n_out += len(outage[br.threshold])
+                publish(outage[br.threshold], None)
+                lost = launched()
+                if lost != at_arm:
+                    raise AssertionError(f"9b: kernels launched while the "
+                                         f"card was lost: {at_arm} → {lost}")
+            finally:
+                faults.disarm("device.lost")
+            t_up = time.perf_counter()
+            with Churner(router, rate=500.0) as churn:
+                j = br.threshold + 1
+                while br.state == DeviceBreaker.REBUILDING:
+                    if time.perf_counter() - t_up > 120:
+                        raise AssertionError("9b: the rebuild never ended")
+                    if j < len(outage):
+                        n_out += len(outage[j])
+                        publish(outage[j], None)   # host-matched
+                        j += 1
+                    else:
+                        time.sleep(0.01)
+                up_s = time.perf_counter() - t_up
+                first_ms = publish(batches[19], None)   # the probe
+            op_ms = np.array(churn.lat) * 1e3
+        finally:
+            timer.close()
+        after = launched()
+        if state() != "closed" or node.metrics.val("breaker.rebuilds") \
+                != rebuilds0 + 1 or router.device_suspended():
+            raise AssertionError(f"9b: the recovery left the breaker "
+                                 f"{state()}")
+        if any(after[n] <= lost[n] for n in PUBLISH_KERNELS) or \
+                not timer.warm_launches or \
+                timer.warm_launches["walk"] < 1:
+            raise AssertionError(f"9b: launches {lost} → {after}, re-warm "
+                                 f"{timer.warm_launches}")
+        first = {}
+        stamp_first_batch(first, first_ms)
+        out["9b"] = {"rebuild_s": timer.rebuild_s[-1],
+                     "warm_ms": timer.warm_s[-1] * 1e3,
+                     "warm_batches": timer.warm_batches[-1],
+                     "warm_launches": timer.warm_launches,
+                     "up_s": up_s,
+                     "rebuild_failures": node.metrics.val(
+                         "breaker.rebuild.failures") - fails0,
+                     "route_ops": len(op_ms),
+                     "route_op_p99_ms": float(np.percentile(op_ms, 99))
+                     if len(op_ms) else None,
+                     "outage_msgs": n_out, **first}
+        out["launches"] = dict(_build.LAUNCHES)
+        log(f"[9b] device.lost armed: the sentinel classified the card "
+            f"lost, {out['9b']['rebuild_failures']} rebuild attempts failed "
+            f"while it stayed armed; disarmed, the rebuild of the "
+            f"{len(router._filter_ids)}-filter tables took "
+            f"{out['9b']['rebuild_s']:.3f} s and the re-warm "
+            f"{out['9b']['warm_ms']:.3f} ms ({out['9b']['warm_batches']} "
+            f"batches, launches {timer.warm_launches}); {up_s:.3f} s from "
+            f"the disarm to the half-open window; {len(op_ms)} route ops "
+            f"during it, p99 {out['9b']['route_op_p99_ms']:.3f} ms; the "
+            f"first live batch after recovery (the probe, "
+            f"{len(batches[0])} messages) {first_ms:.3f} ms; "
+            f"{n_out} messages published during the outage; B1/B2 "
+            f"launches {lost} while lost, {after} after — {card}")
+    finally:
+        faults.clear()
+        P9_INJECTED["n"] = faults.info()["injected_total"]
+    deliveries, Sink.log = Sink.log, None
+    check_batches(broker, checks, deliveries, oracle)
+    n_msgs = sum(len(m) for m, _r in checks)
+    log(f"[9] all {n_msgs} messages of {len(checks)} batches, the outage's "
+        f"included: {len(deliveries)} deliveries equal the TrieOracle's, "
+        f"none lost or duplicated — {card}")
+    return out
+
+
+def phase_retained_devloss(node, index, bursts, family, card):
+    """9c on phase 6's node: one burst while the router is suspended
+    (the host scan), the rebuild, then a burst through B3 again."""
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch.ops import _build
+
+    router = node.router
+    first = bursts[0]
+    # the host scan reads every stored name per wildcard filter in
+    # Python: a short burst, one of each kind
+    pick = ([f for f in first if "+" in f][:1]
+            + [f for f in first if f.endswith("#")][:1]
+            + [f for f in first if not T.wildcard(f)][:2])
+
+    async def go(flts, tag):
+        return await one_burst(node, flts, tag)
+
+    def check(boxes, flts, label):
+        for box, flt in zip(boxes, flts):
+            want = sorted(retained_name(int(i)) for i in family.match(flt))
+            if sorted(m.topic for _p, m in box) != want:
+                raise AssertionError(f"9c {label}: {flt!r} replayed "
+                                     f"{len(box)}, expected {len(want)}")
+        return sum(len(b) for b in boxes)
+
+    router.suspend_device()
+    b3 = _build.LAUNCHES["retained_match"]
+    t0 = time.perf_counter()
+    boxes, *_ = asyncio.run(go(pick, "9c_host"))
+    host_s = time.perf_counter() - t0
+    n_host = check(boxes, pick, "suspended")
+    if _build.LAUNCHES["retained_match"] != b3 or index._dev is not None:
+        raise AssertionError("9c: B3 launched while the router was "
+                             "suspended")
+    t0 = time.perf_counter()
+    router.rebuild_device_state()
+    rebuild_s = time.perf_counter() - t0
+    flts = bursts[1]
+    t0 = time.perf_counter()
+    boxes, *_ = asyncio.run(go(flts, "9c_dev"))
+    dev_s = time.perf_counter() - t0
+    n_dev = check(boxes, flts, "rebuilt")
+    if _build.LAUNCHES["retained_match"] <= b3 or index._device_broken:
+        raise AssertionError("9c: B3 did not launch after the rebuild")
+    log(f"[9c] retained_1m, router suspended: a burst of {len(pick)} "
+        f"({n_host} messages) served by the host scan in "
+        f"{host_s * 1e3:.3f} ms, exact; the router's rebuild "
+        f"{rebuild_s:.3f} s; then a burst of {len(flts)} ({n_dev} "
+        f"messages) through B3 again in {dev_s * 1e3:.3f} ms, exact; B3 "
+        f"launches {b3} → {_build.LAUNCHES['retained_match']} — {card}")
+    return {"host_ms": host_s * 1e3, "dev_ms": dev_s * 1e3,
+            "rebuild_s": rebuild_s}
+
+
+def phase_sentinel(card):
+    """9d: the real sentinel on the live card."""
+    import torch
+
+    from emqx_tpu_torch.devloss import sentinel_alive
+
+    t0 = time.perf_counter()
+    ok = sentinel_alive(5.0, torch.device("cuda"))
+    ms = (time.perf_counter() - t0) * 1e3
+    if not ok:
+        raise AssertionError("9d: the sentinel found the card lost")
+    log(f"[9d] sentinel_alive on the card: true in {ms:.3f} ms "
+        f"(timeout 5 s) — {card}")
+    return ms
 
 
 def main(argv=None) -> int:
@@ -3146,6 +3629,7 @@ def main(argv=None) -> int:
     rows = run(opts, "cuda", card)
     t1 = time.perf_counter()
     rows.append(run_retained(opts, "cuda", card))
+    timed("9d (sentinel)", phase_sentinel, card)
     log(f"[time] publish phases {t1 - t0:.1f} s, retained phases "
         f"{time.perf_counter() - t1:.1f} s — {card}")
     log(card)

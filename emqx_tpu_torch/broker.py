@@ -23,6 +23,14 @@ A publish batch runs in three phases, as in the JAX package:
      :meth:`publish_host_chunk` over rows), yielding to the event loop
      between them; chunked or whole, the deliveries are the same.
 
+With a :class:`~emqx_tpu_torch.overload.DeviceBreaker` attached (the
+``Node`` attaches one by default), a begin or fetch that raises is
+recorded and its batch is served exactly from the host trie; an open
+breaker sends every batch there (``breaker.fallback.batches``) until a
+half-open probe closes it. A ``Broker`` on CUDA loads (building if
+need be) its kernel library when it is constructed, so a build failure
+raises here and is never served from the host.
+
 Subscribers are any objects with ``deliver(topic_filter, msg)``.
 """
 
@@ -31,14 +39,17 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from emqx_tpu_torch import faults
 from emqx_tpu_torch import topic as T
 from emqx_tpu_torch.broker_helper import FanoutManager, unpack_sids
 from emqx_tpu_torch.hooks import Hooks
 from emqx_tpu_torch.metrics import Metrics
+from emqx_tpu_torch.ops import _build
 from emqx_tpu_torch.ops.bitmap import or_union_rows_auto, rows_for_matches
 from emqx_tpu_torch.ops.dispatch_plan import (big_rows_for, build_plan,
                                               preserialize_plan)
@@ -85,11 +96,13 @@ class PendingBatch:
     ``done`` short-circuits: the host regime and an all-vetoed batch
     compute ``results`` inside ``publish_begin``. Fields ending in
     ``_d`` are device tensors; :meth:`Broker.publish_fetch` fills the
-    host copies."""
+    host copies. ``host_only`` marks a batch the breaker sent to the
+    host trie (open breaker, or a failed begin or fetch): it is
+    matched there whatever ``use_device_now()`` says."""
 
     __slots__ = (
         "done", "results", "live", "inv", "n_uniq", "plan", "plan_state",
-        "host_topics", "host_matched", "host_inv",
+        "host_topics", "host_matched", "host_inv", "host_only",
         "id_map", "epoch", "st", "ids_dev", "ovf_dev", "pm", "pq",
         "m_ptr_d", "ids_packed_d", "f_ptr_d", "subs_packed_d",
         "src_packed_d", "bovf_d", "sel_d", "rows_packed_d", "bm_total_d",
@@ -111,6 +124,7 @@ class PendingBatch:
         self.host_topics: Optional[List[str]] = None
         self.host_matched = None
         self.host_inv = None
+        self.host_only = False
         self.st = None
         self.ids_dev = self.ovf_dev = None
         self.m_ptr_d = self.ids_packed_d = None
@@ -138,6 +152,11 @@ class Broker:
         self.router = router or Router(config=config, node=node,
                                        device=device)
         self.device = self.router.device
+        if self.device.type == "cuda":
+            # build (or load) the kernel library at boot: a build
+            # failure raises out of the constructor, before any
+            # breaker exists, and is never served from the host
+            _build.library()
         self.hooks = hooks or Hooks()
         self.metrics = metrics or Metrics()
         self.shared = shared or SharedSub()
@@ -155,6 +174,12 @@ class Broker:
         # the node's ingress batcher (ingress.py), set by Node: the
         # channel hands it every PUBLISH, and wills go through it
         self.ingress = None
+        # overload protection (overload.py), wired by Node: the
+        # monitor (the channel and session consult it), the
+        # device-path breaker and the alarms. None = no guard runs
+        self.overload = None
+        self.breaker = None
+        self.alarms = None
 
     # -- subscribe / unsubscribe (emqx_broker.erl:127-196) ----------------
 
@@ -292,12 +317,43 @@ class Broker:
             return pb
         topics = [m.topic for _, m in pb.live]
         if not self.router.use_device_now():
-            pb.host_topics = topics
-            if not defer_host:
-                self.publish_host_chunk(pb, 0, len(pb.live))
-                pb.done = True
-            return pb
-        return self._begin_device(pb, topics, self.router.config)
+            # host regime: let the router shed a stale automaton's id
+            # quarantine once it has grown past its bound
+            self.router.reclaim_host_regime()
+            return self._begin_host(pb, topics, defer_host)
+        br = self.breaker
+        if br is not None and not br.allow_device():
+            # breaker OPEN: exact host-trie matching until a half-open
+            # probe closes it. The automaton is kept — the probe rides
+            # it straight back
+            self.metrics.inc("breaker.fallback.batches")
+            return self._begin_host(pb, topics, defer_host,
+                                    host_only=True)
+        try:
+            return self._begin_device(pb, topics, self.router.config)
+        except Exception:
+            if br is None:
+                raise
+            # the device dispatch died (a failed launch, an injected
+            # fault): record it for the breaker and serve THIS batch
+            # exactly from the host trie
+            br.record_failure()
+            log.exception("device publish dispatch failed — host-trie "
+                          "fallback for this batch")
+            return self._begin_host(pb, topics, defer_host,
+                                    host_only=True)
+
+    def _begin_host(self, pb: PendingBatch, topics: List[str],
+                    defer_host: bool,
+                    host_only: bool = False) -> PendingBatch:
+        """The host tail of ``publish_begin``: the host regime, an
+        open breaker, or a failed device dispatch (``host_only``)."""
+        pb.host_only = host_only
+        pb.host_topics = topics
+        if not defer_host:
+            self.publish_host_chunk(pb, 0, len(pb.live))
+            pb.done = True
+        return pb
 
     def _bitmap_union(self, pb: PendingBatch, cfg, pr: int) -> None:
         """Big-filter fan-out: matched ids → bitmap rows → the packed
@@ -314,6 +370,9 @@ class Broker:
         """Device match (HOT LOOP 1) → device fan-out (HOT LOOP 2) →
         pack, all queued without a sync. Duplicate topics collapse to
         one device row; the tail expands per message via ``inv``."""
+        if faults.enabled:
+            faults.fire("device.walk")
+            faults.fire("device.lost")
         uniq, pb.inv = dedup_topics(topics)
         pb.n_uniq = len(uniq)
         pb.ids_dev, pb.ovf_dev, pb.id_map, pb.epoch = \
@@ -355,15 +414,39 @@ class Broker:
         :meth:`publish_begin` runs on the event loop's: both enqueue on
         the device's default stream (neither side enters a stream
         context), so the copy here is ordered after every kernel the
-        begin enqueued."""
+        begin enqueued. A kernel fault surfaces here, at the copy.
+
+        With a breaker attached a failed (or, past ``breaker_slow_ms``,
+        stalled) fetch is recorded and the batch turns into a host-only
+        batch: the finish re-matches every live topic on the host trie,
+        so nothing is delivered wrong or lost."""
         if pb.done or pb.host_topics is not None:
             return
-        self._fetch_device(pb)
+        br = self.breaker
+        if br is None:
+            self._fetch_device(pb)
+            return
+        t0 = time.perf_counter()
+        try:
+            self._fetch_device(pb)
+        except Exception:
+            br.record_failure()
+            log.exception("device fetch failed — host-trie fallback "
+                          "for this batch")
+            pb.plan = None
+            pb.host_topics = [m.topic for _, m in pb.live]
+            pb.host_matched = None
+            pb.host_only = True
+            return
+        br.record_success(time.perf_counter() - t0)
 
     def _fetch_device(self, pb: PendingBatch) -> None:
         """The fetch body: on a packed-budget overflow, re-pack with
         the next power-of-two bucket (the dense arrays are still on the
         device) and remember the grown budget for the bucket."""
+        if faults.enabled:
+            faults.fire("device.fetch")
+            faults.fire("device.lost")
         cfg = self.router.config
         Bp = pb.ids_dev.shape[0]
         budgets = self._pack_budgets.get(Bp)
@@ -489,6 +572,32 @@ class Broker:
                 lambda fid: self.helper.members_sorted(id_map[fid]))
         return build_plan(pb.inv, n_u, pb.ovf, pb.bovf, pb.f_ptr,
                           subs_packed, src_packed, big_map)
+
+    def warm_device_path(self) -> int:
+        """Device-loss recovery, step 3 (devloss.py): run the real
+        dispatch → fetch chain once per observed batch shape on the
+        recovery thread, so the first live batch after recovery does
+        not pay the cold start (the match cache's, and the fan-out
+        tables' rebuild at the new epoch). Drives
+        :meth:`_begin_device`/:meth:`_fetch_device` over NUL-rooted
+        topics (``ops/warmup.py``) that no filter matches — nothing
+        delivers, no hook or message metric fires. Returns the number
+        of warm batches."""
+        from emqx_tpu_torch.ops.warmup import warm_plan
+
+        cfg = self.router.config
+        warmed = 0
+        for _bucket, topics in warm_plan(
+                list(self._pack_budgets), cfg.min_batch,
+                levels=self.router.observed_levels()):
+            pb = PendingBatch()
+            pb.results = [0] * len(topics)
+            pb.live = [(i, Message(topic=t, payload=b""))
+                       for i, t in enumerate(topics)]
+            self._begin_device(pb, topics, cfg)
+            self._fetch_device(pb)
+            warmed += 1
+        return warmed
 
     def publish_finish(self, pb: PendingBatch) -> List[int]:
         """Phase 3 — the host delivery tail over the packed results,
@@ -662,7 +771,9 @@ class Broker:
                            stop: int) -> None:
         """Route rows ``[start, stop)`` of a host-regime batch. The
         one trie walk over the batch's unique topics runs on the first
-        chunk and is kept on the batch."""
+        chunk and is kept on the batch. It is always the host trie's
+        (``match_filters_host``), so a ``host_only`` batch never
+        re-enters the device."""
         if pb.host_matched is None:
             uniq, pb.host_inv = dedup_topics(pb.host_topics)
             pb.n_uniq = len(uniq)

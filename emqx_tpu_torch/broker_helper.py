@@ -191,6 +191,15 @@ class FanoutManager:
                 return np.empty(0, np.int64)
             return np.sort(np.fromiter(row, np.int64, len(row)))
 
+    def invalidate_device(self) -> None:
+        """Device-loss recovery: the cached fan-out snapshot holds
+        CSR and bitmap tables in a lost backend's memory. Drop it; the
+        next :meth:`state` call re-derives the tables from the live
+        membership ``rows`` at the rebuilt automaton's epoch. Host
+        truth (registry, rows, version) is untouched."""
+        with self._lock:
+            self._state = None
+
     # -- device snapshot ---------------------------------------------------
 
     def state(self, epoch: int,

@@ -200,6 +200,13 @@ class Channel:
             return []
         self.state = CONNECTING
         self.proto_ver = pkt.proto_ver
+        ov = getattr(self.broker, "overload", None)
+        if ov is not None and ov.reject_connects():
+            # critical overload: refuse new work at the front door
+            # (ServerBusy; v3 clients see server-unavailable through
+            # the compat map) — existing connections keep their service
+            self.broker.metrics.inc("overload.shed.connect")
+            return self._connack_error(RC.SERVER_BUSY)
         username = pkt.username
         client_id = pkt.client_id
         if client_id == "":
@@ -292,6 +299,7 @@ class Channel:
             # the session's owner cannot hand it over now: ServerBusy,
             # and the client's retry comes back for it — the session
             # is never silently replaced by a fresh one
+            self.broker.metrics.inc("overload.shed.connect")
             return self._connack_error(RC.SERVER_BUSY)
         self.session.broker = self.broker
         self.session.notify = self._notify_deliver

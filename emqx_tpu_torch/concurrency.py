@@ -2,8 +2,11 @@
 
 :func:`owner_loop` marks code that runs only on the event loop that
 owns the state it touches (the node's loop, or a session's owning
-loop). It only sets ``__thread_domain__`` on the function: no
-wrapper, no call-time cost.
+loop); :func:`bg_thread` code that runs on a dedicated background
+thread (device-loss recovery); :func:`any_thread` code that is
+thread-safe by construction (it owns a lock, or touches only
+immutable state). A marker only sets ``__thread_domain__`` on the
+function: no wrapper, no call-time cost.
 """
 
 from __future__ import annotations
@@ -22,3 +25,9 @@ def _mark(domain: str) -> Callable[[F], F]:
 
 #: loop-affine: callable only on the owning event loop's thread
 owner_loop = _mark("loop")
+
+#: runs on a dedicated background thread
+bg_thread = _mark("bg")
+
+#: thread-safe by construction: callable from any thread
+any_thread = _mark("any")

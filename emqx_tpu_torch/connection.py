@@ -23,6 +23,7 @@ import logging
 import time
 from typing import Optional
 
+from emqx_tpu_torch import faults
 from emqx_tpu_torch.channel import Channel
 from emqx_tpu_torch.device import resolve
 from emqx_tpu_torch.limiter import TokenBucket
@@ -101,6 +102,8 @@ class Connection:
     # -- IO ----------------------------------------------------------------
 
     def _send_packets(self, pkts) -> None:
+        if faults.enabled and faults.fire("socket.reset"):
+            raise ConnectionResetError("fault injected: socket.reset")
         max_out = self.channel.client_max_packet
         # counters batched per call: a planner batch drains a whole
         # outbox here
@@ -359,8 +362,31 @@ class Connection:
                         # drains it. The standing queue then lives in
                         # the publisher's TCP buffer, not in the
                         # broker, so delivery tail latency stays
-                        # bounded at saturation
-                        await ing.wait_ready()
+                        # bounded at saturation. The wait is bounded
+                        # (OverloadConfig.ingress_wait_timeout_s): a
+                        # queue that never drains sheds the publisher
+                        # instead of parking it forever
+                        if not await ing.wait_ready(
+                                ing.submit_wait_timeout):
+                            self.broker.metrics.inc(
+                                "overload.shed.ingress_timeout")
+                            alarms = self.broker.alarms
+                            if alarms is not None:
+                                alarms.activate(
+                                    "ingress_saturated",
+                                    details={"queue": len(ing._pending)},
+                                    message="ingress accumulator "
+                                            "saturated past the "
+                                            "submit wait bound; "
+                                            "shedding publishers")
+                            log.warning(
+                                "shedding publisher %s: ingress "
+                                "saturated > %.0fs",
+                                self.channel.peername,
+                                ing.submit_wait_timeout)
+                            self.channel.disconnect_reason = \
+                                "ingress_saturated"
+                            break
                 if self._msg_limiter is not None and pkts:
                     # like the reference, the already-parsed batch is
                     # processed first, then the socket pauses (state

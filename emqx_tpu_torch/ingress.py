@@ -32,9 +32,11 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
+from emqx_tpu_torch import faults
 from emqx_tpu_torch.concurrency import owner_loop
 from emqx_tpu_torch.device import resolve
 from emqx_tpu_torch.types import Message
@@ -75,8 +77,14 @@ class IngressBatcher:
         self._chain: Optional[asyncio.Task] = None  # ordered delivery
         self._pool: Optional[ThreadPoolExecutor] = None
         self._ready: Optional[asyncio.Event] = None
-        # set_pressure's divisor of the high-water mark
+        # set_pressure's divisor of the high-water mark: the overload
+        # monitor divides it at critical, so publisher read-pauses
+        # engage earlier
         self._pressure_div = 1
+        # bound on a publisher's wait_ready park (seconds; 0 =
+        # unbounded), set from OverloadConfig.ingress_wait_timeout_s
+        # by the Node; the connection sheds the publisher past it
+        self.submit_wait_timeout = 0.0
         self.flushes = 0
         self.submitted = 0
         self.max_batch = 0
@@ -137,23 +145,40 @@ class IngressBatcher:
 
     def backlogged(self) -> bool:
         """Accumulator at/over the high-water mark: connections should
-        pause reading (the active_n analogue)."""
+        pause reading (the active_n analogue). At critical overload
+        the effective mark shrinks (:meth:`set_pressure`)."""
+        if faults.enabled and faults.fire("ingress.saturate"):
+            return True
         hw = self.queue_hiwater
         if self._pressure_div > 1:
             hw = max(1, hw // self._pressure_div)
         return len(self._pending) >= hw
 
     def set_pressure(self, div: int) -> None:
-        """Divide the effective high-water mark by ``div`` (1 restores
-        the configured mark)."""
+        """The overload monitor's knob: divide the effective high-water
+        mark by ``div`` (1 restores the configured mark)."""
         self._pressure_div = max(1, int(div))
 
-    async def wait_ready(self) -> None:
-        """Park until a flush takes the backlog below the mark."""
+    async def wait_ready(self, timeout: float = 0.0) -> bool:
+        """Park until a flush takes the backlog below the mark.
+        ``timeout`` bounds the park (0 = wait forever): returns False
+        if the backlog still stands when it expires — the caller sheds
+        the publisher instead of letting it wedge its read loop."""
+        deadline = (time.monotonic() + timeout) if timeout > 0 else None
         while self.backlogged():
             if self._ready is None or self._ready.is_set():
                 self._ready = asyncio.Event()
-            await self._ready.wait()
+            if deadline is None:
+                await self._ready.wait()
+                continue
+            remain = deadline - time.monotonic()
+            if remain <= 0:
+                return False
+            try:
+                await asyncio.wait_for(self._ready.wait(), remain)
+            except asyncio.TimeoutError:
+                return False
+        return True
 
     def _signal_ready(self) -> None:
         if self.backlogged():
@@ -197,8 +222,26 @@ class IngressBatcher:
         loop = asyncio.get_running_loop()
         try:
             if not pb.done and pb.host_topics is None:
-                await loop.run_in_executor(
-                    self._executor(), self.broker.publish_fetch, pb)
+                if faults.enabled and self._pool is not None \
+                        and faults.fire("executor.death"):
+                    # injected: the fetch pool dies out from under
+                    # this batch — the supervision below respawns it
+                    self._pool.shutdown(wait=False)
+                try:
+                    await loop.run_in_executor(
+                        self._executor(), self.broker.publish_fetch, pb)
+                except RuntimeError as e:
+                    if "shutdown" not in str(e):
+                        raise
+                    # the fetch executor is dead (shut down): respawn
+                    # it and retry — asyncio supervision standing in
+                    # for the OTP restart the reference gets
+                    log.warning("ingress fetch executor dead (%s): "
+                                "respawning", e)
+                    self.broker.metrics.inc("overload.heal.executor")
+                    self._pool = None
+                    await loop.run_in_executor(
+                        self._executor(), self.broker.publish_fetch, pb)
             if prev is not None:
                 # ordered delivery across batches; a failed
                 # predecessor already resolved its own futures

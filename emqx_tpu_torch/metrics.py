@@ -76,6 +76,20 @@ NAMES = (
     "automaton.delta.probes", "automaton.delta.filters",
     "automaton.delta.merges", "automaton.rebuild.stall_ms",
     "automaton.compaction.fused_edges", "automaton.compaction.chains",
+    # overload protection (overload.py): `shed.*` = work refused at
+    # warn/critical, `transitions` = level changes, `heal.*` = the
+    # supervision actions (fetch executor respawn, compaction alarm)
+    "overload.shed.qos0", "overload.shed.connect",
+    "overload.shed.ingress_timeout", "overload.force_shutdown",
+    "overload.transitions", "overload.heal.executor",
+    "overload.heal.flatten",
+    # the device-path circuit breaker and device-loss recovery
+    # (overload.DeviceBreaker, devloss.DeviceRecovery)
+    "breaker.failures", "breaker.trips", "breaker.probes",
+    "breaker.fallback.batches",
+    "breaker.rebuilds", "breaker.rebuild.failures",
+    # armed fault points that fired (faults.py), folded by Node.tick
+    "faults.injected",
 )
 
 _QOS_RECV = ("messages.qos0.received", "messages.qos1.received",

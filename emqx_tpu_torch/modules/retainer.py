@@ -18,9 +18,12 @@ stored names (:class:`RetainIndex`, ``ops/retained_match.py``) and
 delivers through one subscriber-grouped plan. Bounded: ``max_retained``
 topics and ``max_payload`` bytes per message (drops are counted).
 
-The cluster and durability members of the JAX module (replication,
-tombstones, journal, restore) and the egress pre-serialization come
-with their slices; device-loss riding comes with the devloss slice.
+The index rides device-loss recovery (:meth:`RetainIndex.attach_router`)
+and has the JAX module's own failure breaker: a failed device match is
+served by the host scan, and after 3 in a row the device path stays
+off until the router's device state is rebuilt. The cluster and
+durability members of the JAX module (replication, tombstones,
+journal, restore) come with their slices.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 from emqx_tpu_torch import topic as T
 from emqx_tpu_torch.device import resolve
 from emqx_tpu_torch.modules import Module
+from emqx_tpu_torch.ops import _build
 from emqx_tpu_torch.ops.dispatch_plan import DispatchPlan, preserialize_plan
 from emqx_tpu_torch.ops.retained_match import PLUS_ID, match_names_auto
 from emqx_tpu_torch.ops.tokenize import PAD, WordTable
@@ -56,8 +60,14 @@ class RetainIndex:
     Rows are slot-allocated (free list); a deleted row gets
     ``n_words = 0``, which matches nothing. Names deeper than ``L``
     levels live in a host-matched side set. Below ``device_threshold``
-    live rows matching is the host scan. A failed build or launch
-    raises: there is no host fallback for a device error.
+    live rows matching is the host scan. On CUDA the kernel library is
+    loaded when the index is built, so a build failure raises there.
+    A failed device match is served by the host scan; after 3 in a
+    row the device path stays off (``_device_broken``). With a router
+    attached (:meth:`attach_router`) the index rides device-loss
+    recovery: while the router's device is suspended it host-scans and
+    drops its cached matrix (its buffers may be dead), and the
+    suspension lifting (the rebuild completed) resets the breaker.
     """
 
     L = 16
@@ -78,6 +88,12 @@ class RetainIndex:
         self._epoch = 0
         self._dev = None  # (epoch, cap, ids, n, sys) device cache
         self._dirty: set = set()  # rows mutated since _dev was built
+        self._device_broken = 0  # consecutive failures; >=3 disables
+        self._router = None  # devloss riding (attach_router)
+        self._suspended_seen = False
+        self._last_batch = 0  # filters in the last device dispatch
+        if self.device.type == "cuda":
+            _build.library()  # a build failure raises at boot
         # store mutations run on the broker's loop while subscribe
         # bursts may match from other loops; the lock covers the
         # matrix and device-cache critical sections
@@ -85,6 +101,12 @@ class RetainIndex:
 
     def __len__(self) -> int:
         return len(self._row_of) + len(self._deep)
+
+    def attach_router(self, router) -> None:
+        """Arm device-loss riding: the index holds its own device
+        tensors outside ``Router.rebuild_device_state()``, so instead
+        of being rebuilt it watches the router's suspension flag."""
+        self._router = router
 
     def add(self, topic: str) -> None:
         with self._lock:
@@ -138,7 +160,9 @@ class RetainIndex:
         self._maybe_compact(backstop=True)
 
     def clear(self) -> None:
+        router = self._router
         self.__init__(self.device)
+        self._router = router
 
     def _touch(self, row: int) -> None:
         self._epoch += 1
@@ -226,14 +250,68 @@ class RetainIndex:
         deep_hits = ([[t for t in deep if T.match(t, f)] for f in filters]
                      if deep else [[] for _ in filters])
         with self._lock:
-            if len(self._row_of) < device_threshold:
+            if (len(self._row_of) < device_threshold
+                    or not self._device_ok()):
                 return [self._host_scan(f, dh)
                         for f, dh in zip(filters, deep_hits)]
-            hits = self._match_device_many(filters)
-            return [h + dh for h, dh in zip(hits, deep_hits)]
+            try:
+                hits = self._match_device_many(filters)
+                self._device_broken = 0
+                return [h + dh for h, dh in zip(hits, deep_hits)]
+            except Exception:
+                # failure breaker: a permanently failing backend must
+                # not pay a failed launch and a stack trace on EVERY
+                # wildcard subscribe
+                self._device_broken += 1
+                if self._device_broken >= 3:
+                    log.exception(
+                        "retain index device match failed %d times; "
+                        "host scan from now on", self._device_broken)
+                else:
+                    log.warning(
+                        "retain index device match failed; "
+                        "host fallback (%d/3)", self._device_broken)
+                return [self._host_scan(f, dh)
+                        for f, dh in zip(filters, deep_hits)]
 
     def _host_scan(self, flt: str, deep_hits: List[str]) -> List[str]:
         return [t for t in self._row_of if T.match(t, flt)] + deep_hits
+
+    def _device_ok(self) -> bool:
+        """Device-path gate: the failure breaker, plus devloss riding
+        when a router is attached — suspended means the device is
+        mid-recovery (the cached matrix may reference a LOST backend:
+        drop it, host-scan, and burn no breaker strikes on a doomed
+        launch); the suspension lifting means the rebuild completed,
+        so the breaker resets."""
+        r = self._router
+        if r is not None:
+            if r.device_suspended():
+                self._dev = None
+                self._dirty.clear()
+                self._suspended_seen = True
+                return False
+            if self._suspended_seen:
+                self._suspended_seen = False
+                self._device_broken = 0
+        return self._device_broken < 3
+
+    def device_info(self) -> dict:
+        """Diagnostic snapshot: live and deep row counts, the device
+        cache's state, the breaker and suspension state and the last
+        launch's filter count."""
+        r = self._router
+        return {
+            "rows": len(self._row_of),
+            "deep": len(self._deep),
+            "cap": self._cap,
+            "epoch": self._epoch,
+            "cached": self._dev is not None,
+            "dirty_rows": len(self._dirty),
+            "device_broken": self._device_broken,
+            "suspended": bool(r is not None and r.device_suspended()),
+            "last_batch": self._last_batch,
+        }
 
     def _encode(self, filters: Sequence[str]):
         """``[Fp, L]`` filter words, ``[Fp]`` counts and ``#`` flags,
@@ -269,6 +347,7 @@ class RetainIndex:
         fw, fn, hh = (torch.from_numpy(a).to(self.device)
                       for a in self._encode(filters))
         ok = match_names_auto(fw, fn, hh, dev[2], dev[3], dev[4])
+        self._last_batch = F
         # only the hits cross to the host, as flat f * cap + row
         # indices in row-major order: per filter, ascending rows
         flat = torch.nonzero(ok[:F].reshape(-1)).reshape(-1).cpu().numpy()
@@ -339,6 +418,9 @@ class RetainerModule(Module):
         # Message-Expiry leave the store and index even when nothing
         # subscribes to them again
         self.node.stats.register_update(self._on_stats_tick)
+        # devloss riding: a suspended device host-scans and the
+        # breaker resets once the rebuild completes
+        self._index.attach_router(self.node.router)
         self.node.hooks.add("message.publish", self.on_publish,
                             priority=50)
         self.node.hooks.add("session.subscribed", self.on_subscribed,

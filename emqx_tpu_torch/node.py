@@ -3,10 +3,15 @@ the ported paths.
 
 Builds the kernel services (hooks, metrics, stats), the router and
 broker on one device, the ingress batcher, the connection manager,
-the module host and the MQTT listeners, in the reference's boot order
-(src/emqx_app.erl:31-44, src/emqx_sup.erl:64-80). Alarms, overload
-protection, durability, tracing, ``$SYS`` topics, plugins, several
-front-door loops and the cluster come with their slices.
+the alarms, overload protection (the monitor, the device-path breaker
+and device-loss recovery, at the JAX package's defaults), the module
+host and the MQTT listeners, in the reference's boot order
+(src/emqx_app.erl:31-44, src/emqx_sup.erl:64-80). Durability,
+tracing, ``$SYS`` topics, plugins, several front-door loops and the
+cluster come with their slices.
+
+``Node(overload=OverloadConfig(enabled=False))`` builds no monitor,
+breaker or recovery: every guard reads ``None``.
 
     node = Node(device="cuda")
     node.modules.load(RetainerModule)
@@ -21,6 +26,8 @@ from __future__ import annotations
 import asyncio
 from typing import List, Optional
 
+from emqx_tpu_torch import faults as _faults
+from emqx_tpu_torch.alarm import AlarmManager
 from emqx_tpu_torch.broker import Broker, DispatchConfig
 from emqx_tpu_torch.cm import ConnectionManager
 from emqx_tpu_torch.connection import Listener
@@ -28,6 +35,8 @@ from emqx_tpu_torch.hooks import Hooks
 from emqx_tpu_torch.ingress import IngressBatcher
 from emqx_tpu_torch.metrics import Metrics
 from emqx_tpu_torch.modules import ModuleRegistry
+from emqx_tpu_torch.overload import (DeviceBreaker, OverloadConfig,
+                                     OverloadMonitor)
 from emqx_tpu_torch.router import MatcherConfig, Router
 from emqx_tpu_torch.stats import Stats
 from emqx_tpu_torch.zone import Zone, get_zone
@@ -39,7 +48,10 @@ class Node:
                  matcher: Optional[MatcherConfig] = None,
                  dispatch_config: Optional[DispatchConfig] = None,
                  batch_size: int = 256,
-                 device=None, frame: str = "py") -> None:
+                 device=None, frame: str = "py",
+                 overload: Optional[OverloadConfig] = None,
+                 faults_config: Optional[_faults.FaultsConfig] = None
+                 ) -> None:
         self.name = name
         self.zone = zone or get_zone()
         # [node] frame: the wire-framing parser of every connection,
@@ -62,9 +74,13 @@ class Node:
         self.device = self.router.device
         # a crashed background compaction: the router's thread records
         # the error here (a plain attribute store — thread-safe); the
-        # housekeeping tick retries the compaction after its backoff
+        # monitor or housekeeping tick turns it into the alarm and
+        # retries the compaction after its backoff
         self._flatten_err: Optional[str] = None
+        self._flatten_alarmed = False
         self.router.on_bg_error = self._note_flatten_error
+        # on CUDA the Broker loads its kernel library here: a build
+        # failure raises out of Node(...), before any breaker exists
         self.broker = Broker(router=self.router, hooks=self.hooks,
                              metrics=self.metrics, node=name,
                              dispatch_config=dispatch_config)
@@ -75,6 +91,39 @@ class Node:
         self.broker.ingress = self.ingress
         # connection/session management (emqx_cm_sup)
         self.cm = ConnectionManager(broker=self.broker)
+        self.alarms = AlarmManager(broker=self.broker, node=name)
+        self.broker.alarms = self.alarms
+        # overload protection and the device-path breaker
+        # (overload.py); enabled=False builds neither, and the broker,
+        # channel and session guards read None
+        ocfg = overload or OverloadConfig()
+        self.overload_config = ocfg
+        self.overload: Optional[OverloadMonitor] = None
+        if ocfg.enabled:
+            self.overload = OverloadMonitor(self, ocfg)
+            self.broker.overload = self.overload
+            if ocfg.breaker:
+                self.broker.breaker = DeviceBreaker(
+                    self.metrics, alarms=self.alarms,
+                    failures=ocfg.breaker_failures,
+                    cooldown_s=ocfg.breaker_cooldown_s,
+                    slow_ms=ocfg.breaker_slow_ms)
+                if ocfg.breaker_rebuild:
+                    # device-loss recovery (devloss.py): classify
+                    # trips, rebuild the device state on a lost
+                    # backend, re-warm, re-arm the half-open probe
+                    from emqx_tpu_torch.devloss import DeviceRecovery
+
+                    self.broker.breaker.recovery = DeviceRecovery(
+                        self.broker, self.metrics, self.alarms,
+                        backoff_s=ocfg.rebuild_backoff_s,
+                        sentinel_timeout_s=ocfg.sentinel_timeout_s)
+            self.ingress.submit_wait_timeout = ocfg.ingress_wait_timeout_s
+        # fault injection ([faults], faults.py): arm specs applied at
+        # build; no section leaves the process registry untouched
+        self.faults_config = faults_config
+        if faults_config is not None:
+            _faults.configure(faults_config)
         # extension system
         self.modules = ModuleRegistry(self)
         self.listeners: List[Listener] = []
@@ -102,11 +151,16 @@ class Node:
         session housekeeping on the running loop."""
         if self._started:
             return
+        br = self.broker.breaker
+        if br is not None and br.recovery is not None:
+            br.recovery.start()  # re-armed after an earlier stop()
         for lst in self.listeners:
             await lst.start()
         self.modules.on_loop_start()
-        self._bg_tasks.append(
-            asyncio.get_running_loop().create_task(self._housekeeping()))
+        loop = asyncio.get_running_loop()
+        self._bg_tasks.append(loop.create_task(self._housekeeping()))
+        if self.overload is not None:
+            self._bg_tasks.append(loop.create_task(self.overload.run()))
         self._started = True
 
     async def stop(self) -> None:
@@ -119,6 +173,16 @@ class Node:
         for t in self._bg_tasks:
             t.cancel()
         self._bg_tasks.clear()
+        if self.overload is not None:
+            # its task is cancelled: a level it set must not keep
+            # refusing CONNECTs with no sample behind it
+            self.overload.reset()
+        br = self.broker.breaker
+        if br is not None and br.recovery is not None:
+            # an in-flight device-state rebuild must not retry into a
+            # stopping node (its thread is a daemon; this breaks its
+            # backoff loop early)
+            br.recovery.stop()
         self.modules.on_loop_stop()
         # listeners first: the drain waits for quiescence, which never
         # comes while live connections keep submitting publishes
@@ -133,22 +197,50 @@ class Node:
             self.tick()
 
     def tick(self) -> None:
-        """The housekeeping tick's router share: fold the match-cache
-        and automaton counters into :attr:`metrics` (as the JAX node's
-        stats flush does) and retry a crashed background compaction
-        once its backoff elapsed."""
+        """The housekeeping tick, as the JAX node's stats flush: fold
+        the match-cache and automaton counters into :attr:`metrics`,
+        publish the overload level and breaker state gauges, fold the
+        fired fault points into ``faults.injected``, turn a crashed
+        compaction into its alarm and retry it once its backoff
+        elapsed."""
         cache = self.router.drain_cache_stats()
         if any(cache.values()):
             self.metrics.fold_cache_stats(cache)
         auto = self.router.drain_automaton_stats()
         if any(auto.values()):
             self.metrics.fold_automaton_stats(auto)
+        if self.overload is not None:
+            self.stats.setstat("overload.level", self.overload.level)
+        if self.broker.breaker is not None:
+            self.stats.setstat("breaker.state", self.broker.breaker.state)
+        inj = _faults.drain_injected()
+        if inj:
+            self.metrics.inc("faults.injected", inj)
+        self.drain_robustness_events()
         self.router.retry_compaction()
 
     def _note_flatten_error(self, exc) -> None:
         """Router background-compaction outcome callback — may run ON
-        the compaction thread, so it only stores."""
+        the compaction thread, so it only stores (the alarm is raised
+        on the loop, in :meth:`drain_robustness_events`)."""
         self._flatten_err = repr(exc) if exc is not None else None
+
+    def drain_robustness_events(self) -> None:
+        """Turn thread-recorded robustness events into alarms and
+        metrics — called from the overload monitor's tick and the
+        housekeeping tick (whichever runs first; both on the loop)."""
+        err = self._flatten_err
+        if err is not None and not self._flatten_alarmed:
+            self._flatten_alarmed = True
+            self.metrics.inc("overload.heal.flatten")
+            self.alarms.activate(
+                "router_compaction_failed",
+                details={"error": err},
+                message="background compaction crashed; "
+                        "backoff retry armed")
+        elif err is None and self._flatten_alarmed:
+            self._flatten_alarmed = False
+            self.alarms.deactivate("router_compaction_failed")
 
     # -- facade (src/emqx.erl:26-64) --------------------------------------
 

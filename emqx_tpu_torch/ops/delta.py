@@ -172,6 +172,23 @@ class DeltaAutomaton:
         return (len(self.fids) >= max_filters
                 or len(self.tombs) > max(1024, live))
 
+    def invalidate_device(self) -> None:
+        """Device-loss recovery: the staged device view — side walk
+        tables, tombstone mask, cached snapshot — references a lost
+        backend's buffers. Drop it all and mark it dirty; the next
+        :meth:`snapshot` re-flattens the side trie and re-stages the
+        mask on the device. The host structures (trie, fids, tombs,
+        log) are untouched."""
+        self._host_auto = None
+        self._dev_auto = None
+        self._patcher = None
+        self._flatten_dirty = bool(self.fids)
+        self._mask_dev = None
+        self._mask_cap = 0
+        self._mask_dirty = bool(self.tombs)
+        self._snap = None
+        self._snap_key = None
+
     # -- snapshot (side tables + tombstone mask) --------------------------
 
     def _flatten(self) -> None:

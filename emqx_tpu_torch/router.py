@@ -49,6 +49,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from emqx_tpu_torch import faults
 from emqx_tpu_torch import topic as T
 from emqx_tpu_torch.device import resolve
 from emqx_tpu_torch.oracle import TrieOracle
@@ -79,6 +80,9 @@ class MatcherConfig:
     # below this many live filters the broker matches on the host
     # trie: a device round trip only pays off at scale
     device_min_filters: int = 1024
+    # host-regime quarantined-id bound before the stale automaton is
+    # dropped and ids recycle (Router.reclaim_host_regime)
+    host_reclaim_pending: int = 1024
     # packed-transfer budgets: expected matched filters / deliveries
     # per message and bitmap rows per batch (re-pack on overflow)
     pack_m: int = 8
@@ -232,6 +236,12 @@ class Router:
         # level-compression facts of the LIVE tables
         self._compaction = {"mode": "narrow", "chains": 0,
                             "fused_edges": 0, "ratio": 0}
+        # level-bucket shapes live dispatches used: the devloss
+        # re-warm replays each (Broker.warm_device_path)
+        self._seen_levels: set = set()
+        # lost backend (devloss.py): every match takes the host trie
+        # until rebuild_device_state publishes fresh tables
+        self._device_suspended = False
         self._compacting = False  # background compaction in flight
         # a background flatten that raised arms an exponential backoff
         # before the next attempt; on_bg_error(exc|None) reports the
@@ -687,9 +697,15 @@ class Router:
             return lb + 1
         return int(hl[min(lb, len(hl) - 1)])
 
+    def observed_levels(self) -> List[int]:
+        """Level-bucket shapes live dispatches have used — the devloss
+        re-warm's level axis."""
+        return sorted(self._seen_levels)
+
     def _walk_kw(self, lb: int) -> dict:
         """Static kernel kwargs for the live tables at batch depth
         ``lb``."""
+        self._seen_levels.add(int(lb))  # one set add; the re-warm reads it
         m = self._walk_meta
         return {"steps": self._steps_for(lb), "slots": m["slots"],
                 "take": m["take"]}
@@ -792,6 +808,8 @@ class Router:
         from it, and its id comes from the freeze's ``del_fids``
         instead (the JAX package's Python-engine flatten raises
         ``KeyError`` there and its compaction fails)."""
+        if faults.enabled:
+            faults.fire("compaction.flatten")
         if self._native is not None:
             return self._native.flatten(v2_state_capacity=cap_s2,
                                         n_buckets=nb)
@@ -943,18 +961,195 @@ class Router:
     def use_device_now(self) -> bool:
         """Device matching pays a fixed round trip, so it runs only
         past ``device_min_filters`` live filters (and never with
-        ``use_device=False``)."""
+        ``use_device=False``, nor while the device is suspended)."""
         cfg = self.config
         if not cfg.use_device or not self._routes:
             return False
+        if self._device_suspended:
+            # lost backend: every published device snapshot points at
+            # dead buffers — host trie until the rebuild publishes
+            # fresh tables (devloss.py)
+            return False
         return len(self._filter_ids) >= cfg.device_min_filters
 
+    def reclaim_host_regime(self) -> None:
+        """Called by the publish path when it chose the HOST regime:
+        if a previously published automaton's id quarantine has grown
+        past ``host_reclaim_pending``, drop the automaton (the next
+        device use re-flattens from scratch) and drain the ids.
+
+        The bound is hysteresis: a filter count oscillating around
+        ``device_min_filters`` must not pay a full re-flatten per
+        crossing, and without any reclaim a broker that crossed the
+        threshold once and fell back would pin ``_pending_free``
+        forever. In-flight matchers hold their own snapshot
+        references, and recycling only mutates the live list."""
+        if self._auto is None or \
+                len(self._pending_free) <= self.config.host_reclaim_pending:
+            return
+        with self._lock:
+            if self._auto is None or len(self._pending_free) <= \
+                    self.config.host_reclaim_pending:
+                return
+            if self._freeze is not None:
+                # an off-lock compaction flatten is mid-flight; its
+                # swap recycles the quarantine anyway
+                return
+            self._auto = None
+            self._published = None
+            self._patcher = None
+            # the delta's pending adds and deletes are all in the trie
+            # (mutations apply immediately outside a freeze), so the
+            # next flatten re-derives them
+            self._delta = None
+            self._delta_ver += 1
+            self._pub2 = None
+            self._dirty = True  # next device use must re-flatten
+            self._free_ids.extend(self._pending_free)
+            self._pending_free.clear()
+            self._bump_cache_rev()  # drained ids may recycle
+
+    # -- device-loss recovery (devloss.py) --------------------------------
+
+    def suspend_device(self) -> None:
+        """Lost-backend classification, step 0: route every match
+        through the host trie until :meth:`rebuild_device_state`
+        publishes fresh tables. One attribute write — matchers that
+        would have read dead device buffers (publish dispatch,
+        retained replay, ``match_filters``) take the exact host path
+        instead."""
+        self._device_suspended = True
+        log.error("device matching suspended: backend lost — host "
+                  "trie serves until the rebuild publishes")
+
+    def device_suspended(self) -> bool:
+        return self._device_suspended
+
     def match_filters_host(self, topics: Sequence[str]) -> List[List[str]]:
-        """Host-only batch match."""
+        """Host-only batch match — the breaker's exact fallback. It
+        never consults the device, whatever ``use_device_now()`` says:
+        an open or rebuilding breaker means the device is suspect."""
         if not topics:
             return []
         with self._lock:
             return [self._host_match_locked(t) for t in topics]
+
+    def _quarantine_locked(self) -> None:
+        """Drop every published reference to the lost backend's
+        device state (under the lock, device already suspended): the
+        published (main, delta) snapshots, the match cache (its
+        gathers would read dead buffers — cold start) and the delta's
+        staged device view. The host structures — trie, route table,
+        word table, filter ids — are untouched: they are what the
+        rebuild reads."""
+        self._published = None
+        self._pub2 = None
+        self._match_cache_obj = None
+        if self._delta is not None:
+            self._delta.invalidate_device()
+        self._bump_cache_rev()
+
+    def rebuild_device_state(self) -> dict:
+        """Device-loss recovery (devloss.DeviceRecovery): quarantine
+        the dead published snapshot and rebuild ALL device-resident
+        state from the host structures — the trie re-flattens to fresh
+        tables on the router's device, the delta side automaton and
+        tombstone mask re-stage, and the match cache starts cold under
+        a global epoch bump, so no stale cached row can serve.
+
+        Delta mode reuses the off-lock freeze protocol: the flatten
+        runs OFF the router lock, so route ops arriving mid-rebuild
+        complete in milliseconds (into the freeze log and the next
+        delta generation) and host matches stay exact. Without delta
+        the rebuild holds the lock, and route ops wait for the
+        flatten.
+
+        Raises when the fresh placement fails (backend still dead, or
+        dead again mid-rebuild) — the recovery loop retries with
+        backoff. On success the suspension lifts."""
+        # claim the compaction slot: a background flatten may be
+        # mid-flight against the dead device — wait it out (its own
+        # error handling arms the compaction backoff)
+        deadline = time.monotonic() + 120.0
+        while True:
+            with self._lock:
+                if not self._compacting and self._freeze is None:
+                    self._compacting = True
+                    break
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    "device-state rebuild: background compaction "
+                    "would not yield")
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        try:
+            if faults.enabled:
+                faults.fire("device.lost")
+            with self._lock:
+                offlock = (self.config.delta and self._auto is not None
+                           and not self._dirty)
+            if offlock:
+                self._rebuild_devloss_offlock()
+            else:
+                with self._lock:
+                    self._quarantine_locked()
+                    self._dirty = True
+                    self._rebuild_locked()
+                    self._device_suspended = False
+        finally:
+            self._compacting = False
+        return {"rebuild_s": time.perf_counter() - t0,
+                "epoch": self._rebuilds,
+                "filters": len(self._filter_ids)}
+
+    def _rebuild_devloss_offlock(self) -> None:
+        """The delta-mode rebuild body: freeze + quarantine under a
+        short lock, flatten off-lock, place fresh tables, swap +
+        replay under another short lock — :meth:`_compact_offlock`'s
+        protocol with the quarantine folded into the freeze window
+        (route ops landing mid-rebuild go to the freeze log AND the
+        live delta, so the swap's ``split_after`` re-stages them
+        against the fresh id map exactly as a compaction would)."""
+        with self._lock:
+            self._quarantine_locked()
+            self._freeze = {"log": [], "adds": TrieOracle(),
+                            "add_fids": {}, "dels": set(),
+                            "del_fids": {}}
+            self._rebuild_inflight = True
+            mark = self._delta.mark() if self._delta is not None else 0
+            n_pend = len(self._pending_free)
+            cap_s2, nb = self._flatten_caps()
+        try:
+            host_auto = self._flatten_main(cap_s2, nb)
+            if faults.enabled:
+                faults.fire("device.lost")
+            auto = convert.automaton(host_auto, self.device)
+        except BaseException:
+            with self._lock:
+                self._unfreeze_locked()
+            raise
+        with self._lock:
+            self._install_walk_meta(host_auto)
+            self._auto = auto
+            self._patcher = None  # delta mode: no main-table mirror
+            self._auto_map = list(self._id_to_filter)
+            # recycle ONLY ids quarantined before the freeze (the
+            # compaction rule: an id freed mid-flatten waits a
+            # generation)
+            self._free_ids.extend(self._pending_free[:n_pend])
+            del self._pending_free[:n_pend]
+            self._dirty = False
+            self._grow = {"state": 1, "edge": 1}
+            self._rebuilds += 1
+            self._bump_cache_rev()
+            self._published = (auto, self._auto_map, self._rebuilds,
+                               self._cache_rev)
+            if self._delta is not None:
+                self._delta = self._delta.split_after(mark)
+            self._delta_ver += 1
+            self._unfreeze_locked()
+            self._publish_pair_locked()
+            self._device_suspended = False
 
     def _bucket(self, n: int) -> int:
         bucket = self.config.min_batch

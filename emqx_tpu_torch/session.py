@@ -349,6 +349,16 @@ class Session:
 
     @owner_loop
     def enqueue(self, msg: Message) -> None:
+        if msg.qos == QOS_0 and self.broker is not None:
+            ov = getattr(self.broker, "overload", None)
+            if ov is not None and ov.shed_qos0(len(self.mqueue),
+                                               self.mqueue.max_len):
+                # overload shedding (warn+): QoS0 has no redelivery
+                # contract — drop it at mqueue pressure so the
+                # remaining queue capacity serves QoS>0
+                self.broker.metrics.inc("delivery.dropped")
+                self.broker.metrics.inc("overload.shed.qos0")
+                return
         dropped = self.mqueue.push(msg)
         if dropped is not None and self.broker is not None:
             self.broker.metrics.inc("delivery.dropped")

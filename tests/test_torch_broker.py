@@ -191,9 +191,11 @@ def test_port_never_imports_jax_or_the_jax_package():
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
         mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
                     else rel)
-    # the front door's, the router's and the host engine's modules
-    # are among those imported
-    assert {"emqx_tpu_torch.mqtt", "emqx_tpu_torch.mqtt.constants",
+    # the front door's, the router's, the host engine's and overload
+    # protection's modules are among those imported
+    assert {"emqx_tpu_torch.faults", "emqx_tpu_torch.alarm",
+            "emqx_tpu_torch.overload", "emqx_tpu_torch.devloss",
+            "emqx_tpu_torch.ops.warmup", "emqx_tpu_torch.mqtt", "emqx_tpu_torch.mqtt.constants",
             "emqx_tpu_torch.mqtt.reason_codes", "emqx_tpu_torch.mqtt.props",
             "emqx_tpu_torch.mqtt.packet", "emqx_tpu_torch.mqtt.frame",
             "emqx_tpu_torch.channel", "emqx_tpu_torch.connection",

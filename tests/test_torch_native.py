@@ -478,7 +478,12 @@ def test_broker_deliveries_in_lockstep(native_engine):
         for b, sinks, mcls in pairs:
             for op, f, s in ops:
                 (b.subscribe if op == "+" else b.unsubscribe)(sinks[s], f)
-            wait_idle(b.router)
+                # a compaction this op started freezes and swaps before
+                # the next op, in both routers: where a swap lands
+                # among the ops decides which quarantined ids recycle
+                # into later adds, so a thread-timed swap point would
+                # let the routers' filter ids drift apart
+                wait_idle(b.router)
             res = b.publish_batch([mcls(topic=t, payload=b"%d" % i)
                                    for i, t in enumerate(topics)])
             got.append((list(res),
