@@ -203,6 +203,14 @@ REPLAY_ORDER = (True, False, False, True)
 #: after a short back-off as a client library does: the socket
 #: clients' and the sans-IO channels' of the replay bursts
 REFUSED = {"connects": 0}
+#: retries of one refused CONNECT before the phase fails
+CONNECT_RETRIES = 100
+
+
+async def refused_backoff(attempt: int) -> None:
+    """Counts one refused CONNECT and waits before the retry."""
+    REFUSED["connects"] += 1
+    await asyncio.sleep(min(0.5, 0.05 * (attempt + 1)))
 
 
 def log(*a) -> None:
@@ -408,47 +416,80 @@ def device_events(prof):
             and not e.key.startswith("ProfilerStep") and _dev_us(e) > 0]
 
 
+#: torch.profiler (2.11, NVIDIA H100 80GB HBM3, 700 W) loses launches of
+#: a short trace window more and more as the process ages: of 20
+#: back-to-back B3 launches an unpadded window keeps all 20 in a young
+#: process and none or a few after four minutes, which is when B3 is
+#: timed (``scripts/torch_trace_window.py`` prints the count against
+#: the age). A window that opens this long before the first launch
+#: loses fewer, and the CPU and CUDA activities together sometimes keep
+#: what CUDA alone loses; neither keeps every launch every time
+TRACE_PAD_S = 0.1
+#: windows :func:`kernel_ms` traces at most before it keeps the fullest
+TRACE_WINDOWS = 5
+
+
+def traced(fn, iters, activities):
+    """``iters`` calls of ``fn`` under torch.profiler, in a window that
+    opens :data:`TRACE_PAD_S` before the first call."""
+    import torch
+    from torch.profiler import profile
+
+    with profile(activities=activities) as prof:
+        time.sleep(TRACE_PAD_S)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
 def kernel_ms(fn, name: str, iters: int = 20):
     """Device time of one launch of the kernel whose name contains
     ``name``, from torch.profiler's CUDA trace (the wrapper's host
-    work and the torch ops around it excluded). When the trace holds
-    no device time for it (the profiler's tracing stopped once, late
-    in a full-width run), CUDA events around the wrapper call time it
-    instead, and the line says so."""
+    work and the torch ops around it excluded): the mean over the
+    traced launches. Up to :data:`TRACE_WINDOWS` windows, CUDA and
+    then CPU and CUDA activity in turn, are traced until one holds all
+    ``iters`` launches; the fullest is kept, and the line says so when
+    it holds fewer. Raises when none holds a launch."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if name in e.key and _dev_us(e) > 0]
-    if not hits:
-        ms = time_cuda_ms(fn, iters)
-        log(f"[profile] torch.profiler traced no device time for {name}: "
-            f"CUDA events around the whole wrapper call give {ms:.5f} ms")
-        return ms
-    return sum(_dev_us(e) for e in hits) / sum(e.count for e in hits) / 1e3
+    best = (0, 0.0)
+    for k in range(TRACE_WINDOWS):
+        acts = ([ProfilerActivity.CUDA] if k % 2 == 0 else
+                [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        hits = [e for e in traced(fn, iters, acts).key_averages()
+                if name in e.key and _dev_us(e) > 0]
+        n = sum(e.count for e in hits)
+        if n > best[0]:
+            best = (n, sum(_dev_us(e) for e in hits))
+        if n >= iters:
+            break
+    n, us = best
+    if not n:
+        raise RuntimeError(f"torch.profiler traced no device time for "
+                           f"{name} in {TRACE_WINDOWS} windows")
+    if n < iters:
+        log(f"[profile] {name}: the fullest of {TRACE_WINDOWS} traces "
+            f"holds {n} of {iters} launches; the time is their mean")
+    return us / n / 1e3
 
 
 def device_ms(fn, iters: int = 20) -> float:
     """Device time of one call of ``fn``: every kernel and copy it
     runs, from torch.profiler's CUDA trace (host time between launches
-    excluded). Raises when the trace holds no device time."""
+    excluded), in a window that opens :data:`TRACE_PAD_S` early.
+    Raises when the trace holds no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = device_events(prof)
+    events = device_events(traced(fn, iters, [ProfilerActivity.CUDA]))
     if not events:
         raise RuntimeError("torch.profiler traced no device time")
     return sum(_dev_us(e) for e in events) / iters / 1e3
@@ -1116,14 +1157,20 @@ def profile_steps(steps, kernels, card, label):
     from emqx_tpu_torch.ops import _build
 
     marks = []
+    last = len(steps) - 1
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=len(steps) - 1,
+                 schedule=schedule(wait=0, warmup=1, active=last,
                                    repeat=1)) as prof:
-        for step in steps:
+        for i, step in enumerate(steps):
             step()
             torch.cuda.synchronize()
+            if i == 0:
+                # the recorded window opens, padded (see TRACE_PAD_S)
+                prof.step()
+                time.sleep(TRACE_PAD_S)
             marks.append((time.perf_counter(), dict(_build.LAUNCHES)))
-            prof.step()
+            if i:
+                prof.step()
     wall_ms = (marks[-1][0] - marks[0][0]) * 1e3
     events = device_events(prof)
     counted = {k: marks[-1][1][k] - marks[0][1][k] for k in kernels}
@@ -2063,18 +2110,18 @@ async def one_burst(node, flts, tag):
 
     chans = []
     for j in range(len(flts)):
-        for attempt in range(101):
+        for attempt in range(CONNECT_RETRIES + 1):
             ch = Channel(node.broker, node.cm)
             ch.wire_fast = True
             ch.handle_in(Connect(client_id=f"{tag}_{j}"))
             if ch.session is not None:
                 break
             # refused with ServerBusy at critical overload: retry after
-            # a back-off, as a client does (counted in REFUSED)
-            REFUSED["connects"] += 1
-            await asyncio.sleep(min(0.5, 0.05 * (attempt + 1)))
+            # a back-off, as a client does
+            await refused_backoff(attempt)
         else:
-            raise AssertionError(f"{tag}_{j}: CONNECT refused 101 times")
+            raise AssertionError(f"{tag}_{j}: CONNECT refused "
+                                 f"{CONNECT_RETRIES + 1} times")
         chans.append(ch)
     t0 = time.perf_counter()
     for ch, flt in zip(chans, flts):
@@ -2460,7 +2507,7 @@ class WireClient:
         self.on_publish = None
         self.closed = None
 
-    async def connect(self, port: int, retries: int = 100) -> None:
+    async def connect(self, port: int) -> None:
         """CONNECT; a CONNECT refused with ServerBusy (the overload
         monitor at critical) is counted in :data:`REFUSED` and retried
         after a short back-off, as a client library does."""
@@ -2468,7 +2515,7 @@ class WireClient:
         from emqx_tpu_torch.mqtt.packet import Connect
 
         loop = asyncio.get_running_loop()
-        for attempt in range(retries + 1):
+        for attempt in range(CONNECT_RETRIES + 1):
             self.parser = Parser(version=self.version)
             self.reader, self.writer = await asyncio.open_connection(
                 "127.0.0.1", port)
@@ -2480,14 +2527,14 @@ class WireClient:
             pkt = await fut
             if pkt.reason_code == 0:
                 return
-            if pkt.reason_code not in (0x89, 3) or attempt == retries:
+            if (pkt.reason_code not in (0x89, 3)
+                    or attempt == CONNECT_RETRIES):
                 raise AssertionError(f"{self.cid}: CONNACK "
                                      f"{pkt.reason_code}")
-            REFUSED["connects"] += 1
             self.writer.close()
             await self.closed
             self.raw.clear()
-            await asyncio.sleep(min(0.5, 0.05 * (attempt + 1)))
+            await refused_backoff(attempt)
 
     def expect(self, kind: str, pid: int):
         fut = asyncio.get_running_loop().create_future()
@@ -3196,7 +3243,8 @@ P9_INJECTED = {"n": 0}
 def check_quiet(node, label, index=None):
     """Phases 1-8: no number is taken on the breaker's host path — no
     trip, no fallback batch, no fault injected, and (retained node) no
-    failed retained match."""
+    failed retained match and no match served by the host scan in the
+    device's place (the index's counters only grow)."""
     from emqx_tpu_torch import faults
 
     m = node.metrics
@@ -3205,7 +3253,8 @@ def check_quiet(node, label, index=None):
            "injected_faults": faults.info()["injected_total"]
            - P9_INJECTED["n"]}
     if index is not None:
-        got["retained_device_failures"] = index._device_broken
+        got["retained_device_failures"] = index.device_failures
+        got["retained_host_scans"] = index.fallbacks
     log(f"[{label}] breaker state "
         f"{node.broker.breaker.STATE_NAMES[node.broker.breaker.state]}: "
         + ", ".join(f"{k.replace('_', ' ')} {v}" for k, v in got.items()))
@@ -3544,6 +3593,7 @@ def phase_retained_devloss(node, index, bursts, family, card):
 
     router.suspend_device()
     b3 = _build.LAUNCHES["retained_match"]
+    scans = index.fallbacks
     t0 = time.perf_counter()
     boxes, *_ = asyncio.run(go(pick, "9c_host"))
     host_s = time.perf_counter() - t0
@@ -3551,6 +3601,10 @@ def phase_retained_devloss(node, index, bursts, family, card):
     if _build.LAUNCHES["retained_match"] != b3 or index._dev is not None:
         raise AssertionError("9c: B3 launched while the router was "
                              "suspended")
+    if index.fallbacks != scans + 1:
+        raise AssertionError(f"9c: the suspended burst counted "
+                             f"{index.fallbacks - scans} host scans, not 1")
+    scans = index.fallbacks
     t0 = time.perf_counter()
     router.rebuild_device_state()
     rebuild_s = time.perf_counter() - t0
@@ -3559,11 +3613,14 @@ def phase_retained_devloss(node, index, bursts, family, card):
     boxes, *_ = asyncio.run(go(flts, "9c_dev"))
     dev_s = time.perf_counter() - t0
     n_dev = check(boxes, flts, "rebuilt")
-    if _build.LAUNCHES["retained_match"] <= b3 or index._device_broken:
-        raise AssertionError("9c: B3 did not launch after the rebuild")
+    if (_build.LAUNCHES["retained_match"] <= b3 or index.fallbacks != scans
+            or index.device_failures):
+        raise AssertionError("9c: B3 did not serve the burst after the "
+                             "rebuild")
     log(f"[9c] retained_1m, router suspended: a burst of {len(pick)} "
         f"({n_host} messages) served by the host scan in "
-        f"{host_s * 1e3:.3f} ms, exact; the router's rebuild "
+        f"{host_s * 1e3:.3f} ms, exact, counted (host scans "
+        f"{index.fallbacks}); the router's rebuild "
         f"{rebuild_s:.3f} s; then a burst of {len(flts)} ({n_dev} "
         f"messages) through B3 again in {dev_s * 1e3:.3f} ms, exact; B3 "
         f"launches {b3} → {_build.LAUNCHES['retained_match']} — {card}")

@@ -322,7 +322,7 @@ class Broker:
             self.router.reclaim_host_regime()
             return self._begin_host(pb, topics, defer_host)
         br = self.breaker
-        if br is not None and not br.allow_device():
+        if br is not None and not br.allow_device() and br.diverts():
             # breaker OPEN: exact host-trie matching until a half-open
             # probe closes it. The automaton is kept — the probe rides
             # it straight back
@@ -331,13 +331,17 @@ class Broker:
                                     host_only=True)
         try:
             return self._begin_device(pb, topics, self.router.config)
-        except Exception:
+        except Exception as e:
             if br is None:
                 raise
             # the device dispatch died (a failed launch, an injected
             # fault): record it for the breaker and serve THIS batch
-            # exactly from the host trie
-            br.record_failure()
+            # exactly from the host trie — on a strict (CUDA) breaker
+            # only an injected fault; a real failure raises
+            injected = isinstance(e, faults.FaultInjected)
+            br.record_failure(injected=injected)
+            if br.strict and not injected:
+                raise
             log.exception("device publish dispatch failed — host-trie "
                           "fallback for this batch")
             return self._begin_host(pb, topics, defer_host,
@@ -417,9 +421,11 @@ class Broker:
         begin enqueued. A kernel fault surfaces here, at the copy.
 
         With a breaker attached a failed (or, past ``breaker_slow_ms``,
-        stalled) fetch is recorded and the batch turns into a host-only
-        batch: the finish re-matches every live topic on the host trie,
-        so nothing is delivered wrong or lost."""
+        stalled) fetch is recorded and a failed one turns into a
+        host-only batch: the finish re-matches every live topic on the
+        host trie, so nothing is delivered wrong or lost. A strict
+        (CUDA) breaker does so only for an injected fault; a real
+        failure is recorded and raised."""
         if pb.done or pb.host_topics is not None:
             return
         br = self.breaker
@@ -429,8 +435,11 @@ class Broker:
         t0 = time.perf_counter()
         try:
             self._fetch_device(pb)
-        except Exception:
-            br.record_failure()
+        except Exception as e:
+            injected = isinstance(e, faults.FaultInjected)
+            br.record_failure(injected=injected)
+            if br.strict and not injected:
+                raise
             log.exception("device fetch failed — host-trie fallback "
                           "for this batch")
             pb.plan = None

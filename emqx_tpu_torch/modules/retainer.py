@@ -21,7 +21,12 @@ topics and ``max_payload`` bytes per message (drops are counted).
 The index rides device-loss recovery (:meth:`RetainIndex.attach_router`)
 and has the JAX module's own failure breaker: a failed device match is
 served by the host scan, and after 3 in a row the device path stays
-off until the router's device state is rebuilt. The cluster and
+off until the router's device state is rebuilt. On a CUDA index a
+failed B3 match raises instead: only a loss the router's recovery has
+confirmed (its suspension) moves a match to the host. Every match the
+host scan serves in the device's place is counted
+(``retained.device.fallback``), and the third strike raises the
+``retained_device_fallback`` alarm. The cluster and
 durability members of the JAX module (replication, tombstones,
 journal, restore) come with their slices.
 """
@@ -62,8 +67,10 @@ class RetainIndex:
     levels live in a host-matched side set. Below ``device_threshold``
     live rows matching is the host scan. On CUDA the kernel library is
     loaded when the index is built, so a build failure raises there.
-    A failed device match is served by the host scan; after 3 in a
-    row the device path stays off (``_device_broken``). With a router
+    A failed device match raises on CUDA; elsewhere it is served by
+    the host scan, and after 3 in a row the device path stays off
+    (``_device_broken``). ``device_failures`` and ``fallbacks`` count
+    failed matches and host scans in the device's place. With a router
     attached (:meth:`attach_router`) the index rides device-loss
     recovery: while the router's device is suspended it host-scans and
     drops its cached matrix (its buffers may be dead), and the
@@ -89,7 +96,14 @@ class RetainIndex:
         self._dev = None  # (epoch, cap, ids, n, sys) device cache
         self._dirty: set = set()  # rows mutated since _dev was built
         self._device_broken = 0  # consecutive failures; >=3 disables
+        #: failed device matches and matches the host scan served in
+        #: the device's place, since construction (never reset)
+        self.device_failures = 0
+        self.fallbacks = 0
         self._router = None  # devloss riding (attach_router)
+        self._metrics = self._alarms = None
+        #: a failed match raises instead of host-scanning (CUDA)
+        self.strict = self.device.type == "cuda"
         self._suspended_seen = False
         self._last_batch = 0  # filters in the last device dispatch
         if self.device.type == "cuda":
@@ -102,11 +116,18 @@ class RetainIndex:
     def __len__(self) -> int:
         return len(self._row_of) + len(self._deep)
 
-    def attach_router(self, router) -> None:
+    def attach_router(self, router, metrics=None, alarms=None) -> None:
         """Arm device-loss riding: the index holds its own device
         tensors outside ``Router.rebuild_device_state()``, so instead
-        of being rebuilt it watches the router's suspension flag."""
+        of being rebuilt it watches the router's suspension flag.
+        ``metrics`` and ``alarms`` (the node's) receive the fallback
+        counters and the third strike's alarm."""
         self._router = router
+        self._metrics = metrics
+        self._alarms = alarms
+        if metrics is not None:
+            metrics.new("retained.device.failures")
+            metrics.new("retained.device.fallback")
 
     def add(self, topic: str) -> None:
         with self._lock:
@@ -160,9 +181,11 @@ class RetainIndex:
         self._maybe_compact(backstop=True)
 
     def clear(self) -> None:
-        router = self._router
+        wiring = (self._router, self._metrics, self._alarms)
+        counts = (self.device_failures, self.fallbacks)
         self.__init__(self.device)
-        self._router = router
+        self._router, self._metrics, self._alarms = wiring
+        self.device_failures, self.fallbacks = counts
 
     def _touch(self, row: int) -> None:
         self._epoch += 1
@@ -250,15 +273,21 @@ class RetainIndex:
         deep_hits = ([[t for t in deep if T.match(t, f)] for f in filters]
                      if deep else [[] for _ in filters])
         with self._lock:
-            if (len(self._row_of) < device_threshold
-                    or not self._device_ok()):
+            if len(self._row_of) < device_threshold:
                 return [self._host_scan(f, dh)
                         for f, dh in zip(filters, deep_hits)]
+            if not self._device_ok():
+                return self._fallback_scan(filters, deep_hits)
             try:
                 hits = self._match_device_many(filters)
-                self._device_broken = 0
-                return [h + dh for h, dh in zip(hits, deep_hits)]
             except Exception:
+                self.device_failures += 1
+                if self._metrics is not None:
+                    self._metrics.inc("retained.device.failures")
+                if self.strict:
+                    # the card's match is never moved to the host
+                    # unless the router's recovery confirmed a loss
+                    raise
                 # failure breaker: a permanently failing backend must
                 # not pay a failed launch and a stack trace on EVERY
                 # wildcard subscribe
@@ -267,12 +296,32 @@ class RetainIndex:
                     log.exception(
                         "retain index device match failed %d times; "
                         "host scan from now on", self._device_broken)
+                    if self._alarms is not None:
+                        self._alarms.activate(
+                            "retained_device_fallback",
+                            details={"failures": self._device_broken},
+                            message="retained match tripped to the "
+                                    "host scan")
                 else:
                     log.warning(
                         "retain index device match failed; "
                         "host fallback (%d/3)", self._device_broken)
-                return [self._host_scan(f, dh)
-                        for f, dh in zip(filters, deep_hits)]
+                return self._fallback_scan(filters, deep_hits)
+            self._reset_breaker()
+            return [h + dh for h, dh in zip(hits, deep_hits)]
+
+    def _fallback_scan(self, filters: Sequence[str],
+                       deep_hits: List[List[str]]) -> List[List[str]]:
+        """The host scan in the device's place: counted."""
+        self.fallbacks += 1
+        if self._metrics is not None:
+            self._metrics.inc("retained.device.fallback")
+        return [self._host_scan(f, dh) for f, dh in zip(filters, deep_hits)]
+
+    def _reset_breaker(self) -> None:
+        if self._device_broken >= 3 and self._alarms is not None:
+            self._alarms.deactivate("retained_device_fallback")
+        self._device_broken = 0
 
     def _host_scan(self, flt: str, deep_hits: List[str]) -> List[str]:
         return [t for t in self._row_of if T.match(t, flt)] + deep_hits
@@ -293,7 +342,7 @@ class RetainIndex:
                 return False
             if self._suspended_seen:
                 self._suspended_seen = False
-                self._device_broken = 0
+                self._reset_breaker()
         return self._device_broken < 3
 
     def device_info(self) -> dict:
@@ -309,6 +358,8 @@ class RetainIndex:
             "cached": self._dev is not None,
             "dirty_rows": len(self._dirty),
             "device_broken": self._device_broken,
+            "device_failures": self.device_failures,
+            "fallbacks": self.fallbacks,
             "suspended": bool(r is not None and r.device_suspended()),
             "last_batch": self._last_batch,
         }
@@ -420,7 +471,8 @@ class RetainerModule(Module):
         self.node.stats.register_update(self._on_stats_tick)
         # devloss riding: a suspended device host-scans and the
         # breaker resets once the rebuild completes
-        self._index.attach_router(self.node.router)
+        self._index.attach_router(self.node.router, self.node.metrics,
+                                  self.node.alarms)
         self.node.hooks.add("message.publish", self.on_publish,
                             priority=50)
         self.node.hooks.add("session.subscribed", self.on_subscribed,

@@ -107,7 +107,8 @@ class Node:
                     self.metrics, alarms=self.alarms,
                     failures=ocfg.breaker_failures,
                     cooldown_s=ocfg.breaker_cooldown_s,
-                    slow_ms=ocfg.breaker_slow_ms)
+                    slow_ms=ocfg.breaker_slow_ms,
+                    strict=self.device.type == "cuda")
                 if ocfg.breaker_rebuild:
                     # device-loss recovery (devloss.py): classify
                     # trips, rebuild the device state on a lost

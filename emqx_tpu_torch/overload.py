@@ -160,13 +160,21 @@ class DeviceBreaker:
     the device state from the host structures — no probe is admitted
     until the rebuilt tables are published and the kernels re-warmed.
     Failure recording is thread-safe: fetches run on the ingress
-    executor, recovery on its own thread."""
+    executor, recovery on its own thread.
+
+    ``strict`` (the Node sets it on a CUDA device) keeps the card's
+    work on the card: an open breaker then diverts batches to the host
+    only when an injected fault tripped it or the recovery confirmed
+    the backend lost (:meth:`diverts`). A trip by a real failure or a
+    slow step is counted, alarmed and classified all the same, and
+    the batches keep launching on the card."""
 
     CLOSED, HALF_OPEN, OPEN, REBUILDING = 0, 1, 2, 3
     STATE_NAMES = ("closed", "half_open", "open", "rebuilding")
 
     def __init__(self, metrics, alarms=None, failures: int = 3,
-                 cooldown_s: float = 5.0, slow_ms: float = 0.0) -> None:
+                 cooldown_s: float = 5.0, slow_ms: float = 0.0,
+                 strict: bool = False) -> None:
         self.metrics = metrics
         self.alarms = alarms
         self.threshold = max(1, failures)
@@ -176,6 +184,9 @@ class DeviceBreaker:
         self.failures = 0
         self._open_until = 0.0
         self._probing = False
+        self.strict = strict
+        #: the trip came from an injected fault or a confirmed loss
+        self._divert = False
         self._lock = threading.Lock()
         #: device-loss recovery (devloss.DeviceRecovery), attached by
         #: the Node when ``breaker_rebuild``; None = an OPEN breaker
@@ -204,6 +215,12 @@ class DeviceBreaker:
             log.info("device-path breaker: half-open probe")
         return probe
 
+    def diverts(self) -> bool:
+        """May a batch this breaker does not admit go to the host?
+        Always, unless ``strict``; then only after an injected fault
+        or a confirmed loss."""
+        return not self.strict or self._divert
+
     def record_success(self, elapsed_s: float = 0.0) -> None:
         """A device batch completed. A completion slower than
         ``slow_ms`` counts as a failure. A success arriving in OPEN or
@@ -224,6 +241,7 @@ class DeviceBreaker:
             self.state = self.CLOSED
             self.failures = 0
             self._probing = False
+            self._divert = False
         if was != self.CLOSED:
             log.info("device-path breaker closed: probe succeeded "
                      "(device path recovered)")
@@ -232,7 +250,9 @@ class DeviceBreaker:
                 # the device_path_lost clear is the recovered signal
                 self.alarms.deactivate("device_path_lost")
 
-    def record_failure(self, reason: str = "device step failed") -> None:
+    def record_failure(self, reason: str = "device step failed",
+                       injected: bool = False) -> None:
+        """A device step failed (``injected``: by an armed fault)."""
         self.metrics.inc("breaker.failures")
         with self._lock:
             self.failures += 1
@@ -240,6 +260,7 @@ class DeviceBreaker:
                        or (self.state == self.CLOSED
                            and self.failures >= self.threshold))
             if tripped:
+                self._divert = injected
                 self.state = self.OPEN
                 self._open_until = time.monotonic() + self.cooldown_s
                 self._probing = False
@@ -273,6 +294,7 @@ class DeviceBreaker:
                 return False
             self.state = self.REBUILDING
             self._probing = False
+            self._divert = True
         log.error("device-path breaker REBUILDING: backend lost — "
                   "rebuilding device state from host structures")
         return True

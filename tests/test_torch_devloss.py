@@ -664,6 +664,236 @@ def test_retainer_rides_the_suspension_and_its_breaker_like_jax():
     assert p.device_info()["cached"]
 
 
+def fallback_index(**kw):
+    """A CPU retained index wired as the RetainerModule wires it, its
+    B3 call (the plain twin here) patched to fail while ``fail`` is
+    set."""
+    from emqx_tpu_torch.alarm import AlarmManager
+    from emqx_tpu_torch.metrics import Metrics
+
+    r = Router(config=MatcherConfig(device_min_filters=0), device="cpu")
+    r.add_route("a/+")
+    p = RetainIndex("cpu")
+    metrics, alarms = Metrics(), AlarmManager()
+    p.attach_router(r, metrics, alarms)
+    for t in NAMES:
+        p.add(t)
+    return r, p, metrics, alarms
+
+
+def test_retainer_counts_every_host_scan_and_alarms_at_the_third_strike(
+        monkeypatch):
+    from emqx_tpu_torch.modules import retainer as pret
+
+    r, p, metrics, alarms = fallback_index()
+    want = sorted(map(sorted, p.match_many(FILTERS, 1)))
+    state = {"fail": True, "calls": 0}
+    real = pret.match_names_auto
+
+    def b3(*a):
+        state["calls"] += 1
+        if state["fail"]:
+            raise RuntimeError("launch failed")
+        return real(*a)
+
+    monkeypatch.setattr(pret, "match_names_auto", b3)
+
+    def active():
+        return [a.name for a in alarms.get_alarms("activated")]
+
+    def counts():
+        return (p.device_failures, p.fallbacks,
+                metrics.val("retained.device.failures"),
+                metrics.val("retained.device.fallback"))
+
+    for i in range(4):
+        assert sorted(map(sorted, p.match_many(FILTERS, 1))) == want
+        strikes = min(i + 1, 3)
+        assert counts() == (strikes, i + 1, strikes, i + 1)
+        assert active() == (["retained_device_fallback"] if i >= 2 else [])
+    assert state["calls"] == 3          # the fourth never launched
+    # a success does not reset the counters, only the strikes
+    state["fail"] = False
+    r.suspend_device()
+    assert sorted(map(sorted, p.match_many(FILTERS, 1))) == want
+    assert counts() == (3, 5, 3, 5)     # the suspended scan counts too
+    r.rebuild_device_state()
+    assert sorted(map(sorted, p.match_many(FILTERS, 1))) == want
+    assert counts() == (3, 5, 3, 5) and state["calls"] == 4
+    assert active() == [] and p._device_broken == 0
+    # one failure followed by a success still shows in the counters
+    state["fail"] = True
+    p.match_many(FILTERS, 1)
+    state["fail"] = False
+    p.match_many(FILTERS, 1)
+    assert p._device_broken == 0 and counts() == (4, 6, 4, 6)
+    assert p.device_info()["fallbacks"] == 6
+
+
+def test_strict_retain_index_raises_a_failed_match(monkeypatch):
+    """A CUDA index (``strict``) never host-scans a failed B3 match:
+    it counts the failure and raises, every time; only the router's
+    suspension (a confirmed loss) moves a match to the host."""
+    from emqx_tpu_torch.modules import retainer as pret
+
+    r, p, metrics, alarms = fallback_index()
+    assert not p.strict             # the CPU's default
+    p.strict = True
+    want = sorted(map(sorted, p.match_many(FILTERS, 1)))
+
+    def b3(*a):
+        raise RuntimeError("launch failed")
+
+    monkeypatch.setattr(pret, "match_names_auto", b3)
+    for i in range(4):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            p.match_many(FILTERS, 1)
+    assert (p.device_failures, p.fallbacks, p._device_broken) == (4, 0, 0)
+    assert metrics.val("retained.device.failures") == 4
+    assert alarms.get_alarms("activated") == []
+    r.suspend_device()
+    assert sorted(map(sorted, p.match_many(FILTERS, 1))) == want
+    assert p.fallbacks == 1 and metrics.val("retained.device.fallback") == 1
+
+
+# -- a strict (CUDA) breaker: only injected faults and a confirmed loss
+# reach the host --------------------------------------------------------------
+
+
+def strict_node(**over):
+    """A CPU node whose breaker is strict, as a CUDA node's is."""
+    node = Node(device="cpu",
+                matcher=MatcherConfig(device_min_filters=0),
+                overload=OverloadConfig(**recovery_cfg(**over)))
+    br = node.broker.breaker
+    assert not br.strict            # the CPU's default
+    br.strict = True
+    return node, br
+
+
+def failing_walk(monkeypatch):
+    """Patches the router's walk (B1's plain twin) to raise while
+    ``state["fail"]`` is above 0, counting every call."""
+    from emqx_tpu_torch.ops import delta as pdelta
+
+    state = {"fail": 0, "calls": 0}
+
+    def wrap(fn):
+        def walk(*a, **k):
+            state["calls"] += 1
+            if state["fail"]:
+                state["fail"] -= 1
+                raise RuntimeError("launch failed")
+            return fn(*a, **k)
+        return walk
+
+    monkeypatch.setattr(prouter, "match_batch_auto",
+                        wrap(prouter.match_batch_auto))
+    monkeypatch.setattr(pdelta, "match_batch_auto",
+                        wrap(pdelta.match_batch_auto))
+    return state
+
+
+def test_strict_breaker_raises_real_failures_and_keeps_launching(
+        monkeypatch):
+    node, br = strict_node(breaker_cooldown_s=0.2)
+    walk = failing_walk(monkeypatch)
+    s = Sink("s")
+    node.subscribe(s, "st/+")
+
+    def pub(t):
+        return node.broker.publish_batch([Message(topic=t)])
+
+    walk["fail"] = 2
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            pub("st/0")
+    assert br.state == OPEN and not br.diverts()
+    assert [a.name for a in node.alarms.get_alarms("activated")] \
+        == ["device_path_breaker"]
+    assert wait_for(lambda: br.recovery.last_classification == "transient")
+    # open, yet the batch launches on the device, not on the host
+    n = walk["calls"]
+    assert pub("st/1") == [1] and walk["calls"] == n + 1
+    assert br.state == OPEN
+    time.sleep(0.25)                # the cooldown clock
+    assert pub("st/2") == [1] and br.state == CLOSED
+    assert [m for _, m, _ in s.got] == ["st/1", "st/2"]
+    assert node.metrics.val("breaker.failures") == 2
+    assert node.metrics.val("breaker.fallback.batches") == 0
+    assert node.alarms.get_alarms("activated") == []
+
+
+def test_strict_breaker_raises_a_real_fetch_failure(monkeypatch):
+    from emqx_tpu_torch import broker as pbroker
+
+    node, br = strict_node(breaker_failures=3)
+    s = Sink("s")
+    node.subscribe(s, "f/1")
+
+    def dead(*a):
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    monkeypatch.setattr(pbroker, "bundle_i32", dead)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        node.broker.publish_batch([Message(topic="f/1")])
+    assert node.metrics.val("breaker.failures") == 1
+    assert node.metrics.val("breaker.fallback.batches") == 0
+    assert s.got == [] and br.state == CLOSED
+
+
+def test_strict_breaker_diverts_injected_faults():
+    node, br = strict_node()
+    s = Sink("s")
+    node.subscribe(s, "d/+")
+
+    def pub(t):
+        return node.broker.publish_batch([Message(topic=t)])
+
+    pf.arm("device.fetch", times=2)
+    assert pub("d/1") == [1] and pub("d/2") == [1]   # host-served
+    assert br.state == OPEN and br.diverts()
+    n = node.metrics.val("breaker.fallback.batches")
+    assert pub("d/3") == [1]                         # open: the host
+    assert node.metrics.val("breaker.fallback.batches") == n + 1
+    assert [m for _, m, _ in s.got] == ["d/1", "d/2", "d/3"]
+
+
+def test_strict_breaker_diverts_after_a_confirmed_loss(monkeypatch):
+    """A real failure trips a strict breaker; the sentinel finds the
+    backend lost: the batches then go to the host trie while the
+    tables are rebuilt, and the probe closes it."""
+    node, br = strict_node(breaker_failures=1)
+    walk = failing_walk(monkeypatch)
+    monkeypatch.setattr(devloss, "sentinel_alive", lambda *a: False)
+    gate = threading.Event()
+    real = node.router.rebuild_device_state
+
+    def held():
+        assert gate.wait(15)
+        return real()
+
+    node.router.rebuild_device_state = held
+    s = Sink("s")
+    node.subscribe(s, "l/+")
+
+    def pub(t):
+        return node.broker.publish_batch([Message(topic=t)])
+
+    walk["fail"] = 1
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pub("l/0")
+    assert wait_for(lambda: br.state == REBUILDING) and br.diverts()
+    n = walk["calls"]
+    assert pub("l/1") == [1] and walk["calls"] == n   # the host trie
+    gate.set()
+    assert wait_for(lambda: br.state == HALF_OPEN)
+    assert pub("l/2") == [1] and br.state == CLOSED
+    assert not br.diverts()
+    assert [m for _, m, _ in s.got] == ["l/1", "l/2"]
+    br.recovery.stop()
+
+
 # -- a live QoS 1 stream through a device loss --------------------------------
 
 
