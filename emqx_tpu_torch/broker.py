@@ -180,6 +180,12 @@ class Broker:
         self.overload = None
         self.breaker = None
         self.alarms = None
+        # durability layer (durability.py), wired by Node when enabled:
+        # route mutations journal an absolute refcount record,
+        # durable-session subscriptions journal alongside, and
+        # publish_fetch flushes the batched journal from the executor
+        # thread. None = one attribute test per site
+        self.durability = None
 
     # -- subscribe / unsubscribe (emqx_broker.erl:127-196) ----------------
 
@@ -197,14 +203,20 @@ class Broker:
             resub = topic_filter in subs
             subs[topic_filter] = opts
             if opts.share is not None:
+                dest = (opts.share, self.node)
                 if not resub:
                     self.shared.subscribe(opts.share, flt, sub)
-                    self.router.add_route(flt, dest=(opts.share, self.node))
+                    self.router.add_route(flt, dest=dest)
             else:
+                dest = self.node
                 self._subscribers.setdefault(flt, {})[sub] = opts
                 if not resub:
                     self.helper.subscribe(flt, sub)
-                    self.router.add_route(flt, dest=self.node)
+                    self.router.add_route(flt, dest=dest)
+            d = self.durability
+            if d is not None:
+                d.journal_subscribe(sub, topic_filter, flt, dest,
+                                    opts, resub)
         return opts
 
     def unsubscribe(self, sub: object, topic_filter: str) -> bool:
@@ -218,18 +230,23 @@ class Broker:
                 del self._subscriptions[sub]
             share = popts.get("share", opts.share)
             if share is not None:
+                dest = (share, self.node)
                 self.shared.unsubscribe(share, flt, sub)
-                self.router.delete_route(flt, dest=(share, self.node))
+                self.router.delete_route(flt, dest=dest)
             else:
+                dest = self.node
                 ftab = self._subscribers.get(flt)
                 if ftab is not None:
                     ftab.pop(sub, None)
                     if not ftab:
                         del self._subscribers[flt]
                 self.helper.unsubscribe(flt, sub)
-                self.router.delete_route(flt, dest=self.node)
+                self.router.delete_route(flt, dest=dest)
             if sub not in self._subscriptions:
                 self.helper.release(sub)
+            d = self.durability
+            if d is not None:
+                d.journal_unsubscribe(sub, topic_filter, flt, dest)
         return True
 
     def subscriber_down(self, sub: object) -> None:
@@ -252,6 +269,36 @@ class Broker:
                     msg.set_header("redispatch", True)
                 if self.shared.dispatch(group, flt, msg):
                     self.metrics.inc("messages.redispatched")
+
+    def restore_subscription(self, sub: object, topic_filter: str,
+                             opts: Optional[SubOpts] = None) -> None:
+        """Crash-recovery resubscribe (durability.py): rebuild the
+        subscriber/fan-out/shared tables for a resurrected persistent
+        session WITHOUT bumping the router — its route refs were
+        already restored from the checkpoint + journal, and a second
+        ``add_route`` here would leave a stale route behind on the
+        session's eventual unsubscribe. Adds the route only if the
+        restored table lacks it (self-healing a journal gap)."""
+        T.validate(topic_filter, "filter")
+        flt, popts = T.parse(topic_filter)
+        opts = opts or SubOpts()
+        if "share" in popts:
+            opts.share = popts["share"]
+        with self._route_lock:
+            subs = self._subscriptions.setdefault(sub, {})
+            resub = topic_filter in subs
+            subs[topic_filter] = opts
+            if opts.share is not None:
+                dest = (opts.share, self.node)
+                if not resub:
+                    self.shared.subscribe(opts.share, flt, sub)
+            else:
+                dest = self.node
+                self._subscribers.setdefault(flt, {})[sub] = opts
+                if not resub:
+                    self.helper.subscribe(flt, sub)
+            if not self.router.has_dest(flt, dest):
+                self.router.add_route(flt, dest=dest)
 
     def subscribers(self, topic_filter: str) -> List[object]:
         return list(self._subscribers.get(topic_filter, ()))
@@ -425,29 +472,40 @@ class Broker:
         host-only batch: the finish re-matches every live topic on the
         host trie, so nothing is delivered wrong or lost. A strict
         (CUDA) breaker does so only for an injected fault; a real
-        failure is recorded and raised."""
-        if pb.done or pb.host_topics is not None:
-            return
-        br = self.breaker
-        if br is None:
-            self._fetch_device(pb)
-            return
-        t0 = time.perf_counter()
+        failure is recorded and raised.
+
+        With durability on, the batched journal flush runs at the end,
+        whatever the batch took: one fsync a batch, on this thread."""
         try:
-            self._fetch_device(pb)
-        except Exception as e:
-            injected = isinstance(e, faults.FaultInjected)
-            br.record_failure(injected=injected)
-            if br.strict and not injected:
-                raise
-            log.exception("device fetch failed — host-trie fallback "
-                          "for this batch")
-            pb.plan = None
-            pb.host_topics = [m.topic for _, m in pb.live]
-            pb.host_matched = None
-            pb.host_only = True
-            return
-        br.record_success(time.perf_counter() - t0)
+            if pb.done or pb.host_topics is not None:
+                return
+            br = self.breaker
+            if br is None:
+                self._fetch_device(pb)
+                return
+            t0 = time.perf_counter()
+            try:
+                self._fetch_device(pb)
+            except Exception as e:
+                injected = isinstance(e, faults.FaultInjected)
+                br.record_failure(injected=injected)
+                if br.strict and not injected:
+                    raise
+                log.exception("device fetch failed — host-trie fallback "
+                              "for this batch")
+                pb.plan = None
+                pb.host_topics = [m.topic for _, m in pb.live]
+                pb.host_matched = None
+                pb.host_only = True
+                return
+            br.record_success(time.perf_counter() - t0)
+        finally:
+            d = self.durability
+            if d is not None:
+                # the previous batch's dirty session states + any
+                # buffered route/retain records hit disk with ONE
+                # fsync here, off the event loop
+                d.on_batch()
 
     def _fetch_device(self, pb: PendingBatch) -> None:
         """The fetch body: on a packed-budget overflow, re-pack with

@@ -311,6 +311,14 @@ class Channel:
         self.session.wire_fast_hint = bool(
             self.wire_fast and not self.mountpoint
             and not self.client_alias_max)
+        # durability: the session knows its own expiry (to_wire
+        # carries it across crash recovery), and a session-expiry > 0
+        # CONNECT arms journaling — lifecycle + QoS1/2 window changes
+        # survive a kill -9 from here on
+        self.session.expiry_interval = self.expiry_interval
+        dur = getattr(self.broker, "durability", None)
+        if dur is not None:
+            dur.session_opened(self.session, self.expiry_interval)
         # keepalive (server may override via zone)
         interval = pkt.keepalive
         props: Dict[str, Any] = {}

@@ -1,0 +1,350 @@
+"""Routing-plane checkpoint / restore, and the durability layer's
+state blobs and generation manifest.
+
+The port of the JAX package's ``checkpoint``, file for file: the same
+``np.savez_compressed`` members and dtypes, the same JSON ``meta`` and
+``routes``, the same CRC-framed state blobs and ``MANIFEST`` — so a
+directory written by either package loads in the other.
+
+The compiled routing state (route log + the compressed walk tables)
+snapshots to one file and restores without re-flattening: a node
+restarting from it places the saved tables straight on its device and
+matches at once, with the route log as the always-sufficient fallback.
+In delta mode (the default router) the router keeps no host mirror of
+the main tables, so its snapshots are routes-only and restore
+re-flattens on the first match, as in the JAX package.
+
+Session/in-flight state and the fan-out tables are not in the router
+snapshot: sessions ride the state blob, and the fan-out tables are
+rebuilt from the subscriptions.
+"""
+
+from __future__ import annotations
+
+import binascii
+import json
+import logging
+import os
+from typing import Optional
+
+import numpy as np
+
+from emqx_tpu_torch import faults
+
+log = logging.getLogger("emqx_tpu_torch.checkpoint")
+
+FORMAT = 2  # v2: compressed walk tables (wt/node2), no CSR arrays
+
+#: durability checkpoint manifest format. v2
+#: adds the incremental-checkpoint fields (``base_generation``,
+#: ``deltas``, ``wal_shards``); v1 manifests (full-snapshot only)
+#: are still read — ``deltas`` just defaults empty
+MANIFEST_FORMAT = 2
+MANIFEST_FORMATS = (1, 2)
+MANIFEST = "MANIFEST"
+
+
+class CheckpointError(ValueError):
+    """A snapshot that cannot be restored: unknown format, corrupt or
+    truncated file, undecodable payload. Subclasses ``ValueError`` so
+    pre-durability callers that caught that keep working. Callers
+    surface it as an alarm — never a raw numpy/KeyError traceback."""
+
+
+def save(router, path: str) -> dict:
+    """Snapshot ``router``'s route log + automaton tables to ``path``
+    (.npz). Returns a summary dict."""
+    with router._lock:
+        routes = []
+        for flt, dests in router._routes.items():
+            for dest, refs in dests.items():
+                if isinstance(dest, tuple):  # (group, node) shared route
+                    routes.append([flt, "s", dest[0], dest[1], refs])
+                else:
+                    routes.append([flt, "n", "", dest, refs])
+        arrays = {}
+        p = router._patcher
+        if p is not None and not router._dirty:
+            # the host patch mirrors ARE the automaton authority —
+            # the walk reads nothing else, so the snapshot is exactly
+            # the mirror (copied under the lock, compressed outside).
+            # DELTA mode keeps no mirror, so its snapshots are
+            # routes-only — restore replays the route log and
+            # re-flattens on first match, exactly the v1 degradation
+            # path
+            arrays = {
+                "wt": p.wt, "node2": p.node2,
+                "v2_hop": p.hop, "v2_depth": p.depth,
+                "hops_for_level": p.hops_for_level,
+                "seed": np.asarray([p.seed], dtype=np.uint32),
+                "dims": np.asarray(
+                    [p.n_states, p.n_edges, p.slots, p.take],
+                    dtype=np.int64),
+            }
+        vocab = (router._native.words() if router._native is not None
+                 else router._table.words())
+        meta = {
+            "format": FORMAT,
+            "node": str(router.node),
+            "filter_ids": router._filter_ids,
+            "vocab": vocab,
+            "has_tables": bool(arrays),
+        }
+        # copy the live mirrors under the lock; compress + write
+        # OUTSIDE it (a large snapshot must not stop the route plane)
+        arrays = {k: np.array(v) for k, v in arrays.items()}
+    np.savez_compressed(
+        path,
+        meta=np.frombuffer(
+            json.dumps(meta).encode("utf-8"), dtype=np.uint8),
+        routes=np.frombuffer(
+            json.dumps(routes).encode("utf-8"), dtype=np.uint8),
+        **arrays)
+    return {"routes": len(routes), "tables": bool(arrays)}
+
+
+def load(router, path: str) -> dict:
+    """Restore a snapshot into a FRESH router (no routes yet).
+
+    The route log replays into the host trie (authoritative); if the
+    snapshot carries automaton tables and the filter-id assignment
+    replays identically, they are placed on the router's device
+    (``convert.automaton``, the placement ``Router.rebuild_device_state``
+    uses; no re-flatten) — otherwise the next match re-flattens from
+    the log. On CUDA only an injected ``device.lost`` degrades the
+    placement to the route log; a real placement failure raises.
+    """
+    from emqx_tpu_torch.ops import convert
+    from emqx_tpu_torch.ops.csr import Automaton
+    from emqx_tpu_torch.ops.patch import AutoPatcher
+
+    try:
+        with np.load(path) as data:
+            meta = json.loads(bytes(data["meta"]).decode("utf-8"))
+            routes = json.loads(bytes(data["routes"]).decode("utf-8"))
+            tables_data = ({k: np.array(data[k]) for k in data.files
+                            if k not in ("meta", "routes")}
+                           if meta.get("has_tables") else {})
+    except CheckpointError:
+        raise
+    except Exception as e:
+        # a truncated zip, a missing member, undecodable json — the
+        # file is corrupt, and the operator needs ONE clear error
+        # class (and the durability layer one alarm), not a numpy/
+        # KeyError traceback from the middle of the loader
+        raise CheckpointError(
+            f"corrupt or truncated checkpoint {path!r}: {e}") from e
+    if not isinstance(meta, dict) or "filter_ids" not in meta:
+        raise CheckpointError(
+            f"corrupt checkpoint {path!r}: malformed meta")
+    if meta.get("format") not in (1, FORMAT):
+        raise CheckpointError(
+            f"unknown checkpoint format {meta.get('format')} "
+            f"(this build reads {FORMAT} and the v1 route log)")
+    if meta.get("format") != FORMAT:
+        # older snapshot: its tables predate the compressed walk
+        # layout — the route log alone is always sufficient (replay
+        # below; first match re-flattens), so restore degrades
+        # instead of rejecting
+        tables_data = {}
+        meta["has_tables"] = False
+    with router._lock:
+        if router._routes:
+            raise ValueError("checkpoint restore needs a fresh router")
+        # re-intern the saved vocabulary FIRST so word ids match the
+        # saved edge tables exactly (replaying routes alone can
+        # assign different ids after historical deletions)
+        intern = router._intern
+        vocab_ok = all(intern(w) == i
+                       for i, w in enumerate(meta.get("vocab", [])))
+        # pre-seed the saved filter-id assignment: deletion history
+        # leaves holes a naive replay would compact, shifting every
+        # later id out from under the saved tables. Holes join the
+        # free list exactly as the original router held them.
+        restored_ids = {k: int(v) for k, v in meta["filter_ids"].items()}
+        max_id = max(restored_ids.values(), default=-1)
+        router._id_to_filter = [None] * (max_id + 1)
+        for f, i in restored_ids.items():
+            router._id_to_filter[i] = f
+        router._filter_ids = dict(restored_ids)
+        router._free_ids = [i for i, f
+                            in enumerate(router._id_to_filter)
+                            if f is None]
+        # a snapshot taken under a different node name must not
+        # replay that name as a remote dest: dests equal to the SAVED
+        # node remap to the restoring router's own name
+        saved_node = meta.get("node")
+        self_node = str(router.node)
+        for flt, kind, group, node, refs in routes:
+            if node == saved_node:
+                node = self_node
+            dest = (group, node) if kind == "s" else node
+            for _ in range(int(refs)):
+                router.add_route(flt, dest=dest)
+        ids_match = router._filter_ids == restored_ids
+        tables = bool(meta.get("has_tables") and ids_match and vocab_ok)
+        if tables and not all(
+                k in tables_data for k in
+                ("wt", "node2", "v2_hop", "v2_depth",
+                 "hops_for_level", "seed", "dims")):
+            # has_tables claimed but arrays missing/partial (a hand-
+            # edited or damaged-but-unzip-able file): the route log
+            # just replayed is always sufficient — degrade, don't
+            # KeyError
+            tables = False
+        if tables:
+            d_ = tables_data
+            dims = d_["dims"]
+            host_auto = Automaton(
+                row_ptr=None, edge_word=None, edge_child=None,
+                plus_child=None, hash_filter=None, end_filter=None,
+                n_states=0, n_edges=0,
+                wt=d_["wt"], wt_seed=d_["seed"], node2=d_["node2"],
+                hops_for_level=d_["hops_for_level"],
+                v2_hop=d_["v2_hop"], v2_depth=d_["v2_depth"],
+                v2_states=int(dims[0]), v2_edges=int(dims[1]),
+                wt_slots=int(dims[2]), wt_take=int(dims[3]))
+            auto = None
+            try:
+                if faults.enabled:
+                    faults.fire("device.lost")
+                # the straight-to-device placement — the same path the
+                # device-loss rebuild reuses
+                auto = convert.automaton(host_auto, router.device)
+            except Exception as e:
+                if router.device.type == "cuda" \
+                        and not isinstance(e, faults.FaultInjected):
+                    # strict on the card: a real placement failure is
+                    # never turned into a host-served router
+                    raise
+                # restoring onto a lost device must not kill the
+                # boot: the route log just replayed is always
+                # sufficient — degrade to re-flatten-on-first-match
+                log.exception(
+                    "checkpoint table placement failed — restoring "
+                    "from the route log (re-flatten on first match)")
+                tables = False
+        if tables:
+            # a delta-mode restorer keeps no main-table mirror — the
+            # saved host arrays still install the walk tables, churn
+            # then flows through the side automaton
+            router._patcher = (None if router.config.delta
+                               else AutoPatcher(host_auto, intern))
+            router._install_walk_meta(host_auto)
+            router._auto = auto
+            router._auto_map = list(router._id_to_filter)
+            router._dirty = False
+            router._published = (auto, router._auto_map,
+                                 router._rebuilds,
+                                 router._cache_rev)
+            router._publish_pair_locked()
+        return {"routes": len(routes), "tables_restored": bool(tables)}
+
+
+# -- durable-state blob + atomic generation manifest ---------------------
+#
+# The durability layer (durability.py) extends the router snapshot
+# above with everything else a restart must not lose: retained
+# messages and persistent-session state. Both ride one CRC-framed
+# blob encoded by the wire codec (data-only — a corrupt blob can
+# decode to garbage values, never to code), and a generation is
+# committed by writing every segment, fsyncing, then atomically
+# renaming the MANIFEST (tmp-file + rename). The journal truncates
+# only after the manifest lands.
+
+
+def file_crc(path: str) -> int:
+    crc = 0
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(1 << 20)
+            if not chunk:
+                return crc & 0xFFFFFFFF
+            crc = binascii.crc32(chunk, crc)
+
+
+def save_state(path: str, state: dict) -> None:
+    """Write the retained + session state blob (CRC-framed, fsynced;
+    the caller renames into place)."""
+    from emqx_tpu_torch import wal, wire
+
+    payload = wire.dumps(state)
+    with open(path, "wb") as f:
+        f.write(wal.frame(payload))
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def load_state(path: str) -> dict:
+    """Read a :func:`save_state` blob; :class:`CheckpointError` on
+    any corruption (bad frame, CRC mismatch, undecodable payload)."""
+    from emqx_tpu_torch import wal, wire
+
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+        hdr = wal._HDR
+        if len(data) < hdr.size:
+            raise CheckpointError(f"truncated state blob {path!r}")
+        magic, length, crc = hdr.unpack_from(data)
+        payload = data[hdr.size:hdr.size + length]
+        if magic != wal.MAGIC or len(payload) < length:
+            raise CheckpointError(f"truncated state blob {path!r}")
+        if binascii.crc32(payload) & 0xFFFFFFFF != crc:
+            raise CheckpointError(f"state blob CRC mismatch {path!r}")
+        state = wire.loads(payload)
+    except CheckpointError:
+        raise
+    except Exception as e:
+        raise CheckpointError(
+            f"corrupt state blob {path!r}: {e}") from e
+    if not isinstance(state, dict):
+        raise CheckpointError(f"malformed state blob {path!r}")
+    return state
+
+
+def _fsync_dir(dirpath: str) -> None:
+    try:
+        fd = os.open(dirpath, os.O_RDONLY)
+    except OSError:
+        return  # platform without directory fds
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def write_manifest(dirpath: str, manifest: dict) -> None:
+    """Atomically commit a generation: tmp-file + fsync + rename.
+    The ``checkpoint.rename`` fault point (faults.py) fires just
+    before the rename — the crash window in which every new segment
+    exists but the PREVIOUS generation is still authoritative."""
+    tmp = os.path.join(dirpath, MANIFEST + ".tmp")
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    if faults.enabled:
+        faults.fire("checkpoint.rename")
+    os.replace(tmp, os.path.join(dirpath, MANIFEST))
+    _fsync_dir(dirpath)
+
+
+def read_manifest(dirpath: str) -> Optional[dict]:
+    """The committed manifest, or None (fresh directory). A corrupt
+    manifest raises :class:`CheckpointError` — the operator must
+    decide, silently booting empty would look like data loss."""
+    path = os.path.join(dirpath, MANIFEST)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            m = json.load(f)
+    except Exception as e:
+        raise CheckpointError(f"corrupt manifest {path!r}: {e}") from e
+    if not isinstance(m, dict) \
+            or m.get("format") not in MANIFEST_FORMATS:
+        raise CheckpointError(
+            f"unknown manifest format in {path!r}: "
+            f"{m.get('format') if isinstance(m, dict) else m!r}")
+    return m

@@ -7,7 +7,9 @@ per-clientid lock (:209-236), the takeover protocol (:244-272),
 discard/kick (:274-326), and the clientid→channel registry
 (emqx_cm_registry). Detached persistent sessions are kept for their
 session expiry and swept by :meth:`expire_sessions`; wills held back
-by Will-Delay-Interval live here too. The cluster's distributed lock
+by Will-Delay-Interval live here too. With durability on, a
+persistent session's detach and close journal through
+:attr:`ConnectionManager.durability`. The cluster's distributed lock
 and remote takeover come with the cluster.
 """
 
@@ -38,6 +40,10 @@ class SessionUnavailableError(Exception):
 class ConnectionManager:
     def __init__(self, broker=None) -> None:
         self.broker = broker
+        # durability layer (durability.py), wired by Node: persistent-
+        # session detach/close transitions journal through it. None =
+        # nothing journals
+        self.durability = None
         self._lock = threading.Lock()
         self._locks: Dict[str, threading.Lock] = {}
         self._channels: Dict[str, object] = {}   # clientid -> live channel
@@ -138,6 +144,10 @@ class ConnectionManager:
             stale = self._detached.pop(client_id, None)
             if stale is not None and self.broker is not None:
                 self.broker.subscriber_down(stale[0])
+            if stale is not None and self.durability is not None:
+                # clean start discards the persistent session for
+                # good — the journal must agree
+                self.durability.session_closed(client_id)
             return self._fresh(client_id, True, channel, session_opts), False
         # resume: the connection is re-established, so a pending will
         # MUST NOT be sent (MQTT5 3.1.3.2.2)
@@ -185,6 +195,8 @@ class ConnectionManager:
         stale = self._detached.pop(client_id, None)
         if stale is not None and self.broker is not None:
             self.broker.subscriber_down(stale[0])
+        if stale is not None and self.durability is not None:
+            self.durability.session_closed(client_id)
         if self.broker is not None:
             self.broker.metrics.inc("session.discarded")
 
@@ -219,10 +231,18 @@ class ConnectionManager:
             session.notify = None
             self._detached[client_id] = (
                 session, time.time(), expiry_interval)
-        elif self.broker is not None:
-            session.broker = self.broker
-            self.broker.subscriber_down(session)
-            self.broker.metrics.inc("session.terminated")
+            if self.durability is not None:
+                # the final pre-detach snapshot: what a crash-while-
+                # detached recovery resumes this session from
+                self.durability.session_detached(session)
+        else:
+            if self.broker is not None:
+                session.broker = self.broker
+                self.broker.subscriber_down(session)
+                self.broker.metrics.inc("session.terminated")
+            if self.durability is not None \
+                    and getattr(session, "durable", False):
+                self.durability.session_closed(client_id)
 
     def expire_sessions(self, now: Optional[float] = None) -> int:
         now = time.time() if now is None else now
@@ -230,6 +250,9 @@ class ConnectionManager:
                 if now - ts >= exp]
         for cid in dead:
             sess, _, _ = self._detached.pop(cid)
+            if self.durability is not None \
+                    and getattr(sess, "durable", False):
+                self.durability.session_closed(cid)
             self.cancel_will(cid, fire=True)  # session end publishes it
             if self.broker is not None:
                 self.broker.subscriber_down(sess)

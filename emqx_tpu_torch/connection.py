@@ -637,6 +637,11 @@ class Listener:
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: set = set()
         self._handshaking: set = set()
+        # graceful shutdown: a v5 reason code to send in a DISCONNECT
+        # before force-closing live connections at stop() — Node.stop
+        # sets Server-Shutting-Down (0x8B) on a durable node so
+        # clients reconnect and resume. None = a silent close
+        self.shutdown_rc: Optional[int] = None
 
     async def _on_client(self, reader, writer) -> None:
         if len(self._conns) + len(self._handshaking) >= \
@@ -699,7 +704,7 @@ class Listener:
                 try:
                     if not conn.channel.closed:
                         conn.channel.disconnect_reason = "server_shutdown"
-                        conn.channel._shutdown()
+                        conn.channel._shutdown(rc=self.shutdown_rc)
                     conn._close_transport()
                 except Exception:
                     pass

@@ -55,3 +55,12 @@ class Inflight:
 
     def keys(self) -> List[int]:
         return list(self._d)
+
+    # -- serialization (session to_wire / durability checkpoints) ---------
+
+    def restore(self, items: List[Tuple[int, Any]]) -> None:
+        """Refill from :meth:`to_list` output (onto an empty window;
+        insertion order preserved so retry/replay scan order
+        survives a restart)."""
+        for key, value in items:
+            self.insert(key, value)

@@ -90,6 +90,26 @@ NAMES = (
     "breaker.rebuilds", "breaker.rebuild.failures",
     # armed fault points that fired (faults.py), folded by Node.tick
     "faults.injected",
+    # the durability layer (wal.py, durability.py), folded by
+    # Node.tick: `wal.appends` = journal records framed, `wal.fsyncs`
+    # = batched write+sync cycles (one per shard per group commit, not
+    # one per record), `wal.fsync_errors` = flushes that failed and
+    # degraded a shard to memory-only, `wal.degraded.dropped` =
+    # records shed by the bounded drop-oldest buffers,
+    # `wal.group.commits`/`.coalesced` = leader group-commit passes /
+    # follower flushes that rode one, `checkpoint.saves`/`.errors` =
+    # generation commits and failed attempts, `checkpoint.delta.saves`
+    # = the incremental ones, `recovery.replayed` = journal records
+    # applied at boot, `recovery.torn` = journals truncated at a torn
+    # tail, `recovery.sessions` = persistent sessions resurrected,
+    # `recovery.routes.pruned` = crash-dead clean-session route refs
+    # removed after restore
+    "wal.appends", "wal.fsyncs", "wal.fsync_errors",
+    "wal.degraded.dropped", "wal.group.commits",
+    "wal.group.coalesced",
+    "checkpoint.saves", "checkpoint.errors", "checkpoint.delta.saves",
+    "recovery.replayed", "recovery.torn", "recovery.sessions",
+    "recovery.routes.pruned",
 )
 
 _QOS_RECV = ("messages.qos0.received", "messages.qos1.received",

@@ -443,6 +443,13 @@ class RetainerModule(Module):
         self._store: Dict[str, Message] = {}
         self._index = RetainIndex(node.device)
         self.index_device_threshold = 4096
+        # delete tombstones (topic -> delete time): checkpoints carry
+        # them, so a restore never resurrects a deleted message
+        self._tombstones: Dict[str, float] = {}
+        # durability: store/delete journal through node.durability;
+        # True while crash recovery is refilling the store (those
+        # mutations must not re-journal)
+        self._restoring = False
         self.max_retained = 0
         self.max_payload = 0
         # replay accumulator: per-event-loop pending (session, filter,
@@ -514,16 +521,49 @@ class RetainerModule(Module):
         self._index.clear()
 
     # every store mutation goes through these so the reverse index
-    # stays in lockstep with the dict
+    # stays in lockstep with the dict — and, with durability on, the
+    # journal sees exactly the store's mutations
     def _put(self, topic: str, msg: Message) -> None:
         self._store[topic] = msg
         self._index.add(topic)
+        if not self._restoring:
+            dur = getattr(self.node, "durability", None)
+            if dur is not None:
+                dur.journal_retain(topic, msg, msg.timestamp)
 
     def _pop(self, topic: str):
         msg = self._store.pop(topic, None)
         if msg is not None:
             self._index.remove(topic)
+            if not self._restoring:
+                dur = getattr(self.node, "durability", None)
+                if dur is not None:
+                    dur.journal_retain(topic, None)
         return msg
+
+    def restore_entries(self, items, tombstones=()) -> None:
+        """Crash-recovery refill (durability.py): install recovered
+        (topic, Message) pairs + delete tombstones without
+        re-journaling, honoring expiry and the store bounds. The
+        names reach kernel B3 through the index's one full upload at
+        the first match, not a device write a topic."""
+        self._restoring = True
+        try:
+            for topic, msg in items:
+                if msg is None or msg.is_expired():
+                    continue
+                if self.max_retained \
+                        and len(self._store) >= self.max_retained:
+                    self.node.metrics.inc("retained.dropped")
+                    continue
+                if topic not in self._store:
+                    self.node.metrics.inc("retained.count")
+                self._put(topic, msg)
+            for topic, ts in tombstones:
+                self._tombstones[topic] = max(
+                    self._tombstones.get(topic, 0.0), float(ts))
+        finally:
+            self._restoring = False
 
     # -- store maintenance -------------------------------------------------
 
@@ -533,6 +573,9 @@ class RetainerModule(Module):
         if not msg.payload:
             if self._pop(msg.topic) is not None:
                 self.node.metrics.dec("retained.count")
+                # monotone: a delete never moves a tombstone backwards
+                self._tombstones[msg.topic] = max(
+                    self._tombstones.get(msg.topic, 0.0), msg.timestamp)
             return None
         if len(msg.payload) > self.max_payload or (
                 msg.topic not in self._store

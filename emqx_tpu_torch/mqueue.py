@@ -70,3 +70,20 @@ class MQueue:
             self._len -= 1
             return msg
         return None
+
+    # -- serialization (session to_wire / durability checkpoints) ---------
+
+    def snapshot(self):
+        """Per-priority FIFO contents, order-preserving:
+        ``[(priority, [Message, ...]), ...]`` — pure data, encodable
+        by the wire codec."""
+        return [(p, list(q)) for p, q in self._q._qs.items()]
+
+    def restore(self, items) -> None:
+        """Refill from :meth:`snapshot` output (onto an empty queue;
+        bypasses the QoS0/length policies — the messages already
+        passed them when first enqueued)."""
+        for prio, msgs in items:
+            for msg in msgs:
+                self._q.push(msg, prio)
+                self._len += 1

@@ -6,12 +6,17 @@ broker on one device, the ingress batcher, the connection manager,
 the alarms, overload protection (the monitor, the device-path breaker
 and device-loss recovery, at the JAX package's defaults), the module
 host and the MQTT listeners, in the reference's boot order
-(src/emqx_app.erl:31-44, src/emqx_sup.erl:64-80). Durability,
-tracing, ``$SYS`` topics, plugins, several front-door loops and the
-cluster come with their slices.
+(src/emqx_app.erl:31-44, src/emqx_sup.erl:64-80), and, when enabled,
+the durability layer (journal, checkpoints, crash recovery). Tracing,
+``$SYS`` topics, plugins, several front-door loops and the cluster
+come with their slices.
 
 ``Node(overload=OverloadConfig(enabled=False))`` builds no monitor,
 breaker or recovery: every guard reads ``None``.
+``Node(durability=DurabilityConfig(enabled=True, dir=...))`` builds
+the durability manager: :meth:`start` recovers the directory's state
+before any listener accepts, and :meth:`stop` commits a clean-shutdown
+checkpoint. The default builds none.
 
     node = Node(device="cuda")
     node.modules.load(RetainerModule)
@@ -50,8 +55,8 @@ class Node:
                  batch_size: int = 256,
                  device=None, frame: str = "py",
                  overload: Optional[OverloadConfig] = None,
-                 faults_config: Optional[_faults.FaultsConfig] = None
-                 ) -> None:
+                 faults_config: Optional[_faults.FaultsConfig] = None,
+                 durability=None) -> None:
         self.name = name
         self.zone = zone or get_zone()
         # [node] frame: the wire-framing parser of every connection,
@@ -125,6 +130,17 @@ class Node:
         self.faults_config = faults_config
         if faults_config is not None:
             _faults.configure(faults_config)
+        # durability layer (durability.py): write-ahead journal +
+        # atomic checkpoints + crash recovery. enabled=False (the
+        # default) builds NO manager: the broker, cm, channel, session
+        # and retainer guards read None
+        self.durability = None
+        if durability is not None and durability.enabled:
+            from emqx_tpu_torch.durability import DurabilityManager
+
+            self.durability = DurabilityManager(self, durability)
+            self.broker.durability = self.durability
+            self.cm.durability = self.durability
         # extension system
         self.modules = ModuleRegistry(self)
         self.listeners: List[Listener] = []
@@ -148,10 +164,23 @@ class Node:
         return lst
 
     async def start(self) -> None:
-        """Start the listeners, the modules' loop-bound work and the
-        session housekeeping on the running loop."""
+        """Recover the durable state (when enabled), then start the
+        listeners, the modules' loop-bound work and the session
+        housekeeping on the running loop."""
         if self._started:
             return
+        if self.durability is not None:
+            if self.durability.last_recovery is None:
+                # crash recovery BEFORE any listener accepts: newest
+                # intact checkpoint, journal tail replayed, retained
+                # topics re-armed, persistent sessions resurrected.
+                # Runs with modules loaded so the retainer takes its
+                # store back
+                self.durability.recover()
+            else:
+                # started again after stop(): the live state stands;
+                # re-arm the journal stop() closed
+                self.durability.resume()
         br = self.broker.breaker
         if br is not None and br.recovery is not None:
             br.recovery.start()  # re-armed after an earlier stop()
@@ -162,6 +191,8 @@ class Node:
         self._bg_tasks.append(loop.create_task(self._housekeeping()))
         if self.overload is not None:
             self._bg_tasks.append(loop.create_task(self.overload.run()))
+        if self.durability is not None:
+            self._bg_tasks.append(loop.create_task(self.durability.run()))
         self._started = True
 
     async def stop(self) -> None:
@@ -185,11 +216,26 @@ class Node:
             # backoff loop early)
             br.recovery.stop()
         self.modules.on_loop_stop()
+        if self.durability is not None:
+            # graceful shutdown: v5 clients get DISCONNECT
+            # Server-Shutting-Down (0x8B) before their sockets close,
+            # so they reconnect and resume
+            from emqx_tpu_torch.mqtt import reason_codes as RC
+
+            for lst in self.listeners:
+                lst.shutdown_rc = RC.SERVER_SHUTTING_DOWN
         # listeners first: the drain waits for quiescence, which never
         # comes while live connections keep submitting publishes
         for lst in self.listeners:
             await lst.stop()
         await self.ingress.drain()
+        if self.durability is not None:
+            # after the listeners closed (sessions detached, final
+            # state records written) and the ingress drained: flush
+            # the journal and commit a clean-shutdown checkpoint — the
+            # next boot recovers from it, not from a replay
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.durability.shutdown)
 
     async def _housekeeping(self) -> None:
         while True:
@@ -201,9 +247,10 @@ class Node:
         """The housekeeping tick, as the JAX node's stats flush: fold
         the match-cache and automaton counters into :attr:`metrics`,
         publish the overload level and breaker state gauges, fold the
-        fired fault points into ``faults.injected``, turn a crashed
-        compaction into its alarm and retry it once its backoff
-        elapsed."""
+        fired fault points into ``faults.injected`` and the durability
+        layer's counters and alarms (:meth:`_tick_durability`), turn a
+        crashed compaction into its alarm and retry it once its
+        backoff elapsed."""
         cache = self.router.drain_cache_stats()
         if any(cache.values()):
             self.metrics.fold_cache_stats(cache)
@@ -217,8 +264,26 @@ class Node:
         inj = _faults.drain_injected()
         if inj:
             self.metrics.inc("faults.injected", inj)
+        if self.durability is not None:
+            self._tick_durability()
         self.drain_robustness_events()
         self.router.retry_compaction()
+
+    def _tick_durability(self) -> None:
+        """Fold the journal/checkpoint counters (written off the loop)
+        into :attr:`metrics`, apply the alarms the journal's threads
+        recorded, and publish the journal and checkpoint gauges."""
+        dur = self.durability
+        dur.fold_metrics(self.metrics)
+        dur.drain_events(self.alarms)
+        info = dur.info()
+        j = info["journal"]
+        self.stats.setstat("journal.bytes", int(j.get("bytes", 0)))
+        self.stats.setstat("journal.records", int(j.get("records", 0)))
+        self.stats.setstat("durability.generation", info["generation"])
+        age = info.get("checkpoint_age_s")
+        if age is not None:
+            self.stats.setstat("checkpoint.age_s", int(age))
 
     def _note_flatten_error(self, exc) -> None:
         """Router background-compaction outcome callback — may run ON

@@ -591,8 +591,43 @@ class Router:
         dests = self._routes.get(filter_, {})
         return [Route(filter_, d) for d in dests]
 
+    def has_routes(self) -> bool:
+        """O(1) emptiness probe (checkpoint restore needs a fresh
+        router)."""
+        return bool(self._routes)
+
+    def has_dest(self, filter_: str, dest: object) -> bool:
+        return dest in self._routes.get(filter_, ())
+
     def filter_id(self, filter_: str) -> Optional[int]:
         return self._filter_ids.get(filter_)
+
+    # -- durability seams (wal.py / durability.py) ------------------------
+
+    def route_refs(self, filter_: str, dest: object) -> int:
+        """Current refcount for ``(filter, dest)`` — the absolute
+        value the journal records after every route mutation, so a
+        doubly-replayed record is idempotent."""
+        with self._lock:
+            return self._routes.get(filter_, {}).get(dest, 0)
+
+    def route_table(self) -> Dict[str, Dict[object, int]]:
+        """Consistent copy of the full (filter → dest → refs) table
+        (recovery's orphan-ref pruning pass reads it)."""
+        with self._lock:
+            return {f: dict(d) for f, d in self._routes.items()}
+
+    def set_route_refs(self, filter_: str, dest: object,
+                       refs: int) -> None:
+        """Drive ``(filter, dest)`` to an absolute refcount — journal
+        replay's idempotent apply (the lock is reentrant; add/delete
+        keep every automaton/delta/cache side effect)."""
+        with self._lock:
+            cur = self._routes.get(filter_, {}).get(dest, 0)
+            for _ in range(refs - cur):
+                self.add_route(filter_, dest=dest)
+            for _ in range(cur - refs):
+                self.delete_route(filter_, dest=dest)
 
     def stats(self) -> Dict[str, int]:
         return {

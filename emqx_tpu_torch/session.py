@@ -14,9 +14,10 @@ The port of the JAX package's ``Session`` (``src/emqx_session.erl``,
   - retry with dup flag + delivery expiry (:543-577)
   - awaiting_rel expiry (:582-599)
   - takeover/resume/replay (:606-629)
-
-The cluster's wire transfer and the durability journal come with
-their slices.
+  - ``to_wire``/``from_wire``: the pure-data snapshot the durability
+    journal and checkpoints carry (``emqx_tpu_torch.wire``), and the
+    ``_mark_dirty`` seam that tells the journal a session's window
+    changed
 
 A Session is also a broker subscriber: ``deliver(filter, msg)``
 enriches + windows the message and appends ready-to-send publishes to
@@ -68,6 +69,7 @@ class Session:
         retry_interval: float = 30.0,
         max_awaiting_rel: int = 100,
         await_rel_timeout: float = 300.0,
+        expiry_interval: float = 0.0,
     ) -> None:
         self.client_id = client_id
         self.broker = broker
@@ -91,6 +93,7 @@ class Session:
         self.awaiting_rel: Dict[int, float] = {}
         self.max_awaiting_rel = max_awaiting_rel
         self.await_rel_timeout = await_rel_timeout
+        self.expiry_interval = expiry_interval
         # (packet_id | None, Message) or (PUBREL_MARKER, packet_id)
         self.outbox: List[Tuple[Any, Any]] = []
         # wakeup hook: the owning connection sets this so broker-driven
@@ -109,6 +112,13 @@ class Session:
         # None/False = never pre-build for this subscriber
         self.proto_ver: Optional[int] = None
         self.wire_fast_hint = False
+        # durability: True once the channel opened this session with a
+        # session-expiry > 0 — its lifecycle, subscriptions and QoS1/2
+        # window then journal through `_dur` (the node's
+        # DurabilityManager). Both stay None/False on a non-durable
+        # node: every `_mark_dirty` below is one attribute test
+        self.durable = False
+        self._dur = None
 
     # -- info --------------------------------------------------------------
 
@@ -124,6 +134,69 @@ class Session:
             "next_pkt_id": self.next_pkt_id,
             "created_at": self.created_at,
         }
+
+    # -- wire transfer (durability journal and checkpoints) ---------------
+
+    def to_wire(self) -> dict:
+        """Pure-data snapshot for the wire codec — every value is a
+        scalar, container, Message or SubOpts; no live references
+        (broker/notify are connection-local)."""
+        return {
+            "client_id": self.client_id,
+            "clean_start": self.clean_start,
+            "created_at": self.created_at,
+            "subscriptions": dict(self.subscriptions),
+            "max_subscriptions": self.max_subscriptions,
+            "upgrade_qos": self.upgrade_qos,
+            "max_inflight": self.inflight.max_size,
+            "inflight": self.inflight.to_list(),
+            "next_pkt_id": self.next_pkt_id,
+            "retry_interval": self.retry_interval,
+            "awaiting_rel": dict(self.awaiting_rel),
+            "max_awaiting_rel": self.max_awaiting_rel,
+            "await_rel_timeout": self.await_rel_timeout,
+            "expiry_interval": self.expiry_interval,
+            "outbox": list(self.outbox),
+            "mq_max_len": self.mqueue.max_len,
+            "mq_store_qos0": self.mqueue.store_qos0,
+            "mq_priorities": self.mqueue.p_table,
+            "mq_default_p": self.mqueue.default_p,
+            "mq_dropped": self.mqueue.dropped,
+            # per-priority FIFO order preserved
+            "mq_items": self.mqueue.snapshot(),
+        }
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "Session":
+        """Rebuild a session from :meth:`to_wire` data. The result is
+        detached (no broker, not connected) — ``resume()`` attaches
+        it."""
+        s = cls(
+            client_id=d["client_id"],
+            clean_start=bool(d["clean_start"]),
+            max_subscriptions=int(d["max_subscriptions"]),
+            max_inflight=int(d["max_inflight"]),
+            max_mqueue_len=int(d["mq_max_len"]),
+            mqueue_store_qos0=bool(d["mq_store_qos0"]),
+            mqueue_priorities=d["mq_priorities"],
+            mqueue_default_priority=d["mq_default_p"],
+            upgrade_qos=bool(d["upgrade_qos"]),
+            retry_interval=d["retry_interval"],
+            max_awaiting_rel=int(d["max_awaiting_rel"]),
+            await_rel_timeout=d["await_rel_timeout"],
+            expiry_interval=d["expiry_interval"],
+        )
+        s.created_at = d["created_at"]
+        s.subscriptions = dict(d["subscriptions"])
+        s._rebuild_share_keys()
+        s.inflight.restore(d["inflight"])
+        s.next_pkt_id = int(d["next_pkt_id"])
+        s.awaiting_rel = dict(d["awaiting_rel"])
+        s.outbox = list(d["outbox"])
+        s.mqueue.dropped = int(d["mq_dropped"])
+        s.mqueue.restore(d["mq_items"])
+        s.connected = False
+        return s
 
     # -- SUBSCRIBE / UNSUBSCRIBE ------------------------------------------
 
@@ -188,12 +261,14 @@ class Session:
 
     def record_awaiting_rel(self, packet_id: Optional[int]) -> None:
         self.awaiting_rel[packet_id] = time.time()
+        self._mark_dirty()
 
     @owner_loop
     def pubrel(self, packet_id: int) -> None:
         if packet_id not in self.awaiting_rel:
             raise SessionError(RC_PACKET_IDENTIFIER_NOT_FOUND)
         del self.awaiting_rel[packet_id]
+        self._mark_dirty()
 
     # -- outbound acks (client acks our deliveries) -----------------------
 
@@ -207,6 +282,7 @@ class Session:
             raise SessionError(RC_PACKET_IDENTIFIER_IN_USE)
         self.inflight.delete(packet_id)
         self.dequeue()
+        self._mark_dirty()
         return msg
 
     def discard_delivery(self, packet_id: int) -> None:
@@ -218,6 +294,7 @@ class Session:
         if self.inflight.lookup(packet_id) is not None:
             self.inflight.delete(packet_id)
             self.dequeue()
+            self._mark_dirty()
 
     @owner_loop
     def pubrec(self, packet_id: int) -> Message:
@@ -228,6 +305,7 @@ class Session:
         if msg == PUBREL_MARKER:
             raise SessionError(RC_PACKET_IDENTIFIER_IN_USE)
         self.inflight.update(packet_id, (PUBREL_MARKER, time.time()))
+        self._mark_dirty()
         return msg
 
     @owner_loop
@@ -239,16 +317,33 @@ class Session:
             raise SessionError(RC_PACKET_IDENTIFIER_IN_USE)
         self.inflight.delete(packet_id)
         self.dequeue()
+        self._mark_dirty()
 
     # -- outbound delivery (broker -> client) -----------------------------
+
+    def _mark_dirty(self) -> None:
+        """QoS1/2 window / mqueue / awaiting-rel state changed: tell
+        the durability layer this session needs a journal snapshot at
+        the next batched flush (ONE state record per flush however
+        many transitions happened, so the hot path pays an attribute
+        test here and serialization off the loop)."""
+        d = self._dur
+        if d is not None:
+            d.mark_dirty(self)
 
     def deliver(self, topic_filter: str, msg: Message) -> None:
         """Broker subscriber protocol: enrich, window, queue."""
         m = self._enrich(topic_filter, msg)
         if not self.connected:
             self.enqueue(m)
+            self._mark_dirty()
             return
         self._deliver_msg(m)
+        if m.qos != QOS_0:
+            # QoS0 to a live connection is transient by contract
+            # (recovery may lose it) — only window/queue state
+            # journals
+            self._mark_dirty()
         if self.outbox and self.notify is not None:
             self.notify()
 
@@ -265,6 +360,7 @@ class Session:
         whole group — the batch-wide wakeup coalescing that turns
         N-deliveries-per-batch into one flush per connection."""
         now = None  # one inflight timestamp per delivery group
+        dirty = False
         for flt, msg, opts, fast in items:
             if fast and self.connected:
                 # the _enrich fast path, pre-decided: nothing to
@@ -274,10 +370,16 @@ class Session:
             m = msg if fast else self._enrich(flt, msg, opts)
             if not self.connected:
                 self.enqueue(m)
+                dirty = True
             else:
                 if now is None:
                     now = time.time()
                 self._deliver_msg(m, now)
+                dirty = dirty or m.qos != QOS_0
+        if dirty:
+            # one mark per delivery group, not per message — the
+            # durability flush then writes ONE state record per batch
+            self._mark_dirty()
         if self.outbox and self.notify is not None:
             self.notify()
 
@@ -420,6 +522,7 @@ class Session:
                 msg.set_flag("dup", True)
                 self.inflight.update(pid, (msg, now))
                 self.outbox.append((pid, msg))
+        self._mark_dirty()  # retry stamped new timestamps/dup flags
         return next_delay
 
     def expire_awaiting_rel(self, now: Optional[float] = None) -> None:

@@ -24,6 +24,12 @@ STATS_KEYS = [
     "routes.count", "routes.max",
     "retained.count", "retained.max",
     "channels.count", "channels.max",
+    # the durability layer: the current journal segment's size, the
+    # committed checkpoint generation and the seconds since the last
+    # committed checkpoint (an ever-growing age with a non-empty
+    # journal means checkpoints are failing — see checkpoint_failed)
+    "journal.bytes", "journal.records",
+    "durability.generation", "checkpoint.age_s",
 ]
 
 

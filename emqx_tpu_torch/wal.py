@@ -1,0 +1,531 @@
+"""Write-ahead journal for the durability layer.
+
+The port of the JAX package's ``wal``, byte for byte on disk: a journal
+written by either package replays in the other.
+
+  - **CRC-framed records.** Every record is
+    ``magic(2B) | length(4B LE) | crc32(4B LE) | payload`` with the
+    payload encoded by the data-only codec (:mod:`emqx_tpu_torch.wire`
+    — no pickle: a corrupt journal can produce garbage values but
+    never code execution). Replay verifies magic, bounds and CRC per
+    record and STOPS at the first torn/corrupt frame — a crash
+    mid-append loses at most the unsynced tail, never the prefix, and
+    never crashes the recovering node.
+  - **Batched appends, batched fsync.** ``append`` only frames into an
+    in-memory buffer; ``flush`` writes the whole buffer and pays ONE
+    ``fsync`` for it. The broker calls ``flush`` from the ingress
+    executor thread at batch granularity (plus a periodic timer for
+    quiet periods), so the event loop never waits on disk.
+  - **Degrades, never wedges.** An fsync/write failure (disk full,
+    dying volume) flips the journal into memory-only mode: appends
+    keep buffering (bounded, drop-oldest with a counter), the
+    ``wal_write_failed`` alarm raises, and a bounded exponential
+    backoff retries the flush. Publishes never block on a broken disk.
+
+Record vocabulary (applied idempotently on replay — a doubly-replayed
+record is a no-op; see DurabilityManager._apply):
+
+  ``("route", filter, dest, refs)``      absolute refcount after the op
+  ``("retain", topic, Message|None, ts)`` set / clear (None payload)
+  ``("sess.state", cid, detached_ts|None, to_wire)``  full snapshot
+  ``("sess.sub", cid, filter_key, SubOpts)``
+  ``("sess.unsub", cid, filter_key)``
+  ``("sess.close", cid)``
+
+Fault points: ``wal.append`` short-writes one frame (torn tail) and
+degrades the writer; ``wal.fsync`` fails the sync (the disk-full path).
+Both fire inside :meth:`Wal.flush`, so in sharded mode they are PER
+SHARD.
+
+Sharding (:class:`WalGroup`): ``wal_shards > 1`` splits the journal
+into ``journal-<shard>-<seq>.wal`` segments. Every record is routed by
+a stable KEY (the route filter, the retained topic, the session
+client-id), so all records for one key live in one shard in true order
+— which makes recovery's per-shard-ordered merge converge however the
+shards interleave. One shard keeps the single ``journal-<seq>.wal``
+byte for byte. Concurrent flushes coalesce through a leader-based
+GROUP COMMIT: the first flusher becomes the leader, optionally sleeps
+``group_commit_window_ms`` to pick up stragglers, and pays one
+write+fsync pass per shard for everything buffered; followers wait on
+the leader's commit instead of issuing their own.
+"""
+
+from __future__ import annotations
+
+import binascii
+import logging
+import os
+import struct
+import threading
+import time
+from typing import Any, List, Optional, Tuple
+
+from emqx_tpu_torch import faults, wire
+from emqx_tpu_torch.concurrency import any_thread, shared_state
+
+log = logging.getLogger("emqx_tpu_torch.wal")
+
+#: frame header: magic, payload length, payload crc32
+MAGIC = 0xE17A
+_HDR = struct.Struct("<HII")
+#: refuse absurd lengths during replay — a corrupt length field must
+#: not allocate gigabytes before the CRC check can reject it
+MAX_RECORD = 64 << 20
+
+
+class WalError(Exception):
+    """Unrecoverable journal I/O error surfaced to the manager."""
+
+
+def frame(payload: bytes) -> bytes:
+    """One CRC-framed journal record."""
+    return _HDR.pack(MAGIC, len(payload),
+                     binascii.crc32(payload) & 0xFFFFFFFF) + payload
+
+
+def encode_record(op: Tuple[Any, ...]) -> bytes:
+    return frame(wire.dumps(op))
+
+
+def iter_records(path: str):
+    """Yield ``(offset, record_tuple)`` for every intact record, then
+    a final ``(offset, None)`` sentinel carrying the clean-end offset.
+    Stops (without raising) at the first torn or corrupt frame — the
+    caller learns truncation happened when the sentinel offset is
+    short of the file size."""
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        yield (0, None)
+        return
+    with open(path, "rb") as f:
+        off = 0
+        while True:
+            hdr = f.read(_HDR.size)
+            if len(hdr) < _HDR.size:
+                break  # clean EOF or torn header
+            magic, length, crc = _HDR.unpack(hdr)
+            if magic != MAGIC or length > MAX_RECORD:
+                break
+            payload = f.read(length)
+            if len(payload) < length:
+                break  # torn payload
+            if binascii.crc32(payload) & 0xFFFFFFFF != crc:
+                break  # bit rot / interleaved short write
+            try:
+                rec = wire.loads(payload)
+            except wire.WireError:
+                break  # framed but undecodable — treat as torn
+            off = f.tell()
+            yield (off, rec)
+        yield (off, None)
+    # size consulted only for the caller's torn-tail report
+    del size
+
+
+def replay(path: str) -> Tuple[List[Tuple[Any, ...]], bool]:
+    """Read every intact record; returns ``(records, torn)`` where
+    ``torn`` is True when the file holds bytes past the last intact
+    frame (a crash mid-append — expected, not an error)."""
+    records: List[Tuple[Any, ...]] = []
+    clean_end = 0
+    for off, rec in iter_records(path):
+        if rec is None:
+            clean_end = off
+        else:
+            records.append(rec)
+    try:
+        torn = clean_end < os.path.getsize(path)
+    except OSError:
+        torn = False
+    return records, torn
+
+
+@shared_state(lock="_lock", attrs=("_buf",))
+class Wal:
+    """Appender half of the journal: one open segment file, an
+    in-memory frame buffer, batched write+fsync, rotation, and the
+    degrade-don't-wedge error path. Thread-safe (appends arrive from
+    event-loop threads, flushes from the ingress executor)."""
+
+    def __init__(self, path: str, fsync: bool = True,
+                 max_buffer: int = 100_000,
+                 retry_backoff_s: float = 1.0,
+                 retry_backoff_max_s: float = 30.0,
+                 on_error=None) -> None:
+        self._lock = threading.Lock()
+        self.path = path
+        self.fsync = fsync
+        self.max_buffer = max_buffer
+        self._buf: List[bytes] = []
+        self._f = open(path, "ab")
+        #: intact records written to the CURRENT segment
+        self.records = 0
+        self.bytes = int(self._f.tell())
+        self.appends_total = 0
+        self.fsyncs = 0
+        self.fsync_errors = 0
+        self.dropped = 0
+        self.flushes = 0
+        self.last_fsync_ms = 0.0
+        #: memory-only mode after a write/fsync failure; flush retries
+        #: after the backoff deadline
+        self.degraded = False
+        self._retry_at = 0.0
+        self._backoff = retry_backoff_s
+        self._backoff0 = retry_backoff_s
+        self._backoff_max = retry_backoff_max_s
+        #: manager callback: on_error(exc | None) — exc on degrade,
+        #: None when a later flush recovers (alarm raise/clear)
+        self.on_error = on_error
+
+    # -- append side ------------------------------------------------------
+
+    @any_thread
+    def append(self, op: Tuple[Any, ...]) -> None:
+        """Frame + buffer one record (no I/O here — the hot path pays
+        serialization only; disk happens in :meth:`flush`)."""
+        rec = encode_record(op)
+        with self._lock:
+            self._buf.append(rec)
+            self.appends_total += 1
+            if len(self._buf) > self.max_buffer:
+                # bounded memory in degraded mode: drop-oldest, count
+                del self._buf[0]
+                self.dropped += 1
+
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._buf)
+
+    # -- flush side -------------------------------------------------------
+
+    @any_thread
+    def flush(self) -> bool:
+        """Write + fsync everything buffered (ONE sync for the whole
+        batch). Returns True when the buffer reached disk; False when
+        nothing was pending or the journal is degraded and inside its
+        retry backoff. Never raises — failures degrade."""
+        with self._lock:
+            if not self._buf:
+                return False
+            now = time.monotonic()
+            if self.degraded and now < self._retry_at:
+                return False
+            batch, self._buf = self._buf, []
+            try:
+                wrote_bytes = 0
+                for rec in batch:
+                    if faults.enabled and faults.fire("wal.append"):
+                        # injected short write: half a frame lands —
+                        # the torn tail replay must truncate at — and
+                        # the writer degrades like a real ENOSPC
+                        self._f.write(rec[:max(1, len(rec) // 2)])
+                        self._f.flush()
+                        raise WalError("short write (injected)")
+                    self._f.write(rec)
+                    wrote_bytes += len(rec)
+                self._f.flush()
+                if faults.enabled:
+                    faults.fire("wal.fsync")
+                if self.fsync:
+                    t0 = time.perf_counter()
+                    os.fsync(self._f.fileno())
+                    self.last_fsync_ms = (time.perf_counter() - t0) \
+                        * 1000.0
+                # counters commit only with the sync: a failed batch
+                # re-buffers IN FULL and the retry rewrites it from
+                # the pre-batch boundary — exactly-once on disk
+                self.records += len(batch)
+                self.bytes += wrote_bytes
+                self.fsyncs += 1
+                self.flushes += 1
+                if self.degraded:
+                    self.degraded = False
+                    self._backoff = self._backoff0
+                    if self.on_error is not None:
+                        self.on_error(None)
+                    log.warning("journal recovered: %s", self.path)
+                return True
+            except Exception as e:
+                # the WHOLE batch goes back to the front (order
+                # kept): nothing in it counts as durable until the
+                # fsync lands
+                self._buf[:0] = batch
+                if not isinstance(e, WalError):
+                    # a real partial write / failed sync leaves an
+                    # unsynced (possibly torn) tail; truncate back to
+                    # the last durable boundary so the retry rewrites
+                    # cleanly and replay never loses post-recovery
+                    # records behind a torn frame. The INJECTED short
+                    # write skips this — it models a crash, and the
+                    # torn tail is exactly what the recovery tests
+                    # must see on disk.
+                    try:
+                        self._f.seek(self.bytes)
+                        self._f.truncate(self.bytes)
+                    except OSError:
+                        pass
+                self.fsync_errors += 1
+                self.degraded = True
+                self._retry_at = time.monotonic() + self._backoff
+                self._backoff = min(self._backoff * 2,
+                                    self._backoff_max)
+                if self.on_error is not None:
+                    self.on_error(e)
+                log.error("journal write failed (%s): memory-only, "
+                          "retry in %.1fs", e, self._backoff)
+                return False
+
+    def rotate(self, new_path: str) -> str:
+        """Flush, then switch appends to a fresh segment (checkpoint
+        commit protocol: the old segment stays on disk until the new
+        manifest lands). Returns the OLD path."""
+        self.flush()
+        with self._lock:
+            old = self.path
+            try:
+                self._f.close()
+            except OSError:
+                pass
+            self.path = new_path
+            self._f = open(new_path, "ab")
+            self.records = 0
+            self.bytes = int(self._f.tell())
+            return old
+
+    def close(self) -> None:
+        self.flush()
+        with self._lock:
+            try:
+                self._f.close()
+            except OSError:
+                pass
+
+    def info(self) -> dict:
+        with self._lock:
+            return {
+                "path": self.path,
+                "records": self.records,
+                "bytes": self.bytes,
+                "pending": len(self._buf),
+                "appends_total": self.appends_total,
+                "fsyncs": self.fsyncs,
+                "fsync_errors": self.fsync_errors,
+                "dropped": self.dropped,
+                "degraded": self.degraded,
+                "last_fsync_ms": round(self.last_fsync_ms, 3),
+            }
+
+
+def shard_path(dirpath: str, shard: Optional[int], seq: int) -> str:
+    """Segment file name: ``journal-<seq>.wal`` for the single-journal
+    build (shard None), ``journal-<shard>-<seq>.wal`` for sharded
+    mode — the legacy layout stays byte-for-byte when shards == 1."""
+    if shard is None:
+        return os.path.join(dirpath, f"journal-{seq}.wal")
+    return os.path.join(dirpath, f"journal-{shard}-{seq}.wal")
+
+
+def shard_of(key: str, n: int) -> int:
+    """Stable key → shard assignment (the merge-rule anchor: every
+    record for one key lands in one shard, in true order)."""
+    if n <= 1:
+        return 0
+    return binascii.crc32(key.encode("utf-8", "surrogatepass")) % n
+
+
+@shared_state(lock="_cv", attrs=("_req", "_done", "_leader",
+                                 "_last_ok"))
+class WalGroup:
+    """``n`` per-loop WAL shards behind one appender/flush surface,
+    with leader-based batched group commit.
+
+    Appends route by key (:func:`shard_of`); flush runs the group-
+    commit protocol: concurrent flushers elect the first as leader,
+    the leader optionally sleeps ``group_window_ms`` to coalesce
+    stragglers, then pays ONE write+fsync pass over the shards with
+    pending records; followers block on the leader's commit covering
+    their appends instead of issuing their own fsyncs. With
+    ``shards == 1`` the on-disk layout (name, framing, rotation) is
+    byte-for-byte the single-journal :class:`Wal` build.
+    """
+
+    def __init__(self, dirpath: str, seq: int, shards: int = 1,
+                 fsync: bool = True, max_buffer: int = 100_000,
+                 retry_backoff_s: float = 1.0,
+                 retry_backoff_max_s: float = 30.0,
+                 on_error=None,
+                 group_window_ms: float = 0.0) -> None:
+        if shards < 1:
+            raise ValueError(f"wal shards must be >= 1, got {shards}")
+        self.dir = dirpath
+        self.n = shards
+        self.seq = seq
+        self.group_window_ms = group_window_ms
+        #: manager alarm callback — the group arbitrates shard
+        #: callbacks so a recovering shard can't clear the alarm
+        #: while a sibling is still degraded
+        self.on_error = on_error
+        self.shards: List[Wal] = [
+            Wal(shard_path(dirpath, i if shards > 1 else None, seq),
+                fsync=fsync, max_buffer=max_buffer,
+                retry_backoff_s=retry_backoff_s,
+                retry_backoff_max_s=retry_backoff_max_s,
+                on_error=self._shard_error)
+            for i in range(shards)]
+        # group-commit coordinator state (guarded by the condition)
+        self._cv = threading.Condition()
+        self._req = 0          # flush requests issued
+        self._done = 0         # highest request covered by a commit
+        self._leader = False
+        self._last_ok = False
+        #: leader commit passes / follower flushes satisfied by one
+        self.commits = 0
+        self.coalesced = 0
+        #: duration of the last leader commit pass (window sleep +
+        #: write + fsync across shards) — the group_commit_window_ms
+        #: tuning signal
+        self.last_commit_ms = 0.0
+
+    # -- shard routing -----------------------------------------------------
+
+    @any_thread
+    def append(self, op: Tuple[Any, ...],
+               key: Optional[str] = None) -> None:
+        """Frame + buffer one record into its key's shard (no I/O).
+        ``key=None`` routes to shard 0 (single-journal semantics)."""
+        idx = shard_of(key, self.n) if key is not None else 0
+        self.shards[idx].append(op)
+
+    def _shard_error(self, exc) -> None:
+        cb = self.on_error
+        if cb is None:
+            return
+        if exc is not None:
+            cb(exc)
+        elif not any(w.degraded for w in self.shards):
+            # clear only once EVERY shard recovered
+            cb(None)
+
+    # -- group-commit flush ------------------------------------------------
+
+    @any_thread
+    def flush(self) -> bool:
+        """Group commit: everything buffered across all shards at the
+        time of the call reaches disk before this returns (or the
+        write degrades — never raises). Concurrent callers coalesce
+        into one leader pass per round."""
+        with self._cv:
+            self._req += 1
+            my_req = self._req
+            if self._leader:
+                # a leader is committing: wait for a round that
+                # covers appends made before this call
+                self.coalesced += 1
+                while self._done < my_req and self._leader:
+                    self._cv.wait(timeout=0.05)
+                if self._done >= my_req:
+                    return self._last_ok
+                # leader exited without covering us — take over
+            self._leader = True
+        try:
+            while True:
+                t0 = time.perf_counter()
+                if self.group_window_ms > 0:
+                    # the coalescing window: stragglers' appends land
+                    # in the buffers this pass is about to commit
+                    time.sleep(self.group_window_ms / 1000.0)
+                with self._cv:
+                    upto = self._req
+                ok = False
+                any_pending = False
+                for w in self.shards:
+                    if w.pending():
+                        any_pending = True
+                        ok = w.flush() or ok
+                if any_pending:
+                    self.commits += 1
+                    self.last_commit_ms = \
+                        (time.perf_counter() - t0) * 1000.0
+                with self._cv:
+                    self._done = upto
+                    self._last_ok = ok
+                    self._cv.notify_all()
+                    if self._req == upto:
+                        return ok
+                # more flush requests arrived mid-commit: go again
+        finally:
+            with self._cv:
+                self._leader = False
+                self._cv.notify_all()
+
+    def pending(self) -> int:
+        return sum(w.pending() for w in self.shards)
+
+    # -- rotation / lifecycle ---------------------------------------------
+
+    def rotate_to(self, seq: int) -> List[str]:
+        """Flush, then switch every shard to its ``seq`` segment
+        (checkpoint commit protocol). Returns the OLD paths."""
+        self.flush()
+        old = []
+        for i, w in enumerate(self.shards):
+            old.append(w.rotate(shard_path(
+                self.dir, i if self.n > 1 else None, seq)))
+        self.seq = seq
+        return old
+
+    def close(self) -> None:
+        self.flush()
+        for w in self.shards:
+            w.close()
+
+    # -- aggregate surface (the manager/tests' single-Wal view) -----------
+
+    @property
+    def records(self) -> int:
+        return sum(w.records for w in self.shards)
+
+    @property
+    def bytes(self) -> int:
+        return sum(w.bytes for w in self.shards)
+
+    @property
+    def dropped(self) -> int:
+        return sum(w.dropped for w in self.shards)
+
+    @property
+    def degraded(self) -> bool:
+        return any(w.degraded for w in self.shards)
+
+    @property
+    def _retry_at(self) -> float:
+        return max(w._retry_at for w in self.shards)
+
+    @_retry_at.setter
+    def _retry_at(self, v: float) -> None:
+        for w in self.shards:
+            w._retry_at = v
+
+    def info(self) -> dict:
+        per = [w.info() for w in self.shards]
+        out = {
+            "shards": self.n,
+            "path": per[0]["path"] if self.n == 1 else self.dir,
+            "records": sum(p["records"] for p in per),
+            "bytes": sum(p["bytes"] for p in per),
+            "pending": sum(p["pending"] for p in per),
+            "appends_total": sum(p["appends_total"] for p in per),
+            "fsyncs": sum(p["fsyncs"] for p in per),
+            "fsync_errors": sum(p["fsync_errors"] for p in per),
+            "dropped": sum(p["dropped"] for p in per),
+            "degraded": any(p["degraded"] for p in per),
+            "last_fsync_ms": max(p["last_fsync_ms"] for p in per),
+            "group_commits": self.commits,
+            "group_coalesced": self.coalesced,
+            "last_commit_ms": round(self.last_commit_ms, 3),
+        }
+        if self.n > 1:
+            out["per_shard"] = per
+        return out

@@ -191,8 +191,9 @@ def test_port_never_imports_jax_or_the_jax_package():
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
         mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
                     else rel)
-    # the front door's, the router's, the host engine's and overload
-    # protection's modules are among those imported
+    # the front door's, the router's, the host engine's, overload
+    # protection's and the durability layer's modules are among those
+    # imported
     assert {"emqx_tpu_torch.faults", "emqx_tpu_torch.alarm",
             "emqx_tpu_torch.overload", "emqx_tpu_torch.devloss",
             "emqx_tpu_torch.ops.warmup", "emqx_tpu_torch.mqtt", "emqx_tpu_torch.mqtt.constants",
@@ -207,7 +208,9 @@ def test_port_never_imports_jax_or_the_jax_package():
             "emqx_tpu_torch.acl_cache", "emqx_tpu_torch.access_control",
             "emqx_tpu_torch.node", "emqx_tpu_torch.ops.patch",
             "emqx_tpu_torch.ops.delta", "emqx_tpu_torch.ops.match_cache",
-            "emqx_tpu_torch.ops.native", "chip_smoke"} <= set(mods)
+            "emqx_tpu_torch.ops.native", "emqx_tpu_torch.wire",
+            "emqx_tpu_torch.wal", "emqx_tpu_torch.checkpoint",
+            "emqx_tpu_torch.durability", "chip_smoke"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'emqx_tpu'):\n"
             "    sys.modules[m] = None\n"
