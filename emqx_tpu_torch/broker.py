@@ -31,6 +31,12 @@ half-open probe closes it. A ``Broker`` on CUDA loads (building if
 need be) its kernel library when it is constructed, so a build failure
 raises here and is never served from the host.
 
+With telemetry wired (the ``Node`` wires it, on by default) every
+batch carries a :class:`~emqx_tpu_torch.telemetry.PublishSpan` from
+``publish_begin`` to its last delivery chunk, which closes it once;
+with tracing at a sample rate above 0, the sampled messages of a batch
+carry a trace batch along the same seams (``tracing.py``).
+
 Subscribers are any objects with ``deliver(topic_filter, msg)``.
 """
 
@@ -102,6 +108,7 @@ class PendingBatch:
 
     __slots__ = (
         "done", "results", "live", "inv", "n_uniq", "plan", "plan_state",
+        "span", "tbatch",
         "host_topics", "host_matched", "host_inv", "host_only",
         "id_map", "epoch", "st", "ids_dev", "ovf_dev", "pm", "pq",
         "m_ptr_d", "ids_packed_d", "f_ptr_d", "subs_packed_d",
@@ -112,6 +119,13 @@ class PendingBatch:
 
     def __init__(self) -> None:
         self.done = False
+        # telemetry span (telemetry.PublishSpan | None): None is the
+        # disabled path — every instrumented section guards on it with
+        # one branch and reads no clock
+        self.span = None
+        # trace batch (tracing._TraceBatch | None): set only when the
+        # batch carries sampled messages; the same one-branch rule
+        self.tbatch = None
         self.results: List[int] = []
         self.live: List[Tuple[int, Message]] = []
         self.inv: Optional[List[int]] = None
@@ -186,6 +200,13 @@ class Broker:
         # publish_fetch flushes the batched journal from the executor
         # thread. None = one attribute test per site
         self.durability = None
+        # observability, wired by Node: the per-topic trace log
+        # (tracer.py), the publish-path spans (telemetry.py) and the
+        # sampled per-message tracing (tracing.py). None = no seam
+        # records anything
+        self.tracer = None
+        self.telemetry = None
+        self.tracing = None
 
     # -- subscribe / unsubscribe (emqx_broker.erl:127-196) ----------------
 
@@ -346,9 +367,18 @@ class Broker:
         while earlier batches are in flight, so a host batch cannot
         deliver ahead of them."""
         pb = PendingBatch()
+        tel = self.telemetry
+        if tel is not None and tel.enabled:
+            pb.span = tel.begin(len(msgs))
+        sp = pb.span
+        trc = self.tracing
+        tracing_on = trc is not None and trc.active
+        tctxs = None
         pb.results = [0] * len(msgs)
         for i, msg in enumerate(msgs):
             self.metrics.inc_msg(msg)
+            if self.tracer is not None:
+                self.tracer.trace_publish(msg)
             out = self.hooks.run_fold("message.publish", (), msg)
             if out is None or out.get_header("allow_publish") is False:
                 self.metrics.inc("messages.dropped")
@@ -359,9 +389,22 @@ class Broker:
             if out.flags.get("retain"):
                 self.metrics.inc("messages.retained")
             pb.live.append((i, out))
+            if tracing_on:
+                # idempotent: a context stamped at ingress submit is
+                # kept as it is
+                ctx = trc.stamp(out)
+                if ctx is not None:
+                    if tctxs is None:
+                        tctxs = []
+                    tctxs.append(ctx)
         if not pb.live:
             pb.done = True
+            self._span_finish(pb)
             return pb
+        if tctxs is not None:
+            pb.tbatch = trc.batch_begin(tctxs)
+        if sp is not None:
+            sp.topic = pb.live[0][1].topic
         topics = [m.topic for _, m in pb.live]
         if not self.router.use_device_now():
             # host regime: let the router shed a stale automaton's id
@@ -401,6 +444,8 @@ class Broker:
         open breaker, or a failed device dispatch (``host_only``)."""
         pb.host_only = host_only
         pb.host_topics = topics
+        if pb.span is not None:
+            pb.span.path = "host"
         if not defer_host:
             self.publish_host_chunk(pb, 0, len(pb.live))
             pb.done = True
@@ -421,13 +466,22 @@ class Broker:
         """Device match (HOT LOOP 1) → device fan-out (HOT LOOP 2) →
         pack, all queued without a sync. Duplicate topics collapse to
         one device row; the tail expands per message via ``inv``."""
+        sp = pb.span
         if faults.enabled:
             faults.fire("device.walk")
             faults.fire("device.lost")
         uniq, pb.inv = dedup_topics(topics)
         pb.n_uniq = len(uniq)
+        if sp is not None:
+            sp.n_uniq = pb.n_uniq
+        t_m = sp.clock() if sp is not None else 0.0
         pb.ids_dev, pb.ovf_dev, pb.id_map, pb.epoch = \
             self.router.match_dispatch(uniq)
+        if sp is not None:
+            # closes the match stage; the router's cache-split path
+            # (telemetry-gated) left the cache_gather share to split
+            sp.stamp_match(self.router, t_m)
+            t_p = sp.clock()
         # phantom pad-row matches (wildcards match the pad topic) must
         # not reach the fan-out, the pack or the learned budgets
         pb.ids_dev = mask_pad_rows(pb.ids_dev, len(uniq))
@@ -446,6 +500,9 @@ class Broker:
                 expand_packed(st.fan, pb.m_ptr_d, pb.ids_packed_d, q=pb.pq)
         if st is not None and st.bm is not None:
             self._bitmap_union(pb, cfg, budgets[2])
+        if sp is not None:
+            sp.bucket = bucket
+            sp.add("pack", t_p)
         return pb
 
     def fetch_parts(self, pb: PendingBatch) -> list:
@@ -514,6 +571,12 @@ class Broker:
         if faults.enabled:
             faults.fire("device.fetch")
             faults.fire("device.lost")
+        sp = pb.span
+        if sp is not None:
+            # the synchronizing stage: device work queued by the begin
+            # surfaces as copy wait here (no sync added — the copy
+            # already waits)
+            t_f = sp.clock()
         cfg = self.router.config
         Bp = pb.ids_dev.shape[0]
         budgets = self._pack_budgets.get(Bp)
@@ -602,16 +665,36 @@ class Broker:
             pb.sel = sel
             pb.rows_packed = rows_p
             pb.bovf = bovf
+            if sp is not None:
+                sp.fallbacks = n_fb
+                sp.add("fetch", t_f)
+            tb = pb.tbatch
+            if tb is not None:
+                # device regime: walk, fan-out and the copy, timed from
+                # the batch's begin (the dispatch was asynchronous)
+                self.tracing.mark_match(tb, tb.t0p)
             if self.dispatch_config.planner:
+                t_pl = sp.clock() if sp is not None else 0.0
                 pb.plan = self._build_plan(pb, subs_occ, src_occ)
+                if sp is not None:
+                    sp.add("dispatch_plan", t_pl)
                 if pb.plan is not None \
                         and self.dispatch_config.preserialize:
                     # prime the messages' shared wire images and pid
                     # templates here — off the event loop when fetch
                     # runs on the ingress executor
+                    if sp is not None:
+                        t_s = sp.clock()
+                    else:
+                        t_s = time.perf_counter() \
+                            if tb is not None else 0.0
                     preserialize_plan(pb.plan, pb.live, pb.id_map,
                                       self._subscribers,
                                       self.helper.registry.lookup)
+                    if sp is not None:
+                        sp.add("serialize", t_s)
+                    if tb is not None:
+                        self.tracing.span_mark(tb, "serialize", t_s)
             if pb.plan is not None:
                 pb.subs_packed = subs_occ
                 pb.src_packed = src_occ
@@ -745,7 +828,11 @@ class Broker:
         batch; every session still gets its whole batch in one
         ``deliver_many``. The first chunk runs the routing prologue;
         the chunk that reaches the last group folds the per-(message,
-        filter) counts into metrics, hooks and results."""
+        filter) counts into metrics, hooks and results, and closes the
+        batch's span."""
+        sp = pb.span
+        if sp is not None:
+            t_d = sp.clock()
         if gstart == 0:
             pb.plan_state = self._plan_prologue(pb)
         ps = pb.plan_state
@@ -757,8 +844,23 @@ class Broker:
                 if d is None:
                     d = counts[r] = {}
                 d[flt] = d.get(flt, 0) + 1
-        if gstop >= n_groups:
+        folded = gstop >= n_groups
+        if folded:
             self._plan_fold(pb, ps)
+        if sp is not None:
+            sp.add("dispatch", t_d)
+        if folded:
+            self._span_finish(pb)
+
+    def _span_finish(self, pb: PendingBatch) -> None:
+        """Close a batch's telemetry span and trace batch, once (a
+        no-op when both are off, or already closed)."""
+        if pb.span is not None:
+            self.telemetry.finish(pb.span)
+            pb.span = None
+        if pb.tbatch is not None:
+            self.tracing.close_batch(pb.tbatch)
+            pb.tbatch = None
 
     def _plan_fold(self, pb: PendingBatch, ps: _PlanState) -> None:
         counts = ps.counts
@@ -840,11 +942,24 @@ class Broker:
         one trie walk over the batch's unique topics runs on the first
         chunk and is kept on the batch. It is always the host trie's
         (``match_filters_host``), so a ``host_only`` batch never
-        re-enters the device."""
+        re-enters the device. The last chunk closes the batch's span."""
+        sp = pb.span
+        tb = pb.tbatch
         if pb.host_matched is None:
+            if sp is not None:
+                t_m = sp.clock()
+            elif tb is not None:
+                t_m = time.perf_counter()
             uniq, pb.host_inv = dedup_topics(pb.host_topics)
             pb.n_uniq = len(uniq)
             pb.host_matched = self.router.match_filters_host(uniq)
+            if sp is not None:
+                sp.n_uniq = pb.n_uniq
+                sp.add("match", t_m)  # host regime: the actual trie walk
+            if tb is not None:
+                self.tracing.mark_match(tb, t_m)
+        if sp is not None:
+            t_d = sp.clock()
         for row in range(start, stop):
             i, msg = pb.live[row]
             filters = pb.host_matched[pb.host_inv[row]]
@@ -852,22 +967,35 @@ class Broker:
                 self._drop_no_subs(msg)
                 continue
             pb.results[i] = self._route(filters, msg)
+        if sp is not None:
+            sp.add("dispatch", t_d)
+        if stop >= len(pb.live):
+            self._span_finish(pb)
 
     def publish_finish_chunk(self, pb: PendingBatch, start: int,
                              stop: int) -> None:
         """Deliver rows ``[start, stop)`` of a fetched batch without a
         plan; a row whose match overflowed is re-matched exactly on
-        the host trie (parity, no truncation)."""
+        the host trie (parity, no truncation). The last chunk closes the
+        batch's span."""
         m_ptr = pb.m_ptr
+        sp = pb.span
+        if sp is not None:
+            t_d = sp.clock()
         for row in range(start, stop):
             i, msg = pb.live[row]
             urow = pb.inv[row]  # packed results are per UNIQUE topic
             if pb.ovf[urow]:
+                t_fb = sp.clock() if sp is not None else 0.0
                 filters = self.router.host_match(msg.topic)
                 if not filters:
                     self._drop_no_subs(msg)
                 else:
                     pb.results[i] = self._route(filters, msg)
+                if sp is not None:
+                    # a subset of dispatch time, split out so the
+                    # host re-match's cost is attributable on its own
+                    sp.add("host_fallback", t_fb)
                 continue
             # pad slots (-1) must never resolve through the id map
             row_ids = [j for j in pb.ids_packed[m_ptr[urow]:m_ptr[urow + 1]]
@@ -879,6 +1007,10 @@ class Broker:
                 continue
             pb.results[i] = self._route_packed(urow, row_ids, filters,
                                                msg, pb)
+        if sp is not None:
+            sp.add("dispatch", t_d)
+        if stop >= len(pb.live):
+            self._span_finish(pb)
 
     def _drop_no_subs(self, msg: Message) -> None:
         self.metrics.inc("messages.dropped")

@@ -785,6 +785,8 @@ class Channel:
         n_fast = n_tpl1 = n_tpl2 = 0
         wire_ok = (self.wire_fast and not self.mountpoint
                    and not self.client_alias_max)
+        trc = self.broker.tracing
+        trace_on = trc is not None and trc.active
         for pid, item in self.session.drain_outbox():
             if pid == PUBREL_MARKER:
                 out.append(self._ack(C.PUBREL, item))
@@ -794,6 +796,11 @@ class Channel:
                 self.broker.metrics.inc("delivery.dropped")
                 self.broker.metrics.inc("delivery.dropped.expired")
                 continue
+            if trace_on and "_trace" in msg.headers:
+                # egress-flush span: stamp → this connection's flush.
+                # The context key is checked (not re-sampled), so a
+                # message the ingress stamped closes its chain here
+                trc.flush_mark(msg.headers["_trace"], self.client_id)
             if wire_ok and pid is None:
                 data = self._wire_cached(msg)
                 if data is not None:

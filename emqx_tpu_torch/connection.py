@@ -26,6 +26,7 @@ from typing import Optional
 from emqx_tpu_torch import faults
 from emqx_tpu_torch.channel import Channel
 from emqx_tpu_torch.device import resolve
+from emqx_tpu_torch.gc import GcPolicy
 from emqx_tpu_torch.limiter import TokenBucket
 from emqx_tpu_torch.mqtt import reason_codes as RC
 from emqx_tpu_torch.mqtt.frame import (FrameError, FrameTooLarge,
@@ -94,6 +95,10 @@ class Connection:
         # this instant (the reference's `blocked` sockstate holds off
         # idle shutdown the same way)
         self._paused_until = 0.0
+        # forced young-generation collection per N packets / M bytes
+        # received (the zone's force_gc_policy; src/emqx_gc.erl)
+        self._gc = (GcPolicy(*self.zone.force_gc_policy)
+                    if self.zone.force_gc_policy else None)
         self._timers: list = []
         self._loop = None  # serving loop, captured by run()
         self._flush_scheduled = False  # coalesced delivery wakeups
@@ -327,6 +332,8 @@ class Connection:
                     if wait > 0:  # backpressure pause
                         self._paused_until = time.monotonic() + wait
                         await asyncio.sleep(wait)
+                if self._gc is not None:
+                    self._gc.inc(1, len(data))
                 pkts = await self._decode(data)
                 for idx, pkt in enumerate(pkts or []):
                     if not await self._process(pkt):

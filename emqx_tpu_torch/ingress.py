@@ -108,6 +108,12 @@ class IngressBatcher:
         resolves to the delivery count at flush; without (QoS0, wills)
         no future is created. ``None`` = no running loop, the caller
         must publish synchronously."""
+        trc = self.broker.tracing
+        if trc is not None and trc.active:
+            # trace-context stamp at INGRESS: the context's t0 anchors
+            # the ingress-wait span (submit → batch pickup); the
+            # broker's stamp keeps it (idempotent)
+            trc.stamp(msg)
         try:
             loop = asyncio.get_running_loop()
         except RuntimeError:

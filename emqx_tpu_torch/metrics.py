@@ -2,7 +2,8 @@
 
 The counter names the ported paths increment are registered up front;
 a module registers its own with :meth:`Metrics.new` (idempotent), as
-the retainer does for ``retained.*``. An unknown name raises
+the retainer does for ``retained.*`` and ``monitors.SysMon`` for
+``sysmon.long_gc`` and ``sysmon.long_schedule``. An unknown name raises
 ``KeyError``, as the JAX package's registry does.
 """
 
@@ -110,7 +111,26 @@ NAMES = (
     "checkpoint.saves", "checkpoint.errors", "checkpoint.delta.saves",
     "recovery.replayed", "recovery.torn", "recovery.sessions",
     "recovery.routes.pruned",
+    # sampled tracing and slow-subscriber attribution (tracing.py),
+    # folded on the stats tick: `tracing.spans` = span records drained
+    # from the per-thread rings, `tracing.dropped` = spans shed because
+    # a ring was full (the ring never blocks the hot path),
+    # `slow_subs.flushes` = flush spans folded into the slow-subscriber
+    # ranking, `slow_subs.breaches` = flushes whose delivery latency
+    # crossed slow_subs_threshold_ms
+    "tracing.spans", "tracing.dropped",
+    "slow_subs.flushes", "slow_subs.breaches",
 )
+
+#: registry names that are NOT monotonic (``Metrics.dec`` runs on them,
+#: or they carry table-state deltas a rebuild may shrink). A Prometheus
+#: ``counter`` may only go up (scrapers read a decrease as a restart),
+#: so the exposition (modules/prometheus.render) types these ``gauge``
+GAUGE_METRICS = frozenset({
+    "retained.count",
+    "automaton.compaction.fused_edges",
+    "automaton.compaction.chains",
+})
 
 _QOS_RECV = ("messages.qos0.received", "messages.qos1.received",
              "messages.qos2.received")

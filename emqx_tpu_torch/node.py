@@ -1,15 +1,19 @@
 """Broker node assembly — the ``emqx_app``/``emqx_sup`` analogue for
 the ported paths.
 
-Builds the kernel services (hooks, metrics, stats), the router and
-broker on one device, the ingress batcher, the connection manager,
-the alarms, overload protection (the monitor, the device-path breaker
-and device-loss recovery, at the JAX package's defaults), the module
-host and the MQTT listeners, in the reference's boot order
+Builds the kernel services (hooks, metrics, stats, the trace log),
+the router and broker on one device, the ingress batcher, the
+connection manager, the alarms, overload protection (the monitor, the
+device-path breaker and device-loss recovery, at the JAX package's
+defaults), observability at the JAX package's defaults (publish-batch
+telemetry spans on, sampled tracing built at ``sample_rate = 0``, the
+``$SYS`` heartbeat every 60 s with the stats flush, the host monitors
+and the periodic full collection; every connection forces a young
+collection per 16,000 packets or 16 MiB received), the module host
+and the MQTT listeners, in the reference's boot order
 (src/emqx_app.erl:31-44, src/emqx_sup.erl:64-80), and, when enabled,
-the durability layer (journal, checkpoints, crash recovery). Tracing,
-``$SYS`` topics, plugins, several front-door loops and the cluster
-come with their slices.
+the durability layer (journal, checkpoints, crash recovery). Plugins,
+several front-door loops and the cluster come with their slices.
 
 ``Node(overload=OverloadConfig(enabled=False))`` builds no monitor,
 breaker or recovery: every guard reads ``None``.
@@ -29,6 +33,7 @@ checkpoint. The default builds none.
 from __future__ import annotations
 
 import asyncio
+import logging
 from typing import List, Optional
 
 from emqx_tpu_torch import faults as _faults
@@ -36,15 +41,27 @@ from emqx_tpu_torch.alarm import AlarmManager
 from emqx_tpu_torch.broker import Broker, DispatchConfig
 from emqx_tpu_torch.cm import ConnectionManager
 from emqx_tpu_torch.connection import Listener
+from emqx_tpu_torch.gc import GlobalGc
 from emqx_tpu_torch.hooks import Hooks
 from emqx_tpu_torch.ingress import IngressBatcher
 from emqx_tpu_torch.metrics import Metrics
 from emqx_tpu_torch.modules import ModuleRegistry
+from emqx_tpu_torch.monitors import OsMon, SysMon, VmMon
 from emqx_tpu_torch.overload import (DeviceBreaker, OverloadConfig,
                                      OverloadMonitor)
 from emqx_tpu_torch.router import MatcherConfig, Router
 from emqx_tpu_torch.stats import Stats
+from emqx_tpu_torch.sys_topics import SysTopics
+from emqx_tpu_torch.telemetry import Telemetry, TelemetryConfig
+from emqx_tpu_torch.tracer import Tracer
+from emqx_tpu_torch.tracing import Tracing, TracingConfig
 from emqx_tpu_torch.zone import Zone, get_zone
+
+log = logging.getLogger("emqx_tpu_torch.node")
+
+#: the ``node.state`` gauge's values (the drain's ``1`` comes with it)
+NODE_RUNNING = 0
+NODE_STOPPING = 2
 
 
 class Node:
@@ -56,7 +73,10 @@ class Node:
                  device=None, frame: str = "py",
                  overload: Optional[OverloadConfig] = None,
                  faults_config: Optional[_faults.FaultsConfig] = None,
-                 durability=None) -> None:
+                 durability=None,
+                 telemetry: Optional[TelemetryConfig] = None,
+                 tracing: Optional[TracingConfig] = None,
+                 sys_interval: float = 60.0) -> None:
         self.name = name
         self.zone = zone or get_zone()
         # [node] frame: the wire-framing parser of every connection,
@@ -74,6 +94,7 @@ class Node:
         self.hooks = Hooks()
         self.metrics = Metrics()
         self.stats = Stats()
+        self.tracer = Tracer()
         # routing + pubsub core, on the node's device
         self.router = Router(config=matcher, node=name, device=device)
         self.device = self.router.device
@@ -89,6 +110,7 @@ class Node:
         self.broker = Broker(router=self.router, hooks=self.hooks,
                              metrics=self.metrics, node=name,
                              dispatch_config=dispatch_config)
+        self.broker.tracer = self.tracer
         # ingress batcher: PUBLISHes from all connections aggregate
         # into one device publish batch per tick (ingress.py)
         self.ingress = IngressBatcher(self.broker, batch_size=batch_size,
@@ -141,11 +163,46 @@ class Node:
             self.durability = DurabilityManager(self, durability)
             self.broker.durability = self.durability
             self.cm.durability = self.durability
+        self.node_state = NODE_RUNNING
+        # publish-path telemetry (telemetry.py): stage histograms and
+        # the slow-publish log, on by default. Wired onto broker AND
+        # router — the broker stamps the spans, the router's
+        # cache-split dispatch leaves its probe/merge share for the
+        # span and its compactions observe the rebuild stage
+        self.telemetry = Telemetry(telemetry, tracer=self.tracer,
+                                   alarms=self.alarms, node=name)
+        self.broker.telemetry = self.telemetry
+        self.router.telemetry = self.telemetry
+        # per-message span tracing (tracing.py): always built; at
+        # sample_rate = 0 (the default) no seam stamps a context and
+        # the deliveries are the untraced build's, byte for byte
+        self.tracing = Tracing(tracing, metrics=self.metrics,
+                               alarms=self.alarms, node=name)
+        self.broker.tracing = self.tracing
+        # the $SYS heartbeat (sys_topics.py): runs the stats flush
+        # (_update_stats) and publishes every sys_interval seconds
+        self.sys = SysTopics(self.broker, node=name, stats=self.stats,
+                             interval=sys_interval,
+                             telemetry=self.telemetry,
+                             tracing=self.tracing)
+        # host monitors (emqx_os_mon / emqx_vm_mon / emqx_sys_mon) and
+        # the periodic full collection (emqx_global_gc)
+        self.os_mon = OsMon(self.alarms)
+        self.vm_mon = VmMon(self.alarms, self.cm.connection_count,
+                            max_count=Listener.MAX_CONNECTIONS)
+        self.sys_mon = SysMon(metrics=self.metrics, hooks=self.hooks)
+        self.global_gc = GlobalGc()
         # extension system
         self.modules = ModuleRegistry(self)
         self.listeners: List[Listener] = []
         self._started = False
         self._bg_tasks: list = []
+        # fid-quarantine growth watch (stats tick): depth at the last
+        # tick + consecutive-growth streak behind the
+        # router_ids_quarantined alarm (_watch_quarantine)
+        self._quar_prev = 0
+        self._quar_streak = 0
+        self.stats.register_update(self._update_stats)
 
     def add_listener(self, host: str = "127.0.0.1", port: int = 1883,
                      zone: Optional[Zone] = None,
@@ -184,11 +241,23 @@ class Node:
         br = self.broker.breaker
         if br is not None and br.recovery is not None:
             br.recovery.start()  # re-armed after an earlier stop()
+        # a node started again after stop() runs again (the JAX node
+        # keeps reporting the stop)
+        self.node_state = NODE_RUNNING
         for lst in self.listeners:
             await lst.start()
+        # vm_mon watches the node-wide connection count, so the
+        # watermark's denominator is the summed listener capacity
+        if self.listeners:
+            self.vm_mon.max_count = (Listener.MAX_CONNECTIONS
+                                     * len(self.listeners))
         self.modules.on_loop_start()
         loop = asyncio.get_running_loop()
         self._bg_tasks.append(loop.create_task(self._housekeeping()))
+        self._bg_tasks.append(loop.create_task(self._sys_loop()))
+        for mon in (self.os_mon, self.vm_mon, self.sys_mon,
+                    self.global_gc):
+            self._bg_tasks.append(loop.create_task(mon.run()))
         if self.overload is not None:
             self._bg_tasks.append(loop.create_task(self.overload.run()))
         if self.durability is not None:
@@ -202,9 +271,15 @@ class Node:
         if not self._started:
             return
         self._started = False
+        self.node_state = NODE_STOPPING
         for t in self._bg_tasks:
             t.cancel()
         self._bg_tasks.clear()
+        # the collector hook is process-wide: it goes now, not when
+        # the cancelled SysMon task next runs (install is idempotent,
+        # so a later start() puts it back once)
+        self.sys_mon.remove_gc_hook()
+        self.tracing.profiler.stop()
         if self.overload is not None:
             # its task is cancelled: a level it set must not keep
             # refusing CONNECTs with no sample behind it
@@ -241,35 +316,85 @@ class Node:
         while True:
             await asyncio.sleep(5.0)
             self.cm.expire_sessions()
-            self.tick()
+
+    async def _sys_loop(self) -> None:
+        while True:
+            await asyncio.sleep(self.sys.interval)
+            try:
+                self.sys.heartbeat()
+            except Exception:
+                log.exception("sys heartbeat failed")
 
     def tick(self) -> None:
-        """The housekeeping tick, as the JAX node's stats flush: fold
-        the match-cache and automaton counters into :attr:`metrics`,
-        publish the overload level and breaker state gauges, fold the
-        fired fault points into ``faults.injected`` and the durability
-        layer's counters and alarms (:meth:`_tick_durability`), turn a
-        crashed compaction into its alarm and retry it once its
-        backoff elapsed."""
+        """The stats flush on demand (what the ``$SYS`` heartbeat and a
+        Prometheus scrape run first: :meth:`_update_stats` and every
+        other registered update fun), then a retry of a crashed
+        compaction once its backoff elapsed (the overload monitor's
+        heal sweep does the same every second)."""
+        self.stats.tick()
+        self.router.retry_compaction()
+
+    def _update_stats(self, stats: Stats) -> None:
+        """The JAX node's stats flush: the connection, session, topic,
+        route and subscription gauges; the match-cache and automaton
+        counter folds; the compaction ratio and cache gauges; the
+        quarantine watch; the overload level and breaker state; the
+        fired fault points; the durability layer's counters, alarms
+        and gauges; the robustness alarms; the span counts; the trace
+        drain; the loop lag. The mesh's device counters, the per-loop
+        rows and the cluster rows come with their slices."""
+        stats.setstat("node.state", self.node_state)
+        stats.setstat("connections.count", self.cm.connection_count(),
+                      "connections.max")
+        stats.setstat("sessions.count", self.cm.session_count(),
+                      "sessions.max")
+        rstats = self.router.stats()
+        stats.setstat("topics.count", rstats["topics.count"], "topics.max")
+        stats.setstat("routes.count", rstats["routes.count"], "routes.max")
+        nsubs = sum(len(s) for s in self.broker._subscriptions.values())
+        stats.setstat("subscriptions.count", nsubs, "subscriptions.max")
+        nshared = sum(len(m) for m in self.broker.shared._subs.values())
+        stats.setstat("subscriptions.shared.count", nshared,
+                      "subscriptions.shared.max")
+        stats.setstat("subscribers.count",
+                      sum(len(v) for v in self.broker._subscribers.values()),
+                      "subscribers.max")
         cache = self.router.drain_cache_stats()
         if any(cache.values()):
             self.metrics.fold_cache_stats(cache)
         auto = self.router.drain_automaton_stats()
         if any(auto.values()):
             self.metrics.fold_automaton_stats(auto)
+        stats.setstat("automaton.compaction.ratio",
+                      self.router.walk_info()["ratio"])
+        stats.setstat("match.cache.entries.count",
+                      self.router.cache_entries(),
+                      "match.cache.entries.max")
+        stats.setstat("match.cache.partition.live",
+                      self.router.cache_partitions_live())
+        self._watch_quarantine(stats)
         if self.overload is not None:
-            self.stats.setstat("overload.level", self.overload.level)
+            stats.setstat("overload.level", self.overload.level)
         if self.broker.breaker is not None:
-            self.stats.setstat("breaker.state", self.broker.breaker.state)
+            stats.setstat("breaker.state", self.broker.breaker.state)
         inj = _faults.drain_injected()
         if inj:
             self.metrics.inc("faults.injected", inj)
         if self.durability is not None:
-            self._tick_durability()
+            self._tick_durability(stats)
         self.drain_robustness_events()
-        self.router.retry_compaction()
+        stats.setstat("publish.spans.count", self.telemetry.spans_total,
+                      "publish.spans.max")
+        stats.setstat("publish.slow.count", self.telemetry.slow_total,
+                      "publish.slow.max")
+        # the trace-span drain: swap the per-thread rings, fold flush
+        # spans into slow_subs, bump the tracing.* counters and gauges
+        # (a cheap no-op while nothing is sampled)
+        self.tracing.drain_tick(stats)
+        for i, lag in enumerate(self.sys_mon.loop_lags):
+            stats.setstat(f"loop.{i}.lag_ms", round(lag, 3))
 
-    def _tick_durability(self) -> None:
+    def _tick_durability(self, stats: Stats) -> None:
         """Fold the journal/checkpoint counters (written off the loop)
         into :attr:`metrics`, apply the alarms the journal's threads
         recorded, and publish the journal and checkpoint gauges."""
@@ -278,12 +403,44 @@ class Node:
         dur.drain_events(self.alarms)
         info = dur.info()
         j = info["journal"]
-        self.stats.setstat("journal.bytes", int(j.get("bytes", 0)))
-        self.stats.setstat("journal.records", int(j.get("records", 0)))
-        self.stats.setstat("durability.generation", info["generation"])
+        stats.setstat("journal.bytes", int(j.get("bytes", 0)))
+        stats.setstat("journal.records", int(j.get("records", 0)))
+        stats.setstat("durability.generation", info["generation"])
         age = info.get("checkpoint_age_s")
         if age is not None:
-            self.stats.setstat("checkpoint.age_s", int(age))
+            stats.setstat("checkpoint.age_s", int(age))
+
+    #: consecutive growing stats ticks before the fid-quarantine alarm
+    #: fires (with the default 60 s heartbeat: about 3 minutes of
+    #: monotonic growth)
+    QUARANTINE_ALARM_TICKS = 3
+
+    def _watch_quarantine(self, stats: Stats) -> None:
+        """Publish the fid-quarantine depth gauge and raise the
+        ``router_ids_quarantined`` alarm on sustained growth past the
+        router's own reclaim bound: between flattens nothing drains
+        ``_pending_free``, so depth growing every tick means subscribe
+        churn is outpacing compaction and host memory grows linearly.
+        Clears on the first non-growing tick (a flatten drained it)."""
+        q = self.router.quarantined_ids()
+        stats.setstat("router.ids.quarantined.count", q,
+                      "router.ids.quarantined.max")
+        bound = self.router.config.host_reclaim_pending
+        if q > self._quar_prev and q > bound:
+            self._quar_streak += 1
+        else:
+            self._quar_streak = 0
+            self.alarms.deactivate("router_ids_quarantined")
+        self._quar_prev = q
+        if self._quar_streak >= self.QUARANTINE_ALARM_TICKS:
+            self.alarms.activate(
+                "router_ids_quarantined",
+                details={"quarantined": q,
+                         "streak_ticks": self._quar_streak,
+                         "bound": bound},
+                message=(f"router fid quarantine growing for "
+                         f"{self._quar_streak} stats ticks "
+                         f"(depth {q})"))
 
     def _note_flatten_error(self, exc) -> None:
         """Router background-compaction outcome callback — may run ON

@@ -59,6 +59,7 @@ from emqx_tpu_torch.ops.match import depth_bucket
 from emqx_tpu_torch.ops.patch import AutoPatcher, PatchOverflow
 from emqx_tpu_torch.ops.tokenize import WordTable, encode_batch
 from emqx_tpu_torch.ops.walk_cuda import match_batch_auto
+from emqx_tpu_torch.profiling import timer as _ktimer
 from emqx_tpu_torch.types import Route
 
 log = logging.getLogger("emqx_tpu_torch.router")
@@ -287,6 +288,13 @@ class Router:
         self._delta_merges = 0
         self._rebuild_stall_ms = 0.0
         self._auto_drained = (0, 0, 0, 0, 0, 0)
+        # publish-path telemetry (telemetry.Telemetry), wired by Node
+        # beside broker.telemetry. When enabled, the cache-split
+        # dispatch leaves its probe/merge share and hit/miss split in
+        # _last_dispatch for the broker's span to take; compactions
+        # observe the ``rebuild`` stage
+        self.telemetry = None
+        self._last_dispatch: Optional[dict] = None
 
     # -- trie and delta plumbing ------------------------------------------
 
@@ -661,6 +669,14 @@ class Router:
                 prev.wt.shape[0] * self._grow["edge"])
 
     def _rebuild_locked(self):
+        t0 = time.perf_counter()
+        try:
+            return self._rebuild_flatten_locked()
+        finally:
+            _ktimer.record("automaton.rebuild",
+                           (time.perf_counter() - t0) * 1000.0)
+
+    def _rebuild_flatten_locked(self):
         cap_s2, nb = self._flatten_caps()
         if self._native is not None:
             host_auto = self._native.flatten(v2_state_capacity=cap_s2,
@@ -861,7 +877,9 @@ class Router:
         route ops defer into the freeze log and the next delta
         generation, concurrent matchers keep the published pair),
         then swap + replay under another short lock.
-        ``automaton.rebuild.stall_ms`` counts the lock holds."""
+        ``automaton.rebuild.stall_ms`` counts the lock holds; the whole
+        compaction is the telemetry's ``rebuild`` stage."""
+        t_begin = time.perf_counter()
         with self._lock:
             t0 = time.perf_counter()
             if self._dirty or self._auto is None \
@@ -877,9 +895,12 @@ class Router:
             cap_s2, nb = self._flatten_caps()
             stall = time.perf_counter() - t0
         try:
+            t_fl = time.perf_counter()
             host_auto = self._flatten_main(cap_s2, nb)
             # the upload runs on this thread, on the default stream
             auto = convert.automaton(host_auto, self.device)
+            _ktimer.record("automaton.rebuild",
+                           (time.perf_counter() - t_fl) * 1000.0)
         except BaseException:
             with self._lock:
                 self._unfreeze_locked()
@@ -912,6 +933,10 @@ class Router:
             self._publish_pair_locked()
             stall += time.perf_counter() - t1
         self._rebuild_stall_ms += stall * 1000.0
+        tel = self.telemetry
+        if tel is not None and tel.enabled:
+            tel.observe_stage(
+                "rebuild", (time.perf_counter() - t_begin) * 1000.0)
 
     def automaton(self) -> tuple:
         """``(automaton, id→filter snapshot, epoch)`` — a consistent
@@ -1302,7 +1327,11 @@ class Router:
                 t.partition("/")[0].encode()) & mask],)
                 for t in topics]
         bucket = self._bucket(len(topics))
+        tel = self.telemetry
+        timed = tel is not None and tel.enabled
+        t0 = time.perf_counter() if timed else 0.0
         probe = cache.probe(topics, key, keys)
+        t1 = time.perf_counter() if timed else 0.0
         miss_rows = miss_ovf = None
         if probe.miss_topics:
             ids, n, sysm = self._encode_padded(probe.miss_topics)
@@ -1322,7 +1351,18 @@ class Router:
                 miss_rows, miss_ovf = probe_packed(
                     dsnap, *args, miss_rows, miss_ovf, m=cfg.max_matches)
             cache.insert(probe, miss_rows, miss_ovf)
+        t2 = time.perf_counter() if timed else 0.0
         ids_dev, ovf_dev = cache.merge(bucket, probe, miss_rows, miss_ovf)
+        if timed:
+            # probe (host hash walk) + merge (row-gather dispatch) =
+            # the cache_gather share of this dispatch; the rest
+            # (encode, miss walk, insert) is the match share
+            self._last_dispatch = {
+                "hit": len(probe.hit_pos),
+                "miss": len(probe.miss_topics),
+                "cache_gather_ms": ((t1 - t0) + (
+                    time.perf_counter() - t2)) * 1000.0,
+            }
         return ids_dev, ovf_dev, id_map, epoch
 
     def drain_cache_stats(self) -> Dict[str, int]:
@@ -1427,6 +1467,20 @@ class Router:
             "compaction.fused_edges": cur[4] - prev[4],
             "compaction.chains": cur[5] - prev[5],
         }
+
+    def walk_info(self) -> Dict[str, object]:
+        """Live walk facts: the variant a dispatch runs now (``cuda``,
+        kernel B1, or ``torch``, its plain twin on the CPU) and the
+        level-compression snapshot of the live tables (mode, fused
+        chains, permille of deepest-walk steps saved)."""
+        variant = "cuda" if self.device.type == "cuda" else "torch"
+        return {"variant": variant, **self._compaction}
+
+    def quarantined_ids(self) -> int:
+        """Freed filter ids quarantined until the next flatten (the
+        ``router.ids.quarantined`` gauge: sustained growth without a
+        rebuild means churn is outpacing compaction)."""
+        return len(self._pending_free)
 
     def delta_info(self) -> Dict[str, object]:
         """Live delta-automaton state (cumulative counters)."""

@@ -119,6 +119,11 @@ class Session:
         # node: every `_mark_dirty` below is one attribute test
         self.durable = False
         self._dur = None
+        # a snapshot (to_wire) holds the outbox's packets: once they
+        # drain to the transport, that snapshot is stale and the
+        # session needs a fresh one, or a recovery from it would send
+        # them again beside the inflight window's DUP redelivery
+        self._outbox_snapshot = False
 
     # -- info --------------------------------------------------------------
 
@@ -140,7 +145,12 @@ class Session:
     def to_wire(self) -> dict:
         """Pure-data snapshot for the wire codec — every value is a
         scalar, container, Message or SubOpts; no live references
-        (broker/notify are connection-local)."""
+        (broker/notify are connection-local). A non-empty outbox
+        marks the snapshot stale at the next :meth:`drain_outbox`: the
+        flag is set before the outbox is read, so a drain racing this
+        call from the owning loop re-dirties the session."""
+        if self.outbox:
+            self._outbox_snapshot = True
         return {
             "client_id": self.client_id,
             "clean_start": self.clean_start,
@@ -193,6 +203,7 @@ class Session:
         s.next_pkt_id = int(d["next_pkt_id"])
         s.awaiting_rel = dict(d["awaiting_rel"])
         s.outbox = list(d["outbox"])
+        s._outbox_snapshot = bool(s.outbox)  # the snapshot holds them
         s.mqueue.dropped = int(d["mq_dropped"])
         s.mqueue.restore(d["mq_items"])
         s.connected = False
@@ -602,4 +613,9 @@ class Session:
     @owner_loop
     def drain_outbox(self) -> List[Tuple[Any, Any]]:
         out, self.outbox = self.outbox, []
+        if out and self._outbox_snapshot:
+            # a journal or checkpoint snapshot holds these packets:
+            # the next flush must write the state without them
+            self._outbox_snapshot = False
+            self._mark_dirty()
         return out

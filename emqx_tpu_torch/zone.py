@@ -2,9 +2,10 @@
 
 The port of the JAX package's ``Zone`` (``src/emqx_zone.erl`` + the
 zone sections of etc/emqx.conf): a zone snapshot is read lock-free by
-every connection. Defaults follow etc/emqx.conf:698-907. The knobs of
-modules not ported yet (banned, flapping, stats, forced GC) come with
-those modules. The registry below is this package's own.
+every connection. Defaults follow etc/emqx.conf:698-907, the forced-GC
+policy included. The knobs of modules not ported yet (banned,
+flapping) come with those modules. The registry below is this
+package's own.
 """
 
 from __future__ import annotations
@@ -82,6 +83,9 @@ class Zone:
     send_timeout: float = 15.0
     send_timeout_close: bool = True
     high_watermark: int = 1024 * 1024
+    # forced-GC trigger (count, bytes), None disables
+    # (etc/emqx.conf force_gc_policy, src/emqx_gc.erl)
+    force_gc_policy: Optional[tuple] = (16000, 16 * 1024 * 1024)
 
 
 _zones: Dict[str, Zone] = {}

@@ -534,6 +534,48 @@ async def test_resume_after_crash_session_present_and_dup(tmp_path):
     await n2.stop()
 
 
+async def test_a_flush_before_the_outbox_drains_keeps_redelivery_exact(
+        tmp_path):
+    """A journal flush between a delivery and its drain to the
+    transport (a batch's close publishing the ``slow_publish`` alarm
+    flushes, or the next batch's fetch on the executor): the snapshot
+    holds the outbox, so the drain must re-dirty the session, or a
+    recovery sends those packets again beside the DUP redelivery of
+    the inflight window (the JAX package's session does not, and
+    recovers 6 PUBLISHes here)."""
+    d = tmp_path / "dur"
+    n = PORT.node(d)
+    await n.start()
+    ch = Channel(n.broker, n.cm)
+    ch.handle_in(PP.Connect(
+        proto_ver=5, client_id="dev", clean_start=True,
+        properties={"Session-Expiry-Interval": 300}))
+    ch.handle_in(PP.Subscribe(packet_id=1, topic_filters=[
+        ("d/t", {"qos": 1})]))
+    n.broker.publish_batch([PMessage(topic="d/t", payload=str(i).encode(),
+                                     qos=1) for i in range(3)])
+    n.durability.on_batch()  # the snapshot holds the undrained outbox
+    sent = [p for p in ch.handle_deliver() if p.type == PP.C.PUBLISH]
+    assert len(sent) == 3 and ch.session in n.durability._dirty
+    n.durability.on_batch()
+    await crash(n)
+
+    n2 = PORT.node(d)
+    await n2.start()
+    ch2 = Channel(n2.broker, n2.cm)
+    ack = ch2.handle_in(PP.Connect(
+        proto_ver=5, client_id="dev", clean_start=False,
+        properties={"Session-Expiry-Interval": 300}))
+    assert ack[0].session_present
+    got = [p for p in ack[1:] + ch2.handle_deliver()
+           if p.type == PP.C.PUBLISH]
+    assert sorted(p.payload for p in got) == [b"0", b"1", b"2"]
+    assert all(p.dup and p.qos == 1 for p in got)
+    # the recovered session's drain re-dirties it too (its snapshot
+    # was the recovered one)
+    await n2.stop()
+
+
 async def test_graceful_stop_sends_0x8b_and_recovers_clean(tmp_path):
     d = tmp_path / "dur"
     n = PORT.node(d)
