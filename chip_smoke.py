@@ -198,6 +198,22 @@ kernels against their plain PyTorch versions:
      loaded); every phase with a node prints the collections the
      connections' ``GcPolicy`` forced and the node's ``sysmon.long_gc``.
 
+ 12. the device mesh on the card (``parallel/``), on phase 5's
+     subscriptions and batches, one 1M-filter node at a time, after
+     the plain node: (12a) ``MatcherConfig(mesh=default_mesh())``, 1×1
+     on the one card, B1 and B2 once a batch, every message's
+     deliveries equal phase 5's node's and the TrieOracle's, msgs/s
+     and p50/p99 beside phase 5's; (12b) a 2×2 mesh naming the card
+     four times (:data:`MESH_GRID`): B1 and B2 four times a batch (one
+     a cell), deliveries equal 12a's; per cell, B1 on the cell's data
+     shard and trie shard against the plain walk and B2's dense union
+     against the plain OR, with their device times; one subscribe
+     patches its shard alone, then 256 route ops with no full rebuild
+     and a batch against the TrieOracle; on a small 2×2 broker, a
+     fan-only overflow grows d and not k; 12a and 12b print the idle
+     share of three batches under the profiler. Its time against
+     :data:`P12_BUDGET_S` is printed.
+
 The last two lines are one JSON object per kernel row
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Every
 phase raises on failure; the script then exits non-zero. Without CUDA,
@@ -1135,13 +1151,18 @@ def check_batches(broker, batches, deliveries, oracle=None):
     return n_big
 
 
-def phase_slice(broker, batches, card, oracle, label="slice"):
+def phase_slice(broker, batches, card, oracle, label="slice",
+                per_batch=None):
     """The timed main-path run; every count starts at 0 here. Prints
     the match cache's hit rate over the run when the cache is on. With
     the node's telemetry on (the default), every batch's span is
     checked: closed once, with the broker's own per-batch counts as its
     tags (:class:`SpanLog`), and each stage's count, p50 and p99
-    are printed."""
+    are printed. ``per_batch`` (kernel → launches) holds each batch's
+    launches from its begin to the end of its fetch to exact counts
+    (the mesh: one a cell). Returns the run's numbers and every
+    message's local deliveries, ``(batch, message) → sorted (sink,
+    filter) pairs`` (a mesh node's are held against phase 5's)."""
     import torch
 
     from emqx_tpu_torch.ops import _build
@@ -1149,11 +1170,15 @@ def phase_slice(broker, batches, card, oracle, label="slice"):
 
     msgs = [[Message(topic=t, payload=b"x") for t in b] for b in batches]
     on_card = broker.router.device.type == "cuda"
+    mesh = broker.router.config.mesh is not None
     if on_card:
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-    cache = broker.router._match_cache()
+    # the mesh's cache, when one exists (it stays off while big-filter
+    # bitmaps are live, as in the JAX package)
+    cache = (broker.router._sharded_cache_obj if mesh
+             else broker.router._match_cache())
     c0 = (cache.hits, cache.misses) if cache is not None else (0, 0)
     spans = SpanLog(broker.telemetry)
     _build.reset_launches()
@@ -1174,6 +1199,7 @@ def phase_slice(broker, batches, card, oracle, label="slice"):
                     if cb is not None else (-1, -1))
         broker.publish_fetch(pb)
         t2 = time.perf_counter()
+        fetched = dict(_build.LAUNCHES)
         res = broker.publish_finish(pb)
         t3 = time.perf_counter()
         lat.append(t3 - t0)
@@ -1181,12 +1207,18 @@ def phase_slice(broker, batches, card, oracle, label="slice"):
         for name in PUBLISH_KERNELS:
             if _build.LAUNCHES[name] <= before[name]:
                 raise AssertionError(f"batch {bi} did not launch {name}")
+        for name, n in (per_batch or {}).items():
+            if fetched[name] - before[name] != n:
+                raise AssertionError(f"batch {bi} launched {name} "
+                                     f"{fetched[name] - before[name]} "
+                                     f"times, not {n}")
         n_ovf += int(pb.ovf[:pb.n_uniq].sum())
         n_uniq += pb.n_uniq
         big_rows += int((pb.sel[:pb.n_uniq] >= 0).sum())
         checks.append((batch, res))
         spans.expect(sp, {"batch": len(batch), "n_uniq": pb.n_uniq,
-                          "path": "device", "bucket": pb.ids_dev.shape[0],
+                          "path": "mesh" if mesh else "device",
+                          "bucket": pb.ids_dev.shape[0],
                           "fallbacks": int(pb.ovf[:pb.n_uniq].sum()),
                           "cache": split_of})
     launches = dict(_build.LAUNCHES)
@@ -1195,6 +1227,17 @@ def phase_slice(broker, batches, card, oracle, label="slice"):
     deliveries, Sink.log = Sink.log, None
     n_big = check_batches(broker, checks, deliveries, oracle)
     n_msgs = sum(len(b) for b in msgs)
+    pos = {m.id: (bi, i) for bi, b in enumerate(msgs) for i, m in enumerate(b)}
+    local_sids = {}
+    local = {}
+    for mid, sid, flt in deliveries:
+        sids = local_sids.get(flt)
+        if sids is None:
+            sids = local_sids[flt] = {s.sid for s in broker.subscribers(flt)}
+        if sid in sids:
+            local.setdefault(pos[mid], []).append((sid, flt))
+    for v in local.values():
+        v.sort()
     lat_ms = np.sort(np.array(lat) * 1e3)
     hit_rate = None
     if cache is not None:
@@ -1211,8 +1254,12 @@ def phase_slice(broker, batches, card, oracle, label="slice"):
         "peak_mib": peak,
         "cache_hit_rate": hit_rate,
         "stages": out_spans,
+        "local": local,
     }
-    log(f"[{label}] match_cache={cfg.match_cache} delta={cfg.delta} "
+    grid = "" if cfg.mesh is None else \
+        f"mesh={cfg.mesh.shape['data']}x{cfg.mesh.shape['trie']} "
+    log(f"[{label}] {grid}match_cache={cfg.match_cache} delta="
+        f"{broker.router.delta_info()['active']} "
         f"use_native={cfg.use_native} preserialize="
         f"{broker.dispatch_config.preserialize}: "
         f"{len(msgs)} batches x {len(msgs[0])} msgs: "
@@ -1512,8 +1559,14 @@ def run(opts, device, card):
     timed("5 and 8b (plain config)", run_plain, pairs, batches,
           topics[:opts.batch], draw, opts, device, card, oracle, p8)
     gc.collect()
+    p12 = timed("12 (mesh)", run_mesh, pairs, batches, topics[:opts.batch],
+                opts, device, card, oracle, sl, walk)
+    mesh_launches = {name: {g: p12["launches"][g][name]
+                            for g in ("12a", "12b")}
+                     for name in PUBLISH_KERNELS}
     walk["max_abs_err"] = max(walk["max_abs_err"],
-                              p8["kernels"]["max_abs_err"])
+                              p8["kernels"]["max_abs_err"],
+                              p12["cells"]["max_abs_err"])
     return [
         {"name": "walk", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/walk.cu",
@@ -1524,14 +1577,21 @@ def run(opts, device, card):
          "delta_ms": p8["kernels"]["delta_ms"],
          "delta_plain_ms": p8["kernels"]["delta_plain_ms"],
          "socket_launches": sock["launches"]["walk"],
-         "devloss_launches": p9["launches"]["walk"], "equal": True,
+         "devloss_launches": p9["launches"]["walk"],
+         "mesh_launches": mesh_launches["walk"],
+         "mesh_cell_ms": p12["cells"]["walk_ms"],
+         "mesh_cell_plain_ms": p12["cells"]["walk_plain_ms"], "equal": True,
          "bound_by": "bytes", "library_ms": None, **walk},
         {"name": "bitmap_or", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/bitmap_or.cu",
          "replaces": "emqx_tpu/ops/bitmap.py:199",
          "launches": sl["launches"]["bitmap_or"],
          "socket_launches": sock["launches"]["bitmap_or"],
-         "devloss_launches": p9["launches"]["bitmap_or"], "equal": True,
+         "devloss_launches": p9["launches"]["bitmap_or"],
+         "mesh_launches": mesh_launches["bitmap_or"],
+         "mesh_cell_ms": p12["cells"]["or_ms"],
+         "mesh_cell_plain_ms": p12["cells"]["or_plain_ms"],
+         "mesh_cell_bound_ms": p12["cells"]["or_bound_ms"], "equal": True,
          "bound_by": "bytes", "library_ms": None, **bmp},
         # B4 lies on no path: its launches on the publish path (0) are
         # read like the others; it runs the B2 kernel
@@ -2271,6 +2331,278 @@ def phase_slice_plain(pairs, batches, warm, opts, device, card, oracle):
         f"(fan-out tables) {time.perf_counter() - t0:.1f} s — {card}")
     return node, phase_slice(broker, batches, card, oracle,
                              label="slice, plain config")
+
+
+# -- phase 12: the device mesh on one card -----------------------------------
+
+#: 12b's grid: a 2×2 mesh that names the card four times, so every cell
+#: runs its own B1 (and B2) and every collective runs, on one device
+MESH_GRID = (2, 2)
+#: phase 12's time budget, printed against what it took
+P12_BUDGET_S = 150.0
+#: 12b's route ops (subscribes of new filters and unsubscribes of
+#: config-2 ones): one patch-drain batch
+P12_ROUTE_OPS = 256
+
+
+def mesh_node(pairs, warm, mesh, opts, device, card, label):
+    """A node whose router runs on ``mesh`` (everything else at the
+    defaults) with phase 5's subscriptions, its automaton built and a
+    warm batch through (the per-shard fan-out tables)."""
+    from emqx_tpu_torch.node import Node
+    from emqx_tpu_torch.router import MatcherConfig
+    from emqx_tpu_torch.types import Message
+
+    node = Node(device=device, batch_size=opts.batch,
+                matcher=MatcherConfig(mesh=mesh))
+    sub_s = subscribe_pairs(node.broker, pairs)
+    t0 = time.perf_counter()
+    node.router.automaton()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    node.broker.publish_batch([Message(topic=t) for t in warm])
+    log(f"[{label}] {mesh!r}: the same {len(pairs)} subscriptions: "
+        f"subscribe {sub_s:.1f} s, the sharded build on the native engine "
+        f"{build_s:.1f} s, warm batch (the per-shard fan-out tables) "
+        f"{time.perf_counter() - t0:.1f} s — {card}")
+    return node
+
+
+def same_deliveries(want, got, label, what):
+    """Every message's local (sink, filter) deliveries against another
+    run's on the same batches."""
+    if want.keys() != got.keys() or any(want[k] != got[k] for k in want):
+        bad = sorted(k for k in want.keys() | got.keys()
+                     if want.get(k) != got.get(k))
+        raise AssertionError(f"[{label}] deliveries differ from {what} at "
+                             f"{len(bad)} messages, first {bad[:3]}")
+    log(f"[{label}] every message's deliveries ({sum(map(len, got.values()))}"
+        f" local, {len(got)} messages) equal {what}")
+
+
+def mesh_cells(node, topics, card):
+    """12b, per cell: B1 on the cell's inputs (its data shard of one
+    batch, its trie shard's tables) against the plain walk, and B2's
+    dense union of the cell's big-filter rows against its plain twin;
+    the kernels' device times per cell. Launches made here do not
+    count."""
+    import torch
+
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.ops.bitmap import (BitmapTable, or_bitmaps_cuda,
+                                           or_bitmaps_ref, rows_for_matches)
+    from emqx_tpu_torch.ops.match import match_batch
+    from emqx_tpu_torch.ops.walk_cuda import match_batch_cuda
+    from emqx_tpu_torch.parallel.sharded import _cell_auto
+
+    saved = dict(_build.LAUNCHES)
+    router = node.router
+    cfg = router.config
+    mesh = cfg.mesh
+    uniq = list(dict.fromkeys(topics))
+    auto, id_map, epoch = router.automaton()
+    st = node.broker.helper.sharded_state(epoch, id_map, mesh,
+                                          router.effective_d())
+    ids, n, sysm, _ = router.encode_place_sharded(uniq)
+    kw = dict(k=router.effective_k(), m=cfg.max_matches,
+              **router._walk_kw(ids.shape[-1]))
+    err = 0
+    out = {"walk_ms": [], "walk_plain_ms": [], "or_ms": [],
+           "or_plain_ms": [], "or_bound_ms": []}
+    for i, t, _dev in mesh.cells():
+        a = _cell_auto(auto, i, t)
+        args = (ids.cell(i, t), n.cell(i, t), sysm.cell(i, t))
+        b = args[0].shape[0]
+        err = max(err, check_walk(a, args, kw, f"12b cell ({i}, {t}), its "
+                                  f"data shard B={b} L={args[0].shape[1]}"))
+        res = match_batch_cuda(a, *args, **kw)
+        bt = BitmapTable(st.bm.bitmaps.cell(i, t), st.bm.big_row.cell(i, t),
+                         0, 0)
+        rows_b, _ovf = rows_for_matches(bt, res.ids, mb=cfg.fanout_mb)
+        got = or_bitmaps_cuda(bt.bitmaps, rows_b)
+        want = or_bitmaps_ref(bt.bitmaps, rows_b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[12b] cell ({i}, {t}): B2 != plain OR")
+        live = int((rows_b >= 0).sum())
+        out["b"] = b
+        out["walk_ms"].append(kernel_ms(
+            lambda: match_batch_cuda(a, *args, **kw), "walk_kernel"))
+        out["walk_plain_ms"].append(time_cuda_ms(
+            lambda: match_batch(a, *args, **kw), iters=3, warmup=1))
+        out["or_ms"].append(kernel_ms(
+            lambda: or_bitmaps_cuda(bt.bitmaps, rows_b), "bitmap_or_kernel"))
+        out["or_plain_ms"].append(time_cuda_ms(
+            lambda: or_bitmaps_ref(bt.bitmaps, rows_b), iters=3, warmup=1))
+        distinct = int(torch.unique(rows_b[rows_b >= 0]).numel())
+        out["or_bound_ms"].append(or_bound_ms(*bt.bitmaps.shape, b,
+                                              cfg.fanout_mb, distinct))
+        log(f"[12b] cell ({i}, {t}): B2 dense union [{b}, "
+            f"{bt.bitmaps.shape[1]}] of {live} live row slots equal to the "
+            f"plain OR; B1 {out['walk_ms'][-1]:.5f} ms (plain "
+            f"{out['walk_plain_ms'][-1]:.4f}), B2 {out['or_ms'][-1]:.5f} ms "
+            f"(plain {out['or_plain_ms'][-1]:.4f}, bound "
+            f"{out['or_bound_ms'][-1]:.5f}, bytes) — {card}")
+    _build.LAUNCHES.update(saved)
+    out["max_abs_err"] = err
+    return out
+
+
+def mesh_churn(node, pairs, batch, rng, card, oracle):
+    """12b: route ops patch only their shards' tables. One subscribe of
+    a new filter drains into its shard alone (the other shard keeps its
+    tensors); then :data:`P12_ROUTE_OPS` subscribes and unsubscribes in
+    all, with no full rebuild, and a batch checked against the
+    TrieOracle (updated with the same ops)."""
+    from emqx_tpu_torch.parallel.sharded import shard_of
+    from emqx_tpu_torch.types import Message
+
+    broker, router = node.broker, node.router
+    n_trie = router.config.mesh.shape["trie"]
+    uniq = list(dict.fromkeys(batch))
+    half = P12_ROUTE_OPS // 2
+    new = matching_filters(rng, uniq, half, router._routes)
+    gone = [(s, f) for s, f in pairs[:20 * half]
+            if router._routes.get(f) == {router.node: 1}][:half]
+    router.automaton()
+    rebuilds, patches = router.stats()["rebuilds"], router.stats()["patches"]
+    before = dict(router._auto.wt.parts)
+    sink0 = Sink(20_000_000)
+    broker.subscribe(sink0, new[0])
+    oracle.insert(new[0])
+    router.automaton()
+    t0 = shard_of(new[0], n_trie)
+    after = router._auto.wt.parts
+    kept = [key for key in before if after[key] is before[key]]
+    if sorted(kept) != sorted(k for k in before if k[0] != t0):
+        raise AssertionError(f"[12b] one subscribe into shard {t0} "
+                             f"replaced the tables of {kept}")
+    lat = []
+    for j, f in enumerate(new[1:]):
+        t1 = time.perf_counter()
+        broker.subscribe(Sink(20_000_001 + j), f)
+        lat.append(time.perf_counter() - t1)
+        oracle.insert(f)
+    for s, f in gone:
+        t1 = time.perf_counter()
+        broker.unsubscribe(s, f)
+        lat.append(time.perf_counter() - t1)
+        oracle.delete(f)
+    n_ops = 1 + len(lat)
+    msgs = [Message(topic=t, payload=b"x") for t in batch]
+    Sink.log = []
+    res = broker.publish_batch(msgs)
+    deliveries, Sink.log = Sink.log, None
+    check_batches(broker, [(msgs, res)], deliveries, oracle)
+    st = router.stats()
+    if st["rebuilds"] != rebuilds or st["patches"] - patches != n_ops:
+        raise AssertionError(f"[12b] {n_ops} route ops: rebuilds "
+                             f"{rebuilds} -> {st['rebuilds']}, patches "
+                             f"+{st['patches'] - patches}")
+    lat_ms = np.sort(np.array(lat) * 1e3)
+    log(f"[12b] churn: one subscribe patched shard {t0} alone (shard "
+        f"{1 - t0 if n_trie == 2 else 'others'} kept its tensors); "
+        f"{n_ops} route ops ({len(new)} subscribes of new filters, "
+        f"{len(gone)} unsubscribes), each shard patched in place: "
+        f"{st['patches'] - patches} patches, rebuilds {rebuilds} -> "
+        f"{st['rebuilds']}; route-op p50 {np.percentile(lat_ms, 50):.3f} ms, "
+        f"p99 {np.percentile(lat_ms, 99):.3f} ms; the next batch of "
+        f"{len(msgs)} ({len(deliveries)} deliveries) matches the "
+        f"TrieOracle — {card}")
+    return {"ops": n_ops, "rebuilds": st["rebuilds"] - rebuilds}
+
+
+def mesh_boost_d(device, card):
+    """12b: a fan-only overflow grows d and not k (the JAX package's
+    ``test_mesh_fan_overflow_boosts_d_not_k`` on the 2×2 grid of the
+    card): three filters of two subscribers each and ``fanout_d=2``, so
+    a shard holding two of them gathers 4 > d deliveries while the
+    match stays inside k; every publish delivers exactly."""
+    from emqx_tpu_torch.broker import Broker
+    from emqx_tpu_torch.parallel.mesh import make_mesh
+    from emqx_tpu_torch.router import MatcherConfig, Router
+    from emqx_tpu_torch.types import Message
+
+    mesh = make_mesh(*MESH_GRID, [device] * 4)
+    b = Broker(router=Router(MatcherConfig(mesh=mesh, fanout_d=2),
+                             node="local", device=device))
+    for j, f in enumerate(("m/+", "m/#", "m/a")):
+        for k in range(2):
+            b.subscribe(Sink(2 * j + k), f)
+    r = b.router
+    k0, ds = r.effective_k(), [r.effective_d()]
+    fan_only = []
+    for _ in range(4):
+        pb = b.publish_begin([Message(topic="m/a")])
+        b.publish_fetch(pb)
+        fan_only.append(bool(pb.ovf[0]) and not bool(pb.movf[0]))
+        if b.publish_finish(pb) != [6]:
+            raise AssertionError("[12b] boost_d: a publish did not deliver 6")
+        ds.append(r.effective_d())
+    if not fan_only[0] or ds[1] <= ds[0] or r.effective_k() != k0 \
+            or fan_only[-1]:
+        raise AssertionError(f"[12b] boost_d: d {ds}, k {k0} -> "
+                             f"{r.effective_k()}, fan-only {fan_only}")
+    log(f"[12b] a fan-only overflow grew d and not k: d "
+        f"{' -> '.join(map(str, ds))}, k {k0} unchanged, fan-only overflow "
+        f"per publish {fan_only}, 6 deliveries each — {card}")
+    return {"d": ds}
+
+
+def run_mesh(pairs, batches, warm, opts, device, card, oracle, p5, walk):
+    """Phase 12, the device mesh on the card, on phase 5's subscriptions
+    and batches, one 1M-filter node at a time: (12a) ``default_mesh()``
+    (1×1 on the one card), every message's deliveries equal phase 5's
+    and the TrieOracle's, msgs/s and p50/p99 beside phase 5's; (12b) a
+    :data:`MESH_GRID` grid of the card: B1 and B2 four times a batch,
+    deliveries equal 12a's; both with the idle share of three batches
+    under the profiler; each cell's B1 and B2 equal to their plain
+    twins with device times, the churn of :func:`mesh_churn` and the
+    ``boost_d`` of :func:`mesh_boost_d`. Returns the launches and
+    times for the kernel line."""
+    from emqx_tpu_torch.parallel.mesh import default_mesh, make_mesh
+
+    t_start = time.perf_counter()
+    # the one-card deployment's default; a CPU rehearsal names its device
+    mesh = default_mesh() if device == "cuda" else default_mesh(
+        devices=[device])
+    node = mesh_node(pairs, warm, mesh, opts, device, card, "12a")
+    cells = {"walk": mesh.size, "bitmap_or": mesh.size}
+    sa = phase_slice(node.broker, batches, card, oracle, label="12a",
+                     per_batch=cells)
+    same_deliveries(p5["local"], sa["local"], "12a", "phase 5's node's")
+    phase_profile(node.broker, batches, card)
+    check_quiet(node, "12a")
+    del node
+    gc.collect()
+    mesh = make_mesh(*MESH_GRID, [device] * 4)
+    node = mesh_node(pairs, warm, mesh, opts, device, card, "12b")
+    cells = {"walk": mesh.size, "bitmap_or": mesh.size}
+    sb = phase_slice(node.broker, batches, card, oracle, label="12b",
+                     per_batch=cells)
+    same_deliveries(sa["local"], sb["local"], "12b", "12a's")
+    phase_profile(node.broker, batches, card)
+    per_cell = mesh_cells(node, batches[0], card)
+    churn = mesh_churn(node, pairs, batches[1], np.random.default_rng(
+        opts.seed + 12), card, oracle)
+    check_quiet(node, "12b")
+    del node
+    gc.collect()
+    boost = mesh_boost_d(device, card)
+    for label, x in (("phase 5", p5), ("12a", sa), ("12b", sb)):
+        log(f"[12] {label}: {x['msgs_per_s']:.1f} msgs/s, p50 "
+            f"{x['p50_ms']:.3f} ms, p99 {x['p99_ms']:.3f} ms — {card}")
+    log(f"[12] B1 device ms per cell of 12b (its data shard of "
+        f"{per_cell['b']} topics): "
+        f"{', '.join(f'{x:.5f}' for x in per_cell['walk_ms'])}; phase 5's "
+        f"one-device B1 at {len(batches[0])} topics {walk['ms']:.5f} — "
+        f"{card}")
+    took = time.perf_counter() - t_start
+    log(f"[12] phase 12 took {took:.1f} s of its {P12_BUDGET_S:.0f} s "
+        f"budget — {card}")
+    return {"launches": {"12a": sa["launches"], "12b": sb["launches"]},
+            "cells": per_cell, "churn": churn, "boost_d": boost,
+            "seconds": took}
 
 
 # -- the retained slice: the retained_1m shape -------------------------------
@@ -4129,14 +4461,16 @@ def phase_sentinel(card):
 #: unbounded inflight window, session expiry 3,600 s, QoS 1 filters
 P10_SESSIONS = 4096
 #: phase 5's batches 10b drives as QoS 1 (the full checkpoint after
-#: half of them), cut from all 20 to hold the run under 1,100 s on a
-#: slow host (printed)
-P10_BATCHES = 10
+#: half of them), cut from all 20 (to 10, then to 4 to make room for
+#: phase 12) to hold the run under 1,100 s on a slow host (printed)
+P10_BATCHES = 4
 #: of those, the batches driven again after recovery (10d), cut from
-#: all of them; the first after recovery is always among them
-P10_REPEAT = 4
+#: all of them (to 4, then 2); the first after recovery is always
+#: among them
+P10_REPEAT = 2
 #: 10e's replay bursts on the recovered store, cut from phase 6's 8
-P10_BURSTS = 4
+#: (to 4, then 2)
+P10_BURSTS = 2
 P10_EXPIRY_S = 3600.0
 #: sessions that leave the last pre-crash batch's deliveries unacked
 P10_UNACKED = 64

@@ -12,7 +12,10 @@ batched name match runs as kernel B3 (``csrc/retained_match.cu``);
 and the MQTT front door: the wire codec (:mod:`emqx_tpu_torch.mqtt`),
 the sans-IO :class:`~emqx_tpu_torch.channel.Channel`, the ingress
 batcher and a TCP listener (``Node.add_listener``), so a live PUBLISH
-or SUBSCRIBE reaches those kernels.
+or SUBSCRIBE reaches those kernels; and the device mesh
+(:mod:`emqx_tpu_torch.parallel`): ``MatcherConfig(mesh=...)`` shards
+the filter set and the publish batch over a grid of devices, one B1
+walk per cell.
 Every entry point takes ``device=`` (default ``"cuda"``); on CPU
 tensors the kernels' plain PyTorch versions run, which is how the
 tests hold the port against the JAX package byte for byte.

@@ -1,7 +1,6 @@
 """The PubSub core: subscription tables, publish entry, dispatch.
 
-The port of the JAX package's ``Broker`` on its plain single-device
-path. Mirrors ``src/emqx_broker.erl``: ``subscribe/3`` (127-136),
+The port of the JAX package's ``Broker``. Mirrors ``src/emqx_broker.erl``: ``subscribe/3`` (127-136),
 ``publish/1`` (200-210, with the 'message.publish' hook veto),
 ``dispatch/2`` (283-309) and ``subscriber_down/1`` (331-348).
 
@@ -12,6 +11,11 @@ A publish batch runs in three phases, as in the JAX package:
      them (kernel B1 through :meth:`Router.match_dispatch`), pack the
      matches, expand the small-filter fan-out, OR the big filters'
      bitmap rows (kernel B2) and pack those rows — no device→host sync;
+     On a mesh (``MatcherConfig.mesh``) the match and the fan-out are
+     one collective step (:meth:`Router.publish_dispatch_sharded`:
+     B1 once per (data, trie) cell, the per-shard subscriber gather,
+     kernel B2's dense union per cell with big filters), then the
+     dense results pack for the copy;
   2. :meth:`Broker.publish_fetch` — ONE device→host copy of everything
      packed, with a re-pack at the next power-of-two budget when a
      total overflowed and the adaptive k boost;
@@ -60,8 +64,10 @@ from emqx_tpu_torch.ops.bitmap import or_union_rows_auto, rows_for_matches
 from emqx_tpu_torch.ops.dispatch_plan import (big_rows_for, build_plan,
                                               preserialize_plan)
 from emqx_tpu_torch.ops.fanout import expand_packed
-from emqx_tpu_torch.ops.pack import (budget_for, bundle_i32, mask_pad_rows,
-                                     pack_matches, union_slots)
+from emqx_tpu_torch.ops.pack import (budget_for, bundle_i32, mask_pad_flags,
+                                     mask_pad_rows, pack_fanout,
+                                     pack_matches, pack_union_rows,
+                                     union_slots)
 from emqx_tpu_torch.router import MatcherConfig, Router
 from emqx_tpu_torch.shared_sub import SharedSub
 from emqx_tpu_torch.types import Message, SubOpts
@@ -104,7 +110,11 @@ class PendingBatch:
     ``_d`` are device tensors; :meth:`Broker.publish_fetch` fills the
     host copies. ``host_only`` marks a batch the breaker sent to the
     host trie (open breaker, or a failed begin or fetch): it is
-    matched there whatever ``use_device_now()`` says."""
+    matched there whatever ``use_device_now()`` says. A mesh batch keeps
+    its dense gathered ``(subs, src)`` and bitmap union for a re-pack,
+    the big-filter ids the gather left out (``sh_big``) and the
+    match-only overflow (``movf``: the ``boost_k`` signal — a fan-out
+    overflow must not grow k)."""
 
     __slots__ = (
         "done", "results", "live", "inv", "n_uniq", "plan", "plan_state",
@@ -115,6 +125,8 @@ class PendingBatch:
         "src_packed_d", "bovf_d", "sel_d", "rows_packed_d", "bm_total_d",
         "m_ptr", "ids_packed", "ovf", "f_ptr", "subs_packed", "src_packed",
         "bovf", "sel", "rows_packed",
+        "subs_dense_d", "src_dense_d", "union_dense_d", "has_big_d",
+        "sh_big", "movf_d", "movf",
     )
 
     def __init__(self) -> None:
@@ -147,6 +159,10 @@ class PendingBatch:
         self.bm_total_d = None
         self.f_ptr = self.subs_packed = self.src_packed = None
         self.bovf = self.sel = self.rows_packed = None
+        self.subs_dense_d = self.src_dense_d = None
+        self.union_dense_d = self.has_big_d = None
+        self.sh_big: frozenset = frozenset()
+        self.movf_d = self.movf = None
 
 
 class Broker:
@@ -474,6 +490,8 @@ class Broker:
         pb.n_uniq = len(uniq)
         if sp is not None:
             sp.n_uniq = pb.n_uniq
+        if cfg.mesh is not None:
+            return self._publish_begin_mesh(pb, uniq, cfg)
         t_m = sp.clock() if sp is not None else 0.0
         pb.ids_dev, pb.ovf_dev, pb.id_map, pb.epoch = \
             self.router.match_dispatch(uniq)
@@ -505,9 +523,66 @@ class Broker:
             sp.add("pack", t_p)
         return pb
 
+    def _publish_begin_mesh(self, pb: PendingBatch, uniq: List[str],
+                            cfg) -> PendingBatch:
+        """Mesh publish dispatch: ONE collective step does the match,
+        the per-shard subscriber gather and the gathers over ``trie``
+        (``publish_step(with_fanout=True)`` with the FanoutManager's
+        per-shard tables); the dense gathered (subs, src) then pack on
+        the device for the one copy. Filters too big for the ``d``
+        bound deliver through the bitmap rows (``pb.sh_big``). Repeat
+        topics hit the router's mesh match cache."""
+        def fan_provider(epoch, id_map):
+            return self.helper.sharded_state(
+                epoch, id_map, cfg.mesh, self.router.effective_d())
+
+        sp = pb.span
+        if sp is not None:
+            sp.path = "mesh"
+            t_m = sp.clock()
+        (pb.ids_dev, subs_d, src_d, bm, pb.ovf_dev, pb.movf_d,
+         pb.id_map, pb.epoch, pb.sh_big) = \
+            self.router.publish_dispatch_sharded(uniq, fan_provider)
+        if sp is not None:
+            # the collective step's dispatch (match, gather, the
+            # gathers over trie); the cache-split path leaves its
+            # gather share as the single-device one does
+            sp.stamp_match(self.router, t_m)
+            t_p = sp.clock()
+        n_uniq = pb.n_uniq
+        pb.ids_dev = mask_pad_rows(pb.ids_dev, n_uniq)
+        bucket = pb.ids_dev.shape[0]
+        budgets = self._pack_budgets.setdefault(
+            bucket, [budget_for(bucket, cfg.pack_m),
+                     budget_for(bucket, cfg.pack_q),
+                     max(1, cfg.pack_rows)])
+        pb.pm = budgets[0]
+        pb.m_ptr_d, pb.ids_packed_d = pack_matches(pb.ids_dev, pm=pb.pm)
+        if subs_d is not None:
+            # phantom pad-row deliveries masked like the match ids
+            pb.subs_dense_d = mask_pad_rows(subs_d, n_uniq)
+            pb.src_dense_d = mask_pad_rows(src_d, n_uniq)
+            pb.pq = budgets[1]
+            pb.f_ptr_d, pb.subs_packed_d, pb.src_packed_d = \
+                pack_fanout(pb.subs_dense_d, pb.src_dense_d, pq=pb.pq)
+        if bm is not None:
+            # big-filter unions (per-shard OR, then the OR over trie):
+            # pack only the rows that matched a big filter
+            union_d, has_big_d, pb.bovf_d = bm
+            pb.union_dense_d = union_d
+            pb.has_big_d = mask_pad_flags(has_big_d, n_uniq)
+            pb.sel_d, pb.rows_packed_d, pb.bm_total_d = pack_union_rows(
+                union_d, pb.has_big_d, pr=budgets[2])
+        if sp is not None:
+            sp.bucket = bucket
+            sp.add("pack", t_p)
+        return pb
+
     def fetch_parts(self, pb: PendingBatch) -> list:
         """The device tensors one fetch bundles, in bundle order."""
         parts = [pb.m_ptr_d, pb.ids_packed_d, pb.ovf_dev]
+        if pb.movf_d is not None:
+            parts.append(pb.movf_d)
         if pb.f_ptr_d is not None:
             parts += [pb.f_ptr_d, pb.subs_packed_d, pb.src_packed_d]
         if pb.sel_d is not None:
@@ -594,6 +669,8 @@ class Broker:
             m_ptr = take(Bp + 1)
             ids_packed = take(pb.pm)
             ovf = take(Bp).astype(bool)
+            movf = take(Bp).astype(bool) if pb.movf_d is not None \
+                else None
             if pb.f_ptr_d is not None:
                 f_ptr = take(Bp + 1)
                 subs_p = take(pb.pq)
@@ -620,16 +697,24 @@ class Broker:
                     pb.ids_dev, pm=pb.pm)
                 m_repacked = True
                 retry = True
-            if f_ptr is not None and (m_repacked
+            mesh_fan = pb.subs_dense_d is not None
+            if f_ptr is not None and ((m_repacked and not mesh_fan)
                                       or int(f_ptr[-1]) > pb.pq):
                 # a truncated match pack also truncates the expansion
+                # (one device only: the mesh packs its fan-out from the
+                # dense gathered arrays, apart from the match pack)
                 while pb.pq < int(f_ptr[-1]):
                     pb.pq *= 2
                 if budgets is not None:
                     budgets[1] = max(budgets[1], pb.pq)
-                pb.f_ptr_d, pb.subs_packed_d, pb.src_packed_d, _t = \
-                    expand_packed(pb.st.fan, pb.m_ptr_d, pb.ids_packed_d,
-                                  q=pb.pq)
+                if mesh_fan:
+                    pb.f_ptr_d, pb.subs_packed_d, pb.src_packed_d = \
+                        pack_fanout(pb.subs_dense_d, pb.src_dense_d,
+                                    pq=pb.pq)
+                else:
+                    pb.f_ptr_d, pb.subs_packed_d, pb.src_packed_d, _t = \
+                        expand_packed(pb.st.fan, pb.m_ptr_d,
+                                      pb.ids_packed_d, q=pb.pq)
                 retry = True
             if bm_total is not None and bm_total > pb.rows_packed_d.shape[0]:
                 pr = pb.rows_packed_d.shape[0]
@@ -637,19 +722,35 @@ class Broker:
                     pr *= 2
                 if budgets is not None:
                     budgets[2] = max(budgets[2], pr)
-                self._bitmap_union(pb, cfg, pr)
+                if pb.union_dense_d is not None:
+                    # mesh: the collective union is still on the device
+                    pb.sel_d, pb.rows_packed_d, pb.bm_total_d = \
+                        pack_union_rows(pb.union_dense_d, pb.has_big_d,
+                                        pr=pr)
+                else:
+                    self._bitmap_union(pb, cfg, pr)
                 retry = True
             if retry:
                 continue
             # adaptive capacity: > 1/8 of the unique topics overflowed
             # the match bound → k undersizes the workload; grow it for
-            # the NEXT batch (this one has its exact host re-match)
+            # the NEXT batch (this one has its exact host re-match). On
+            # the mesh the combined ovf includes the fan-out d bound,
+            # which k cannot fix: only the match-only flag boosts k
             n_u = max(1, pb.n_uniq)
+            k_ovf = movf if movf is not None else ovf
             n_fb = int(ovf[:n_u].sum())
             if n_fb:
                 self.router.note_match_fallbacks(n_fb)
-            if n_fb * 8 > n_u:
+            if int(k_ovf[:n_u].sum()) * 8 > n_u:
                 self.router.boost_k()
+            if movf is not None:
+                # fan-ONLY overflow (mesh): d undersizes the live
+                # fan-out — grow d, not k
+                f_ovf = ovf[:n_u] & ~movf[:n_u]
+                if int(f_ovf.sum()) * 8 > n_u:
+                    self.router.boost_d()
+            pb.movf = movf
             pb.m_ptr = m_ptr
             # slice to true occupancy before the per-element list
             # conversion — the budget tail is dead -1 padding
@@ -712,7 +813,7 @@ class Broker:
             return None
         if pb.bovf is not None and n_u and bool(pb.bovf[:n_u].any()):
             return None
-        big_set = pb.st.big_fids if pb.st is not None else frozenset()
+        big_set = pb.st.big_fids if pb.st is not None else pb.sh_big
         big_map: Dict[int, list] = {}
         if pb.sel is not None and big_set:
             id_map = pb.id_map
@@ -1068,7 +1169,7 @@ class Broker:
                         d = self._deliver_one(flt, sub, msg)
                         if d:
                             per_filter[flt] = per_filter.get(flt, 0) + d
-            big_set = pb.st.big_fids if pb.st is not None else frozenset()
+            big_set = pb.st.big_fids if pb.st is not None else pb.sh_big
             if pb.sel is not None and pb.sel[row] >= 0 and big_set:
                 self._deliver_big(row, row_ids, msg, pb, per_filter,
                                   big_set)
@@ -1086,7 +1187,8 @@ class Broker:
         """Deliver a message's bitmap-path (> threshold) fan-out by
         walking the set bits of its OR'd union row; with several
         matched big filters each (filter, member) pair delivers
-        separately."""
+        separately. On the mesh the union rows come from the per-shard
+        OR and the OR over ``trie``, and the big set is ``pb.sh_big``."""
         matched_big = [j for j in row_ids if j in big_set]
         if not matched_big:
             return

@@ -13,7 +13,9 @@ dense integer id and splits a topic's subscriber set once it passes
     :class:`~emqx_tpu_torch.ops.fanout.FanoutTable` for small filters
     and bitmap rows (:class:`~emqx_tpu_torch.ops.bitmap.BitmapTable`)
     for filters past ``threshold`` — rebuilt lazily against the
-    automaton's id-map snapshot and placed on the manager's device.
+    automaton's id-map snapshot and placed on the manager's device;
+    on a mesh, :meth:`FanoutManager.sharded_state` builds the per-shard
+    tables of the collective step instead.
 
 Capacities grow in powers of two and never shrink.
 """
@@ -129,6 +131,29 @@ class FanoutState:
         self.big_fids = big_fids  # snapshot fids on the bitmap path
 
 
+class ShardedFanoutState:
+    """Per-trie-shard fan tables for the mesh publish step: a placed
+    ``ShardedFanout`` (shard t's CSR holds only the filters
+    :func:`~emqx_tpu_torch.parallel.sharded.shard_of` assigns to t — the
+    sharded automaton's assignment, so each trie shard gathers exactly
+    its own matches' subscribers) and a placed ``ShardedBitmaps`` for
+    the big filters (membership past the per-topic ``d`` bound): their
+    subscriber sets live as bitmap rows with THEIR shard and fan out
+    through the per-shard OR and the OR over ``trie``. ``big_fids``
+    names them for the broker's bitmap delivery tail."""
+
+    __slots__ = ("epoch", "version", "fan", "bm", "big_fids", "d")
+
+    def __init__(self, epoch: int, version: int, fan, bm,
+                 big_fids: frozenset, d: int) -> None:
+        self.epoch = epoch
+        self.version = version
+        self.fan = fan
+        self.bm = bm
+        self.big_fids = big_fids
+        self.d = d
+
+
 class FanoutManager:
     """Host truth for local subscriber sets + lazy device tables.
 
@@ -146,9 +171,12 @@ class FanoutManager:
         self._lock = threading.RLock()
         self._version = 0
         self._state: Optional[FanoutState] = None
+        self._sharded: Optional[ShardedFanoutState] = None
         # capacity retention (pow2, never shrinks → stable shapes)
         self._caps: Dict[str, Optional[int]] = {
             "filter": None, "entry": None, "row": None, "nsub": 1}
+        self._sh_caps: Dict[str, Optional[int]] = {
+            "filter": None, "entry": None}
 
     # -- membership (called from Broker.subscribe/unsubscribe) ------------
 
@@ -199,6 +227,7 @@ class FanoutManager:
         truth (registry, rows, version) is untouched."""
         with self._lock:
             self._state = None
+            self._sharded = None
 
     # -- device snapshot ---------------------------------------------------
 
@@ -255,6 +284,72 @@ class FanoutManager:
             self._state = st
             # the previous state (the last table referencing any
             # quarantined sid) is gone; freed ids may recycle now
+            self.registry.flush_free()
+            return st
+
+
+    def sharded_state(self, epoch: int,
+                      id_map: Sequence[Optional[str]],
+                      mesh, d: int) -> Optional[ShardedFanoutState]:
+        """Per-shard fan tables consistent with the automaton snapshot,
+        placed on ``mesh``, for ``publish_step(with_fanout=True)`` (the
+        mesh's :meth:`state`). Filters with more members than
+        ``min(threshold, d)`` get bitmap rows in their shard instead of
+        CSR entries — the ``d``-bounded gather would overflow every
+        batch on them."""
+        from emqx_tpu_torch.parallel.sharded import (build_sharded_bitmaps,
+                                                     build_sharded_fanout,
+                                                     place_sharded, shard_of)
+
+        n_shards = mesh.shape["trie"]
+        with self._lock:
+            st = self._sharded
+            if (st is not None and st.epoch == epoch
+                    and st.version == self._version and st.d == d):
+                return st
+            if not self.rows:
+                self._sharded = None
+                self.registry.flush_free()
+                return None
+            limit = min(self.threshold, d)
+            rows_per_shard: List[Dict[int, List[int]]] = [
+                {} for _ in range(n_shards)]
+            big_per_shard: List[Dict[int, List[int]]] = [
+                {} for _ in range(n_shards)]
+            big_fids = set()
+            for fid, f in enumerate(id_map):
+                if f is None:
+                    continue
+                row = self.rows.get(f)
+                if not row:
+                    continue
+                if len(row) > limit:
+                    big_fids.add(fid)
+                    big_per_shard[shard_of(f, n_shards)][fid] = \
+                        sorted(row)
+                else:
+                    rows_per_shard[shard_of(f, n_shards)][fid] = \
+                        sorted(row)
+            fan = build_sharded_fanout(
+                rows_per_shard, len(id_map),
+                filter_capacity=self._sh_caps["filter"],
+                entry_capacity=self._sh_caps["entry"])
+            self._sh_caps["filter"] = fan.row_ptr.shape[1] - 1
+            self._sh_caps["entry"] = fan.sub_ids.shape[1]
+            bm = None
+            if big_fids:
+                nsub = max(self._caps["nsub"], self.registry.capacity())
+                self._caps["nsub"] = nsub
+                bm = build_sharded_bitmaps(
+                    big_per_shard, len(id_map), nsub,
+                    row_capacity=self._sh_caps.get("row"))
+                self._sh_caps["row"] = bm.bitmaps.shape[1]
+            fan = place_sharded(mesh, fan)
+            if bm is not None:
+                bm = place_sharded(mesh, bm)
+            st = ShardedFanoutState(epoch, self._version, fan, bm,
+                                    frozenset(big_fids), d)
+            self._sharded = st
             self.registry.flush_free()
             return st
 

@@ -182,7 +182,11 @@ def load(router, path: str) -> dict:
             for _ in range(int(refs)):
                 router.add_route(flt, dest=dest)
         ids_match = router._filter_ids == restored_ids
-        tables = bool(meta.get("has_tables") and ids_match and vocab_ok)
+        # a mesh router matches through per-shard tables: a flat
+        # snapshot cannot install there; the route log just replayed
+        # re-flattens the shards on first match
+        tables = bool(meta.get("has_tables") and ids_match and vocab_ok
+                      and router.config.mesh is None)
         if tables and not all(
                 k in tables_data for k in
                 ("wt", "node2", "v2_hop", "v2_depth",

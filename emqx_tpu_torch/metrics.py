@@ -11,6 +11,13 @@ from __future__ import annotations
 
 from typing import Dict
 
+#: the mesh publish step's device accumulators, summed over the mesh
+#: and folded into the host counters by Metrics.fold_device_stats — the
+#: pdict-batched counter idea (src/emqx_pd.erl) across the host link
+DEVICE_METRICS = (
+    "device.matches", "device.deliveries", "device.overflows",
+)
+
 NAMES = (
     # the publish path
     "messages.received",
@@ -66,6 +73,9 @@ NAMES = (
     # PUBLISHes that paid a full serialize on the event loop (not
     # eligible for a pre-serialized frame, or preserialize off)
     "delivery.serialize.onloop",
+    # the mesh step's device counters (Router.drain_device_stats,
+    # folded by the stats flush: one host copy a flush)
+    *DEVICE_METRICS,
     # the publish match cache and its epoch bumps
     # (Router.drain_cache_stats, folded by the node's housekeeping)
     "cache.match.hit", "cache.match.miss",
@@ -161,6 +171,13 @@ class Metrics:
         """Count an outbound message by QoS."""
         self.inc("messages.sent")
         self.inc(_QOS_SENT[min(msg.qos, 2)])
+
+    def fold_device_stats(self, stats: Dict[str, int]) -> None:
+        """Fold a drained device accumulator (matches, deliveries,
+        overflows; ``Router.drain_device_stats``) into the host
+        counters."""
+        for key, val in stats.items():
+            self.inc(f"device.{key}", int(val))
 
     def fold_cache_stats(self, stats: Dict[str, int]) -> None:
         """Fold drained match-cache counter deltas

@@ -341,7 +341,7 @@ class Node:
         quarantine watch; the overload level and breaker state; the
         fired fault points; the durability layer's counters, alarms
         and gauges; the robustness alarms; the span counts; the trace
-        drain; the loop lag. The mesh's device counters, the per-loop
+        drain; the loop lag; the mesh's device counters. The per-loop
         rows and the cluster rows come with their slices."""
         stats.setstat("node.state", self.node_state)
         stats.setstat("connections.count", self.cm.connection_count(),
@@ -359,6 +359,9 @@ class Node:
         stats.setstat("subscribers.count",
                       sum(len(v) for v in self.broker._subscribers.values()),
                       "subscribers.max")
+        dev = self.router.drain_device_stats()
+        if any(dev.values()):
+            self.metrics.fold_device_stats(dev)
         cache = self.router.drain_cache_stats()
         if any(cache.values()):
             self.metrics.fold_cache_stats(cache)

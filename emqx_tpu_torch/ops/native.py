@@ -331,6 +331,126 @@ class NativeEngine:
         return _encode_batch(self._lib, self._wt, topics, max_levels)
 
 
+class ShardedNativeEngine:
+    """The native engine of a MESH router: one shared word table, one
+    C++ trie per trie shard (the same stable ``shard_of`` assignment
+    the Python builder uses), flattened into the stacked
+    :class:`~emqx_tpu_torch.parallel.sharded.ShardedAutomaton` without
+    the Python trie."""
+
+    def __init__(self, n_shards: int) -> None:
+        lib = load_library()
+        self._lib = lib
+        self._wt = lib.wt_new()
+        self.n_shards = n_shards
+        self._tries = [lib.trie_new(self._wt) for _ in range(n_shards)]
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        if lib is not None:
+            for t in getattr(self, "_tries", []):
+                if t:
+                    lib.trie_free(t)
+            if getattr(self, "_wt", None):
+                lib.wt_free(self._wt)
+
+    def _shard(self, filter_: str) -> int:
+        from emqx_tpu_torch.parallel.sharded import shard_of
+
+        return shard_of(filter_, self.n_shards)
+
+    # -- the engine surface (as NativeEngine's) ---------------------------
+
+    def intern(self, word: str) -> int:
+        b = word.encode()
+        return self._lib.wt_intern(self._wt, b, len(b))
+
+    def lookup(self, word: str) -> int:
+        b = word.encode()
+        return self._lib.wt_lookup(self._wt, b, len(b))
+
+    def words(self):
+        return NativeEngine.words(self)
+
+    def vocab_size(self) -> int:
+        return self._lib.wt_size(self._wt)
+
+    def insert(self, filter_: str, filter_id: int) -> bool:
+        b = filter_.encode()
+        return bool(self._lib.trie_insert(
+            self._tries[self._shard(filter_)], b, len(b), filter_id))
+
+    def delete(self, filter_: str) -> bool:
+        b = filter_.encode()
+        return bool(self._lib.trie_delete(
+            self._tries[self._shard(filter_)], b, len(b)))
+
+    def num_filters(self) -> int:
+        return sum(self._lib.trie_num_filters(t) for t in self._tries)
+
+    def match(self, topic: str, cap: int = 4096) -> np.ndarray:
+        """Union of every shard's matches (the host re-match; each
+        shard's buffer grows until complete)."""
+        b = topic.encode()
+        parts = []
+        for t in self._tries:
+            c = cap
+            while True:
+                out = np.empty((c,), dtype=np.int32)
+                n = self._lib.trie_match(t, b, len(b), out, c)
+                if n < c:
+                    parts.append(out[:n])
+                    break
+                c *= 4
+        return np.concatenate(parts) if parts else \
+            np.empty((0,), dtype=np.int32)
+
+    def encode_batch(self, topics: Sequence[str], max_levels: int):
+        return _encode_batch(self._lib, self._wt, topics, max_levels)
+
+    # -- sharded flatten --------------------------------------------------
+
+    def flatten_sharded(self, state_capacity: Optional[int] = None,
+                        n_buckets: Optional[int] = None):
+        """All shards flattened, compressed at COMMON shapes and stacked
+        — the native counterpart of ``parallel.sharded.build_sharded(...,
+        return_parts=True)``: returns ``(ShardedAutomaton, parts)``,
+        ``parts`` being the per-shard host automatons that seed the
+        per-shard patcher mirrors."""
+        from emqx_tpu_torch.ops.csr import Automaton, capacity_for
+        from emqx_tpu_torch.parallel.sharded import (_stack_sharded,
+                                                     finalize_parts)
+
+        counts = []
+        for t in self._tries:
+            s, e = C.c_int64(), C.c_int64()
+            self._lib.trie_counts(t, C.byref(s), C.byref(e))
+            counts.append((s.value, e.value))
+        s_cap = capacity_for(max(s for s, _ in counts))
+        e_cap = capacity_for(max(e for _, e in counts) + 1)
+        autos = []
+        for t, (_, n_e) in zip(self._tries, counts):
+            row_ptr = np.empty((s_cap + 1,), dtype=np.int32)
+            edge_word = np.empty((e_cap,), dtype=np.int32)
+            edge_child = np.empty((e_cap,), dtype=np.int32)
+            plus_child = np.empty((s_cap,), dtype=np.int32)
+            hash_filter = np.empty((s_cap,), dtype=np.int32)
+            end_filter = np.empty((s_cap,), dtype=np.int32)
+            n_states = self._lib.trie_flatten(
+                t, s_cap, e_cap, row_ptr, edge_word, edge_child,
+                plus_child, hash_filter, end_filter)
+            if n_states < 0:
+                raise RuntimeError("flatten capacity underestimated")
+            autos.append(Automaton(
+                row_ptr=row_ptr, edge_word=edge_word,
+                edge_child=edge_child, plus_child=plus_child,
+                hash_filter=hash_filter, end_filter=end_filter,
+                n_states=int(n_states), n_edges=int(n_e)))
+        parts = finalize_parts(autos, state_capacity=state_capacity,
+                               n_buckets=n_buckets)
+        return _stack_sharded(parts), parts
+
+
 def _compress_native(lib, auto, state_capacity: Optional[int] = None):
     """Level-compress ``auto`` with the C++ chain fuser.
 

@@ -81,6 +81,21 @@ def pack_matches(ids: torch.Tensor, *, pm: int):
     return m_ptr, _scatter_drop(pm, pos, valid, flat.to(torch.int32), -1)
 
 
+def pack_fanout(subs: torch.Tensor, src: torch.Tensor, *, pq: int):
+    """Compact the mesh's gathered ``(subs, src)[B, d]`` pair (the same
+    -1 slots in both) into one CSR triple ``(f_ptr[B+1],
+    packed_subs[pq], packed_src[pq])``, with :func:`pack_matches`'
+    overflow contract (``f_ptr[-1]`` past ``pq`` → re-pack)."""
+    flat_subs = subs.reshape(-1)
+    valid = flat_subs >= 0
+    f_ptr = _row_ptr((subs >= 0).sum(dim=1, dtype=torch.int32))
+    pos = torch.cumsum(valid, 0) - 1
+    return (f_ptr,
+            _scatter_drop(pq, pos, valid, flat_subs.to(torch.int32), -1),
+            _scatter_drop(pq, pos, valid,
+                          src.reshape(-1).to(torch.int32), -1))
+
+
 def bundle_i32(*parts: torch.Tensor) -> torch.Tensor:
     """Concatenate the packed outputs into ONE int32 vector, so the
     publish path's fetch is exactly one device→host copy (bools

@@ -19,6 +19,9 @@ O(depth) slots of the *compressed* walk tables
     a new :class:`~emqx_tpu_torch.ops.convert.TorchAutomaton` —
     matchers holding the old one keep running (double buffering);
   - ``delete`` is a tombstone (terminal id cleared, path kept);
+  - on a mesh each trie shard has its own patcher, and
+    :func:`apply_stacked_multi` drains the dirty ones into their
+    shards' placed tables;
   - hop accounting: a split lengthens one walk path, so the mirror
     bumps ``hops_for_level`` (clamped at the uncompressed bound
     ``d+1``); a stale bound makes the walk flag overflow (exact host
@@ -441,3 +444,47 @@ def apply_drained(auto, col, sl, sw: int):
         wt.view(wt.shape[0], -1, sw)[b.to(wt.device), s.to(wt.device)] = \
             rows.to(wt.device)
     return auto._replace(node2=node2, wt=wt)
+
+
+def apply_stacked_multi(patchers, stacked):
+    """Drain every listed ``(shard, patcher)``'s queue into the placed
+    sharded automaton (``parallel.sharded.place_sharded``): shard t's
+    tables on each of its devices get the drain as one scatter into a
+    clone (:func:`apply_drained`), and a clean shard keeps its tensors.
+    Returns a new ``ShardedAutomaton``; matchers holding the old one
+    keep running."""
+    from emqx_tpu_torch.parallel.sharded import Placed
+
+    drains = {}
+    for t, p in patchers:
+        assert not p.broken, \
+            "partial mutations must not reach the device (re-flatten)"
+        drains[t] = (*p._drain_deduped(), p.sw)
+    if not drains:
+        return stacked
+    wt, node2 = {}, {}
+    for key, x in stacked.wt.parts.items():
+        y = stacked.node2.parts[key]
+        if key[0] in drains:
+            col, sl, sw = drains[key[0]]
+            cell = apply_drained(_Tables(x, y), col, sl, sw)
+            x, y = cell.wt, cell.node2
+        wt[key], node2[key] = x, y
+    old = stacked.wt
+    return stacked._replace(
+        wt=Placed(old.mesh, "trie", wt, old.shape),
+        node2=Placed(old.mesh, "trie", node2, stacked.node2.shape))
+
+
+class _Tables:
+    """The two tensors a drain writes, in the shape
+    :func:`apply_drained` takes."""
+
+    __slots__ = ("wt", "node2")
+
+    def __init__(self, wt, node2) -> None:
+        self.wt = wt
+        self.node2 = node2
+
+    def _replace(self, wt, node2):
+        return _Tables(wt, node2)

@@ -30,6 +30,14 @@ re-flattens the table on the caller's thread:
     its partition's revision (a literal first level) or the global
     one, so stale rows are never served.
 
+  - **mesh** (``mesh=make_mesh(n_data, n_trie)``; :mod:`.parallel`):
+    the filter set splits over the mesh's trie shards by a stable hash,
+    each shard flattened into its own tables with its own patcher, and
+    a publish batch runs the collective step
+    (:func:`~emqx_tpu_torch.parallel.sharded.publish_step`: kernel B1
+    once per (data, trie) cell). The delta is off there, as in the JAX
+    package: route churn patches its shard in place.
+
 Matchers read one published snapshot reference and take no router
 lock on the fast path. Topics the walk cannot finish (more than
 ``max_levels`` levels, an active set past k, lanes left after the last
@@ -43,6 +51,7 @@ import logging
 import threading
 import time
 import zlib
+from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -116,6 +125,14 @@ class MatcherConfig:
     # library, built with g++ at first use). A failed build raises:
     # there is no silent fall back to the Python engine
     use_native: bool = True
+    # a (data × trie) Mesh (parallel/mesh.py) shards the filter set over
+    # the 'trie' axis and the publish batch over 'data'; matching goes
+    # through parallel.sharded.publish_step. BASELINE config 5's path
+    mesh: Optional[object] = None
+    # per-message small-filter delivery slots of the mesh's gather: a
+    # message past it host-dispatches, and filters with more members
+    # than min(fanout_threshold, d) ride the bitmap path
+    fanout_d: int = 128
 
 
 def topic_partition(topic: str, parts: int) -> int:
@@ -183,7 +200,14 @@ class Router:
                  node: str = "local", device=None) -> None:
         self.config = config or MatcherConfig()
         self.node = node
-        self.device = resolve(device)
+        mesh = self.config.mesh
+        # on a mesh the router's own tensors (outputs, caches) live on
+        # the mesh's home device
+        self.device = resolve(device if device is not None or mesh is None
+                              else mesh.home)
+        if mesh is not None and self.device.type != mesh.home.type:
+            raise ValueError(f"router device {self.device} is not of the "
+                             f"mesh's kind ({mesh.home})")
         self._lock = threading.RLock()
         # word-table guard, finer than _lock: matchers take ONLY this
         # lock (around encode), so a long flatten under _lock never
@@ -191,9 +215,13 @@ class Router:
         self._wt_lock = threading.RLock()
         self._native = None
         if self.config.use_native:
-            from emqx_tpu_torch.ops.native import NativeEngine
+            # one trie a trie shard on a mesh (the same stable shard_of
+            # assignment as the Python builder)
+            from emqx_tpu_torch.ops.native import (NativeEngine,
+                                                   ShardedNativeEngine)
 
-            self._native = NativeEngine()
+            self._native = (NativeEngine() if mesh is None else
+                            ShardedNativeEngine(mesh.shape["trie"]))
         self._trie = TrieOracle() if self._native is None else None
         self._table = WordTable() if self._native is None else None
         # the engine's word-intern callable: the patcher and the delta
@@ -226,8 +254,12 @@ class Router:
         # (the mesh's pre-placed batches check it, item 13)
         self._mut_rev = 0
         # patch in place: host mirror of the live tables; None until
-        # the first flatten and in delta mode
+        # the first flatten and in delta mode. A mesh keeps ONE PATCHER
+        # PER TRIE SHARD (a mutation patches exactly its shard's tables)
         self._patcher: Optional[AutoPatcher] = None
+        self._shard_patchers: List[AutoPatcher] = []
+        self._sharded_caps = {"state": None, "nb": None}
+        self._dummy_fan = None    # publish_step's fan when only matching
         self._grow = {"state": 1, "edge": 1}  # rebuild growth factors
         # static walk parameters of the LIVE tables (host values):
         # slot layout, max take, step bounds, and whether any '+'
@@ -251,8 +283,13 @@ class Router:
         self._compact_failures = 0
         self._compact_backoff_until = 0.0
         self.on_bg_error = None
-        # learned active-set boost (overflow storms double k, ≤ 64)
+        # learned active-set boost (overflow storms double k, ≤ 64);
+        # _d_boost is the same for the mesh gather's delivery slots
         self._k_boost = 0
+        self._d_boost = 0
+        # the mesh step's device counters (int32 scalars, drained by the
+        # stats flush: the host copy waits until then)
+        self._dev_stats: deque = deque(maxlen=65536)
         # match cache: _cache_rev is the GLOBAL epoch guard; _part_revs
         # scope literal-rooted filter mutations to one partition. Both
         # are bumped under _lock and read by probes BEFORE the
@@ -273,6 +310,8 @@ class Router:
         self._bump_partition = 0
         self._bump_drained = (0, 0)
         self._match_cache_obj = None
+        self._sharded_cache_obj = None
+        self._sharded_cache_meta = None  # (T, m, d) the table is sized for
         # delta automaton: None = empty. _pub2 is the published
         # (main snapshot, delta snapshot, delta version, k_boost) pair
         # matchers read in ONE reference; _freeze is the trie defer
@@ -297,6 +336,14 @@ class Router:
         self._last_dispatch: Optional[dict] = None
 
     # -- trie and delta plumbing ------------------------------------------
+
+    @property
+    def _delta_active(self) -> bool:
+        """Delta mode in effect: configured on and not on a mesh (the
+        collective step has no two-probe seam; a mesh patches its
+        shards in place). Read per call, so :meth:`set_delta` can flip
+        it at runtime."""
+        return self.config.delta and self.config.mesh is None
 
     def _ensure_delta(self):
         if self._delta is None:
@@ -458,7 +505,7 @@ class Router:
                 dests = {}
                 self._routes[filter_] = dests
                 self._t_insert_route(filter_, fid)
-                if self.config.delta and self._auto is not None \
+                if self._delta_active and self._auto is not None \
                         and not self._dirty:
                     # the main tables stay unchanged: the add lands in
                     # the side automaton walked beside them
@@ -498,6 +545,25 @@ class Router:
                 and self._needs_compaction_locked():
             self._schedule_compaction()
 
+    def _patcher_for(self, filter_: str) -> Optional[AutoPatcher]:
+        """The patcher owning ``filter_`` (its shard's on a mesh, the
+        single mirror otherwise); None = no live patcher."""
+        if self.config.mesh is not None:
+            if not self._shard_patchers:
+                return None
+            from emqx_tpu_torch.parallel.sharded import shard_of
+
+            return self._shard_patchers[
+                shard_of(filter_, len(self._shard_patchers))]
+        return self._patcher
+
+    def _shard_live_estimate(self) -> int:
+        """Per-shard live-filter estimate (a shard's compaction
+        threshold compares its tombstones against ITS share of the
+        filter set, not the global count)."""
+        n = len(self._shard_patchers)
+        return len(self._filter_ids) // n if n else len(self._filter_ids)
+
     def _patch_insert(self, filter_: str, fid: int) -> None:
         """O(depth) patch of the live automaton; falls back to a full
         rebuild flag on capacity overflow (under the lock)."""
@@ -505,7 +571,7 @@ class Router:
         # reach any matcher
         if not self._walk_meta["has_plus"] and T.PLUS in T.words(filter_):
             self._walk_meta["has_plus"] = True
-        p = None if self._dirty else self._patcher
+        p = None if self._dirty else self._patcher_for(filter_)
         if p is None:
             self._dirty = True
             return
@@ -522,7 +588,7 @@ class Router:
             self._dirty = True
 
     def _patch_delete(self, filter_: str, fid: int) -> None:
-        p = None if self._dirty else self._patcher
+        p = None if self._dirty else self._patcher_for(filter_)
         if p is None:
             self._dirty = True
             return
@@ -531,7 +597,10 @@ class Router:
         self._map_set(fid, None)
         self._patches += 1
         self._drain_if_backlogged()
-        if p.needs_compaction(len(self._filter_ids)):
+        live = (self._shard_live_estimate()
+                if self.config.mesh is not None
+                else len(self._filter_ids))
+        if p.needs_compaction(live):
             # tombstones dominate; the tombstoned automaton is still
             # correct, so compaction runs on a background thread
             self._schedule_compaction()
@@ -541,9 +610,14 @@ class Router:
         drain batch — on the MUTATOR's thread, under the lock it
         already holds, so the published snapshot stays hot for
         lock-free matchers."""
-        if self._dirty or self._auto is None or self._patcher is None:
+        if self._dirty or self._auto is None:
             return
-        if self._patcher.queued >= self.config.patch_drain_batch:
+        q = 0
+        if self._patcher is not None:
+            q = self._patcher.queued
+        elif self._shard_patchers:
+            q = max(p.queued for p in self._shard_patchers)
+        if q >= self.config.patch_drain_batch:
             self._apply_patches_locked()
 
     def _map_set(self, fid: int, filter_: Optional[str]) -> None:
@@ -575,7 +649,7 @@ class Router:
         fid = self._filter_ids.pop(filter_)
         self._id_to_filter[fid] = None
         self._retire_id(fid)
-        if self.config.delta and self._auto is not None \
+        if self._delta_active and self._auto is not None \
                 and not self._dirty:
             self._delta_delete_locked(filter_, fid)
         else:
@@ -677,6 +751,8 @@ class Router:
                            (time.perf_counter() - t0) * 1000.0)
 
     def _rebuild_flatten_locked(self):
+        if self.config.mesh is not None:
+            return self._rebuild_sharded_locked()
         cap_s2, nb = self._flatten_caps()
         if self._native is not None:
             host_auto = self._native.flatten(v2_state_capacity=cap_s2,
@@ -687,7 +763,7 @@ class Router:
                 v2_state_capacity=cap_s2, v2_n_buckets=nb)
         self._install_walk_meta(host_auto)
         auto = convert.automaton(host_auto, self.device)
-        if self.config.delta:
+        if self._delta_active:
             # delta mode keeps no main-table mirror; the trie had
             # every mutation applied, so this flatten folds the delta
             self._patcher = None
@@ -709,23 +785,76 @@ class Router:
         self._publish_pair_locked()
         return auto
 
-    def _install_walk_meta(self, host_auto) -> None:
+    def _rebuild_sharded_locked(self):
+        """Flatten the filter set into per-shard automatons stacked over
+        the mesh's trie axis (parallel/sharded.py), place them, and seed
+        one :class:`AutoPatcher` per shard, so route churn patches only
+        the affected shard's tables (the shard assignment is a stable
+        filter hash: a mutation never reshuffles other shards)."""
+        from emqx_tpu_torch.parallel.sharded import (
+            ShardedFanout, build_sharded, place_sharded, shard_filters)
+
+        mesh = self.config.mesh
+        n_trie = mesh.shape["trie"]
+        caps = self._sharded_caps
+        grow_s = caps["state"] * self._grow["state"] \
+            if caps["state"] else None
+        grow_nb = caps["nb"] * self._grow["edge"] if caps["nb"] else None
+        if self._native is not None:
+            host_auto, parts = self._native.flatten_sharded(
+                state_capacity=grow_s, n_buckets=grow_nb)
+        else:
+            shards = shard_filters(sorted(self._routes), n_trie)
+            host_auto, parts = build_sharded(
+                shards, self._filter_ids, self._table,
+                state_capacity=grow_s, n_buckets=grow_nb,
+                return_parts=True)
+        caps["state"] = parts[0].node2.shape[0]
+        caps["nb"] = parts[0].wt.shape[0]
+        self._install_walk_meta(parts[0], parts=parts)
+        auto = place_sharded(mesh, host_auto)
+        self._shard_patchers = [AutoPatcher(p, self._intern) for p in parts]
+        if self._dummy_fan is None:
+            # publish_step's fan input when the caller only matches
+            # (with_fanout=False): minimal, never read
+            self._dummy_fan = place_sharded(mesh, ShardedFanout(
+                row_ptr=np.zeros((n_trie, 2), np.int32),
+                sub_ids=np.full((n_trie, 1), -1, np.int32),
+                row_pairs=np.zeros((n_trie, 1, 2), np.int32)))
+        self._auto = auto
+        self._auto_map = list(self._id_to_filter)
+        self._free_ids.extend(self._pending_free)
+        self._pending_free.clear()
+        self._patcher = None
+        self._dirty = False
+        self._grow = {"state": 1, "edge": 1}
+        self._rebuilds += 1
+        self._bump_cache_rev()  # fresh id map: quarantined ids recycle
+        self._published = (auto, self._auto_map, self._rebuilds,
+                           self._cache_rev)
+        self._publish_pair_locked()
+        return auto
+
+    def _install_walk_meta(self, host_auto, parts=None) -> None:
         """Record the live tables' static walk parameters and their
-        level-compression facts (under the lock)."""
+        level-compression facts (under the lock). ``parts`` = the
+        per-shard host automatons on a mesh."""
+        pool = parts if parts is not None else [host_auto]
         self._walk_meta = {
             "slots": int(host_auto.wt_slots),
             "take": int(host_auto.wt_take),
             "hops": np.array(host_auto.hops_for_level),
-            "has_plus": bool(
-                (np.asarray(host_auto.node2)[
-                    :max(host_auto.v2_states, 1), 0] >= 0).any()),
+            "has_plus": any(
+                bool((np.asarray(p.node2)[:max(p.v2_states, 1), 0] >= 0)
+                     .any()) for p in pool),
         }
         chains = fused = 0
         if int(host_auto.wt_take) > 1:
-            wt = np.asarray(host_auto.wt).reshape(-1, WIDE_SLOT)
-            takes = wt[wt[:, 0] >= 0, 2]
-            chains = int((takes > 1).sum())
-            fused = int((takes - 1).sum())
+            for p in pool:
+                wt = np.asarray(p.wt).reshape(-1, WIDE_SLOT)
+                takes = wt[wt[:, 0] >= 0, 2]
+                chains += int((takes > 1).sum())
+                fused += int((takes - 1).sum())
         hops = self._walk_meta["hops"]
         levels = len(hops)
         deepest = int(hops[-1]) if levels else 0
@@ -740,7 +869,12 @@ class Router:
     def _steps_for(self, lb: int) -> int:
         """Scan-step bound for a batch sliced to ``lb`` levels — read
         from the live patcher (it grows the bound when a patch deepens
-        a walk path) or the rebuild-time snapshot."""
+        a walk path) or the rebuild-time snapshot; on a mesh, the
+        deepest shard's."""
+        if self._shard_patchers:
+            return max(
+                int(p.hops_for_level[min(lb, len(p.hops_for_level) - 1)])
+                for p in self._shard_patchers)
         p = self._patcher
         hl = (p.hops_for_level if p is not None
               else self._walk_meta["hops"])
@@ -762,22 +896,37 @@ class Router:
                 "take": m["take"]}
 
     def _patchers_dirty(self) -> bool:
-        """Does the live patcher hold queued device updates?"""
-        return self._patcher is not None and self._patcher.dirty
+        """Does a live patcher hold queued device updates?"""
+        if self._patcher is not None and self._patcher.dirty:
+            return True
+        return any(p.dirty for p in self._shard_patchers)
 
     def _needs_compaction_locked(self) -> bool:
-        if self.config.delta and self._delta is not None \
+        if self._delta_active and self._delta is not None \
                 and self._auto is not None:
             return self._delta.needs_compaction(
                 self.config.delta_max_filters, len(self._filter_ids))
         if self._patcher is not None:
             return self._patcher.needs_compaction(len(self._filter_ids))
+        if self._shard_patchers:
+            per = self._shard_live_estimate()
+            return any(p.needs_compaction(per)
+                       for p in self._shard_patchers)
         return False
 
     def _apply_patches_locked(self) -> None:
-        """Drain the patcher's queue into a fresh device automaton and
-        publish it (under the lock)."""
-        self._auto = self._patcher.apply_updates(self._auto)
+        """Drain every dirty patcher's queue into a fresh device
+        automaton and publish it (under the lock). On a mesh each dirty
+        shard scatters into its own placed tables."""
+        if self._patcher is not None:
+            self._auto = self._patcher.apply_updates(self._auto)
+        else:
+            from emqx_tpu_torch.ops.patch import apply_stacked_multi
+
+            dirty = [(t, p) for t, p in enumerate(self._shard_patchers)
+                     if p.dirty]
+            if dirty:
+                self._auto = apply_stacked_multi(dirty, self._auto)
         self._published = (self._auto, self._auto_map,
                            self._rebuilds, self._cache_rev)
 
@@ -791,7 +940,7 @@ class Router:
             # flatten, only memory and latency headroom do)
             return
         self._compacting = True
-        offlock = self.config.delta
+        offlock = self._delta_active
 
         def _bg():
             try:
@@ -883,7 +1032,7 @@ class Router:
         with self._lock:
             t0 = time.perf_counter()
             if self._dirty or self._auto is None \
-                    or not self.config.delta \
+                    or not self._delta_active \
                     or not self._needs_compaction_locked():
                 return
             self._freeze = {"log": [], "adds": TrieOracle(),
@@ -975,7 +1124,7 @@ class Router:
         k_boost) tuple matchers read in one reference (under the lock,
         after a main swap or, lazily from the match path, after delta
         mutations)."""
-        if not self.config.delta:
+        if not self._delta_active:
             self._pub2 = None
             return
         main = self._published
@@ -1030,6 +1179,10 @@ class Router:
             # dead buffers — host trie until the rebuild publishes
             # fresh tables (devloss.py)
             return False
+        if cfg.mesh is not None:
+            # a configured mesh is an explicit opt-in to sharded device
+            # matching: no threshold
+            return True
         return len(self._filter_ids) >= cfg.device_min_filters
 
     def reclaim_host_regime(self) -> None:
@@ -1058,6 +1211,7 @@ class Router:
             self._auto = None
             self._published = None
             self._patcher = None
+            self._shard_patchers = []
             # the delta's pending adds and deletes are all in the trie
             # (mutations apply immediately outside a freeze), so the
             # next flatten re-derives them
@@ -1105,6 +1259,9 @@ class Router:
         self._published = None
         self._pub2 = None
         self._match_cache_obj = None
+        self._sharded_cache_obj = None
+        self._sharded_cache_meta = None
+        self._dummy_fan = None
         if self._delta is not None:
             self._delta.invalidate_device()
         self._bump_cache_rev()
@@ -1146,7 +1303,7 @@ class Router:
             if faults.enabled:
                 faults.fire("device.lost")
             with self._lock:
-                offlock = (self.config.delta and self._auto is not None
+                offlock = (self._delta_active and self._auto is not None
                            and not self._dirty)
             if offlock:
                 self._rebuild_devloss_offlock()
@@ -1260,11 +1417,13 @@ class Router:
         :func:`~emqx_tpu_torch.ops.walk_cuda.match_batch_auto` —
         kernel B1 on CUDA."""
         cfg = self.config
+        if cfg.mesh is not None:
+            return self._match_dispatch_sharded(topics)
         cache = self._match_cache()
         if cache is not None:
             return self._match_dispatch_cached(topics, cache)
         dsnap = None
-        if self.config.delta:
+        if self._delta_active:
             main, dsnap = self._snapshot_pair()
             auto, id_map, epoch = main[:3]
         else:
@@ -1314,7 +1473,7 @@ class Router:
         part_snap = (tuple(self._part_revs)
                      if cfg.cache_partitions > 1 else None)
         dsnap = None
-        if self.config.delta:
+        if self._delta_active:
             main, dsnap = self._snapshot_pair()
             auto, id_map, epoch, rev = main
         else:
@@ -1352,7 +1511,8 @@ class Router:
                     dsnap, *args, miss_rows, miss_ovf, m=cfg.max_matches)
             cache.insert(probe, miss_rows, miss_ovf)
         t2 = time.perf_counter() if timed else 0.0
-        ids_dev, ovf_dev = cache.merge(bucket, probe, miss_rows, miss_ovf)
+        ids_dev, ovf_dev, _movf = cache.merge(bucket, probe, miss_rows,
+                                              miss_ovf)
         if timed:
             # probe (host hash walk) + merge (row-gather dispatch) =
             # the cache_gather share of this dispatch; the rest
@@ -1371,9 +1531,11 @@ class Router:
         ``bump.partition``) — folded into Metrics under the
         ``cache.match.`` prefix."""
         out: Dict[str, int] = {}
-        c = self._match_cache_obj
-        if c is not None:
-            out.update(c.drain_stats())
+        for c in (self._match_cache_obj, self._sharded_cache_obj):
+            if c is None:
+                continue
+            for k2, v in c.drain_stats().items():
+                out[k2] = out.get(k2, 0) + v
         cfg = self.config
         if cfg.match_cache and cfg.match_cache_slots > 0:
             g, p = self._bump_global, self._bump_partition
@@ -1388,9 +1550,10 @@ class Router:
                 "partition": self._bump_partition}
 
     def cache_entries(self) -> int:
-        """Live entries in the publish match cache (gauge)."""
-        c = self._match_cache_obj
-        return c.entries() if c is not None else 0
+        """Live entries across the publish match caches (gauge)."""
+        return sum(c.entries() for c in
+                   (self._match_cache_obj, self._sharded_cache_obj)
+                   if c is not None)
 
     def cache_partitions_live(self) -> int:
         """Partition epoch keys in effect: 0 = cache disabled, 1 =
@@ -1417,6 +1580,23 @@ class Router:
             self._k_boost = min(k * 2, cap)
             return True
 
+    def effective_d(self) -> int:
+        """Configured per-topic fan-out slots of the mesh gather plus
+        any learned boost (learned like k, from fan-only overflow)."""
+        return max(self.config.fanout_d, self._d_boost)
+
+    def boost_d(self, cap: int = 1024) -> bool:
+        """Double the mesh gather's per-topic delivery slots (≤ ``cap``)
+        when a batch's FAN-ONLY overflow rate shows ``d`` undersizes
+        the live fan-out (exact host fallback in the meantime, as with
+        :meth:`boost_k`)."""
+        with self._lock:
+            d = self.effective_d()
+            if d >= cap:
+                return False
+            self._d_boost = min(d * 2, cap)
+            return True
+
     def note_match_fallbacks(self, n: int) -> None:
         """The publish path re-matched ``n`` topics on the host. In
         the stale-hop regime (a patch split deepened walk paths past
@@ -1426,11 +1606,11 @@ class Router:
         if n <= 0:
             return
         with self._lock:
-            p = self._patcher
-            if p is None:
-                return
-            p.note_hop_fallbacks(n)
-            if not self._dirty and not self._compacting \
+            pool = ([self._patcher] if self._patcher is not None
+                    else self._shard_patchers)
+            for p in pool:
+                p.note_hop_fallbacks(n)
+            if pool and not self._dirty and not self._compacting \
                     and self._needs_compaction_locked():
                 self._schedule_compaction()
 
@@ -1486,7 +1666,7 @@ class Router:
         """Live delta-automaton state (cumulative counters)."""
         d = self._delta
         return {
-            "active": self.config.delta,
+            "active": self._delta_active,
             "pending": d.n_pending if d is not None else 0,
             "tombstones": d.n_tombstones if d is not None else 0,
             "probes": self._delta_probes,
@@ -1506,9 +1686,224 @@ class Router:
         exceeded a kernel bound — resolve them via :meth:`host_match`."""
         B = len(topics)
         ids_dev, ovf_dev, id_map, epoch = self.match_dispatch(topics)
+        # on a mesh: the collective step's [B_pad, T·m] ids
         ids_np = ids_dev[:B].cpu().numpy()
         ovf_np = ovf_dev[:B].cpu().numpy()
         return ids_dev, ids_np, ovf_np, id_map, epoch
+
+    # -- the mesh (parallel/sharded.py) ----------------------------------
+
+    def _match_dispatch_sharded(self, topics: Sequence[str]):
+        """Mesh match dispatch: the batch splits over the mesh's
+        ``data`` axis, each trie shard matches its slice, and the match
+        ids concatenate over ``trie``; no device→host sync (the
+        :meth:`match_dispatch` contract, ids ``[B_pad, T·m]``)."""
+        all_ids, _subs, _src, ovf, _movf, id_map, epoch = \
+            self._dispatch_sharded(topics, fan=None)
+        return all_ids, ovf, id_map, epoch
+
+    def publish_dispatch_sharded(self, topics: Sequence[str],
+                                 fan_provider, placed=None):
+        """The mesh publish dispatch: match AND fan-out in one
+        collective step (``parallel.sharded.publish_step`` with the
+        per-shard fan tables).
+
+        ``fan_provider(epoch, id_map) -> ShardedFanoutState | None``
+        supplies fan tables (CSR + big-filter bitmaps) consistent with
+        the automaton snapshot (the broker's FanoutManager). ``placed``
+        (from :meth:`encode_place_sharded`) skips the host encode and
+        the copy to the devices. Returns ``(ids [B_pad, T·m],
+        subs [B_pad, T·d], src [B_pad, T·d], bm [(union, has_big, bovf)
+        | None], ovf [B_pad], movf [B_pad], id_map, epoch, big_fids)``
+        — ``movf`` is the match-only overflow (the ``boost_k`` signal;
+        a fan-out overflow must not grow k); no device→host sync.
+
+        With the match cache on (and no big-filter bitmaps live),
+        repeat topics skip the collective step: their cached (ids,
+        subs, src) rows gather from the device and only the misses
+        walk. A pre-``placed`` batch bypasses the cache."""
+        if placed is None and topics is not None:
+            out = self._sharded_dispatch_cached(topics, fan_provider)
+            if out is not None:
+                return out
+        return self._dispatch_sharded(topics, fan=fan_provider,
+                                      with_big=True, placed=placed)
+
+    def _sharded_cache_for(self, n_trie: int, d: int):
+        """The mesh publish cache, sized for the CURRENT (T, m, d) row
+        widths — a ``boost_d`` regrows it (its entries were keyed to
+        the old d anyway)."""
+        from emqx_tpu_torch.ops.match_cache import MatchCache
+
+        cfg = self.config
+        meta = (n_trie, cfg.max_matches, d)
+        if self._sharded_cache_obj is None \
+                or self._sharded_cache_meta != meta:
+            width = n_trie * cfg.max_matches + 2 * n_trie * d
+            self._sharded_cache_obj = MatchCache(
+                cfg.match_cache_slots, width, self.device)
+            self._sharded_cache_meta = meta
+        return self._sharded_cache_obj
+
+    def _sharded_dispatch_cached(self, topics: Sequence[str],
+                                 fan_provider):
+        """Cache-split mesh publish dispatch, or None when the cache
+        does not apply (disabled, no fan state, or big-filter bitmaps
+        live: a union row is ``W`` words, past any per-entry budget).
+
+        One entry is a topic's concatenated (match ids [T·m], gathered
+        subs [T·d], src [T·d]) rows — everything the collective step
+        produces for it but the per-step counters (``device.*`` counts
+        WALKED topics only; the hit counters carry the rest)."""
+        cfg = self.config
+        if not cfg.match_cache or cfg.match_cache_slots <= 0:
+            return None
+        boosts = (self._k_boost, self._d_boost)
+        # partition revisions read BEFORE the automaton snapshot (the
+        # single-device path's stale-not-fresh ordering)
+        part_snap = (tuple(self._part_revs)
+                     if cfg.cache_partitions > 1 else None)
+        auto, id_map, epoch, rev = self.snapshot_cached()
+        st = fan_provider(epoch, id_map)
+        if st is None or st.fan is None or st.bm is not None \
+                or st.big_fids:
+            return None
+        d = self.effective_d()
+        n_trie = cfg.mesh.shape["trie"]
+        cache = self._sharded_cache_for(n_trie, d)
+        key = (epoch, rev, boosts, st.version)
+        keys = None
+        if part_snap is not None:
+            mask = cfg.cache_partitions - 1
+            keys = [key + (part_snap[zlib.crc32(
+                t.partition("/")[0].encode()) & mask],)
+                for t in topics]
+        bucket = self._mesh_bucket(len(topics))
+        tel = self.telemetry
+        timed = tel is not None and tel.enabled
+        t0 = time.perf_counter() if timed else 0.0
+        probe = cache.probe(topics, key, keys)
+        t1 = time.perf_counter() if timed else 0.0
+        miss_rows = miss_ovf = miss_movf = None
+        if probe.miss_topics:
+            (m_ids, m_subs, m_src, m_bm, m_ovf, m_movf, m_map,
+             m_epoch, m_big) = self._dispatch_sharded(
+                probe.miss_topics, fan=lambda e, im: st, with_big=True)
+            if m_bm is not None or m_big or m_subs is None \
+                    or m_epoch != epoch:
+                # the snapshot moved (or big filters appeared) while
+                # we split: abandon the cached path for this batch —
+                # the pending miss slots stay keyless (a permanent
+                # miss), and the caller runs the uncached dispatch
+                return None
+            miss_rows = torch.cat([m_ids, m_subs, m_src], dim=1)
+            miss_ovf, miss_movf = m_ovf, m_movf
+            cache.insert(probe, miss_rows, miss_ovf, miss_movf)
+        t2 = time.perf_counter() if timed else 0.0
+        merged, ovf, movf = cache.merge(bucket, probe, miss_rows,
+                                        miss_ovf, miss_movf)
+        mw = n_trie * cfg.max_matches
+        dw = n_trie * d
+        ids = merged[:, :mw]
+        subs = merged[:, mw:mw + dw]
+        src = merged[:, mw + dw:]
+        if timed:
+            self._last_dispatch = {
+                "hit": len(probe.hit_pos),
+                "miss": len(probe.miss_topics),
+                "cache_gather_ms": ((t1 - t0) + (
+                    time.perf_counter() - t2)) * 1000.0,
+            }
+        return (ids, subs, src, None, ovf, movf, id_map, epoch,
+                frozenset())
+
+    def _mesh_bucket(self, n: int) -> int:
+        """A power-of-two batch bucket that splits evenly over the
+        mesh's data axis."""
+        bucket = self.config.min_batch * self.config.mesh.shape["data"]
+        while bucket < n:
+            bucket *= 2
+        return bucket
+
+    def encode_place_sharded(self, topics: Sequence[str]):
+        """Host half of the mesh dispatch: encode a topic batch (padded
+        to a bucket that splits evenly over the data axis, sliced to
+        its depth) and place it on the mesh. Returns ``(ids, n, sysm,
+        rev)``, ``rev`` being the route-table mutation revision the
+        batch was encoded at — :meth:`publish_dispatch_sharded`
+        re-encodes when routes changed in between (a filter added after
+        the encode may intern words the stale encoding mapped to the
+        unknown sentinel: its matches would silently miss)."""
+        from emqx_tpu_torch.parallel.sharded import place_batch
+
+        cfg = self.config
+        # read BEFORE encoding: a mutation racing the encode makes the
+        # batch look stale (re-encoded at dispatch) — never the reverse
+        rev = self._mut_rev
+        B = len(topics)
+        padded = list(topics) + ["\x00/pad"] * (self._mesh_bucket(B) - B)
+        with self._wt_lock:
+            if self._native is not None:
+                ids, n, sysm = self._native.encode_batch(padded,
+                                                         cfg.max_levels)
+            else:
+                ids, n, sysm = encode_batch(self._table, padded,
+                                            cfg.max_levels)
+        ids, n = depth_bucket(ids, n)
+        return (*place_batch(cfg.mesh, ids, n, sysm), rev)
+
+    def _dispatch_sharded(self, topics: Sequence[str], fan=None,
+                          with_big: bool = False, placed=None):
+        from emqx_tpu_torch.parallel.sharded import publish_step
+
+        cfg = self.config
+        auto, id_map, epoch = self.automaton()
+        big_fids = frozenset()
+        fan_tables = None
+        bmt = None
+        if fan is not None:
+            st = fan(epoch, id_map)
+            if st is not None:
+                fan_tables = st.fan
+                bmt = st.bm
+                big_fids = st.big_fids
+        if placed is not None:
+            ids, n, sysm, rev = placed
+            if rev != self._mut_rev:
+                # routes changed since the batch was encoded: re-encode
+                # from the original topics (correct; it costs the copy
+                # the caller tried to hide)
+                if topics is None:
+                    raise ValueError(
+                        "stale placed batch (routes changed since "
+                        "encode) and no topics to re-encode from")
+                ids, n, sysm, _ = self.encode_place_sharded(topics)
+        else:
+            ids, n, sysm, _ = self.encode_place_sharded(topics)
+        use_fan = fan_tables is not None
+        all_ids, subs, src, bm, ovf, movf, stats = publish_step(
+            cfg.mesh, auto, fan_tables if use_fan else self._dummy_fan,
+            ids, n, sysm, bmt, k=self.effective_k(), m=cfg.max_matches,
+            d=self.effective_d() if use_fan else 8,
+            mb=cfg.fanout_mb, with_fanout=use_fan,
+            **self._walk_kw(int(ids.shape[-1])))
+        self._dev_stats.append(stats)
+        if with_big:
+            return (all_ids, subs if use_fan else None,
+                    src if use_fan else None, bm, ovf, movf, id_map,
+                    epoch, big_fids)
+        return all_ids, subs, src, ovf, movf, id_map, epoch
+
+    def drain_device_stats(self) -> Dict[str, int]:
+        """Sum and clear the mesh steps' device counters (one host copy
+        per pending step — the periodic stats flush calls it, not the
+        publish path)."""
+        out = {"matches": 0, "deliveries": 0, "overflows": 0}
+        while self._dev_stats:
+            st = self._dev_stats.popleft()
+            for k in out:
+                out[k] += int(st[k])
+        return out
 
     def match_filters(self, topics: Sequence[str]) -> List[List[str]]:
         """Batch: matched filter list per topic (device + exact host

@@ -192,8 +192,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
                     else rel)
     # the front door's, the router's, the host engine's, overload
-    # protection's, the durability layer's and observability's modules
-    # are among those imported
+    # protection's, the durability layer's, observability's and the
+    # mesh's modules are among those imported
     assert {"emqx_tpu_torch.faults", "emqx_tpu_torch.alarm",
             "emqx_tpu_torch.overload", "emqx_tpu_torch.devloss",
             "emqx_tpu_torch.ops.warmup", "emqx_tpu_torch.mqtt", "emqx_tpu_torch.mqtt.constants",
@@ -215,7 +215,10 @@ def test_port_never_imports_jax_or_the_jax_package():
             "emqx_tpu_torch.tracer", "emqx_tpu_torch.telemetry",
             "emqx_tpu_torch.profiling", "emqx_tpu_torch.tracing",
             "emqx_tpu_torch.sys_topics", "emqx_tpu_torch.monitors",
-            "emqx_tpu_torch.modules.prometheus", "chip_smoke"} <= set(mods)
+            "emqx_tpu_torch.modules.prometheus",
+            "emqx_tpu_torch.parallel", "emqx_tpu_torch.parallel.mesh",
+            "emqx_tpu_torch.parallel.sharded",
+            "emqx_tpu_torch.parallel.distributed", "chip_smoke"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'emqx_tpu'):\n"
             "    sys.modules[m] = None\n"

@@ -559,3 +559,100 @@ def test_cache_tombstone_union_and_patch_ops_on_card_equal_cpu(cuda_device):
         tables.append((auto.wt, auto.node2))
     for x, y in zip(*tables):
         assert torch.equal(x, y.cpu())
+
+
+def _mesh_case(rs, n_trie):
+    """Sharded tables, small-filter fan-out and big-filter bitmaps over
+    ``n_trie`` shards (host arrays), and an encoded batch."""
+    from emqx_tpu_torch.parallel.sharded import (build_sharded,
+                                                 build_sharded_bitmaps,
+                                                 build_sharded_fanout,
+                                                 shard_filters)
+
+    filters = _filters(rs, 200)
+    fids = {f: i for i, f in enumerate(filters)}
+    table = WordTable()
+    for f in filters:
+        for w in f.split("/"):
+            table.intern(w)
+    shards = shard_filters(filters, n_trie)
+    auto, parts = build_sharded(shards, fids, table, return_parts=True)
+    small, big = [{} for _ in shards], [{} for _ in shards]
+    for t, shard in enumerate(shards):
+        for f in shard:
+            n = int(rs.randint(1, 40))
+            (big if n > 30 else small)[t][fids[f]] = sorted(
+                int(x) for x in rs.choice(50_000, n, replace=False))
+    fan = build_sharded_fanout(small, len(filters))
+    bm = build_sharded_bitmaps(big, len(filters), 50_000, row_capacity=64)
+    ids, n, sysm = encode_batch(table, (_topics(rs, 500) * 9)[:4096], 16)
+    return auto, fan, bm, (ids, n, sysm), walk_params(parts[0], 16)
+
+
+@pytest.mark.gpu
+def test_mesh_step_on_a_2x2_grid_of_one_card_equals_the_cpu_mesh(cuda_device):
+    """publish_step on a 2×2 mesh of the one card: B1 and B2 launch once
+    per cell (4 each), and every output equals the same step on a 2×2
+    CPU mesh (the plain walk and the plain OR in every cell)."""
+    from emqx_tpu_torch.parallel.mesh import make_mesh
+    from emqx_tpu_torch.parallel.sharded import place_sharded, publish_step
+
+    auto, fan, bm, batch, wp = _mesh_case(np.random.RandomState(21), 2)
+    kw = dict(k=16, m=64, d=32, mb=4, **wp)
+    outs = []
+    for devs in ([cuda_device] * 4, ["cpu"] * 4):
+        mesh = make_mesh(2, 2, devs)
+        placed = [place_sharded(mesh, x) for x in (auto, fan, bm)]
+        _build.reset_launches()
+        outs.append(publish_step(mesh, placed[0], placed[1], *batch,
+                                 placed[2], **kw))
+        torch.cuda.synchronize()
+        if devs[0] == cuda_device:
+            assert _build.LAUNCHES["walk"] == 4
+            assert _build.LAUNCHES["bitmap_or"] == 4
+    got, want = outs
+    for j in (0, 1, 2, 4, 5):
+        assert torch.equal(got[j].cpu(), want[j]), j
+    for x, y in zip(got[3], want[3]):
+        assert torch.equal(x.cpu(), y)
+    for key in want[6]:
+        assert int(got[6][key]) == int(want[6][key]), key
+    assert bool(want[3][1].any())   # the bitmap path ran
+
+
+@pytest.mark.gpu
+def test_mesh_broker_on_a_2x2_grid_of_one_card_delivers_like_one_device(
+        cuda_device):
+    """A mesh broker on a 2×2 grid of the card delivers what a
+    one-device broker on the card delivers, message by message, with
+    B1 and B2 launched once per cell and batch."""
+    from emqx_tpu_torch.parallel.mesh import make_mesh
+
+    rs = np.random.RandomState(23)
+    filters = _filters(rs, 300)
+    topics = _topics(rs, 200)
+
+    class Rec:
+        def __init__(self):
+            self.got = []
+
+        def deliver(self, flt, msg):
+            self.got.append((flt, msg.topic))
+
+    results = []
+    for mesh in (None, make_mesh(2, 2, [cuda_device] * 4)):
+        cfg = MatcherConfig(mesh=mesh, device_min_filters=1,
+                            fanout_threshold=8, fanout_d=8)
+        b = Broker(config=cfg, device=cuda_device)
+        subs = [Rec() for _ in range(40)]
+        for i, f in enumerate(filters):
+            for s in subs[i % 7:i % 7 + 1 + (12 if i % 50 == 0 else 0)]:
+                b.subscribe(s, f)
+        _build.reset_launches()
+        counts = b.publish_batch([Message(topic=t) for t in topics])
+        torch.cuda.synchronize()
+        if mesh is not None:
+            assert _build.LAUNCHES["walk"] == 4
+            assert _build.LAUNCHES["bitmap_or"] == 4
+        results.append((counts, [sorted(s.got) for s in subs]))
+    assert results[0] == results[1]

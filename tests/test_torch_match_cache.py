@@ -192,7 +192,7 @@ def test_cache_tables_are_copy_on_write_across_interleaved_batches():
     assert pc_.miss_slots == [0, 1]
     c.insert(pc_, torch.tensor([[20, 21], [22, -1]], dtype=torch.int32),
              torch.zeros(2, dtype=torch.bool))
-    ids, ovf = c.merge(8, pa)
+    ids, ovf, _ = c.merge(8, pa)
     assert ids[0].tolist() == [10, -1] and not bool(ovf[0])
     assert pa.table is not c._table
     # a later probe of "a" misses (its slot went to "x")

@@ -15,6 +15,7 @@ import json
 import numpy as np
 import pytest
 
+from emqx_tpu import faults as jf
 from emqx_tpu import metrics as jm
 from emqx_tpu import stats as js
 from emqx_tpu import telemetry as jt
@@ -24,6 +25,7 @@ from emqx_tpu.modules.prometheus import render as j_render
 from emqx_tpu.node import Node as JNode
 from emqx_tpu.router import MatcherConfig as JMatcherConfig
 from emqx_tpu.types import Message as JMessage
+from emqx_tpu_torch import faults as pf
 from emqx_tpu_torch import metrics as pm
 from emqx_tpu_torch import stats as ps
 from emqx_tpu_torch import telemetry as pt
@@ -58,6 +60,10 @@ def _workload(seed, n=40):
 def _nodes(matcher_kw, seed=0, **node_kw):
     """A JAX node and a port node with the same subscriptions, after
     the same publish batches. Returns both, JAX first."""
+    # the fault registries are process-wide: a test that ran earlier in
+    # this process may have left injections for the next flush to fold
+    jf.drain_injected()
+    pf.drain_injected()
     tel = dict(slow_threshold_ms=1e9)  # no timing-dependent slow count
     j = JNode(name="obs@test", boot_listeners=False,
               matcher=JMatcherConfig(**matcher_kw),
