@@ -126,7 +126,7 @@ kernels against their plain PyTorch versions:
      the flatten seconds, lock stall and peak device memory — on the
      native engine here, and again on the plain node's Python engine
      with the same draws (phase 5's second run), the two printed side
-     by side; (8d) 5
+     by side; (8d) :data:`P8D_BATCHES`
      publish batches of 4,096 through the broker with 64 subscribers
      in and 64 out between batches, every delivery against the
      oracle, no re-flatten, the fan-out rebuild
@@ -159,9 +159,11 @@ kernels against their plain PyTorch versions:
      at the JAX default, the directory on the checkout's disk; its
      filesystem must not be a tmpfs): (10a) a durable
      ``Node(device="cuda")`` with ``RetainerModule``; phase 5's filters
-     held by 4,096 persistent sessions (``clean_start=False``, expiry
-     3,600 s, QoS 1, each with the 8 big filters), its 10,000 ``#``
-     filters on clean subscribers, then 1M retained messages, all
+     (cut to :data:`P10_ROUTES`, the '+' class cut, every other class
+     whole; printed) held by 4,096 persistent sessions
+     (``clean_start=False``, expiry 3,600 s, QoS 1, each with the 8 big
+     filters), its 10,000 ``#`` filters on clean subscribers, then
+     :data:`P10_NAMES` retained messages (cut from 1M; printed), all
      journaled; (10b) the first :data:`P10_BATCHES` of phase 5's 20
      batches as QoS 1 (cut to hold the run's time; printed), every
      session acking but 64 on the last batch, a full checkpoint after
@@ -185,7 +187,7 @@ kernels against their plain PyTorch versions:
      phase 5 checks every batch's span (closed once, its tags the
      broker's own counts) and prints each stage's count, p50 and p99,
      then runs its batches with a disabled ``Telemetry`` and with the
-     node's, off, on, off, on: equal deliveries, msgs/s and p99 both
+     node's, in the order of :data:`AB_RUNS`: equal deliveries, msgs/s and p99 both
      ways; phase 3 times B1's whole call with ``profiling.KernelTimer``;
      on phase 5's node after 7a, with its listener up: (11a) one
      heartbeat with a ``$SYS/brokers/#`` subscriber (the topic set, the
@@ -199,8 +201,9 @@ kernels against their plain PyTorch versions:
      connections' ``GcPolicy`` forced and the node's ``sysmon.long_gc``.
 
  12. the device mesh on the card (``parallel/``), on phase 5's
-     subscriptions and batches, one 1M-filter node at a time, after
-     the plain node: (12a) ``MatcherConfig(mesh=default_mesh())``, 1×1
+     subscriptions cut to :data:`P12_ROUTES` filters (the '+' class
+     cut, every other class whole; printed) and its batches, one node
+     at a time, after the plain node: (12a) ``MatcherConfig(mesh=default_mesh())``, 1×1
      on the one card, B1 and B2 once a batch, every message's
      deliveries equal phase 5's node's and the TrieOracle's, msgs/s
      and p50/p99 beside phase 5's; (12b) a 2×2 mesh naming the card
@@ -212,7 +215,41 @@ kernels against their plain PyTorch versions:
      and a batch against the TrieOracle; on a small 2×2 broker, a
      fan-only overflow grows d and not k; 12a and 12b print the idle
      share of three batches under the profiler. Its time against
-     :data:`P12_BUDGET_S` is printed.
+     :data:`P12_BUDGET_S` is printed; 12a drives :data:`P12A_BATCHES`
+     and 12b :data:`P12B_BATCHES` of phase 5's batches (printed).
+ 13. the cluster on the card (``cluster.py``, ``cluster_net.py``,
+     ``cm_locker.py``), after phase 12, its time against
+     :data:`P13_BUDGET_S` printed: (13a) two port nodes on the card in
+     this process over ``SocketTransport`` on loopback (the JAX
+     package's ``ClusterConfig`` defaults), phase 5's
+     subscriptions cut to :data:`P13_ROUTES` filters (the '+' class cut,
+     every other class whole; printed) and split by subscriber over the
+     nodes, so each router holds every filter and each node about half
+     of every big filter's members; route replication seconds (to every
+     route on both routers and equal plane digests) and routes/s, with
+     the detector's and anti-entropy's counters meanwhile; phase 5's batches published on the two nodes in turn:
+     each batch launches B1 and B2 once on its publishing thread and
+     nothing runs off it (a forwarded message is dispatched by its
+     matched filter on the host), every message's deliveries on both
+     nodes against a TrieOracle of 13a's filters (one member a shared
+     group cluster-wide) and against phase 5's, ``messages.forward``
+     against the oracle's (message, remote node, filter) count, equal
+     plane digests, 0 forwards dropped; msgs/s and p50/p99 beside phase
+     5's, forwarded publish→delivery p50/p99, the cast buffers' peak,
+     peak device memory, each node's B1 and B2 against their plain twins
+     with device times; (13b) :data:`P13_RETAINED` retained messages
+     stored on node 0 reach node 1's store and index through
+     ``retain_set``; a burst of :data:`P13_BURST` SUBSCRIBEs on node 1
+     replays through one B3 launch on its own index, equal to node 0's
+     replay of the same filters; (13c) a persistent QoS 1 session with
+     :data:`P13_TAKEOVER_FILTERS` subscriptions taken over from node 0 to
+     node 1 between rounds of QoS 1 traffic on both nodes: no message
+     lost, none twice without DUP, its routes on node 1 on both nodes,
+     the next batch on either node delivering to it through B1; (13d)
+     the JAX partition bench's plan on three nodes at its config and
+     3,000 routes: ``net.partition`` splits {n0, n1} from {n2} with
+     churn on both sides, then heals: the detection and the heal to
+     equal digests, in seconds, and the forwards dropped.
 
 The last two lines are one JSON object per kernel row
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Every
@@ -281,10 +318,12 @@ def log(*a) -> None:
 
 class Sink:
     """A subscriber; while ``Sink.log`` is a list, it records
-    ``(message id, sink id, filter)`` per delivery."""
+    ``(message id, sink id, filter)`` per delivery, and while
+    ``Sink.stamps`` is one, ``(message id, sink id, host clock)``."""
 
     __slots__ = ("sid",)
     log = None
+    stamps = None
 
     def __init__(self, sid: int) -> None:
         self.sid = sid
@@ -292,6 +331,8 @@ class Sink:
     def deliver(self, topic_filter, msg) -> None:
         if Sink.log is not None:
             Sink.log.append((msg.id, self.sid, topic_filter))
+        if Sink.stamps is not None:
+            Sink.stamps.append((msg.id, self.sid, time.perf_counter()))
 
 
 # -- workload: BASELINE config 2's shape -----------------------------------
@@ -1346,10 +1387,15 @@ class SpanLog:
                 for s, st in stages.items()}
 
 
+#: phase 5's spans A/B, in order (cut from off, on, off, on to make
+#: room for phase 13; printed)
+AB_RUNS = ("off", "on")
+
+
 def phase_spans_ab(broker, batches, card):
     """Phase 5's A/B: the same batches through ``publish_batch`` with a
-    disabled ``Telemetry`` and with the node's (on), alternating off,
-    on, off, on. Every run's deliveries (per message: the (subscriber,
+    disabled ``Telemetry`` and with the node's (on), in the order of
+    :data:`AB_RUNS`. Every run's deliveries (per message: the (subscriber,
     filter) multiset) and results must be equal; prints msgs/s and the
     p99 batch latency of each run and the mean of each setting."""
     from collections import Counter
@@ -1367,7 +1413,7 @@ def phase_spans_ab(broker, batches, card):
     runs = {"off": [], "on": []}
     want = None
     try:
-        for setting in ("off", "on", "off", "on"):
+        for setting in AB_RUNS:
             broker.telemetry = broker.router.telemetry = \
                 on if setting == "on" else off
             Sink.log = []
@@ -1398,8 +1444,9 @@ def phase_spans_ab(broker, batches, card):
         broker.telemetry = broker.router.telemetry = on
     mean = {k: (float(np.mean([r[0] for r in v])),
                 float(np.mean([r[1] for r in v]))) for k, v in runs.items()}
-    log(f"[5 A/B] spans off / on, {len(batches)} batches a run, runs off, "
-        f"on, off, on: msgs/s {[round(r[0], 1) for r in runs['off']]} / "
+    log(f"[5 A/B] spans off / on, {len(batches)} batches a run, runs "
+        f"{', '.join(AB_RUNS)} (cut from off, on, off, on): msgs/s "
+        f"{[round(r[0], 1) for r in runs['off']]} / "
         f"{[round(r[0], 1) for r in runs['on']]}, p99 ms "
         f"{[round(r[1], 3) for r in runs['off']]} / "
         f"{[round(r[1], 3) for r in runs['on']]}; means {mean['off'][0]:.1f}"
@@ -1493,7 +1540,8 @@ def timed(label, fn, *args):
 
 
 def run(opts, device, card):
-    """Phases 3-5, 8 and 7a on ``device``; returns the kernel rows."""
+    """Phases 3-5, 8, 7a, 9a-9b, 12 and 13 on ``device``; returns phase
+    13's numbers and the kernel rows."""
     from emqx_tpu_torch.node import Node
     from emqx_tpu_torch.types import Message
 
@@ -1560,14 +1608,20 @@ def run(opts, device, card):
           topics[:opts.batch], draw, opts, device, card, oracle, p8)
     gc.collect()
     p12 = timed("12 (mesh)", run_mesh, pairs, batches, topics[:opts.batch],
-                opts, device, card, oracle, sl, walk)
+                opts, device, card, sl, walk)
+    gc.collect()
+    p13 = timed("13 (cluster)", run_cluster, pairs, batches,
+                topics[:opts.batch], opts, device, card,
+                dict(sl, walk_ms=walk["ms"]))
     mesh_launches = {name: {g: p12["launches"][g][name]
                             for g in ("12a", "12b")}
                      for name in PUBLISH_KERNELS}
-    walk["max_abs_err"] = max(walk["max_abs_err"],
-                              p8["kernels"]["max_abs_err"],
-                              p12["cells"]["max_abs_err"])
-    return [
+    cluster = p13["13a"]
+    walk["max_abs_err"] = max([walk["max_abs_err"],
+                               p8["kernels"]["max_abs_err"],
+                               p12["cells"]["max_abs_err"]]
+                              + [k["max_abs_err"] for k in cluster["kernels"]])
+    return p13, [
         {"name": "walk", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/walk.cu",
          "replaces": "emqx_tpu/ops/walk_pallas.py:87",
@@ -1580,7 +1634,10 @@ def run(opts, device, card):
          "devloss_launches": p9["launches"]["walk"],
          "mesh_launches": mesh_launches["walk"],
          "mesh_cell_ms": p12["cells"]["walk_ms"],
-         "mesh_cell_plain_ms": p12["cells"]["walk_plain_ms"], "equal": True,
+         "mesh_cell_plain_ms": p12["cells"]["walk_plain_ms"],
+         "cluster_launches": cluster["launches"].get("walk", 0),
+         "cluster_node_ms": [k["walk_ms"] for k in cluster["kernels"]],
+         "equal": True,
          "bound_by": "bytes", "library_ms": None, **walk},
         {"name": "bitmap_or", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/bitmap_or.cu",
@@ -1591,7 +1648,10 @@ def run(opts, device, card):
          "mesh_launches": mesh_launches["bitmap_or"],
          "mesh_cell_ms": p12["cells"]["or_ms"],
          "mesh_cell_plain_ms": p12["cells"]["or_plain_ms"],
-         "mesh_cell_bound_ms": p12["cells"]["or_bound_ms"], "equal": True,
+         "mesh_cell_bound_ms": p12["cells"]["or_bound_ms"],
+         "cluster_launches": cluster["launches"].get("bitmap_or", 0),
+         "cluster_node_ms": [k["or_ms"] for k in cluster["kernels"]],
+         "equal": True,
          "bound_by": "bytes", "library_ms": None, **bmp},
         # B4 lies on no path: its launches on the publish path (0) are
         # read like the others; it runs the B2 kernel
@@ -1599,6 +1659,7 @@ def run(opts, device, card):
          "source": "emqx_tpu_torch/csrc/bitmap_or.cu",
          "replaces": "emqx_tpu/ops/bitmap.py:137",
          "launches": sl["launches"]["or_bitmaps"], "on_path": False,
+         "cluster_launches": cluster["launches"].get("or_bitmaps", 0),
          "devloss_launches": p9["launches"]["or_bitmaps"],
          "equal": True, "bound_by": "bytes", "library_ms": None, **b4},
     ]
@@ -2152,8 +2213,13 @@ def phase_delta_kernels(router, draw, rng, card):
             "probe_stale_ms": stale_ms}
 
 
+#: 8d's publish batches (cut from 5 to make room for phase 13; printed)
+P8D_BATCHES = 3
+
+
 def phase_broker_churn(broker, batches, rng, card, static):
-    """8d: the broker with the defaults — 5 publish batches of 4,096;
+    """8d: the broker with the defaults — :data:`P8D_BATCHES` publish
+    batches of 4,096;
     between batches 64 real subscribers subscribe to new matching
     filters and the previous 64 unsubscribe. Every delivery checked
     against the oracle; no re-flatten; the fan-out rebuild
@@ -2179,7 +2245,7 @@ def phase_broker_churn(broker, batches, rng, card, static):
     split = np.zeros(4)  # begin less fan-out, fan-out, fetch, finish
     n_del, launches = 0, 0
     try:
-        for bi, batch in enumerate(batches[:5]):
+        for bi, batch in enumerate(batches[:P8D_BATCHES]):
             for s, f in prev:
                 broker.unsubscribe(s, f)
             uniq = list(dict.fromkeys(batch))
@@ -2220,8 +2286,9 @@ def phase_broker_churn(broker, batches, rng, card, static):
         Sink.log = None
     if router._rebuilds != rebuilds0:
         raise AssertionError("8d: a subscription re-flattened the table")
-    ms = split / 5 * 1e3
-    log(f"[8d] 5 batches of 4,096, 64 subscribers in and 64 out between "
+    ms = split / P8D_BATCHES * 1e3
+    log(f"[8d] {P8D_BATCHES} batches of 4,096 (cut from 5), 64 subscribers "
+        f"in and 64 out between "
         f"batches: {n_del} deliveries equal the oracle, no re-flatten "
         f"(rebuilds {router._rebuilds}), B1 launches {launches}; per batch "
         f"begin {ms[0]:.3f} ms + fan-out rebuild {ms[1]:.3f} ms "
@@ -2340,6 +2407,15 @@ def phase_slice_plain(pairs, batches, warm, opts, device, card, oracle):
 MESH_GRID = (2, 2)
 #: phase 12's time budget, printed against what it took
 P12_BUDGET_S = 150.0
+#: of phase 5's 20 batches, the ones 12a and 12b drive (cut from all 20
+#: to make room for phase 13; printed)
+P12A_BATCHES = 10
+P12B_BATCHES = 4
+#: the filters 12a and 12b subscribe: phase 5's set cut to this many,
+#: every class whole but the '+' one, as 13a's (each node's 1.06M
+#: subscriptions took 28-29 s of host time on the card's host and the
+#: whole script crossed the 1,200 s limit on a slower one; printed)
+P12_ROUTES = 250_000
 #: 12b's route ops (subscribes of new filters and unsubscribes of
 #: config-2 ones): one patch-drain batch
 P12_ROUTE_OPS = 256
@@ -2347,8 +2423,8 @@ P12_ROUTE_OPS = 256
 
 def mesh_node(pairs, warm, mesh, opts, device, card, label):
     """A node whose router runs on ``mesh`` (everything else at the
-    defaults) with phase 5's subscriptions, its automaton built and a
-    warm batch through (the per-shard fan-out tables)."""
+    defaults) with ``pairs`` subscribed, its automaton built and a warm
+    batch through (the per-shard fan-out tables)."""
     from emqx_tpu_torch.node import Node
     from emqx_tpu_torch.router import MatcherConfig
     from emqx_tpu_torch.types import Message
@@ -2361,11 +2437,24 @@ def mesh_node(pairs, warm, mesh, opts, device, card, label):
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     node.broker.publish_batch([Message(topic=t) for t in warm])
-    log(f"[{label}] {mesh!r}: the same {len(pairs)} subscriptions: "
+    log(f"[{label}] {mesh!r}: {len(pairs)} subscriptions: "
         f"subscribe {sub_s:.1f} s, the sharded build on the native engine "
         f"{build_s:.1f} s, warm batch (the per-shard fan-out tables) "
         f"{time.perf_counter() - t0:.1f} s — {card}")
     return node
+
+
+def local_on(local, keep):
+    """A run's local ``(sid, filter)`` deliveries, message by message,
+    restricted to the ``(sink, filter)`` pairs of ``keep`` (a '+'
+    filter cut away may still be a kept $share group's filter)."""
+    kept = {(sink.sid, f) for sink, f in keep if not f.startswith("$share/")}
+    out = {}
+    for k, v in local.items():
+        v = [x for x in v if x in kept]
+        if v:
+            out[k] = v
+    return out
 
 
 def same_deliveries(want, got, label, what):
@@ -2549,9 +2638,10 @@ def mesh_boost_d(device, card):
     return {"d": ds}
 
 
-def run_mesh(pairs, batches, warm, opts, device, card, oracle, p5, walk):
+def run_mesh(pairs, batches, warm, opts, device, card, p5, walk):
     """Phase 12, the device mesh on the card, on phase 5's subscriptions
-    and batches, one 1M-filter node at a time: (12a) ``default_mesh()``
+    cut to :data:`P12_ROUTES` filters and its batches, one node at a
+    time: (12a) ``default_mesh()``
     (1×1 on the one card), every message's deliveries equal phase 5's
     and the TrieOracle's, msgs/s and p50/p99 beside phase 5's; (12b) a
     :data:`MESH_GRID` grid of the card: B1 and B2 four times a batch,
@@ -2563,27 +2653,41 @@ def run_mesh(pairs, batches, warm, opts, device, card, oracle, p5, walk):
     from emqx_tpu_torch.parallel.mesh import default_mesh, make_mesh
 
     t_start = time.perf_counter()
+    keep, n_plus = cluster_pairs(pairs, opts.subs, P12_ROUTES)
+    log(f"[12] cut: 12a drives {min(P12A_BATCHES, len(batches))} and 12b "
+        f"{min(P12B_BATCHES, len(batches))} of phase 5's {len(batches)} "
+        f"batches; both subscribe {n_plus} of its {opts.subs} '+' filters "
+        f"(every other class whole), {len(keep)} of its {len(pairs)} "
+        f"subscriptions, to hold the run's time")
     # the one-card deployment's default; a CPU rehearsal names its device
     mesh = default_mesh() if device == "cuda" else default_mesh(
         devices=[device])
-    node = mesh_node(pairs, warm, mesh, opts, device, card, "12a")
+    node = mesh_node(keep, warm, mesh, opts, device, card, "12a")
+    t0 = time.perf_counter()
+    oracle = route_oracle(node.router)
+    log(f"[12] the checks' TrieOracle of the {len(node.router._filter_ids)} "
+        f"filters {time.perf_counter() - t0:.1f} s")
     cells = {"walk": mesh.size, "bitmap_or": mesh.size}
-    sa = phase_slice(node.broker, batches, card, oracle, label="12a",
-                     per_batch=cells)
-    same_deliveries(p5["local"], sa["local"], "12a", "phase 5's node's")
+    sa = phase_slice(node.broker, batches[:P12A_BATCHES], card, oracle,
+                     label="12a", per_batch=cells)
+    same_deliveries(local_on({k: v for k, v in p5["local"].items()
+                              if k[0] < P12A_BATCHES}, keep), sa["local"],
+                    "12a", "phase 5's node's (its deliveries on 12's "
+                    "filters)")
     phase_profile(node.broker, batches, card)
     check_quiet(node, "12a")
     del node
     gc.collect()
     mesh = make_mesh(*MESH_GRID, [device] * 4)
-    node = mesh_node(pairs, warm, mesh, opts, device, card, "12b")
+    node = mesh_node(keep, warm, mesh, opts, device, card, "12b")
     cells = {"walk": mesh.size, "bitmap_or": mesh.size}
-    sb = phase_slice(node.broker, batches, card, oracle, label="12b",
-                     per_batch=cells)
-    same_deliveries(sa["local"], sb["local"], "12b", "12a's")
+    sb = phase_slice(node.broker, batches[:P12B_BATCHES], card, oracle,
+                     label="12b", per_batch=cells)
+    same_deliveries({k: v for k, v in sa["local"].items()
+                     if k[0] < P12B_BATCHES}, sb["local"], "12b", "12a's")
     phase_profile(node.broker, batches, card)
     per_cell = mesh_cells(node, batches[0], card)
-    churn = mesh_churn(node, pairs, batches[1], np.random.default_rng(
+    churn = mesh_churn(node, keep, batches[1], np.random.default_rng(
         opts.seed + 12), card, oracle)
     check_quiet(node, "12b")
     del node
@@ -2603,6 +2707,711 @@ def run_mesh(pairs, batches, warm, opts, device, card, oracle, p5, walk):
     return {"launches": {"12a": sa["launches"], "12b": sb["launches"]},
             "cells": per_cell, "churn": churn, "boost_d": boost,
             "seconds": took}
+
+
+# -- phase 13: the cluster on the card ----------------------------------------
+
+#: phase 13's time budget, printed against what it took
+P13_BUDGET_S = 180.0
+#: 13a's filters: phase 5's set cut to this many, every class whole but
+#: the '+' one (route replication with both nodes in one process took
+#: 122-207 µs of host time a route at 252,508 routes on the card's
+#: hosts: the 1.02M routes of the uncut set would take 125-212 s, past
+#: the phase's budget before a batch is published)
+P13_ROUTES = 250_000
+#: 13b: retained messages stored on node 0 and replicated, and the
+#: SUBSCRIBE burst on node 1
+P13_RETAINED = 10_000
+P13_BURST = 64
+#: 13c: the persistent session's filters, the rounds of live QoS 1
+#: traffic (one message a filter, on node 0 and node 1 in turn) and the
+#: round after which it reconnects on node 1 (an odd one: that round's
+#: forwards to node 0 are still in flight)
+P13_TAKEOVER_FILTERS = 8
+P13_TAKEOVER_ROUNDS = 12
+P13_TAKEOVER_AT = 5
+#: 13d: the JAX partition bench's routes and churn window
+#: (bench.py:2697-2699)
+P13_PARTITION_ROUTES = 3000
+P13_PARTITION_WINDOW_S = 3.0
+
+
+#: the JAX partition bench's ClusterConfig fields (bench.py:2700-2704):
+#: heartbeats every 0.1 s, down after 3 misses, anti-entropy every 0.5 s
+PARTITION_BENCH = dict(
+    heartbeat_interval_s=0.1, heartbeat_timeout_s=0.5,
+    suspect_after=1, down_after=3, ok_after=1,
+    anti_entropy_interval_s=0.5, call_timeout_s=2.0,
+    redial_backoff_s=0.1, redial_backoff_max_s=0.5)
+
+
+def partition_bench_config():
+    """The JAX partition bench's ClusterConfig, :data:`PARTITION_BENCH`."""
+    from emqx_tpu_torch.cluster import ClusterConfig
+
+    return ClusterConfig(**PARTITION_BENCH)
+
+
+def track_cast_peak(tr, box) -> None:
+    """Record in ``box[0]`` the most bytes ``tr``'s cast buffers held
+    just after a cast (the transport's own IO thread drains them)."""
+    orig = tr.cast
+
+    def cast(node, op, *args):
+        orig(node, op, *args)
+        with tr._cast_lock:
+            n = sum(map(len, tr._cast_buf.values()))
+        if n > box[0]:
+            box[0] = n
+
+    tr.cast = cast
+
+
+class ThreadLaunches(dict):
+    """Stands in for ``_build.LAUNCHES`` over a window: every wrapper's
+    count moves as before, and ``by_thread`` says which thread made each
+    launch (the main thread publishes; a forwarded message is
+    dispatched on its receiver's transport IO thread)."""
+
+    def __init__(self, base) -> None:
+        super().__init__(base)
+        self.by_thread = {}
+
+    def __setitem__(self, key, value) -> None:
+        import threading
+
+        d = self.by_thread.setdefault(threading.current_thread().name, {})
+        d[key] = d.get(key, 0) + value - self.get(key, 0)
+        super().__setitem__(key, value)
+
+    def main(self) -> dict:
+        return dict(self.by_thread.get("MainThread", {}))
+
+
+def cluster_of(names, device, opts, cfg, cookie):
+    """Port nodes named ``names`` on ``device``, each with a
+    ``SocketTransport`` on loopback and a ``Cluster`` (``cfg``), the
+    others joined to the first through its address."""
+    from emqx_tpu_torch.cluster import Cluster
+    from emqx_tpu_torch.cluster_net import SocketTransport
+    from emqx_tpu_torch.node import Node
+
+    nodes, trs, cls = [], [], []
+    for name in names:
+        node = Node(name=name, device=device, batch_size=opts.batch)
+        tr = SocketTransport(name, cookie=cookie, config=cfg)
+        tr.serve()
+        cls.append(Cluster(node, transport=tr, config=cfg))
+        nodes.append(node)
+        trs.append(tr)
+    for cl in cls[1:]:
+        cl.join_remote("127.0.0.1", trs[0].port)
+    if any(sorted(c.members) != sorted(names) for c in cls):
+        raise AssertionError(f"[13] join: members {[c.members for c in cls]}")
+    return nodes, trs, cls
+
+
+def close_cluster(trs, cls) -> None:
+    for cl in cls:
+        cl.close()
+    for tr in trs:
+        tr.close()
+
+
+def barrier(trs, timeout: float = 120.0) -> None:
+    """Every cast sent before now between two of ``trs`` has been
+    dispatched at its receiver: a call first writes its link's buffered
+    casts, and the receiver handles one link's frames in order."""
+    deadline = time.perf_counter() + timeout
+    for a in trs:
+        for b in trs:
+            if a is b:
+                continue
+            while True:
+                try:
+                    a.call_addr((b.host, b.port), "ping")
+                    break
+                except ConnectionError:
+                    if time.perf_counter() > deadline:
+                        raise
+                    time.sleep(0.05)
+
+
+def wait_for(pred, timeout, what, poll=0.02):
+    """The clock when ``pred()`` first holds; raises after ``timeout``."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if pred():
+            return time.perf_counter()
+        time.sleep(poll)
+    raise AssertionError(f"[13] {what} not reached in {timeout} s")
+
+
+def digests_equal(cls) -> bool:
+    """Every member's five plane digests are equal (the JAX partition
+    bench's convergence predicate)."""
+    d = [c.plane_digests() for c in cls]
+    return all(x == d[0] for x in d[1:])
+
+
+def routes_held(node) -> int:
+    return sum(len(d) for d in node.router.route_table().values())
+
+
+def cluster_pairs(pairs, n_plus, n_routes):
+    """Phase 5's ``(sink, filter)`` pairs cut to about ``n_routes``
+    filters: the first '+' pairs (``pairs[:n_plus]`` holds that class),
+    every other class whole (literal, '#', $share, the big filters and
+    their 4,096 members each)."""
+    rest = pairs[n_plus:]
+    others = len({f for _s, f in rest})
+    keep = max(0, min(n_plus, n_routes - others))
+    return pairs[:keep] + rest, keep
+
+
+def cluster_kernels(node, topics, card, label):
+    """B1 on the node's automaton (the whole cluster's filters) at the
+    main path's inputs and B2 over its own big filters' packed rows,
+    each held against its plain twin; their device times. Launches made
+    here do not count."""
+    import torch
+
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.ops.bitmap import or_union_rows_cuda, rows_for_matches
+    from emqx_tpu_torch.ops.pack import mask_pad_rows, union_slots
+    from emqx_tpu_torch.ops.walk_cuda import match_batch_cuda
+
+    saved = dict(_build.LAUNCHES)
+    router = node.router
+    auto, id_map, epoch = router.automaton()
+    uniq = list(dict.fromkeys(topics))
+    args, kw = router.walk_inputs(uniq)
+    err = check_walk(auto, args, kw, f"{label} B={args[0].shape[0]}")
+    walk = kernel_ms(lambda: match_batch_cuda(auto, *args, **kw),
+                     "walk_kernel")
+    ids = mask_pad_rows(match_batch_cuda(auto, *args, **kw).ids, len(uniq))
+    st = node.broker.helper.state(epoch, id_map)
+    rows, _ovf = rows_for_matches(st.bm, ids, mb=router.config.fanout_mb)
+    has_big = (rows >= 0).any(dim=1)
+    pr = node.broker._pack_budgets.get(
+        rows.shape[0], [0, 0, max(1, router.config.pack_rows)])[2]
+    err = max(err, check_union(st.bm.bitmaps, rows, has_big, pr,
+                               f"{label} packed union pr={pr}"))
+    src = union_slots(has_big, pr)[1]
+    orr = kernel_ms(lambda: or_union_rows_cuda(st.bm.bitmaps, rows, src),
+                    "bitmap_or_kernel")
+    torch.cuda.synchronize()
+    _build.LAUNCHES.update(saved)
+    return {"walk_ms": walk, "or_ms": orr, "max_abs_err": err,
+            "big_rows": st.bm.n_rows}
+
+
+def cluster_13a(pairs, batches, warm, opts, device, card, p5):
+    """13a, the data path: two nodes on the card, phase 5's
+    subscriptions (cut, :data:`P13_ROUTES`) split by subscriber over
+    them, phase 5's batches published on node 0 and node 1 in turn.
+    Returns the nodes with their transports and clusters (13b and 13c
+    run on them) and the numbers."""
+    from collections import Counter
+
+    import torch
+
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch.cluster import ClusterConfig
+    from emqx_tpu_torch.oracle import TrieOracle
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.types import Message
+
+    keep, n_plus = cluster_pairs(pairs, opts.subs, P13_ROUTES)
+    names = ("cn0", "cn1")
+    want = {}
+    for sink, f in keep:
+        flt, popts = T.parse(f)
+        name = names[sink.sid % 2]
+        share = popts.get("share")
+        want.setdefault(flt, set()).add((share, name) if share else name)
+    n_routes = sum(map(len, want.values()))
+    n5 = len({T.parse(f)[0] for _s, f in pairs})
+    log(f"[13a] cut: {len(want)} of phase 5's {n5} filters ({n_plus} of "
+        f"its {opts.subs} '+' filters, every other "
+        f"class whole), {len(keep)} subscriptions, {n_routes} routes, to "
+        f"hold the phase's {P13_BUDGET_S:.0f} s budget")
+    # the JAX package's defaults, detector and anti-entropy on (the
+    # partition bench's 0.5 s sweep over 250K routes in one process
+    # flaps the peers: PERF.md §6, tests/ab_torch_cluster_replication.py)
+    cfg = ClusterConfig()
+    nodes, trs, cls = cluster_of(names, device, opts, cfg, "p13-data")
+    for c in cls:
+        c.drain_counters()
+    t0 = time.perf_counter()
+    for sink, f in keep:
+        nodes[sink.sid % 2].broker.subscribe(sink, f)
+    sub_s = time.perf_counter() - t0
+    barrier(trs, timeout=600.0)
+    barrier_s = time.perf_counter() - t0
+    at_barrier = [routes_held(n) for n in nodes]
+    # converged: every route on both routers and the five digests equal,
+    # whatever the detector did on the way (casts are at most once: a
+    # reset link or a down peer loses some, and anti-entropy repairs
+    # them). Each node syncs with its peer at once rather than at the
+    # next 30 s sweep, which would time the sweep's period, not the
+    # replication
+    syncs = []
+
+    def converged() -> bool:
+        if [routes_held(n) for n in nodes] == [n_routes] * 2 \
+                and digests_equal(cls):
+            return True
+        for c, peer in zip(cls, reversed(names)):
+            try:
+                syncs.append(c.anti_entropy_sync(peer))
+            except ConnectionError:
+                syncs.append(None)  # a suspect peer fast-fails: again
+        return False
+
+    try:
+        repl_s = wait_for(converged, 300.0, "13a route replication",
+                          poll=1.0) - t0
+    except AssertionError as e:
+        raise AssertionError(
+            f"{e}: routes held {[routes_held(n) for n in nodes]} of "
+            f"{n_routes}, counters {[c.drain_counters() for c in cls]}, "
+            f"anti-entropy {[c.ae_info() for c in cls]}") from None
+    repl_counters = {}
+    for c in cls:
+        for k, v in c.drain_counters().items():
+            repl_counters[k] = repl_counters.get(k, 0) + v
+    for node in nodes:
+        got = {f: set(d) for f, d in node.router.route_table().items()}
+        if got != want:
+            raise AssertionError(f"[13a] {node.name}'s routes differ from "
+                                 f"the subscriptions' ({len(got)} filters)")
+    log(f"[13a] route replication at the JAX defaults: {len(keep)} "
+        f"subscriptions on two nodes "
+        f"({sum(1 for s, _ in keep if s.sid % 2 == 0)} / "
+        f"{sum(1 for s, _ in keep if s.sid % 2)}); every cast dispatched "
+        f"after {barrier_s:.1f} s (the subscribe loop {sub_s:.1f} s) with "
+        f"{at_barrier} of {n_routes} routes held; after the syncs "
+        f"{syncs} (repairs; None a fast-failed one) each router holds all "
+        f"{len(want)} filters and {n_routes} routes, plane digests equal, "
+        f"after {repl_s:.1f} s: {n_routes / repl_s:.0f} routes/s; the "
+        f"detector and anti-entropy meanwhile "
+        f"{dict(sorted(repl_counters.items()))} — {card}")
+    t0 = time.perf_counter()
+    oracle = TrieOracle()
+    for f in want:
+        oracle.insert(f)
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for node in nodes:
+        node.router.automaton()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for node in nodes:
+        node.broker.publish_batch([Message(topic=t) for t in warm])
+    barrier(trs)
+    log(f"[13a] builds of both automata {build_s:.1f} s, warm batches "
+        f"(fan-out tables) {time.perf_counter() - t0:.1f} s; the checks' "
+        f"TrieOracle of the {len(want)} filters {oracle_s:.1f} s; "
+        f"big-filter members a node: "
+        f"{[len(n.broker.subscribers(keep[-1][1])) for n in nodes]}, "
+        f"fanout_threshold {nodes[0].router.config.fanout_threshold} — "
+        f"{card}")
+
+    msgs = [[Message(topic=t, payload=b"x") for t in b] for b in batches]
+    fwd0 = sum(n.metrics.val("messages.forward") for n in nodes)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    saved = _build.LAUNCHES
+    tl = _build.LAUNCHES = ThreadLaunches(saved)
+    lat, checks, begin_at, peak_buf = [], [], [], [0]
+    for tr in trs:
+        track_cast_peak(tr, peak_buf)
+    Sink.log, Sink.stamps = [], []
+    try:
+        for bi, batch in enumerate(msgs):
+            p = bi % 2
+            broker = nodes[p].broker
+            before = tl.main()
+            t1 = time.perf_counter()
+            begin_at.append(t1)
+            pb = broker.publish_begin(batch)
+            if pb.done:
+                raise AssertionError(f"[13a] batch {bi} did not take the "
+                                     f"device path")
+            broker.publish_fetch(pb)
+            fetched = tl.main()
+            res = broker.publish_finish(pb)
+            lat.append(time.perf_counter() - t1)
+            for name in PUBLISH_KERNELS:
+                n = fetched.get(name, 0) - before.get(name, 0)
+                if n != 1:
+                    raise AssertionError(f"[13a] batch {bi} launched {name} "
+                                         f"{n} times on {names[p]}, not 1")
+            checks.append((p, batch, res))
+        barrier(trs)
+    finally:
+        deliveries, Sink.log = Sink.log, None
+        stamps, Sink.stamps = Sink.stamps, None
+        _build.LAUNCHES = saved
+        saved.update(tl)
+        for tr in trs:
+            del tr.cast
+    peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else None
+    launches = tl.main()
+    io = {t: d for t, d in tl.by_thread.items()
+          if t != "MainThread" and any(d.values())}
+    if io:
+        raise AssertionError(f"[13a] kernels launched off the publishing "
+                             f"thread: {io}")
+    # every message against the oracle: each node's local subscribers of
+    # every matched filter once, one member a shared group cluster-wide,
+    # the publishing node's count in its result, one forward a remote
+    # (node, filter)
+    by_msg = {}
+    for mid, sid, flt in deliveries:
+        by_msg.setdefault(mid, Counter())[(sid, flt)] += 1
+    subs_of, groups_of, plain_of = {}, {}, {}
+
+    def tables(f):
+        if f not in subs_of:
+            subs_of[f] = [{s.sid for s in n.broker.subscribers(f)}
+                          for n in nodes]
+            groups_of[f] = sorted({r.dest[0] for r in
+                                   nodes[0].router.lookup_routes(f)
+                                   if isinstance(r.dest, tuple)})
+            plain_of[f] = [q for q in (0, 1) if subs_of[f][q]]
+        return subs_of[f], groups_of[f], plain_of[f]
+
+    pos = {}
+    want_fwd = 0
+    for bi, (p, batch, res) in enumerate(checks):
+        for i, msg in enumerate(batch):
+            pos[msg.id] = (bi, i, p)
+            local, groups = Counter(), []
+            for f in oracle.match(msg.topic):
+                sids, grps, plain = tables(f)
+                for q in (0, 1):
+                    for sid in sids[q]:
+                        local[(sid, f)] += 1
+                groups += [(g, f) for g in grps]
+                want_fwd += sum(1 for q in plain if q != p)
+            got = by_msg.get(msg.id, Counter())
+            extra = got - local
+            if local - got or len(extra) != len(groups) \
+                    or sum(extra.values()) != len(groups):
+                raise AssertionError(f"[13a] deliveries of {msg.topic!r} "
+                                     f"differ from the oracle")
+            for g, f in groups:
+                members = {s.sid for n in nodes
+                           for s in n.broker.shared.subscribers(g, f)}
+                if not any(sid in members for sid, ff in extra if ff == f):
+                    raise AssertionError(f"[13a] shared group {g} of {f} "
+                                         f"missed")
+            if res[i] != sum(c for (sid, _f), c in got.items()
+                             if sid % 2 == p):
+                raise AssertionError(f"[13a] {msg.topic!r}: result "
+                                     f"{res[i]} is not its deliveries on "
+                                     f"{names[p]}")
+    n_fwd = sum(n.metrics.val("messages.forward") for n in nodes) - fwd0
+    if n_fwd != want_fwd:
+        raise AssertionError(f"[13a] messages.forward {n_fwd}, the oracle's "
+                             f"(message, remote node, filter) count "
+                             f"{want_fwd}")
+    # the same local deliveries as phase 5's node, message by message,
+    # where phase 5's (subscriber, filter) pair is one of 13a's (a '+'
+    # filter cut away may still be a kept $share group's filter)
+    local = {}
+    for mid, sid, flt in deliveries:
+        bi, i, _p = pos[mid]
+        sids = tables(flt)[0]
+        if sid in sids[0] or sid in sids[1]:
+            local.setdefault((bi, i), []).append((sid, flt))
+    for v in local.values():
+        v.sort()
+    same_deliveries(local_on(p5["local"], keep), local, "13a",
+                    "phase 5's node's (its deliveries on 13a's filters)")
+    # publish → delivery of the forwarded messages
+    fwd_ms = np.sort(np.array([
+        (t - begin_at[pos[mid][0]]) * 1e3 for mid, sid, t in stamps
+        if sid % 2 != pos[mid][2]]))
+    digests = [c.plane_digests() for c in cls]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"[13a] plane digests differ: {digests}")
+    counters = [c.drain_counters() for c in cls]
+    dropped = sum(c.get("forward.dropped", 0) for c in counters)
+    if dropped:
+        raise AssertionError(f"[13a] {dropped} forwards dropped")
+    for n in nodes:
+        check_quiet(n, f"13a {n.name}")
+    lat_ms = np.sort(np.array(lat) * 1e3)
+    n_msgs = sum(len(b) for b in msgs)
+    out = {"msgs_per_s": n_msgs / sum(lat),
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "fwd_p50_ms": float(np.percentile(fwd_ms, 50)),
+           "fwd_p99_ms": float(np.percentile(fwd_ms, 99)),
+           "launches": launches, "repl_s": repl_s, "barrier_s": barrier_s,
+           "repl_counters": repl_counters, "syncs": syncs,
+           "routes_per_s": n_routes / repl_s, "peak_mib": peak,
+           "forwards": n_fwd, "cast_buf_peak": peak_buf[0]}
+    log(f"[13a] {len(msgs)} batches x {len(msgs[0])} msgs on cn0 and cn1 in "
+        f"turn: {out['msgs_per_s']:.1f} msgs/s, p50 {out['p50_ms']:.3f} ms, "
+        f"p99 {out['p99_ms']:.3f} ms (phase 5's node: "
+        f"{p5['msgs_per_s']:.1f} msgs/s, p50 {p5['p50_ms']:.3f} ms, p99 "
+        f"{p5['p99_ms']:.3f} ms); launches on the publishing thread "
+        f"{launches}, one B1 and one B2 a batch; 0 off it — {card}")
+    log(f"[13a] {len(deliveries)} deliveries match the TrieOracle of 13a's "
+        f"filters, one member a shared group cluster-wide; "
+        f"messages.forward {n_fwd} = the oracle's (message, remote node, "
+        f"filter) count; {len(fwd_ms)} forwarded deliveries, publish → "
+        f"delivery p50 {out['fwd_p50_ms']:.3f} ms, p99 "
+        f"{out['fwd_p99_ms']:.3f} ms; the cast buffers' peak "
+        f"{peak_buf[0]} bytes; forwards dropped 0; plane digests equal "
+        f"on both nodes — {card}")
+    if on_card:
+        log(f"[13a] peak device memory of the two nodes' publishes "
+            f"{peak:.1f} MiB — {card}")
+    ks = [cluster_kernels(n, batches[0], card, f"13a {n.name}")
+          for n in nodes]
+    out["kernels"] = ks
+    log(f"[13a] per node, at batch 0's {len(set(batches[0]))} unique "
+        f"topics: B1 device ms {[round(k['walk_ms'], 5) for k in ks]} (the "
+        f"whole cluster's filters on each; phase 5's node "
+        f"{p5.get('walk_ms', float('nan')):.5f}), B2 device ms "
+        f"{[round(k['or_ms'], 5) for k in ks]} over "
+        f"{[k['big_rows'] for k in ks]} big-filter rows of its own — {card}")
+    return nodes, trs, cls, out
+
+
+def cluster_13b(nodes, trs, card):
+    """13b: retained messages stored on node 0 replicate to node 1
+    (``retain_set``) and enter its index; a SUBSCRIBE burst on node 1
+    replays through B3 on its own index, once, and delivers what node
+    0's replay of the same filters delivers."""
+    from emqx_tpu_torch.modules.retainer import RetainerModule
+
+    rets = [n.modules.load(RetainerModule) for n in nodes]
+    t0 = time.perf_counter()
+    store_s = store_retained(nodes[0], P13_RETAINED)
+    barrier(trs)
+    repl_s = time.perf_counter() - t0
+    stores = [{t: (bytes(m.payload), m.timestamp) for t, m in r._store.items()}
+              for r in rets]
+    if len(stores[0]) != P13_RETAINED or stores[0] != stores[1] \
+            or len(rets[1]._index) != P13_RETAINED:
+        raise AssertionError(f"[13b] node 1 holds {len(stores[1])} retained "
+                             f"messages, node 0 {len(stores[0])}")
+    bursts = retained_bursts(P13_RETAINED, 1, P13_BURST, seed=13)
+    family = NameFamily(P13_RETAINED)
+
+    async def both():
+        r1 = await replay_bursts(nodes[1], rets[1]._index, bursts, family,
+                                 tag="c1r")
+        r0 = await replay_bursts(nodes[0], rets[0]._index, bursts, family,
+                                 tag="c0r")
+        return r1, r0
+
+    r1, r0 = asyncio.run(both())
+    if r1[6] != r0[6]:
+        raise AssertionError("[13b] node 1's replay differs from node 0's")
+    log(f"[13b] {P13_RETAINED} retained messages stored on cn0 "
+        f"{store_s:.2f} s, on cn1 through retain_set after {repl_s:.2f} s; "
+        f"a burst of {P13_BURST} SUBSCRIBEs on cn1: one B3 launch on its "
+        f"own index, {r1[3]} messages replayed, {r1[0][0] * 1e3:.3f} ms "
+        f"(cn0's replay of the same filters {r0[0][0] * 1e3:.3f} ms, the "
+        f"same wire bytes) — {card}")
+    return {"launches": r1[5]["retained_match"], "replay_ms": r1[0][0] * 1e3}
+
+
+async def _takeover(nodes, trs, card):
+    from emqx_tpu_torch.channel import Channel
+    from emqx_tpu_torch.mqtt import constants as MC
+    from emqx_tpu_torch.mqtt.packet import Connect, PubAck, Subscribe
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.types import Message
+
+    flts = [f"tko/{j}/+" for j in range(P13_TAKEOVER_FILTERS)]
+    got = []
+
+    def connect(node):
+        ch = Channel(node.broker, node.cm)
+        pk = ch.handle_in(Connect(proto_ver=MC.MQTT_V5, client_id="mover",
+                                  clean_start=False, properties={
+                                      "Session-Expiry-Interval": 3600}))
+        if ch.session is None:
+            raise AssertionError(f"[13c] CONNECT on {node.name} refused")
+        return ch, pk
+
+    def read(ch, ack: bool, first=()) -> int:
+        pubs = [p for p in list(first) + ch.handle_deliver()
+                if getattr(p, "type", None) == MC.PUBLISH]
+        for p in pubs:
+            got.append((bytes(p.payload), p.packet_id, bool(p.dup), p.qos))
+            if ack:
+                ch.handle_in(PubAck(packet_id=p.packet_id))
+        return len(pubs)
+
+    def publish(node, tag, leaf="x"):
+        node.broker.publish_batch([
+            Message(topic=f"tko/{j}/{leaf}", payload=b"%s:%d" % (tag, j),
+                    qos=1)
+            for j in range(len(flts))])
+
+    ch, _pk = connect(nodes[0])
+    ch.handle_in(Subscribe(packet_id=1, topic_filters=[(f, {"qos": 1})
+                                                       for f in flts]))
+    barrier(trs)
+    takeover_ms = None
+    for r in range(P13_TAKEOVER_ROUNDS):
+        publish(nodes[r % 2], b"%d" % r)
+        if r == P13_TAKEOVER_AT:
+            read(ch, ack=False)  # delivered before the move, not acked
+            t0 = time.perf_counter()
+            ch, pk = connect(nodes[1])
+            takeover_ms = (time.perf_counter() - t0) * 1e3
+            if not pk[0].session_present:
+                raise AssertionError("[13c] the takeover lost the session")
+            # the CONNECT's answer carries the resumed inflight window
+            read(ch, ack=True, first=pk[1:])
+        await asyncio.sleep(0)
+        read(ch, ack=r % 3 != 0)
+    for _ in range(3):
+        barrier(trs)
+        read(ch, ack=True)
+    seen = {}
+    for payload, _pid, dup, qos in got:
+        seen.setdefault(payload, []).append(dup)
+    lost = [b"%d:%d" % (r, j) for r in range(P13_TAKEOVER_ROUNDS)
+            for j in range(len(flts)) if b"%d:%d" % (r, j) not in seen]
+    dups = {p: d for p, d in seen.items() if d.count(False) > 1}
+    if lost or dups:
+        raise AssertionError(f"[13c] QoS 1 lost {lost[:5]} or delivered "
+                             f"twice without DUP {list(dups)[:5]}")
+    for f in flts:
+        for n in nodes:
+            dests = [r.dest for r in n.router.lookup_routes(f)]
+            if dests != ["cn1"]:
+                raise AssertionError(f"[13c] {f} routes to {dests} on "
+                                     f"{n.name}")
+    launched = []
+    for q in (0, 1):
+        n0 = len(got)
+        before = _build.LAUNCHES["walk"]
+        # topics no batch published before: the match cache misses
+        publish(nodes[q], b"next%d" % q, leaf=f"next{q}")
+        launched.append(_build.LAUNCHES["walk"] - before)
+        barrier(trs)
+        if read(ch, ack=True) != len(flts) or any(
+                not p.startswith(b"next%d" % q) for p, *_x in got[n0:]):
+            raise AssertionError(f"[13c] the batch on cn{q} did not deliver "
+                                 f"to the session on cn1")
+    if min(launched) < 1:
+        raise AssertionError(f"[13c] B1 launches {launched}")
+    n_dup = sum(1 for *_x, dup, _q in got if dup)
+    log(f"[13c] a persistent QoS 1 session with {len(flts)} subscriptions "
+        f"taken over from cn0 to cn1 after round {P13_TAKEOVER_AT} of "
+        f"{P13_TAKEOVER_ROUNDS} (forwards of that round in flight) in "
+        f"{takeover_ms:.3f} ms: session present, "
+        f"{P13_TAKEOVER_ROUNDS * len(flts)} messages, none lost, {n_dup} "
+        f"redelivered with DUP, none twice without; its routes point at "
+        f"cn1 on both nodes; the next batch on cn0 and on cn1 reached it on "
+        f"cn1 with B1 launches {launched} — {card}")
+    return {"takeover_ms": takeover_ms}
+
+
+def cluster_13d(device, opts, card):
+    """13d, the JAX partition bench's plan (bench.py:2727-2790) on three
+    port nodes at its config: 3,000 routes, ``net.partition`` splits
+    {cn0, cn1} from {cn2} with churn on both sides, then disarm; the
+    membership merges again and all five plane digests agree."""
+    from emqx_tpu_torch import faults
+
+    nodes, trs, cls = cluster_of(("pn0", "pn1", "pn2"), device, opts,
+                                 partition_bench_config(), "p13-part")
+
+    try:
+        for i in range(P13_PARTITION_ROUTES):
+            nodes[i % 3].broker.subscribe(Sink(i), f"bench/p/{i}")
+        wait_for(lambda: digests_equal(cls), 60, "13d pre-partition sync")
+        for c in cls:
+            c.drain_counters()
+        trs[0].fault_peers = trs[1].fault_peers = {"pn2"}
+        trs[2].fault_peers = {"pn0", "pn1"}
+        t0 = time.perf_counter()
+        faults.arm("net.partition", times=0)
+        try:
+            detect_s = wait_for(lambda: cls[0].members == ["pn0", "pn1"]
+                                and cls[2].members == ["pn2"], 30,
+                                "13d detection") - t0
+            churn = 0
+            t_end = time.perf_counter() + P13_PARTITION_WINDOW_S
+            while time.perf_counter() < t_end:
+                side = nodes[0] if churn % 2 else nodes[2]
+                s = Sink(100_000 + churn)
+                side.broker.subscribe(s, f"bench/c/{churn % 3000}")
+                side.broker.unsubscribe(s, f"bench/c/{churn % 3000}")
+                churn += 1
+                time.sleep(0.002)
+            split = [c.plane_digests() for c in cls]
+        finally:
+            t1 = time.perf_counter()
+            faults.disarm("net.partition")
+        wait_for(lambda: all(sorted(c.members) == ["pn0", "pn1", "pn2"]
+                             for c in cls), 60, "13d membership re-merge")
+        heal_s = wait_for(lambda: digests_equal(cls), 60,
+                          "13d plane-digest convergence") - t1
+        counters = {}
+        for c in cls:
+            for k, v in c.drain_counters().items():
+                counters[k] = counters.get(k, 0) + v
+    finally:
+        faults.clear()
+        close_cluster(trs, cls)
+    routes = [len(n.router.route_table()) for n in nodes]
+    log(f"[13d] 3 nodes, {P13_PARTITION_ROUTES} routes, partition "
+        f"{{pn0, pn1}} | {{pn2}}: detected in {detect_s:.3f} s; "
+        f"{churn} churn ops in the {P13_PARTITION_WINDOW_S:.0f} s window "
+        f"(the sides' digests {'differ' if split[0] != split[2] else 'equal'}"
+        f"); heal to the five digests' convergence {heal_s:.3f} s, routes "
+        f"{routes}; forwards dropped {counters.get('forward.dropped', 0)}; "
+        f"counters {dict(sorted(counters.items()))} — {card}")
+    return {"detect_s": detect_s, "heal_s": heal_s, "churn": churn,
+            "dropped": counters.get("forward.dropped", 0)}
+
+
+def run_cluster(pairs, batches, warm, opts, device, card, p5):
+    """Phase 13, the cluster on the card (see the module docstring);
+    returns the launches and numbers for the kernel line."""
+    from emqx_tpu_torch import faults
+
+    t_start = time.perf_counter()
+    log(f"[13] P13_BUDGET_S {P13_BUDGET_S:.0f} s; two port nodes on "
+        f"{device} over SocketTransport on loopback (13a-13c), three for "
+        f"13d — {card}")
+    nodes, trs, cls, a = timed("13a (cluster data path)", cluster_13a,
+                               pairs, batches, warm, opts, device, card, p5)
+    try:
+        b = timed("13b (retained across nodes)", cluster_13b, nodes, trs,
+                  card)
+        c = timed("13c (cross-node takeover)", asyncio.run,
+                  _takeover(nodes, trs, card))
+        for n in nodes:
+            check_quiet(n, f"13b and 13c {n.name}")
+    finally:
+        close_cluster(trs, cls)
+    del nodes, trs, cls
+    gc.collect()
+    d = timed("13d (partition and heal)", cluster_13d, device, opts, card)
+    # 13d's injected partition: the phases after it are checked for no
+    # fault beyond it
+    P9_INJECTED["n"] = faults.info()["injected_total"]
+    took = time.perf_counter() - t_start
+    log(f"[13] phase 13 took {took:.1f} s of its {P13_BUDGET_S:.0f} s "
+        f"budget — {card}")
+    return {"13a": a, "13b": b, "13c": c, "13d": d, "seconds": took}
 
 
 # -- the retained slice: the retained_1m shape -------------------------------
@@ -4461,9 +5270,22 @@ def phase_sentinel(card):
 #: unbounded inflight window, session expiry 3,600 s, QoS 1 filters
 P10_SESSIONS = 4096
 #: phase 5's batches 10b drives as QoS 1 (the full checkpoint after
-#: half of them), cut from all 20 (to 10, then to 4 to make room for
-#: phase 12) to hold the run under 1,100 s on a slow host (printed)
-P10_BATCHES = 4
+#: half of them), cut from all 20 (to 10, then 4 for phase 12, then 3
+#: for phase 13) to hold the run's time (printed). Not below 3: with 2,
+#: the full checkpoint takes every dirty session state and both
+#: batches' journal flushes write none, so 10b would time an empty flush
+P10_BATCHES = 3
+#: the retained messages phase 10 journals, checkpoints and recovers,
+#: cut from phase 6's 1M (to 500,000 for phase 13, then 250,000: the
+#: phase took 333-509 s on the card's hosts at 500,000 and 1.02M
+#: filters, and the whole script crossed the 1,200 s limit in it on a
+#: slower one; printed)
+P10_NAMES = 250_000
+#: the filters phase 10's sessions hold: phase 5's set cut to this many,
+#: every class whole but the '+' one, as 13a's (subscribe, checkpoint,
+#: recovery and the collector's pauses in it grow with the table;
+#: printed)
+P10_ROUTES = 250_000
 #: of those, the batches driven again after recovery (10d), cut from
 #: all of them (to 4, then 2); the first after recovery is always
 #: among them
@@ -4739,12 +5561,19 @@ async def phase_durable(opts, device, card):
 
     on_card = device != "cpu"
     n_sess = opts.sessions
+    names = min(opts.names, P10_NAMES)
     wl, batches = p10_workload(opts)
-    if len(batches) > P10_BATCHES:
+    others = sum(len(wl[k]) for k in ("literal", "hash", "shared", "big"))
+    n_plus = max(0, min(len(wl["plus"]), P10_ROUTES - others))
+    if len(batches) > P10_BATCHES or names < opts.names \
+            or n_plus < len(wl["plus"]):
         log(f"[10] cut: {P10_BATCHES} of phase 5's {len(batches)} batches "
             f"in 10b, {P10_REPEAT} of them again in 10d, {P10_BURSTS} "
-            f"replay bursts in 10e, to hold the run's time")
+            f"replay bursts in 10e, {names} of the {opts.names} retained "
+            f"messages, {n_plus} of phase 5's {len(wl['plus'])} '+' "
+            f"filters (every other class whole), to hold the run's time")
         batches = batches[:P10_BATCHES]
+        wl["plus"] = wl["plus"][:n_plus]
     per = durable_keys(wl, n_sess)
     # a fresh directory on the checkout's disk (the run's TMPDIR may be
     # a tmpfs, where fsync costs nothing)
@@ -4794,14 +5623,14 @@ async def phase_durable(opts, device, card):
         dur.on_batch()
         sub_s = time.perf_counter() - t0
         n_keys = sum(len(p) for p in per) + len(clean)
-        store_s = store_retained(node, opts.names)
+        store_s = store_retained(node, names)
         dur.on_batch()
         wi = dur.wal.info()
         log(f"[10a] {n_sess} persistent sessions (clean_start=False, "
             f"expiry {P10_EXPIRY_S:.0f} s, QoS 1) hold {n_keys - len(clean)} "
             f"subscriptions ({len(node.router._filter_ids)} filters), "
             f"{len(clean)} '#' filters on clean subscribers: subscribe "
-            f"{sub_s:.1f} s; {opts.names} retained messages stored through "
+            f"{sub_s:.1f} s; {names} retained messages stored through "
             f"the broker {store_s:.1f} s; journal {wi['records']} records, "
             f"{wi['bytes'] / 1e6:.1f} MB, {wi['fsyncs']} fsyncs, last fsync "
             f"{wi['last_fsync_ms']:.3f} ms, dropped {wi['dropped']} — {card}")
@@ -5003,9 +5832,9 @@ async def phase_durable(opts, device, card):
                     != pre_subs[s.client_id]:
                 raise AssertionError(f"[10d] {s.client_id}'s subscriptions")
         store = mod._store
-        if len(store) != opts.names or any(
+        if len(store) != names or any(
                 store[retained_name(i)].payload != b"%d" % i
-                for i in range(opts.names)):
+                for i in range(names)):
             raise AssertionError("[10d] the retained store differs")
         log(f"[10d] routes equal the pre-crash table less the "
             f"{pruned_want} refs of the clean subscribers; {n_sess} sessions "
@@ -5085,11 +5914,11 @@ async def phase_durable(opts, device, card):
         check_quiet(node, "10d")
 
         # -- 10e: retained after recovery ----------------------------------
-        bursts = retained_bursts(opts.names, min(opts.bursts, P10_BURSTS),
+        bursts = retained_bursts(names, min(opts.bursts, P10_BURSTS),
                                  opts.burst)
         saves0 = node.durability.counters["checkpoint.saves"]
         r = await replay_bursts(node, mod._index, bursts,
-                                NameFamily(opts.names), "p10_")
+                                NameFamily(names), "p10_")
         saves = node.durability.counters["checkpoint.saves"] - saves0
         blat = np.array(r[0]) * 1e3
         b3 = r[5]["retained_match"]
@@ -5212,9 +6041,10 @@ def main(argv=None) -> int:
     card = phase_env()
     phase_build(card)
     t0 = time.perf_counter()
-    rows = run(opts, "cuda", card)
+    p13, rows = run(opts, "cuda", card)
     t1 = time.perf_counter()
     rows.append(run_retained(opts, "cuda", card))
+    rows[-1]["cluster_launches"] = p13["13b"]["launches"]
     timed("9d (sentinel)", phase_sentinel, card)
     t2 = time.perf_counter()
     p10 = timed("10 (durability)", run_durable, opts, "cuda", card)

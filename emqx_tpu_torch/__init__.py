@@ -15,7 +15,10 @@ batcher and a TCP listener (``Node.add_listener``), so a live PUBLISH
 or SUBSCRIBE reaches those kernels; and the device mesh
 (:mod:`emqx_tpu_torch.parallel`): ``MatcherConfig(mesh=...)`` shards
 the filter set and the publish batch over a grid of devices, one B1
-walk per cell.
+walk per cell; and the cluster (:mod:`emqx_tpu_torch.cluster`,
+:mod:`emqx_tpu_torch.cluster_net`): route replication puts the whole
+cluster's filters in every node's automaton, so the node that takes a
+publish matches it on its own device and only deliveries cross nodes.
 Every entry point takes ``device=`` (default ``"cuda"``); on CPU
 tensors the kernels' plain PyTorch versions run, which is how the
 tests hold the port against the JAX package byte for byte.

@@ -41,6 +41,12 @@ batch carries a :class:`~emqx_tpu_torch.telemetry.PublishSpan` from
 with tracing at a sample rate above 0, the sampled messages of a batch
 carry a trace batch along the same seams (``tracing.py``).
 
+In a cluster (``cluster.py``) a matched filter may route to other
+nodes: every node's automaton holds the whole cluster's filters, the
+delivery tail forwards one message per remote (node, filter) through
+:attr:`Broker.forwarder` and picks one node per shared group through
+:attr:`Broker.shared_router`.
+
 Subscribers are any objects with ``deliver(topic_filter, msg)``.
 """
 
@@ -204,6 +210,12 @@ class Broker:
         # the node's ingress batcher (ingress.py), set by Node: the
         # channel hands it every PUBLISH, and wills go through it
         self.ingress = None
+        # pluggable cross-node forwarder (emqx_rpc seam), set by the
+        # cluster: ``forwarder(node, filter, msg)``; None = one node
+        self.forwarder = None
+        # cluster-wide shared-group router: (group, flt, nodes, msg)
+        # -> local delivery count; None = one node (local pick)
+        self.shared_router = None
         # overload protection (overload.py), wired by Node: the
         # monitor (the channel and session consult it), the
         # device-path breaker and the alarms. None = no guard runs
@@ -304,8 +316,24 @@ class Broker:
                 msg = orig.copy()
                 if was_sent:
                     msg.set_header("redispatch", True)
-                if self.shared.dispatch(group, flt, msg):
+                nodes = [r.dest[1] for r in self.router.lookup_routes(flt)
+                         if isinstance(r.dest, tuple) and r.dest[0] == group]
+                if self.shared_router is not None and nodes:
+                    # surviving members may live on other nodes
+                    n = self.shared_router(group, flt, nodes, msg)
+                else:
+                    n = self.shared.dispatch(group, flt, msg)
+                if n:
                     self.metrics.inc("messages.redispatched")
+
+    def detach_subscriber(self, sub: object) -> None:
+        """Remove a subscriber's table entries WITHOUT the death-path
+        side effects (no shared redispatch): the session is being
+        handed to another node's broker, which resubscribes it."""
+        with self._route_lock:
+            for key in list(self._subscriptions.get(sub, {})):
+                self.unsubscribe(sub, key)
+            self.shared.subscriber_down(sub)
 
     def restore_subscription(self, sub: object, topic_filter: str,
                              opts: Optional[SubOpts] = None) -> None:
@@ -867,10 +895,11 @@ class Broker:
     # -- the planned tail ---------------------------------------------------
 
     def _plan_prologue(self, pb: PendingBatch) -> _PlanState:
-        """Classify every matched filter id once (local / shared), then
-        walk the live rows doing the per-message work the plan cannot
-        carry: no-subscriber drops and shared-group picks. Local
-        delivery is the plan's."""
+        """Classify every matched filter id once (local / shared /
+        remote), then walk the live rows doing the per-message work the
+        plan cannot carry: no-subscriber drops, shared-group picks and
+        remote forwards (one ``forwarder(node, filter, msg)`` per remote
+        (node, filter)). Local delivery is the plan's."""
         ps = _PlanState()
         n_live = len(pb.live)
         ps.row_local = bytearray(n_live)
@@ -894,25 +923,37 @@ class Broker:
                 if info is None:
                     flt = id_map[j]
                     if flt is None:
-                        info = (None, False, ())
+                        info = (None, False, (), ())
                     else:
                         loc = False
-                        groups: List[str] = []
+                        sh: Dict[str, List[str]] = {}
+                        rem: Dict[object, bool] = {}
                         for route in self.router.lookup_routes(flt):
-                            if isinstance(route.dest, tuple):
-                                groups.append(route.dest[0])
-                            else:
+                            dest = route.dest
+                            if isinstance(dest, tuple):
+                                sh.setdefault(dest[0], []).append(dest[1])
+                            elif dest == self.node:
                                 loc = True
+                            else:
+                                rem[dest] = True
                         ps.ftabs[j] = self._subscribers.get(flt)
-                        info = (flt, loc, tuple(groups))
+                        info = (flt, loc, tuple(sh.items()), tuple(rem))
                     route_of[j] = info
-                flt, loc, groups = info
+                flt, loc, sh_items, rem_nodes = info
                 if flt is None:
                     continue
                 seen_filter = True
                 local = local or loc
-                for group in groups:
-                    n += self.shared.dispatch(group, flt, msg)
+                for group, nodes in sh_items:
+                    if self.shared_router is not None:
+                        # cluster: ONE delivery per group, all nodes
+                        n += self.shared_router(group, flt, nodes, msg)
+                    elif self.node in nodes:
+                        n += self.shared.dispatch(group, flt, msg)
+                for nd in rem_nodes:
+                    if self.forwarder is not None:
+                        self.forwarder(nd, flt, msg)
+                        self.metrics.inc("messages.forward")
             if not seen_filter:
                 self._drop_no_subs(msg)
                 continue
@@ -1120,28 +1161,43 @@ class Broker:
 
     def _route(self, filters: List[str], msg: Message,
                local_deliver=None) -> int:
-        """Fan a matched message out to local subscribers and shared
-        groups (route/2). Every route is this node's: the router
-        refuses others. ``local_deliver(local_filters) -> int``
-        overrides the local step (the device fan-out tail plugs in
-        here)."""
+        """Fan a matched message out to local subscribers, shared
+        groups and remote nodes (route/2 + aggre/1 + forward/4).
+        ``local_deliver(local_filters) -> int`` overrides the local
+        step (the device fan-out tail plugs in here). Shared and remote
+        destinations resolve on the host: they are per-group and
+        per-node picks, not per-subscriber."""
         n = 0
-        shared: List[Tuple[str, str]] = []
+        remote: set = set()  # (node, filter) — aggre/1 dedup
+        shared: Dict[Tuple[str, str], List[str]] = {}  # (group,flt)->nodes
         local: List[str] = []
         for flt in filters:
             for route in self.router.lookup_routes(flt):
-                if isinstance(route.dest, tuple):  # (group, node)
-                    shared.append((route.dest[0], flt))
-                else:
+                dest = route.dest
+                if isinstance(dest, tuple):  # (group, node) shared route
+                    shared.setdefault((dest[0], flt), []).append(dest[1])
+                elif dest == self.node:
                     local.append(flt)
+                else:
+                    remote.add((dest, flt))
         if local:
             if local_deliver is not None:
                 n += local_deliver(local)
             else:
                 for flt in local:
                     n += self.dispatch(flt, msg)
-        for group, flt in shared:
-            n += self.shared.dispatch(group, flt, msg)
+        for (group, flt), nodes in shared.items():
+            if self.shared_router is not None:
+                # cluster: ONE delivery per group across all nodes
+                n += self.shared_router(group, flt, nodes, msg)
+            elif self.node in nodes:
+                n += self.shared.dispatch(group, flt, msg)
+        for node, flt in remote:
+            if self.forwarder is not None:
+                # the remote node dispatches by the matched filter — no
+                # re-match there (emqx_broker:forward/4 :266-281)
+                self.forwarder(node, flt, msg)
+                self.metrics.inc("messages.forward")
         return n
 
     def _route_packed(self, row: int, row_ids: List[int],

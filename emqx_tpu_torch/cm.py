@@ -2,34 +2,41 @@
 clean-start/resume, takeover, discard, kick.
 
 The port of the JAX package's ``ConnectionManager``
-(``src/emqx_cm.erl``) on one node: ``open_session/3`` under a
-per-clientid lock (:209-236), the takeover protocol (:244-272),
-discard/kick (:274-326), and the clientid→channel registry
-(emqx_cm_registry). Detached persistent sessions are kept for their
-session expiry and swept by :meth:`expire_sessions`; wills held back
-by Will-Delay-Interval live here too. With durability on, a
-persistent session's detach and close journal through
-:attr:`ConnectionManager.durability`. The cluster's distributed lock
-and remote takeover come with the cluster.
+(``src/emqx_cm.erl``): ``open_session/3`` under a per-clientid lock
+(:209-236) — a node-local mutex PLUS, when clustered, the distributed
+quorum lock (:mod:`emqx_tpu_torch.cm_locker`: two nodes racing the
+same clientid serialize cluster-wide, so exactly one session
+survives), the takeover protocol (:244-272) with the cross-node
+takeover through the cluster's registry, discard/kick (:274-326), and
+the clientid→channel registry (emqx_cm_registry). Detached persistent
+sessions are kept for their session expiry and swept by
+:meth:`expire_sessions`; wills held back by Will-Delay-Interval live
+here too. With durability on, a persistent session's detach and close
+journal through :attr:`ConnectionManager.durability`.
 """
 
 from __future__ import annotations
 
 import asyncio
+import logging
 import threading
 import time
 from typing import Dict, Optional, Tuple
 
 from emqx_tpu_torch.session import Session
 
+log = logging.getLogger("emqx_tpu_torch.cm")
+
 TAKEOVER_RC = 0x8E  # session taken over
 
 
 class SessionUnavailableError(Exception):
-    """The clientid's session owner cannot hand the session over right
-    now; the channel answers the CONNECT with ServerBusy. One node
-    never raises it: it is the contract the cluster's owner check
-    plugs into."""
+    """The clientid's registered session owner is SUSPECT (unconfirmed
+    by the failure detector): the session exists but cannot be pulled
+    right now. The channel answers the CONNECT with ServerBusy — the
+    client's retry lands after the detector settles the owner's fate
+    (recovered → takeover; down → fresh session) — instead of minting
+    a fresh session over a live one."""
 
     def __init__(self, client_id: str, owner: str) -> None:
         super().__init__(
@@ -40,6 +47,9 @@ class SessionUnavailableError(Exception):
 class ConnectionManager:
     def __init__(self, broker=None) -> None:
         self.broker = broker
+        # set by Cluster: replicated clientid registry + remote
+        # takeover/discard (emqx_cm_registry + emqx_rpc seam)
+        self.cluster = None
         # durability layer (durability.py), wired by Node: persistent-
         # session detach/close transitions journal through it. None =
         # nothing journals
@@ -60,6 +70,10 @@ class ConnectionManager:
                 lk = threading.Lock()
                 self._locks[client_id] = lk
             return lk
+
+    def _cluster_locker(self):
+        return getattr(self.cluster, "locker", None) \
+            if self.cluster is not None else None
 
     # -- registry ---------------------------------------------------------
 
@@ -128,8 +142,15 @@ class ConnectionManager:
                      ) -> Tuple[Session, bool]:
         """Returns (session, session_present)."""
         with self._client_lock(client_id):
-            return self._open_session_locked(
-                client_id, clean_start, channel, session_opts)
+            locker = self._cluster_locker()
+            if locker is not None:
+                locker.acquire(client_id)
+            try:
+                return self._open_session_locked(
+                    client_id, clean_start, channel, session_opts)
+            finally:
+                if locker is not None:
+                    locker.release(client_id)
 
     def _open_session_locked(self, client_id: str, clean_start: bool,
                              channel,
@@ -141,6 +162,10 @@ class ConnectionManager:
             self.cancel_will(client_id, fire=True)
             if old_chan is not None and old_chan is not channel:
                 self._kick(old_chan, discard=True)
+            elif self.cluster is not None:
+                loc = self.cluster.locate_client(client_id)
+                if loc is not None and loc != self.cluster.name:
+                    self.cluster.remote_discard(client_id, loc)
             stale = self._detached.pop(client_id, None)
             if stale is not None and self.broker is not None:
                 self.broker.subscriber_down(stale[0])
@@ -157,12 +182,71 @@ class ConnectionManager:
             sess = self._takeover(old_chan)
         elif client_id in self._detached:
             sess, _ts, _exp = self._detached.pop(client_id)
+        elif self.cluster is not None:
+            sess = self._remote_takeover(client_id)
         if sess is not None:
-            self._channels[client_id] = channel
+            self._register(client_id, channel)
             if self.broker is not None:
                 sess.resume(self.broker)
             return sess, True
         return self._fresh(client_id, False, channel, session_opts), False
+
+    def _remote_takeover(self, client_id: str) -> Optional[Session]:
+        """The session may live on another node: pull it over
+        (emqx_cm:takeover_session RPC path). A holder that no longer
+        has the session answers with a forwarding marker and the chase
+        follows the chain, bounded by the visited set; a SUSPECT owner
+        is retried at most 3 times while the detector already reads it
+        ok again, else the CONNECT is refused with ServerBusy
+        (:class:`SessionUnavailableError`)."""
+        loc = self.cluster.locate_client(client_id)
+        visited = set()
+        retries = 0
+        sess = None
+        while loc is not None and loc not in visited:
+            if loc == self.cluster.name:
+                ent = self._detached.pop(client_id, None)
+                if ent is not None:
+                    sess = ent[0]
+                else:
+                    # a takeover hand-out whose reply was lost parked
+                    # the session here
+                    sess = self.cluster.claim_parked(client_id)
+                break
+            res = self.cluster.remote_takeover(client_id, loc)
+            if isinstance(res, dict) and "suspect" in res:
+                # the named owner is SUSPECT — unconfirmed, the session
+                # exists: minting a fresh session here loses it, and
+                # blocking the serving loop is worse. The CLIENT's
+                # retry paces the next attempt, after the detector's
+                # hysteresis has settled the owner's fate
+                retries += 1
+                state = self.cluster.transport.peer_state(loc)
+                if retries <= 3 and state == "ok":
+                    continue  # blip already cleared: retry now
+                log.warning("resume of %r deferred: owner %s is %s",
+                            client_id, loc, state)
+                raise SessionUnavailableError(client_id, loc)
+            visited.add(loc)
+            if isinstance(res, dict):
+                loc = res.get("moved")
+                continue
+            sess = res
+            if sess is not None:
+                sess.client_id = client_id
+            break
+        if sess is None and visited:
+            # the chase dead-ended: the client gets a fresh session
+            # (availability); a registry that NAMED owners but produced
+            # no session usually means a custody move raced this CONNECT
+            log.warning("takeover chase for %r ended empty (visited %s, "
+                        "last claim %r)", client_id, sorted(visited), loc)
+        return sess
+
+    def _register(self, client_id: str, channel) -> None:
+        self._channels[client_id] = channel
+        if self.cluster is not None:
+            self.cluster.client_up(client_id)
 
     def _fresh(self, client_id: str, clean_start: bool, channel,
                opts: Optional[dict]) -> Session:
@@ -172,7 +256,7 @@ class ConnectionManager:
             self.broker.metrics.inc("session.created")
             self.broker.hooks.run("session.created",
                                   (client_id, sess.info()))
-        self._channels[client_id] = channel
+        self._register(client_id, channel)
         return sess
 
     def _takeover(self, old_chan) -> Optional[Session]:
@@ -187,18 +271,32 @@ class ConnectionManager:
         chan.kick(discard=discard)
         self.unregister_channel(getattr(chan, "client_id", ""), chan)
 
-    def discard_session(self, client_id: str) -> None:
-        self.cancel_will(client_id, fire=True)  # the session ends now
-        chan = self._channels.get(client_id)
-        if chan is not None:
-            self._kick(chan, discard=True)
-        stale = self._detached.pop(client_id, None)
-        if stale is not None and self.broker is not None:
-            self.broker.subscriber_down(stale[0])
-        if stale is not None and self.durability is not None:
-            self.durability.session_closed(client_id)
-        if self.broker is not None:
-            self.broker.metrics.inc("session.discarded")
+    def discard_session(self, client_id: str,
+                        cluster_lock: bool = True) -> None:
+        """``cluster_lock=False`` is the remote-RPC entry: the
+        REQUESTING node already holds this clientid's cluster lock
+        (emqx_cm.erl:274-282 — discard runs inside the caller's
+        locker transaction)."""
+        locker = self._cluster_locker() if cluster_lock else None
+        if locker is not None:
+            locker.acquire(client_id)
+        try:
+            self.cancel_will(client_id, fire=True)  # the session ends now
+            chan = self._channels.get(client_id)
+            if chan is not None:
+                self._kick(chan, discard=True)
+            stale = self._detached.pop(client_id, None)
+            if stale is not None and self.broker is not None:
+                self.broker.subscriber_down(stale[0])
+            if stale is not None and self.durability is not None:
+                self.durability.session_closed(client_id)
+            if self.cluster is not None:
+                self.cluster.client_down(client_id)
+            if self.broker is not None:
+                self.broker.metrics.inc("session.discarded")
+        finally:
+            if locker is not None:
+                locker.release(client_id)
 
     def kick_session(self, client_id: str) -> bool:
         chan = self._channels.get(client_id)
@@ -240,6 +338,8 @@ class ConnectionManager:
                 session.broker = self.broker
                 self.broker.subscriber_down(session)
                 self.broker.metrics.inc("session.terminated")
+            if self.cluster is not None:
+                self.cluster.client_down(client_id)
             if self.durability is not None \
                     and getattr(session, "durable", False):
                 self.durability.session_closed(client_id)
@@ -254,6 +354,8 @@ class ConnectionManager:
                     and getattr(sess, "durable", False):
                 self.durability.session_closed(cid)
             self.cancel_will(cid, fire=True)  # session end publishes it
+            if self.cluster is not None:
+                self.cluster.client_down(cid)
             if self.broker is not None:
                 self.broker.subscriber_down(sess)
                 self.broker.metrics.inc("session.terminated")

@@ -42,9 +42,9 @@ Consistency protocol:
 
 ``DurabilityConfig(enabled=False)`` (the default) builds none of this —
 every hot-path site is one ``None`` attribute test. Journal shipping
-to a standby is not part of this layer: ``standby``, ``standbys`` and
-``ack_quorum`` other than their defaults raise ``ValueError``, as
-``Router.add_route`` refuses a remote node.
+to a standby on another cluster node is not part of this layer (it
+comes with replicated durability): ``standby``, ``standbys`` and
+``ack_quorum`` other than their defaults raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -174,8 +174,8 @@ class DurabilityConfig:
                 "configured standbys")
         if self.standby_list or self.ack_quorum:
             raise ValueError(
-                "durability.standby/standbys/ack_quorum: this port "
-                "runs one node (no journal shipping)")
+                "durability.standby/standbys/ack_quorum: no journal "
+                "shipping to standbys without replicated durability")
 
     @property
     def standby_list(self) -> tuple:

@@ -18,6 +18,27 @@ DEVICE_METRICS = (
     "device.matches", "device.deliveries", "device.overflows",
 )
 
+# the cluster plane (cluster.py, cluster_net.py), folded from the
+# node's Cluster/transport event counters on the stats tick:
+# `cluster.hb.*` = failure-detector transitions (ok→suspect,
+# suspect→down, down→reappeared), `cluster.rpc.fastfail` = calls
+# refused WITHOUT touching the wire because the detector held the
+# peer suspect/down, `cluster.rpc.errors` = transport errors the
+# detector judges instead of a nodedown, `cluster.forward.dropped` =
+# at-most-once data-plane casts shed (cast buffer full, or net.drop) —
+# the loss anti-entropy exists to repair, `cluster.heal.rejoins` =
+# auto-heal handshakes completed, `cluster.ae.sweeps`/`.repairs` =
+# anti-entropy rounds run / entries re-pushed, `cluster.locker.degraded`
+# = lock quorums that proceeded without a suspect member's vote
+CLUSTER_METRICS = (
+    "cluster.hb.suspects", "cluster.hb.downs",
+    "cluster.hb.reappears", "cluster.rpc.fastfail",
+    "cluster.rpc.errors",
+    "cluster.forward.dropped", "cluster.heal.rejoins",
+    "cluster.ae.sweeps", "cluster.ae.repairs",
+    "cluster.locker.degraded",
+)
+
 NAMES = (
     # the publish path
     "messages.received",
@@ -25,7 +46,7 @@ NAMES = (
     "messages.qos2.received",
     "messages.sent",
     "messages.qos0.sent", "messages.qos1.sent", "messages.qos2.sent",
-    "messages.publish", "messages.retained",
+    "messages.publish", "messages.forward", "messages.retained",
     "messages.dropped", "messages.dropped.no_subscribers",
     "messages.dropped.expired",
     "messages.delivered", "messages.acked", "messages.redispatched",
@@ -130,6 +151,7 @@ NAMES = (
     # crossed slow_subs_threshold_ms
     "tracing.spans", "tracing.dropped",
     "slow_subs.flushes", "slow_subs.breaches",
+    *CLUSTER_METRICS,
 )
 
 #: registry names that are NOT monotonic (``Metrics.dec`` runs on them,
@@ -190,6 +212,16 @@ class Metrics:
         (``Router.drain_automaton_stats``)."""
         for key, val in stats.items():
             self.inc(f"automaton.{key}", int(val))
+
+    def fold_cluster_stats(self, stats: Dict[str, int]) -> None:
+        """Fold drained cluster-plane event counters
+        (``Cluster.drain_counters``). Keys outside CLUSTER_METRICS are
+        registered on first sight — the cluster and transport may grow
+        event names without a registry edit here."""
+        for key, val in stats.items():
+            name = f"cluster.{key}"
+            self.new(name)
+            self.inc(name, int(val))
 
     def val(self, name: str) -> int:
         return self._counters[name]

@@ -26,9 +26,17 @@ failed B3 match raises instead: only a loss the router's recovery has
 confirmed (its suspension) moves a match to the host. Every match the
 host scan serves in the device's place is counted
 (``retained.device.fallback``), and the third strike raises the
-``retained_device_fallback`` alarm. The cluster and
-durability members of the JAX module (replication, tombstones,
-journal, restore) come with their slices.
+``retained_device_fallback`` alarm.
+
+In a cluster the store is replicated (the reference plugin replicates
+through Mnesia): every store and delete broadcasts through
+``node.retain_replicate``, a peer's applies through
+:meth:`RetainerModule.apply_remote` (arrival order live,
+timestamp last-writer-wins with delete tombstones on a join or
+anti-entropy sync), and a replicated message enters the receiving
+node's :class:`RetainIndex`, so that node's replay matches it through
+kernel B3. With durability on, stores and deletes journal and crash
+recovery refills the store (:meth:`RetainerModule.restore_entries`).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import threading
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -574,8 +583,10 @@ class RetainerModule(Module):
             if self._pop(msg.topic) is not None:
                 self.node.metrics.dec("retained.count")
                 # monotone: a delete never moves a tombstone backwards
+                # (nor an ahead-clock peer's)
                 self._tombstones[msg.topic] = max(
                     self._tombstones.get(msg.topic, 0.0), msg.timestamp)
+                self._replicate(msg.topic, None, msg.timestamp)
             return None
         if len(msg.payload) > self.max_payload or (
                 msg.topic not in self._store
@@ -589,17 +600,98 @@ class RetainerModule(Module):
         # part of the retained record
         stored.headers.pop("_wire", None)
         self._put(msg.topic, stored)
+        self._replicate(msg.topic, stored)
         return None  # the message still routes normally
+
+    def _replicate(self, topic: str, msg, ts: float = None) -> None:
+        fn = getattr(self.node, "retain_replicate", None)
+        if fn is not None:
+            fn(topic, msg, ts)
+
+    def apply_remote(self, topic: str, msg, sync: bool = False,
+                     ts: float = None) -> None:
+        """A peer's store/delete (idempotent, never re-broadcast).
+
+        LIVE replication (``sync=False``) applies in arrival order —
+        concurrent publishes race exactly as the reference's Mnesia
+        writes do, and a node with a lagging clock must not have its
+        updates silently dropped cluster-wide. JOIN sync
+        (``sync=True``) is the anti-entropy path: last-WRITER-wins by
+        message timestamp, respecting delete tombstones, so a
+        rejoiner's stale snapshot can neither clobber newer values nor
+        resurrect deletions."""
+        if msg is None:
+            if self._pop(topic) is not None:
+                self.node.metrics.dec("retained.count")
+            # the tombstone carries the DELETING message's origin
+            # timestamp (not local wall-clock) so join-sync LWW stays
+            # consistent under clock skew; monotone like apply_tombstone
+            if ts is None:
+                ts = time.time()
+            self._tombstones[topic] = max(
+                self._tombstones.get(topic, 0.0), ts)
+            return
+        if msg.is_expired():
+            return
+        if len(msg.payload) > self.max_payload:
+            # the bound on_publish enforces — a peer with a larger
+            # limit must not replicate oversize payloads into ours
+            self.node.metrics.inc("retained.dropped")
+            return
+        if sync:
+            tomb = self._tombstones.get(topic)
+            if tomb is not None and tomb >= msg.timestamp:
+                return
+        cur = self._store.get(topic)
+        if cur is not None:
+            if not sync or msg.timestamp > cur.timestamp:
+                self._put(topic, msg)
+            return
+        if len(self._store) >= self.max_retained:
+            self.node.metrics.inc("retained.dropped")
+            return
+        self.node.metrics.inc("retained.count")
+        self._put(topic, msg)
 
     def sweep_expired(self) -> int:
         """Drop expired entries (a matching subscribe also prunes them
-        lazily; the stats-tick GC and the periodic sweep land here)."""
+        lazily; the stats-tick GC and the periodic sweep land here),
+        and delete tombstones past their time to live."""
         dead = [t for t, m in self._store.items() if m.is_expired()]
         for t in dead:
             self._pop(t)
             self.node.metrics.dec("retained.count")
             self.node.metrics.inc("retained.expired")
+        self._sweep_tombstones()
         return len(dead)
+
+    def entries(self):
+        """Live snapshot for a cluster join sync (expired swept first —
+        a join must not resurrect dead entries)."""
+        self.sweep_expired()
+        return list(self._store.items())
+
+    def tombstones(self):
+        return list(self._tombstones.items())
+
+    def apply_tombstone(self, topic: str, ts: float) -> None:
+        """A peer's delete record (join sync): drop any locally stored
+        message older than the deletion."""
+        cur = self._store.get(topic)
+        if cur is not None and cur.timestamp <= ts:
+            self._pop(topic)
+            self.node.metrics.dec("retained.count")
+        prev = self._tombstones.get(topic, 0.0)
+        self._tombstones[topic] = max(prev, ts)
+
+    #: seconds a delete tombstone is kept
+    _TOMBSTONE_TTL = 3600.0
+
+    def _sweep_tombstones(self) -> None:
+        cutoff = time.time() - self._TOMBSTONE_TTL
+        for t in [t for t, ts in self._tombstones.items()
+                  if ts < cutoff]:
+            self._tombstones.pop(t, None)
 
     # -- delivery on subscribe ---------------------------------------------
 

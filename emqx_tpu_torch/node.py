@@ -12,15 +12,21 @@ and the periodic full collection; every connection forces a young
 collection per 16,000 packets or 16 MiB received), the module host
 and the MQTT listeners, in the reference's boot order
 (src/emqx_app.erl:31-44, src/emqx_sup.erl:64-80), and, when enabled,
-the durability layer (journal, checkpoints, crash recovery). Plugins,
-several front-door loops and the cluster come with their slices.
+the durability layer (journal, checkpoints, crash recovery) and the
+cluster (:meth:`Node.enable_cluster`: a socket transport and a
+``Cluster`` agent come up in :meth:`start`, on the running loop).
+Plugins, several front-door loops and replicated durability come with
+their slices.
 
 ``Node(overload=OverloadConfig(enabled=False))`` builds no monitor,
 breaker or recovery: every guard reads ``None``.
 ``Node(durability=DurabilityConfig(enabled=True, dir=...))`` builds
 the durability manager: :meth:`start` recovers the directory's state
 before any listener accepts, and :meth:`stop` commits a clean-shutdown
-checkpoint. The default builds none.
+checkpoint. The default builds none. ``node.enable_cluster(port=0)``
+before :meth:`start`, then ``node.cluster.join_remote(host, port)``,
+joins a cluster over TCP; every node keeps its own automaton on its
+own device (several nodes may share one card).
 
     node = Node(device="cuda")
     node.modules.load(RetainerModule)
@@ -164,6 +170,16 @@ class Node:
             self.broker.durability = self.durability
             self.cm.durability = self.durability
         self.node_state = NODE_RUNNING
+        # the cluster (cluster.py): set by Cluster, or built in
+        # start() after enable_cluster. Replicated durability comes
+        # with replication.py: None
+        self.cluster = None
+        self.replication = None
+        self._cluster_cfg = None
+        # cluster_forward_dropped alarm edge + the per-member gauge
+        # keys of the last stats tick (_fold_cluster_stats)
+        self._fwd_dropped_prev = 0
+        self._cluster_stat_keys: set = set()
         # publish-path telemetry (telemetry.py): stage histograms and
         # the slow-publish log, on by default. Wired onto broker AND
         # router — the broker stamps the spans, the router's
@@ -220,6 +236,16 @@ class Node:
         self.listeners.append(lst)
         return lst
 
+    def enable_cluster(self, port: int = 0, host: str = "127.0.0.1",
+                       cookie: str = "emqxtpu", config=None) -> None:
+        """Arrange for a socket cluster transport + Cluster agent to
+        come up during :meth:`start` (the transport captures the
+        serving loop). ``node.cluster.join_remote(host, port)`` joins
+        a peer once started. ``config`` is the ``[cluster]``
+        :class:`~emqx_tpu_torch.cluster.ClusterConfig` (failure
+        detector + auto-heal); None = EOF-only failure detection."""
+        self._cluster_cfg = (host, port, cookie, config)
+
     async def start(self) -> None:
         """Recover the durable state (when enabled), then start the
         listeners, the modules' loop-bound work and the session
@@ -246,6 +272,16 @@ class Node:
         self.node_state = NODE_RUNNING
         for lst in self.listeners:
             await lst.start()
+        if self._cluster_cfg is not None and self.cluster is None:
+            from emqx_tpu_torch.cluster import Cluster
+            from emqx_tpu_torch.cluster_net import SocketTransport
+
+            host, port, cookie, ccfg = self._cluster_cfg
+            tr = SocketTransport(self.name, host=host, port=port,
+                                 cookie=cookie, config=ccfg)
+            tr.serve()
+            self.cluster = Cluster(self, transport=tr, config=ccfg)
+            log.info("cluster transport on %s:%s", tr.host, tr.port)
         # vm_mon watches the node-wide connection count, so the
         # watermark's denominator is the summed listener capacity
         if self.listeners:
@@ -311,6 +347,14 @@ class Node:
             # next boot recovers from it, not from a replay
             await asyncio.get_running_loop().run_in_executor(
                 None, self.durability.shutdown)
+        if self.cluster is not None:
+            # heal/anti-entropy worker first (it calls through the
+            # transport), then the transport this node built
+            self.cluster.close()
+            if self._cluster_cfg is not None:
+                close = getattr(self.cluster.transport, "close", None)
+                if close is not None:
+                    close()
 
     async def _housekeeping(self) -> None:
         while True:
@@ -341,8 +385,9 @@ class Node:
         quarantine watch; the overload level and breaker state; the
         fired fault points; the durability layer's counters, alarms
         and gauges; the robustness alarms; the span counts; the trace
-        drain; the loop lag; the mesh's device counters. The per-loop
-        rows and the cluster rows come with their slices."""
+        drain; the loop lag; the mesh's device counters; the cluster's
+        counters, alarm and gauges. The per-loop rows come with their
+        slice."""
         stats.setstat("node.state", self.node_state)
         stats.setstat("connections.count", self.cm.connection_count(),
                       "connections.max")
@@ -385,6 +430,8 @@ class Node:
             self.metrics.inc("faults.injected", inj)
         if self.durability is not None:
             self._tick_durability(stats)
+        if self.cluster is not None:
+            self._fold_cluster_stats(stats)
         self.drain_robustness_events()
         stats.setstat("publish.spans.count", self.telemetry.spans_total,
                       "publish.spans.max")
@@ -412,6 +459,51 @@ class Node:
         age = info.get("checkpoint_age_s")
         if age is not None:
             stats.setstat("checkpoint.age_s", int(age))
+
+    #: failure-detector state → gauge value
+    _MEMBER_STATE_RANK = {"ok": 0, "suspect": 1, "down": 2}
+
+    def _fold_cluster_stats(self, stats: Stats) -> None:
+        """Cluster-plane observability, off the hot path: fold the
+        drained event counters into Metrics as ``cluster.<key>``,
+        publish the membership/health gauges, and edge-detect the
+        ``cluster_forward_dropped`` alarm."""
+        cl = self.cluster
+        self.metrics.fold_cluster_stats(cl.drain_counters())
+        dropped = self.metrics.val("cluster.forward.dropped")
+        if dropped > self._fwd_dropped_prev:
+            self.alarms.activate(
+                "cluster_forward_dropped",
+                details={"dropped_total": dropped},
+                message="cluster data-plane forwards dropped "
+                        "(at-most-once loss; anti-entropy repairs "
+                        "replicated state, QoS0 deliveries are gone)")
+        elif dropped == self._fwd_dropped_prev:
+            self.alarms.deactivate("cluster_forward_dropped")
+        self._fwd_dropped_prev = dropped
+        stats.setstat("cluster.members.count", len(cl.members))
+        health = cl.transport.health_info()
+        worst = 0
+        slowest = 0.0
+        keys = set()
+        for name, info in health.items():
+            rank = self._MEMBER_STATE_RANK.get(info["state"], 0)
+            worst = max(worst, rank)
+            rtt = info.get("rtt_ms")
+            if rtt:
+                slowest = max(slowest, float(rtt))
+            for key, val in ((f"cluster.member.{name}.state", rank),
+                             (f"cluster.member.{name}.rtt_ms",
+                              round(float(rtt), 3) if rtt else 0)):
+                keys.add(key)
+                stats.setstat(key, val)
+        # the named aggregate gauges: worst member state + slowest
+        # heartbeat RTT (a single scrapeable signal per cluster)
+        stats.setstat("cluster.member.state", worst)
+        stats.setstat("cluster.hb.rtt_ms", round(slowest, 3))
+        for stale in self._cluster_stat_keys - keys:
+            stats.delstat(stale)
+        self._cluster_stat_keys = keys
 
     #: consecutive growing stats ticks before the fid-quarantine alarm
     #: fires (with the default 60 s heartbeat: about 3 minutes of

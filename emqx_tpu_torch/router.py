@@ -490,14 +490,12 @@ class Router:
         self._bump_global += 1
 
     def add_route(self, filter_: str, dest: object = None) -> int:
-        """Add a route; returns the filter's dense id. ``dest`` is this
-        node or a ``(group, node)`` shared route on it: this port runs
-        one node, and a route to another node raises ``ValueError``."""
+        """Add a route; returns the filter's dense id. ``dest`` is a
+        node name (this node by default) or a ``(group, node)`` shared
+        route; a route to another node (cluster route replication) is
+        a filter like any other: in the automaton, with no row in the
+        fan-out tables."""
         dest = self.node if dest is None else dest
-        node = dest[1] if isinstance(dest, tuple) else dest
-        if node != self.node:
-            raise ValueError(f"route {filter_!r} -> {dest!r}: this port "
-                             f"routes to its own node {self.node!r} only")
         with self._lock:
             dests = self._routes.get(filter_)
             fid = self._assign_id(filter_)
@@ -669,6 +667,9 @@ class Router:
     def has_route(self, filter_: str) -> bool:
         return filter_ in self._routes
 
+    def topics(self) -> List[str]:
+        return list(self._routes)
+
     def lookup_routes(self, filter_: str) -> List[Route]:
         dests = self._routes.get(filter_, {})
         return [Route(filter_, d) for d in dests]
@@ -683,6 +684,17 @@ class Router:
 
     def filter_id(self, filter_: str) -> Optional[int]:
         return self._filter_ids.get(filter_)
+
+    def cleanup_routes(self, node: object) -> None:
+        """Purge all routes pointing at a dead node
+        (emqx_router_helper.erl:173-177)."""
+        with self._lock:
+            for f in [f for f, d in self._routes.items() if node in d]:
+                dests = self._routes[f]
+                del dests[node]
+                if not dests:
+                    del self._routes[f]
+                    self._drop_filter_locked(f)
 
     # -- durability seams (wal.py / durability.py) ------------------------
 

@@ -150,18 +150,51 @@ def test_host_regime_below_device_min_filters():
     assert port.metrics.val("messages.delivered") == 1
 
 
-def test_router_refuses_routes_to_other_nodes():
-    """The port runs one node: a route to another node raises instead
-    of being kept and silently never forwarded."""
-    port = Router(MatcherConfig(), node="n1", device="cpu")
-    assert port.add_route("a/+") == 0
-    assert port.add_route("a/+", dest=("g", "n1")) == 0
-    for dest in ("n2", ("g", "n2")):
-        with pytest.raises(ValueError, match="own node"):
-            port.add_route("b/#", dest=dest)
-    assert not port.has_route("b/#")
-    assert sorted(map(str, (r.dest for r in port.lookup_routes("a/+")))) \
-        == ["('g', 'n1')", "n1"]
+def test_router_keeps_remote_routes_and_broker_forwards():
+    """Routes to another node, plain and ``(group, other node)``, are
+    kept (cluster route replication); a publish forwards one message
+    per remote (node, filter) through ``Broker.forwarder`` (aggre/1)
+    and hands the remote shared group to ``Broker.shared_router``,
+    through the host regime and through the device path's planned tail,
+    as the JAX broker does."""
+    def run(make_broker, make_msg, min_filters):
+        b = make_broker(min_filters)
+        fwd, shared = [], []
+        b.forwarder = lambda node, flt, msg: fwd.append(
+            (node, flt, msg.topic))
+        b.shared_router = lambda group, flt, nodes, msg: shared.append(
+            (group, flt, sorted(nodes), msg.topic)) or 0
+        s = Sink("c")
+        b.subscribe(s, "a/+")
+        for flt, dest in (("a/#", "n2"), ("a/b", "n2"), ("a/b", "n3"),
+                          ("a/b", ("g", "n2")), ("z/+", "n3")):
+            b.router.add_route(flt, dest=dest)
+        res = b.publish_batch([make_msg(topic=t)
+                               for t in ("a/b", "z/q", "a/b")])
+        b.router.delete_route("z/+", dest="n3")
+        return (res, sorted(fwd), sorted(shared), sorted(s.inbox),
+                b.metrics.val("messages.forward"),
+                sorted(map(repr, (r.dest for r in
+                                  b.router.lookup_routes("a/b")))),
+                b.router.has_route("z/+"))
+
+    for min_filters in (1, 1024):  # the device path, the host regime
+        got = run(lambda m: Broker(config=MatcherConfig(
+            **PLAIN, **dict(KNOBS, device_min_filters=m)),
+            node="n1", device="cpu"), Message, min_filters)
+        want = run(lambda m: JaxBroker(config=JaxMatcherConfig(
+            **PLAIN, **dict(KNOBS, device_min_filters=m)), node="n1"),
+            JaxMessage, min_filters)
+        assert got == want
+        res, fwd, shared, inbox, n_fwd, dests, z = got
+        assert res == [1, 0, 1]
+        assert fwd == sorted(2 * [("n2", "a/#", "a/b"), ("n2", "a/b", "a/b"),
+                                  ("n3", "a/b", "a/b")]
+                             + [("n3", "z/+", "z/q")])
+        assert shared == 2 * [("g", "a/b", ["n2"], "a/b")]
+        assert n_fwd == 7
+        assert dests == ["'n2'", "'n3'", "('g', 'n2')"]
+        assert not z
 
 
 def _port_files():
@@ -192,8 +225,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
                     else rel)
     # the front door's, the router's, the host engine's, overload
-    # protection's, the durability layer's, observability's and the
-    # mesh's modules are among those imported
+    # protection's, the durability layer's, observability's, the
+    # mesh's and the cluster's modules are among those imported
     assert {"emqx_tpu_torch.faults", "emqx_tpu_torch.alarm",
             "emqx_tpu_torch.overload", "emqx_tpu_torch.devloss",
             "emqx_tpu_torch.ops.warmup", "emqx_tpu_torch.mqtt", "emqx_tpu_torch.mqtt.constants",
@@ -218,7 +251,9 @@ def test_port_never_imports_jax_or_the_jax_package():
             "emqx_tpu_torch.modules.prometheus",
             "emqx_tpu_torch.parallel", "emqx_tpu_torch.parallel.mesh",
             "emqx_tpu_torch.parallel.sharded",
-            "emqx_tpu_torch.parallel.distributed", "chip_smoke"} <= set(mods)
+            "emqx_tpu_torch.parallel.distributed",
+            "emqx_tpu_torch.cluster", "emqx_tpu_torch.cluster_net",
+            "emqx_tpu_torch.cm_locker", "chip_smoke"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'emqx_tpu'):\n"
             "    sys.modules[m] = None\n"

@@ -656,3 +656,45 @@ def test_mesh_broker_on_a_2x2_grid_of_one_card_delivers_like_one_device(
             assert _build.LAUNCHES["bitmap_or"] == 4
         results.append((counts, [sorted(s.got) for s in subs]))
     assert results[0] == results[1]
+
+
+@pytest.mark.gpu
+def test_cluster_on_the_card_launches_b1_on_the_publisher_only(cuda_device):
+    """Two cluster nodes on the card (the in-process LocalTransport): a
+    batch published on n1 walks n1's automaton, which holds n0's
+    replicated filters too (one B1 launch); the forwards n0 receives
+    dispatch by their matched filter on the host and launch nothing."""
+    from emqx_tpu_torch.cluster import Cluster, LocalTransport
+    from emqx_tpu_torch.node import Node
+
+    class Rec:
+        def __init__(self):
+            self.got = []
+
+        def deliver(self, flt, msg):
+            self.got.append((flt, msg.topic))
+
+    transport = LocalTransport()
+    cfg = MatcherConfig(device_min_filters=1)
+    n0, n1 = (Node(name=f"n{i}", device=cuda_device, matcher=cfg)
+              for i in range(2))
+    c0, c1 = Cluster(n0, transport), Cluster(n1, transport)
+    c0.join(c1)
+    s0, s1 = Rec(), Rec()
+    for i in range(8):
+        n0.broker.subscribe(s0, f"gpu/{i}/+")
+    n1.broker.subscribe(s1, "gpu/0/#")
+    msgs = [Message(topic=f"gpu/{i}/x", payload=b"p") for i in range(8)]
+    _build.reset_launches()
+    b = n1.broker
+    pb = b.publish_begin(msgs)
+    b.publish_fetch(pb)
+    after_fetch = dict(_build.LAUNCHES)
+    b.publish_finish(pb)
+    torch.cuda.synchronize()
+    assert after_fetch["walk"] == 1
+    # the finish forwards 8 messages to n0, dispatched on the host
+    assert dict(_build.LAUNCHES) == after_fetch
+    assert len(s0.got) == 8 and len(s1.got) == 1
+    assert n1.metrics.val("messages.forward") == 8
+    assert c0.plane_digests() == c1.plane_digests()
