@@ -250,6 +250,41 @@ kernels against their plain PyTorch versions:
      3,000 routes: ``net.partition`` splits {n0, n1} from {n2} with
      churn on both sides, then heals: the detection and the heal to
      equal digests, in seconds, and the forwards dropped.
+ 14. replicated durability and the drain on the card
+     (``replication.py``, ``drain.py``), after phase 10, its time against
+     :data:`P14_BUDGET_S` printed, each driven path's launches counted
+     from 0: (14a) the JAX failover bench's plan (bench.py:2495-2609) on
+     two port nodes on the card over ``SocketTransport`` on loopback
+     (:data:`FAILOVER_BENCH`: the bench's ``ClusterConfig`` with a
+     steadier detector, printed): fb0 durable (``standby="fb1"``,
+     ``wal_shards=4``), both with the retainer; :data:`P14_SESSIONS`
+     persistent QoS 1 sessions, each with
+     ``fb/<i>/+`` and the wide :data:`P14_WIDE` (a filter of 5,000
+     subscribers: B2's path), :data:`P14_RETAINED` retained messages
+     (13b's store, not the bench's 100); flush and ship, kill fb0;
+     failover and promotion seconds, ``rpo_records`` 0 and
+     ``durable_digest`` equal to fb0's pre-kill digest; on fb1 a batch
+     of ``--batch`` publishes to the adopted filters launches B1 and B2
+     once, every delivery against a TrieOracle of the adopted
+     sessions, and a burst of :data:`P14_BURST` SUBSCRIBEs replays the
+     adopted store through one B3 launch, equal to the host scan; B1,
+     B2 and B3 on the adopted tables against their plain twins; (14b)
+     failback (bench.py:2610-2660): a post-promotion retained message,
+     fb0 restarted from its directory, demotion and resync,
+     ``failback_s`` and the hand-off seconds, ``durable_digest`` equal
+     to fb1's pre-failback digest, none of the handed routes left on
+     fb1, a batch on fb0 through B1 and B2 delivering to the handed-back
+     sessions; (14c) the JAX drain bench (emqx_tpu/bench_live.py:953-1063):
+     two durable nodes, each the other's standby (``ack_quorum=1``),
+     :data:`P14_DRAIN_SESSIONS` detached sessions on ``bench/<i % 97>/+``
+     (cut from the bench's 5,000; printed) and :data:`P14_DRAIN_LIVE`
+     live v5 clients on bd0, waves of
+     :data:`P14_DRAIN_WAVE`; a CONNECT meanwhile gets 0x9C with the
+     Server-Reference; time-to-empty, sessions/s, the wave p99, 50
+     redirected, every session handed off, the digest equal with one
+     holder; a batch on bd1 through B1 (:data:`P14_DRAIN_DEVICE_MIN`)
+     delivering to the handed sessions; bd0's stop with its target set
+     sends 0x9C and the reference.
 
 The last two lines are one JSON object per kernel row
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Every
@@ -263,6 +298,7 @@ at once and prints no result.
     python3 chip_smoke.py --conns 200 --pubs-per-conn 5   # a smaller fleet
     python3 chip_smoke.py --churn-iters 20   # shorter 8a passes
     python3 chip_smoke.py --sessions 1024    # fewer persistent sessions
+    python3 chip_smoke.py --p14-sessions 1000 --p14-drain-sessions 1000
 """
 
 from __future__ import annotations
@@ -3909,20 +3945,8 @@ class WireClient:
         """CONNECT; a CONNECT refused with ServerBusy (the overload
         monitor at critical) is counted in :data:`REFUSED` and retried
         after a short back-off, as a client library does."""
-        from emqx_tpu_torch.mqtt.frame import Parser
-        from emqx_tpu_torch.mqtt.packet import Connect
-
-        loop = asyncio.get_running_loop()
         for attempt in range(CONNECT_RETRIES + 1):
-            self.parser = Parser(version=self.version)
-            self.reader, self.writer = await asyncio.open_connection(
-                "127.0.0.1", port)
-            self.closed = loop.create_future()
-            fut = self.expect("connack", 0)
-            self.send(Connect(client_id=self.cid, proto_ver=self.version,
-                              proto_name="MQTT", keepalive=0))
-            self._task = loop.create_task(self._read())
-            pkt = await fut
+            pkt = await self.connect_once(port)
             if pkt.reason_code == 0:
                 return
             if (pkt.reason_code not in (0x89, 3)
@@ -3933,6 +3957,22 @@ class WireClient:
             await self.closed
             self.raw.clear()
             await refused_backoff(attempt)
+
+    async def connect_once(self, port: int):
+        """One CONNECT; returns the CONNACK, whatever its code."""
+        from emqx_tpu_torch.mqtt.frame import Parser
+        from emqx_tpu_torch.mqtt.packet import Connect
+
+        loop = asyncio.get_running_loop()
+        self.parser = Parser(version=self.version)
+        self.reader, self.writer = await asyncio.open_connection(
+            "127.0.0.1", port)
+        self.closed = loop.create_future()
+        fut = self.expect("connack", 0)
+        self.send(Connect(client_id=self.cid, proto_ver=self.version,
+                          proto_name="MQTT", keepalive=0))
+        self._task = loop.create_task(self._read())
+        return await fut
 
     def expect(self, kind: str, pid: int):
         fut = asyncio.get_running_loop().create_future()
@@ -3947,8 +3987,8 @@ class WireClient:
 
     async def _read(self) -> None:
         from emqx_tpu_torch.mqtt import constants as C
-        from emqx_tpu_torch.mqtt.packet import (Connack, PubAck, Publish,
-                                                Suback)
+        from emqx_tpu_torch.mqtt.packet import (Connack, Disconnect, PubAck,
+                                                Publish, Suback)
 
         try:
             while True:
@@ -3968,6 +4008,8 @@ class WireClient:
                             self.on_publish(self)
                         continue
                     key = (("connack", 0) if isinstance(pkt, Connack) else
+                           ("disconnect", 0)
+                           if isinstance(pkt, Disconnect) else
                            ("suback", pkt.packet_id)
                            if isinstance(pkt, Suback) else
                            ("puback", pkt.packet_id)
@@ -5395,7 +5437,7 @@ def subscription_model(sessions):
     return local, shared, oracle
 
 
-def check_session_batches(model, checks, deliveries):
+def check_session_batches(model, checks, deliveries, label="10d"):
     """Every message's (session, filter) deliveries against the
     subscription model's TrieOracle: every local subscription of every
     matched filter once, one member per shared group, nothing else.
@@ -5419,15 +5461,16 @@ def check_session_batches(model, checks, deliveries):
             got = by_msg.get(msg.id, Counter())
             extra = got - want
             if want - got or sum(extra.values()) != len(groups):
-                raise AssertionError(f"[10d] deliveries of {msg.topic!r} "
-                                     f"differ from the TrieOracle")
+                raise AssertionError(f"[{label}] deliveries of "
+                                     f"{msg.topic!r} differ from the "
+                                     f"TrieOracle")
             for f, members in groups:
                 if sum(c for (cid, ff), c in extra.items()
                        if ff == f and cid in members) < 1:
-                    raise AssertionError(f"[10d] a shared group of {f} "
-                                         f"missed {msg.topic!r}")
+                    raise AssertionError(f"[{label}] a shared group of "
+                                         f"{f} missed {msg.topic!r}")
             if results[i] != sum(want.values()) + len(groups):
-                raise AssertionError(f"[10d] delivery count of "
+                raise AssertionError(f"[{label}] delivery count of "
                                      f"{msg.topic!r}")
             n += sum(got.values())
     return n
@@ -5488,7 +5531,7 @@ def ack_all(sessions, hold=()):
     return held
 
 
-def drive_batches(node, sessions, batches, seq0, hold_last=0):
+def drive_batches(node, sessions, batches, seq0, hold_last=0, label="10"):
     """Phase 5's batches as QoS 1 (a unique payload each) through
     ``publish_begin/fetch/finish``, every session acking after each
     batch; with ``hold_last``, that many sessions (those with the most
@@ -5511,8 +5554,8 @@ def drive_batches(node, sessions, batches, seq0, hold_last=0):
         t0 = time.perf_counter()
         pb = broker.publish_begin(msgs)
         if pb.done:
-            raise AssertionError(f"[10] batch {bi} did not take the "
-                                 f"device path")
+            raise AssertionError(f"[{label}] batch {bi} did not take "
+                                 f"the device path")
         broker.publish_fetch(pb)
         res = broker.publish_finish(pb)
         lat.append(time.perf_counter() - t0)
@@ -5999,6 +6042,506 @@ async def phase_durable(opts, device, card):
         shutil.rmtree(d, ignore_errors=True)
 
 
+# -- phase 14: replicated durability and the drain ---------------------------
+
+P14_BUDGET_S = 60.0
+#: 14a/14b: the JAX failover bench's fleet (bench.py:2525, "5000 — a real
+#: fleet, not a toy"), each session with its own ``fb/<i>/+``
+P14_SESSIONS = 5000
+#: 14a: the one filter every session of the fleet also holds (5,000
+#: subscribers: past the fan-out threshold, so it rides B2's bitmap path),
+#: and the topics of the adopted batch that hit it
+P14_WIDE = "fbw/+"
+P14_WIDE_TOPICS = 4
+#: 14a: retained messages on the primary (13b's store instead of the
+#: bench's 100, so B3's replay runs over a store of real size) and the
+#: SUBSCRIBE burst on the promoted node
+P14_RETAINED = P13_RETAINED
+P14_BURST = 64
+#: 14c: the JAX drain bench's fleet (emqx_tpu/bench_live.py:975-977):
+#: detached sessions on ``bench/<i % 97>/+``, live v5 clients, wave size.
+#: The sessions are cut from the bench's 5,000 to hold the phase's
+#: budget (printed): at 5,000 the drain took 40.8 s of phase 14's 105.1 s
+#: on the card's host (PERF.md §4)
+P14_DRAIN_BENCH_SESSIONS = 5000
+P14_DRAIN_SESSIONS = 1000
+P14_DRAIN_LIVE = 50
+P14_DRAIN_WAVE = 200
+P14_DRAIN_FILTERS = 97
+#: 14c's router threshold: the drain bench's 97 filters sit below the
+#: JAX default device threshold (1,024 filters), where the router
+#: matches on the host; at 0 the target's batch walks them with B1
+#: (printed)
+P14_DRAIN_DEVICE_MIN = 0
+#: 14a/14b's ClusterConfig: the JAX failover bench's (bench.py:2524-2528)
+#: with the drain bench's steadier detector (a 2 s ping deadline,
+#: suspect after 4 misses, down after 8, printed). At the failover bench's
+#: own (a 0.5 s deadline, suspect after 1, down after 3) two nodes of one
+#: process flap during a 5,000-session failback: 12 false downs in one
+#: chip run, and in another the post-failback resync never settled in
+#: 120 s (PERF.md §6)
+FAILOVER_BENCH = dict(
+    heartbeat_interval_s=0.1, heartbeat_timeout_s=2.0,
+    suspect_after=4, down_after=8, ok_after=1,
+    anti_entropy_interval_s=0.5, call_timeout_s=10.0,
+    redial_backoff_s=0.1, redial_backoff_max_s=0.5)
+#: the JAX drain bench's ClusterConfig (emqx_tpu/bench_live.py:976-979)
+DRAIN_BENCH = dict(
+    heartbeat_interval_s=0.2, heartbeat_timeout_s=2.0, suspect_after=4,
+    down_after=100, ok_after=1, anti_entropy_interval_s=5.0)
+
+
+def repl_node(name, device, opts, cfg, cookie, durability=None):
+    """A port node on ``device`` with the retainer (recovered from its
+    directory when durable), a SocketTransport on loopback and a
+    ``Cluster`` (``cfg``)."""
+    from emqx_tpu_torch.cluster import Cluster
+    from emqx_tpu_torch.cluster_net import SocketTransport
+    from emqx_tpu_torch.modules.retainer import RetainerModule
+    from emqx_tpu_torch.node import Node
+
+    node = Node(name=name, device=device, batch_size=opts.batch,
+                durability=durability)
+    node.modules.load(RetainerModule)
+    if node.durability is not None:
+        node.durability.recover()
+    tr = SocketTransport(name, cookie=cookie, config=cfg)
+    tr.serve()
+    return node, tr, Cluster(node, transport=tr, config=cfg)
+
+
+def adopted_batch(node, sessions, topics, seq0, label):
+    """One batch of QoS 1 publishes through ``publish_begin/fetch/
+    finish`` on ``node``, the launch counts at 0 just before it and read
+    just after; every message's deliveries into ``sessions`` against a
+    TrieOracle of their subscriptions (apart from the router's engine),
+    and the router's filters equal to the model's. Returns the batch
+    seconds, the launches and the deliveries."""
+    from emqx_tpu_torch.ops import _build
+
+    model = subscription_model(sessions)
+    want = {f for f in model[0]} | {f for f in model[1]}
+    held = set(node.router.route_table())
+    if not want <= held:
+        raise AssertionError(f"[{label}] {len(want - held)} of the "
+                             f"sessions' filters have no route")
+    _build.reset_launches()
+    with SessionLog() as slog:
+        lat, checks, _held, _l, _seq = drive_batches(
+            node, sessions, [topics], seq0, label=label)
+    launches = dict(_build.LAUNCHES)
+    n = check_session_batches(model, checks, slog.log, label=label)
+    return lat[0], launches, n
+
+
+def p14_kernels(node, topics, index, bursts, card, label):
+    """B1 and B2 on ``node``'s tables (the adopted filters) and B3 on its
+    retained index (the adopted store) at the main path's inputs, each
+    held against its plain twin, with device times; launches made here
+    do not count."""
+    import torch
+
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.ops.retained_match import match_names_cuda
+
+    out = cluster_kernels(node, topics, card, label)
+    if index is not None:
+        saved = dict(_build.LAUNCHES)
+        dev = index._device_arrays()
+        flts = list(dict.fromkeys(f for f in bursts[0] if T.wildcard(f)))
+        fw, fn, hh = (torch.from_numpy(a).to(dev[2].device)
+                      for a in index._encode(flts))
+        args = [fw, fn, hh, *dev[2:]]
+        out["max_abs_err"] = max(out["max_abs_err"], check_retained(
+            args, f"{label} {len(index._row_of)}-name index F={len(flts)}"))
+        out["b3_ms"] = kernel_ms(lambda: match_names_cuda(*args),
+                                 "retained_match_kernel")
+        torch.cuda.synchronize()
+        _build.LAUNCHES.update(saved)
+    log(f"[{label}] on the adopted tables: B1 {out['walk_ms']:.5f} ms, B2 "
+        f"{out['or_ms']:.5f} ms over {out['big_rows']} bitmap rows"
+        + (f", B3 {out['b3_ms']:.5f} ms" if "b3_ms" in out else "")
+        + f", each equal to its plain twin — {card}")
+    return out
+
+
+def fleet_topics(n_sessions, batch, rng):
+    """A batch of ``batch`` topics on the fleet's own filters
+    (``fb/<i>/x``, one per session drawn without repeats while there are
+    enough) and :data:`P14_WIDE_TOPICS` on the wide filter."""
+    n_own = batch - P14_WIDE_TOPICS
+    own = rng.permutation(n_sessions)[:n_own].tolist()
+    own += rng.integers(0, n_sessions, size=n_own - len(own)).tolist()
+    topics = [f"fb/{i}/x" for i in own]
+    topics += [P14_WIDE.replace("+", f"w{k}") for k in
+               range(P14_WIDE_TOPICS)]
+    return [topics[i] for i in rng.permutation(len(topics))]
+
+
+def repl_14ab(opts, device, card, tmp):
+    """14a, failover, and 14b, failback (the plan of bench.py:2495-2660),
+    on two port nodes on ``device``."""
+    import os
+
+    from emqx_tpu_torch.cluster import ClusterConfig
+    from emqx_tpu_torch.durability import DurabilityConfig
+    from emqx_tpu_torch.replication import durable_digest
+    from emqx_tpu_torch.session import Session
+    from emqx_tpu_torch.types import Message, SubOpts
+
+    cfg = ClusterConfig(**FAILOVER_BENCH)
+    d0 = os.path.join(tmp, "fb0")
+
+    def dcfg():
+        return DurabilityConfig(enabled=True, dir=d0, fsync=False,
+                                standby="fb1", wal_shards=4)
+
+    rng = np.random.default_rng(opts.seed + 14)
+    n_sess = opts.p14_sessions
+    out = {"launches": {}}
+
+    def count(launches):
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    nodes, trs, cls = [], [], []
+    try:
+        for name, dur in (("fb0", dcfg()), ("fb1", None)):
+            n, tr, cl = repl_node(name, device, opts, cfg, "p14-failover",
+                                  dur)
+            nodes.append(n)
+            trs.append(tr)
+            cls.append(cl)
+        cls[1].join_remote("127.0.0.1", trs[0].port)
+        n0, n1 = nodes
+        t0 = time.perf_counter()
+        sessions = []
+        for i in range(n_sess):
+            s = Session(f"fdev-{i}", broker=n0.broker, clean_start=False)
+            n0.durability.session_opened(s, 3600.0)
+            n0.cm.register_channel(s.client_id, HeldChannel(s))
+            s.subscribe(f"fb/{i}/+", SubOpts(qos=1))
+            s.subscribe(P14_WIDE, SubOpts(qos=1))
+            sessions.append(s)
+            if i % 1000 == 999:
+                n0.durability.on_batch()
+        subscribe_s = time.perf_counter() - t0
+        store_s = store_retained(n0, P14_RETAINED)
+        n0.durability.on_batch()  # flush + ship: this is the acked set
+        r = n0.replication
+        wait_for(lambda: r.state == "replicating"
+                 and r.acked_seq >= r.offered_seq, 120, "14a journal sync")
+        ship_s = time.perf_counter() - t0
+        acked = r.acked_seq
+        for s in sessions:  # the digest compares the sessions detached
+            n0.cm._detached[s.client_id] = (s, 0, 3600.0)
+        want = durable_digest(n0)
+        # kill -9: no graceful path, no final ship
+        n0.broker.durability = None
+        n0.cm.durability = None
+        t_kill = time.perf_counter()
+        trs[0].close()
+        rep1 = n1.replication
+        wait_for(lambda: "fb0" in rep1.replicas
+                 and rep1.replicas["fb0"].promoted, 60, "14a promotion")
+        failover_s = time.perf_counter() - t_kill
+        cls[0].close()
+        rep = rep1.replicas["fb0"]
+        rpo = max(0, acked - rep.applied_seq)
+        got = durable_digest(n1)
+        lp = rep1.last_promotion
+        if rpo or got != want:
+            raise AssertionError(f"[14a] rpo_records {rpo}, digest "
+                                 f"{'equal' if got == want else 'differs'}")
+        adopted = [n1.cm._detached[f"fdev-{i}"][0] for i in range(n_sess)]
+        log(f"[14a] the failover bench's ClusterConfig with a 2 s ping "
+            f"deadline, suspect after 4 misses and down after 8 (the "
+            f"bench's 0.5 s / 1 / 3 flap two nodes of one process); "
+            f"{n_sess} persistent sessions (fb/<i>/+ and {P14_WIDE} "
+            f"each: {n_sess} subscribers on the wide filter), "
+            f"{P14_RETAINED} retained messages (13b's store, not the "
+            f"bench's 100): subscribed {subscribe_s:.2f} s, stored "
+            f"{store_s:.2f} s, shipped and acked at {ship_s:.2f} s "
+            f"({acked} records); fb0 killed: failover {failover_s:.3f} s, "
+            f"promotion {lp['failover_s']:.3f} s ({lp['sessions']} "
+            f"sessions, {lp['routes']} routes, {lp['retained']} retained), "
+            f"rpo_records {rpo}, durable_digest equal to fb0's pre-kill "
+            f"digest — {card}")
+        topics = fleet_topics(n_sess, opts.batch, rng)
+        lat, launches, n_del = adopted_batch(n1, adopted, topics, 0, "14a")
+        count(launches)
+        if launches["walk"] < 1 or launches["bitmap_or"] != 1:
+            raise AssertionError(f"[14a] launches {launches}")
+        index = n1.modules._loaded["retainer"]._index
+        bursts = retained_bursts(P14_RETAINED, 1, P14_BURST, seed=14)
+        family = NameFamily(P14_RETAINED)
+        rr = asyncio.run(replay_bursts(n1, index, bursts, family,
+                                       tag="p14r"))
+        count({"retained_match": rr[5]["retained_match"]})
+        check_host_scan(index, bursts, family)
+        k = p14_kernels(n1, topics, index, bursts, card, "14a")
+        # the burst's clean sessions leave: fb1 then holds only what it
+        # adopted (the failback digest compares exactly that)
+        for cid, ch in list(n1.cm._channels.items()):
+            if cid.startswith("p14r"):
+                ch._shutdown()
+        log(f"[14a] on fb1: a batch of {len(topics)} publishes to the "
+            f"adopted filters ({P14_WIDE_TOPICS} on {P14_WIDE}): "
+            f"{lat * 1e3:.3f} ms, B1 {launches['walk']} and B2 "
+            f"{launches['bitmap_or']} launches, {n_del} deliveries equal "
+            f"the TrieOracle of the adopted sessions; a burst of "
+            f"{P14_BURST} SUBSCRIBEs replays the adopted store through "
+            f"{rr[5]['retained_match']} B3 launch, {rr[3]} messages, "
+            f"{rr[0][0] * 1e3:.3f} ms, equal to the host scan — {card}")
+        check_quiet(n1, "14a fb1")
+        out["14a"] = {"failover_s": failover_s,
+                      "promote_s": lp["failover_s"], "rpo_records": rpo,
+                      "batch_ms": lat * 1e3, "replay_ms": rr[0][0] * 1e3,
+                      **k}
+        # -- 14b: failback --
+        n1.broker.publish(Message(topic="fb/0/state", payload=b"post-promo",
+                                  qos=1, flags={"retain": True}))
+        want2 = durable_digest(n1)
+        t_fb = time.perf_counter()
+        n0b, tr0b, cl0b = repl_node("fb0", device, opts, cfg,
+                                    "p14-failover", dcfg())
+        nodes.append(n0b)
+        trs.append(tr0b)
+        cls.append(cl0b)
+        recover_s = time.perf_counter() - t_fb
+        cl0b.join_remote("127.0.0.1", trs[1].port)
+        wait_for(lambda: not rep.promoted, 120, "14b failback demotion")
+        r0 = n0b.replication
+
+        def resynced():
+            # the journal flush a started node's timer runs: records the
+            # failback apply journaled must flush to ship
+            n0b.durability.on_batch()
+            return r0.state == "replicating" and r0.acked_seq >= r0.offered_seq
+
+        wait_for(resynced, 120, "14b post-failback resync")
+        failback_s = time.perf_counter() - t_fb
+        wait_for(lambda: durable_digest(n0b) == want2, 60,
+                 "14b failback digest", poll=0.25)
+        digest_s = time.perf_counter() - t_fb
+        fb = rep1.last_failback
+        left = [f for f, dests in n1.router.route_table().items()
+                if any(x == "fb1" or (isinstance(x, tuple) and x[1] == "fb1")
+                       for x in dests)]
+        if left:
+            raise AssertionError(f"[14b] fb1 still holds {len(left)} "
+                                 f"handed routes ({left[:3]})")
+        handed = [n0b.cm._detached[f"fdev-{i}"][0] for i in range(n_sess)]
+        topics = fleet_topics(n_sess, opts.batch, rng)
+        lat2, launches2, n_del2 = adopted_batch(n0b, handed, topics,
+                                                opts.batch, "14b")
+        count(launches2)
+        if launches2["walk"] < 1 or launches2["bitmap_or"] < 1:
+            raise AssertionError(f"[14b] launches {launches2}")
+        k2 = p14_kernels(n0b, topics, None, None, card, "14b")
+        log(f"[14b] fb0 restarted from its directory (recovery "
+            f"{recover_s:.2f} s) and rejoined: failback_s {failback_s:.3f} "
+            f"(demoted and resynced), the hand-off {fb['failback_s']:.3f} s "
+            f"({fb['sessions']} sessions, {fb['kept']} kept, "
+            f"{fb['closed']} closed), durable_digest equal to fb1's "
+            f"pre-failback digest at {digest_s:.3f} s; fb1 holds none of "
+            f"the handed routes; a batch on fb0: {lat2 * 1e3:.3f} ms, B1 "
+            f"{launches2['walk']} and B2 {launches2['bitmap_or']} launches, "
+            f"{n_del2} deliveries to the handed-back sessions equal the "
+            f"TrieOracle — {card}")
+        check_quiet(n0b, "14b fb0")
+        out["14b"] = {"failback_s": failback_s, "handoff_s": fb["failback_s"],
+                      "recover_s": recover_s, "batch_ms": lat2 * 1e3, **k2}
+        return out
+    finally:
+        for n in nodes:
+            d = n.durability
+            if d is not None and d.wal is not None:
+                d.wal.close()
+        close_cluster(trs, cls)
+
+
+async def repl_14c(opts, device, card, tmp):
+    """14c, the drain (emqx_tpu/bench_live.py:953-1063): two durable
+    nodes on ``device``, each the other's standby (ack_quorum 1), a
+    detached fleet and live v5 clients on bd0, ``bd0.drain.start(target=
+    "bd1")``; then a batch on bd1 and bd0's redirecting stop."""
+    import os
+
+    from emqx_tpu_torch.cluster import ClusterConfig
+    from emqx_tpu_torch.drain import DrainConfig
+    from emqx_tpu_torch.durability import DurabilityConfig
+    from emqx_tpu_torch.mqtt import reason_codes as RC
+    from emqx_tpu_torch.node import Node
+    from emqx_tpu_torch.replication import sessions_digest
+    from emqx_tpu_torch.router import MatcherConfig
+    from emqx_tpu_torch.session import Session
+    from emqx_tpu_torch.types import Message, SubOpts
+
+    n_sess = opts.p14_drain_sessions
+    ccfg = ClusterConfig(**DRAIN_BENCH)
+    nodes = []
+    for i in range(2):
+        node = Node(
+            name=f"bd{i}", device=device, batch_size=opts.batch,
+            matcher=MatcherConfig(device_min_filters=P14_DRAIN_DEVICE_MIN),
+            durability=DurabilityConfig(
+                enabled=True, dir=os.path.join(tmp, f"bd{i}"), fsync=False,
+                standbys=(f"bd{1 - i}",), ack_quorum=1,
+                quorum_timeout_ms=500.0, repl_ack_timeout_s=5.0),
+            drain=DrainConfig(wave_size=P14_DRAIN_WAVE, wave_interval_s=0.1,
+                              handoff_timeout_s=60.0))
+        node.add_listener(port=0)
+        node.enable_cluster(port=0, cookie="p14-drain", config=ccfg)
+        await node.start()
+        nodes.append(node)
+    n0, n1 = nodes
+    clients = []
+    try:
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, n1.cluster.join_remote,
+                                   "127.0.0.1", n0.cluster.transport.port)
+        cids = [f"bench-d{i}" for i in range(n_sess)]
+        now = time.time()
+        for i, cid in enumerate(cids):
+            s = Session(cid, broker=n0.broker, clean_start=False)
+            n0.durability.session_opened(s, 3600.0)
+            s.subscribe(f"bench/{i % P14_DRAIN_FILTERS}/+", SubOpts(qos=1))
+            n0.cm._detached[cid] = (s, now, 3600.0)
+        # the registry in one batched call (5,000 casts would starve the
+        # heartbeats), as the bench does
+        with n0.cluster._lock:
+            for cid in cids:
+                n0.cluster._registry[cid] = "bd0"
+        n0.cluster.transport.call("bd1", "registry_sync", "bd0", cids)
+        n0.broker.publish(Message(topic="bench/13/x", payload=b"queued",
+                                  qos=1))
+        await loop.run_in_executor(None, n0.durability.on_batch)
+        pre = sessions_digest(n0, cids)
+        port0 = n0.listeners[0].port
+        for i in range(P14_DRAIN_LIVE):
+            c = WireClient(f"bench-l{i}", 5)
+            await c.connect(port0)
+            c.redirect = c.expect("disconnect", 0)
+            clients.append(c)
+        t0 = time.perf_counter()
+        n0.drain.start(target="bd1")
+        late = WireClient("bench-late", 5)
+        refused = await late.connect_once(port0)
+        await late.closed
+        late_ref = (refused.properties or {}).get("Server-Reference")
+        if refused.reason_code != RC.USE_ANOTHER_SERVER or late_ref != "bd1":
+            raise AssertionError(f"[14c] a CONNECT while draining got "
+                                 f"{refused.reason_code:#x} ref {late_ref!r}")
+        while n0.drain.time_to_empty_s is None:
+            await asyncio.sleep(0.02)
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("[14c] the drain did not empty bd0 "
+                                     "in 120 s")
+        info = n0.drain.info()
+        codes = set()
+        for c in clients:
+            pkt = await asyncio.wait_for(c.redirect, 10)
+            codes.add((pkt.reason_code,
+                       (pkt.properties or {}).get("Server-Reference")))
+        on_target = sum(1 for cid in cids if cid in n1.cm._detached)
+        one_holder = not any(cid in n0.cm._detached for cid in cids)
+        digest_ok = sessions_digest(n1, cids) == pre
+        if (info["redirected"] != P14_DRAIN_LIVE or info["handed_off"] != n_sess
+                or not info["handoff_ok"] or on_target != n_sess
+                or not one_holder or not digest_ok
+                or codes != {(RC.USE_ANOTHER_SERVER, "bd1")}):
+            raise AssertionError(f"[14c] drain {info}, on target {on_target}, "
+                                 f"one holder {one_holder}, digest "
+                                 f"{digest_ok}, redirects {codes}")
+        tte = info["time_to_empty_s"]
+        # a batch on the target: one topic a filter (each reaching its
+        # ~52 handed sessions) among topics that match nothing
+        handed = [n1.cm._detached[cid][0] for cid in cids]
+        topics = [f"bench/{k}/x" for k in range(P14_DRAIN_FILTERS)]
+        topics += [f"none/{j}/x" for j in range(opts.batch - len(topics))]
+        lat, launches, n_del = adopted_batch(n1, handed, topics, 0, "14c")
+        if launches["walk"] < 1 or n_del != n_sess:
+            raise AssertionError(f"[14c] launches {launches}, {n_del} "
+                                 f"deliveries for {n_sess} handed sessions")
+        # bd0's stop with the target set is a redirect: 0x9C + the
+        # Server-Reference to a v5 client connected after the drain
+        n0.drain.stop()
+        last = WireClient("bench-stop", 5)
+        await last.connect(port0)
+        bye = last.expect("disconnect", 0)
+        await n0.stop()
+        pkt = await asyncio.wait_for(bye, 10)
+        stop_ref = (pkt.properties or {}).get("Server-Reference")
+        if pkt.reason_code != RC.USE_ANOTHER_SERVER or stop_ref != "bd1":
+            raise AssertionError(f"[14c] the stop sent {pkt.reason_code:#x} "
+                                 f"ref {stop_ref!r}")
+        log(f"[14c] drain of bd0 to bd1 ({n_sess} detached sessions on "
+            f"{P14_DRAIN_FILTERS} filters, {P14_DRAIN_LIVE} live v5 clients, "
+            f"waves of {P14_DRAIN_WAVE} every 0.1 s; device_min_filters "
+            f"{P14_DRAIN_DEVICE_MIN}, not the default 1,024, so the "
+            f"{P14_DRAIN_FILTERS} filters take B1): time-to-empty "
+            f"{tte:.3f} s, {info['handed_off'] / max(tte, 1e-9):.1f} "
+            f"sessions/s, wave p99 {info['wave_p99_ms']} ms over "
+            f"{info['waves']} waves, redirected {info['redirected']} (0x9C, "
+            f"Server-Reference bd1), handed off {info['handed_off']}, digest "
+            f"equal, one holder; a CONNECT meanwhile got 0x9C ref {late_ref}; "
+            f"a batch on bd1: {lat * 1e3:.3f} ms, B1 {launches['walk']} "
+            f"launches, {n_del} deliveries equal the TrieOracle of the "
+            f"handed sessions; bd0's stop sent 0x9C ref {stop_ref} — {card}")
+        check_quiet(n1, "14c bd1")
+        return {"time_to_empty_s": tte, "wave_p99_ms": info["wave_p99_ms"],
+                "sessions_per_s": info["handed_off"] / max(tte, 1e-9),
+                "batch_ms": lat * 1e3, "launches": launches}
+    finally:
+        for c in clients:
+            try:
+                c.writer.close()
+            except Exception:
+                pass
+        for node in nodes:
+            try:
+                await node.stop()
+            except Exception:
+                pass
+
+
+def run_repl(opts, device, card):
+    """Phase 14 (see the module docstring); returns its numbers and the
+    launches of its driven paths (each counted from 0)."""
+    import os
+    import shutil
+    import tempfile
+
+    t_start = time.perf_counter()
+    log(f"[14] P14_BUDGET_S {P14_BUDGET_S:.0f} s; two port nodes on {device} "
+        f"over SocketTransport on loopback: failover and failback at "
+        f"{opts.p14_sessions} sessions, the drain at "
+        f"{opts.p14_drain_sessions} (cut from the drain bench's "
+        f"{P14_DRAIN_BENCH_SESSIONS} to hold the budget) — {card}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, "chip_durability")
+    os.makedirs(base, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="p14-", dir=base)
+    try:
+        ab = timed("14a-14b (failover, failback)", repl_14ab, opts, device,
+                   card, tmp)
+        gc.collect()
+        c = timed("14c (drain)", asyncio.run,
+                  repl_14c(opts, device, card, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(ab["launches"])
+    for k, v in c["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    took = time.perf_counter() - t_start
+    log(f"[14] phase 14 took {took:.1f} s of its {P14_BUDGET_S:.0f} s "
+        f"budget; launches {launches} — {card}")
+    return {"14a": ab["14a"], "14b": ab["14b"], "14c": c,
+            "launches": launches, "seconds": took}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--subs", type=int, default=1_000_000,
@@ -6025,6 +6568,13 @@ def main(argv=None) -> int:
     ap.add_argument("--sessions", type=int, default=P10_SESSIONS,
                     help="phase 10's persistent sessions (the recovery "
                          "bench's fleet: 4,096)")
+    ap.add_argument("--p14-sessions", type=int, default=P14_SESSIONS,
+                    help="phase 14a/14b's persistent sessions (the "
+                         "failover bench's fleet: 5,000)")
+    ap.add_argument("--p14-drain-sessions", type=int,
+                    default=P14_DRAIN_SESSIONS,
+                    help="phase 14c's detached sessions (the drain "
+                         "bench's fleet: 5,000; cut to 1,000, printed)")
     opts = ap.parse_args(argv)
 
     import torch
@@ -6050,9 +6600,14 @@ def main(argv=None) -> int:
     p10 = timed("10 (durability)", run_durable, opts, "cuda", card)
     for row in rows:
         row["durability_launches"] = p10["launches"].get(row["name"], 0)
+    t3 = time.perf_counter()
+    p14 = timed("14 (replicated durability, drain)", run_repl, opts, "cuda",
+                card)
+    for row in rows:
+        row["repl_launches"] = p14["launches"].get(row["name"], 0)
     log(f"[time] publish phases {t1 - t0:.1f} s, retained phases "
-        f"{t2 - t1:.1f} s, durability phase {time.perf_counter() - t2:.1f} "
-        f"s — {card}")
+        f"{t2 - t1:.1f} s, durability phase {t3 - t2:.1f} s, replication "
+        f"phase {time.perf_counter() - t3:.1f} s — {card}")
     log(card)
     log(json.dumps({"kernels": rows}))
     # the run uses one card, whatever the host shows

@@ -21,9 +21,10 @@ Pipelines follow the reference:
 A PUBLISH reaches the device through the ingress batcher
 (:meth:`Channel._publish_batched` → :mod:`emqx_tpu_torch.ingress`) when
 the transport and an event loop are there; a sans-IO caller publishes
-synchronously. Overload shedding, drain redirects, banned and
-flapping checks, durability, tracing, TLS certificate usernames and
-the pre-serialized egress lane come with their slices.
+synchronously. A draining node refuses a CONNECT with 0x9C
+Use-Another-Server (and its Server-Reference on v5) and redirects a
+live client with :meth:`Channel.drain_redirect`. Banned and flapping
+checks and TLS certificate usernames come with their slices.
 """
 
 from __future__ import annotations
@@ -103,6 +104,10 @@ class Channel:
         # DISCONNECT with reason code)
         self.close_after_send = False
         # transport hooks: set by connection
+        # the event loop that owns this channel's transport (stamped
+        # by its connection; None for a sans-IO channel): the cm runs
+        # a call from another thread there (the drain's waves)
+        self.owner_loop = None
         self.on_close = None          # force-close the socket
         self.on_deliver = None        # new outbox items are ready
         self.send_oob = None          # out-of-band packet send (kick)
@@ -129,7 +134,9 @@ class Channel:
     def _ack(self, ptype: int, pid: int, rc: int = RC.SUCCESS) -> PubAck:
         return PubAck(type=ptype, packet_id=pid, reason_code=rc)
 
-    def _connack_error(self, rc5: int) -> List[Packet]:
+    def _connack_error(self, rc5: int,
+                       props: Optional[Dict[str, Any]] = None
+                       ) -> List[Packet]:
         rc = rc5 if self.proto_ver == C.MQTT_V5 else RC.compat("connack", rc5)
         self.broker.metrics.inc("packets.connack.error")
         if rc5 in (RC.BAD_USERNAME_OR_PASSWORD, RC.NOT_AUTHORIZED):
@@ -141,6 +148,9 @@ class Channel:
         self.close_after_send = True
         self.broker.metrics.inc("packets.connack.sent")
         self.broker.metrics.inc("client.connack")
+        if props and self.proto_ver == C.MQTT_V5:
+            # e.g. Server-Reference on a draining node's 0x9C
+            return [Connack(reason_code=rc, properties=props)]
         return [Connack(reason_code=rc)]
 
     # -- inbound ----------------------------------------------------------
@@ -207,6 +217,18 @@ class Channel:
             # the compat map) — existing connections keep their service
             self.broker.metrics.inc("overload.shed.connect")
             return self._connack_error(RC.SERVER_BUSY)
+        dr = getattr(self.broker, "draining", None)
+        if dr is not None and dr.rejects_connects():
+            # DRAINING (drain.py): new CONNECTs go to the drain target
+            # — v5 gets 0x9C Use-Another-Server plus a
+            # Server-Reference when one is configured, v3 the
+            # server-unavailable compat code (there is no redirect on
+            # its wire)
+            self.broker.metrics.inc("drain.rejected.connects")
+            ref = dr.server_ref()
+            return self._connack_error(
+                RC.USE_ANOTHER_SERVER,
+                props={"Server-Reference": ref} if ref else None)
         username = pkt.username
         client_id = pkt.client_id
         if client_id == "":
@@ -1002,11 +1024,39 @@ class Channel:
         self.disconnect_reason = "discarded" if discard else "kicked"
         self._shutdown(rc=RC.SESSION_TAKEN_OVER)
 
+    # -- drain redirect (called by DrainManager via the cm marshal) -------
+
+    def drain_redirect(self, server_ref: Optional[str] = None) -> None:
+        """Server-initiated redirect: v5 clients get DISCONNECT 0x9C
+        Use-Another-Server with a Server-Reference; v3 clients a plain
+        close (their protocol has no server DISCONNECT) and find the
+        peer through the cluster registry on reconnect. The will is
+        suppressed exactly like the cm takeover path — custody is
+        moving, the session is not dying — and the close queues
+        behind any batched publish acks still pending, so a publisher
+        never loses an ack it was owed."""
+        if self.closed or self.state != CONNECTED:
+            return
+
+        def _go(_f=None) -> None:
+            if self.closed:
+                return
+            self.will = None  # custody hand-off, not session death
+            self.disconnect_reason = "drained"
+            self._shutdown(rc=RC.USE_ANOTHER_SERVER,
+                           server_ref=server_ref)
+
+        if self._pending_pubs:
+            self._pending_pubs[-1].add_done_callback(_go)
+        else:
+            _go()
+
     # -- teardown ----------------------------------------------------------
 
     def _shutdown(self, publish_will: Optional[bool] = None,
                   rc: Optional[int] = None,
-                  close_transport: bool = True) -> None:
+                  close_transport: bool = True,
+                  server_ref: Optional[str] = None) -> None:
         if self.closed:
             return
         self.closed = True
@@ -1016,10 +1066,14 @@ class Channel:
                 and self.proto_ver == C.MQTT_V5
                 and self.send_oob is not None):
             # tell the victim why before closing (e.g. DISCONNECT
-            # 0x8E session-taken-over on kick/takeover — the
-            # reference's handle_call({takeover,...}) reply path)
+            # 0x8E session-taken-over on kick/takeover, 0x9C + the
+            # Server-Reference on a drain redirect — the reference's
+            # handle_call({takeover,...}) reply path)
+            props = ({"Server-Reference": server_ref}
+                     if server_ref else {})
             try:
-                self.send_oob([Disconnect(reason_code=rc)])
+                self.send_oob([Disconnect(reason_code=rc,
+                                          properties=props)])
             except Exception:
                 pass
         if publish_will is None:

@@ -27,10 +27,14 @@ whole cluster's filter set, so any node matches locally in one walk
 dispatched on the receiving node by its already-matched filter, on
 the host: it launches no kernel there.
 
-Replicated durability (warm standbys, failback, the drain hand-off)
-is not part of this module: :attr:`Cluster.replication` is ``None``
-and the ``repl_*`` and ``drain_digest`` operations raise
-``ValueError``. The port's broker has no ban table, so the ``bans``
+Replicated durability rides this module: every clustered node
+carries a :class:`~emqx_tpu_torch.replication.ReplicationManager`
+(:attr:`Cluster.replication`) that holds warm standby replicas for its
+peers, arms the journal shipper when its durability config names
+standbys, promotes on a primary's nodedown, hands the adopted state
+back when the primary heals, and answers the ``repl_*`` and
+``drain_digest`` operations (the drain's custody hand-off,
+``drain.py``). The port's broker has no ban table, so the ``bans``
 plane is always empty and ``ban_add``/``ban_del`` do nothing — as on a
 JAX node that holds no ban.
 """
@@ -45,9 +49,10 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-from emqx_tpu_torch import topic as T
 from emqx_tpu_torch.concurrency import (any_thread, bg_thread,
                                         owner_loop, shared_state)
+from emqx_tpu_torch.replication import (ReplicationManager, _sub_route,
+                                        sessions_digest)
 from emqx_tpu_torch.types import Message
 
 log = logging.getLogger("emqx_tpu_torch.cluster")
@@ -201,21 +206,6 @@ class LocalTransport(Transport):
         return peer.handle_rpc(op, *args)
 
 
-def _sub_route(key: str, node_name: str) -> Tuple[str, object]:
-    """A subscription key's (filter, dest) route contribution on
-    ``node_name`` — the mapping the broker's subscribe path uses."""
-    flt, popts = T.parse(key)
-    share = popts.get("share")
-    return (flt, (share, node_name) if share else node_name)
-
-
-#: operations that belong to replicated durability (warm standbys,
-#: failback, the drain hand-off's custody check)
-_REPLICATION_OPS = frozenset({"repl_hello", "repl_ship", "repl_bye",
-                              "repl_replica_info", "repl_failback",
-                              "drain_digest"})
-
-
 @shared_state(lock="_lock", attrs=("members", "_registry"))
 class Cluster:
     """Per-node cluster agent: wires a Node's broker/router into the
@@ -275,11 +265,15 @@ class Cluster:
         node.cm.cluster = self
         if hasattr(node, "cluster"):
             node.cluster = self  # node-level accessor (stats)
-        # replicated durability comes with replication.py: every
-        # ``self.replication is not None`` branch below stays cold
-        self.replication = None
-        if hasattr(node, "replication"):
-            node.replication = None
+        # replicated durability (replication.py): every clustered
+        # node can hold warm standby replicas for its peers; a node
+        # whose durability config names standbys also arms the
+        # journal shipper
+        self.replication = ReplicationManager(node, self)
+        node.replication = self.replication
+        dur = getattr(node, "durability", None)
+        if dur is not None and dur.cfg.standby_list:
+            self.replication.arm_shipper(dur)
         # intercept local route mutations for replication
         self._orig_add = node.router.add_route
         self._orig_del = node.router.delete_route
@@ -489,6 +483,24 @@ class Cluster:
         # monitored-lock cleanup) — waiters unblock immediately
         self.locker.drop_owner(name)
         self._purge_node_routes(name)
+        # warm-standby failover (replication.py): AFTER the purge —
+        # the promotion re-installs the dead primary's durable state
+        # remapped to this node with exact refcounts. On its own
+        # thread: nodedown is dispatched on the transport IO loop,
+        # and the promotion ARBITRATION makes synchronous calls to
+        # co-standbys that must not block that loop against itself
+        if self.replication is not None \
+                and name in self.replication.replicas:
+            def _promote_check(repl=self.replication, dead=name):
+                try:
+                    repl.maybe_promote(dead)
+                except Exception:
+                    log.exception("standby promotion check for %s "
+                                  "failed", dead)
+            t = threading.Thread(
+                target=_promote_check, daemon=True,
+                name=f"repl-promote-{self.name}")
+            t.start()
 
     # -- clientid registry + cross-node takeover (emqx_cm_registry) -------
 
@@ -581,6 +593,23 @@ class Cluster:
                     self._takeover_parked.items() if now - ts > 60.0]:
             self._takeover_parked.pop(cid, None)
         chan = cm.lookup_channel(client_id)
+        if chan is None and self.replication is not None \
+                and self.replication.adopting(client_id):
+            # mid-hand-off adopted copy (see ReplicationManager
+            # .adopting): not serveable until the final marker lands
+            return {"suspect": self.name}
+        dr = getattr(self.node, "drain", None)
+        if chan is None and dr is not None and dr.active \
+                and dr.target is not None \
+                and (client_id in cm._detached
+                     or client_id in self._takeover_parked):
+            # custody is ALREADY moving through the drain hand-off
+            # (dual-route, digest-verified — loss-free under live
+            # traffic). A client-initiated pull racing it would rip
+            # the session out mid-transfer and drop every forward in
+            # the pull window; defer instead — the caller answers
+            # ServerBusy and the client's retry lands on the target
+            return {"suspect": self.name}
         sess = None
         if chan is not None:
             sess = cm._takeover(chan)
@@ -593,28 +622,36 @@ class Cluster:
         cm.cancel_will(client_id)  # connection re-established elsewhere
         if sess is None:
             # not held here (anymore): if OUR registry already knows
-            # the new custodian while the caller still held a stale
-            # claim, answer with a forwarding marker so the caller
-            # chases the custody chain instead of minting a fresh
-            # session
+            # the new custodian — a drain hand-off or failback moved
+            # it while the caller still held a stale claim — answer
+            # with a forwarding marker so the caller chases the
+            # custody chain instead of minting a fresh session
             with self._lock:
                 owner = self._registry.get(client_id)
             if owner is not None and owner != self.name:
                 return {"moved": owner}
             return None
+        # the keys whose route refs the detach below drops (through
+        # the broker's unsubscribe, the replicated wrapper: the
+        # zero-edge broadcasts route_del)
+        held = set(self.node.broker.subscriptions(sess))
         if taker:
             # move the route contributions WITH the session — BEFORE
             # detaching its dispatch wiring: install the taker's dest
             # locally NOW (idempotent; its broadcast confirms) and
-            # drop this node's refs through the replicated wrapper
-            # (the zero-edge broadcasts route_del). With routes moved
-            # first, a local publish in the detach window routes to
-            # the taker; one landing just before still reaches the
-            # (still-wired) session object and travels with it.
+            # drop this node's refs of the keys the broker does not
+            # hold (the detach drops the others). The JAX package
+            # drops every key's ref here AND in the detach, so a
+            # filter another local session still holds loses its
+            # route (fault C.4). A local publish in the detach window
+            # reaches the (still-wired) session object, which travels
+            # with it, and the taker.
             for key in list(getattr(sess, "subscriptions", {})):
                 try:
                     flt, dest = _sub_route(key, taker)
                     self._apply_route("add", flt, dest)
+                    if key in held:
+                        continue
                     flt2, dest2 = _sub_route(key, self.name)
                     if self.node.router.route_refs(flt2, dest2) > 0:
                         self.node.router.delete_route(flt2,
@@ -821,8 +858,11 @@ class Cluster:
         self._heal_q.put(name)
 
     def close(self) -> None:
-        """Stop the heal/anti-entropy worker (Node.stop)."""
+        """Stop the heal/anti-entropy worker and the journal shipper
+        (Node.stop)."""
         self._stopping = True
+        if self.replication is not None:
+            self.replication.close()
         if self._heal_thread is not None:
             self._heal_q.put(None)
             self._heal_thread.join(timeout=5)
@@ -881,12 +921,30 @@ class Cluster:
             log.warning("cluster auto-heal with %s failed: %s",
                         name, e)
         finally:
+            # FAILBACK (replication.py): a healed peer we promoted
+            # for gets its adopted state handed back — even when the
+            # anti-entropy half of the rejoin failed transiently (the
+            # sweep below retries it periodically regardless)
+            if self.replication is not None:
+                try:
+                    self.replication.maybe_failback(name)
+                except Exception:
+                    log.exception("failback scheduling for %s "
+                                  "failed", name)
             self._healing.discard(name)
 
     def _ae_sweep_once(self) -> None:
         """One background anti-entropy round: sync with ONE live
         peer (round-robin) — N nodes sweeping all-to-all every
-        interval would be O(N²) traffic for no extra convergence."""
+        interval would be O(N²) traffic for no extra convergence.
+        Also the failback retry tick: a promoted replica whose primary
+        is back and healthy hands its state back even if every
+        event-driven trigger was lost."""
+        if self.replication is not None:
+            try:
+                self.replication.retry_failbacks()
+            except Exception:
+                log.exception("failback retry sweep failed")
         peers = sorted(m for m in list(self.members)
                        if m != self.name
                        and self.transport.peer_state(m) == "ok")
@@ -1265,13 +1323,33 @@ class Cluster:
                 return []
             return [(t, ret._store.get(t)) for t in args[0]
                     if t in ret._store]
+        if op == "repl_hello":
+            # replicated durability (replication.py): arm/resync the
+            # warm standby replica for the calling primary
+            return self.replication.handle_hello(args[0], args[1],
+                                                 int(args[2]))
+        if op == "repl_ship":
+            return self.replication.handle_ship(args[0], int(args[1]),
+                                                args[2])
+        if op == "repl_bye":
+            return self.replication.handle_bye(args[0], bool(args[1]))
+        if op == "repl_replica_info":
+            # promotion arbitration: a co-standby compares warm-replica
+            # offsets before promoting
+            return self.replication.handle_replica_info(args[0])
+        if op == "repl_failback":
+            # FAILBACK: the promoted standby hands the adopted state
+            # back to this (restarted) primary — also the receive side
+            # of a DRAIN custody hand-off (drain.py): same chunked
+            # full-state adoption, same journaling
+            return self.replication.handle_failback(args[0], args[1])
         if op == "overload_level":
             # a draining peer adapts its disconnect budget to THIS
             # node's overload level
             ov = getattr(self.node, "overload", None)
             return int(ov.level) if ov is not None else 0
-        if op in _REPLICATION_OPS:
-            raise ValueError(f"rpc op {op} needs replicated durability "
-                             f"(replication.py), which this node does "
-                             f"not run")
+        if op == "drain_digest":
+            # drain custody verification: digest of the named sessions
+            # as THIS node now holds them
+            return sessions_digest(self.node, args[0])
         raise ValueError(f"bad rpc op: {op}")

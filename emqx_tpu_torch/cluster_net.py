@@ -1105,16 +1105,31 @@ class SocketTransport(Transport):
 
             owner.call_soon_threadsafe(_run)
             return await cfut
+        if op in _APPLY_OPS:
+            # a node with no serving loop (a node driven without
+            # start()) applies a hand-off chunk or a resync snapshot on
+            # a worker thread: on the IO thread it stops this node's
+            # heartbeat replies for the whole apply (a 256-session
+            # failback chunk outlasts a 0.5 s ping deadline), the peer
+            # declares it down, purges its routes and promotes again
+            # over the hand-off. The JAX package applies them on the IO
+            # thread (fault C.6)
+            return await self._loop.run_in_executor(
+                None, lambda: self.cluster.handle_rpc(op, *args))
         return self.cluster.handle_rpc(op, *args)
 
 
 #: ops that touch per-session state: must run on the node's serving
 #: loop. Everything else (membership, routes, registry, ping) is
 #: lock-guarded and runs on the IO thread. ``repl_failback`` and
-#: ``repl_hello`` (replicated durability, which this node answers
-#: with ``ValueError``) belong here because both mutate
-#: ``cm._detached``, which ``takeover_client`` does on the serving
-#: loop.
+#: ``repl_hello`` belong here because both mutate ``cm._detached``
+#: (failback/drain adoption re-applies pop-then-re-add; the hello's
+#: stale-duplicate cleanup pops), which ``takeover_client`` does on the
+#: serving loop.
 _OWNER_OPS = frozenset(
     {"forward", "forward_shared", "discard_client", "takeover_client",
      "repl_failback", "repl_hello"})
+#: of those, the bulk applies (a failback or drain hand-off chunk, a
+#: resync snapshot): on a node with no serving loop they run on a
+#: worker thread, not on the IO thread
+_APPLY_OPS = frozenset({"repl_failback", "repl_hello"})

@@ -181,6 +181,16 @@ class ConnectionManager:
         if old_chan is not None and old_chan is not channel:
             sess = self._takeover(old_chan)
         elif client_id in self._detached:
+            repl = getattr(self.cluster, "replication", None) \
+                if self.cluster is not None else None
+            if repl is not None and repl.adopting(client_id):
+                # adopted by a STILL-RUNNING hand-off (failback or
+                # drain): this copy is an intermediate snapshot —
+                # resuming it would make the finalize skip the
+                # authoritative one (live wins) and drop its queued
+                # messages with the source
+                raise SessionUnavailableError(client_id,
+                                              self.cluster.name)
             sess, _ts, _exp = self._detached.pop(client_id)
         elif self.cluster is not None:
             sess = self._remote_takeover(client_id)
@@ -258,6 +268,43 @@ class ConnectionManager:
                                   (client_id, sess.info()))
         self._register(client_id, channel)
         return sess
+
+    #: bound on a channel call marshalled onto the channel's owning
+    #: event loop from another thread (the drain's redirect waves run
+    #: on an executor thread): a wedged loop fails the call with a
+    #: clear error instead of blocking the caller forever
+    XLOOP_CALL_TIMEOUT = 15.0
+
+    def _call_channel(self, chan, fn):
+        """Run ``fn()`` on the channel's owning event loop
+        (``chan.owner_loop``, stamped by its connection): transports
+        and session state belong to that loop. Same-loop and loop-less
+        (sans-IO) channels run inline."""
+        loop = getattr(chan, "owner_loop", None)
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            running = None
+        if loop is None or loop is running or not loop.is_running():
+            return fn()
+        import concurrent.futures
+        cf: concurrent.futures.Future = concurrent.futures.Future()
+
+        def _run():
+            try:
+                cf.set_result(fn())
+            except BaseException as e:  # marshal the failure back
+                cf.set_exception(e)
+
+        loop.call_soon_threadsafe(_run)
+        try:
+            return cf.result(timeout=self.XLOOP_CALL_TIMEOUT)
+        except concurrent.futures.TimeoutError:
+            raise RuntimeError(
+                f"channel call for {getattr(chan, 'client_id', '?')!r} "
+                f"did not complete within "
+                f"{self.XLOOP_CALL_TIMEOUT:.0f}s (owning loop "
+                f"wedged)") from None
 
     def _takeover(self, old_chan) -> Optional[Session]:
         """The {takeover, begin/end} protocol against the old channel."""

@@ -11,9 +11,11 @@ token-bucket pauses and the ingress batcher's backpressure.
 
 Publishes arriving within one event-loop iteration across connections
 reach the device as one batch through the node's ingress batcher
-(:mod:`emqx_tpu_torch.ingress`). WebSocket, TLS and PSK, several
-front-door loops, the forced-GC policy and fault injection come with
-their slices.
+(:mod:`emqx_tpu_torch.ingress`). A listener's stop can be a
+redirect: with a drain target set (``shutdown_ref``,
+``shutdown_drain``) its v5 clients get DISCONNECT 0x9C and the
+Server-Reference and no will fires. WebSocket, TLS and PSK and several
+front-door loops come with their slices.
 """
 
 from __future__ import annotations
@@ -302,6 +304,9 @@ class Connection:
     async def run(self) -> None:
         """The connection loop: read → parse → channel → write."""
         self._loop = asyncio.get_running_loop()
+        # the channel's owning loop: a call from another thread (the
+        # drain's redirect waves) is marshalled here by the cm
+        self.channel.owner_loop = self._loop
         # make zone.high_watermark govern the TRANSPORT too: drain()
         # in the read loop and in the guard resolves against these
         # limits, so the knob means what it says instead of asyncio's
@@ -647,8 +652,14 @@ class Listener:
         # graceful shutdown: a v5 reason code to send in a DISCONNECT
         # before force-closing live connections at stop() — Node.stop
         # sets Server-Shutting-Down (0x8B) on a durable node so
-        # clients reconnect and resume. None = a silent close
+        # clients reconnect and resume. None = a silent close. With a
+        # drain target configured the stop is a redirect instead: 0x9C
+        # Use-Another-Server + the Server-Reference, and wills are
+        # suppressed like the cm takeover path — custody is moving,
+        # the sessions are not dying
         self.shutdown_rc: Optional[int] = None
+        self.shutdown_ref: Optional[str] = None
+        self.shutdown_drain = False
 
     async def _on_client(self, reader, writer) -> None:
         if len(self._conns) + len(self._handshaking) >= \
@@ -710,8 +721,19 @@ class Listener:
             for conn in list(self._conns):
                 try:
                     if not conn.channel.closed:
-                        conn.channel.disconnect_reason = "server_shutdown"
-                        conn.channel._shutdown(rc=self.shutdown_rc)
+                        if self.shutdown_drain:
+                            # drain hand-off stop: the session's
+                            # custody is moving to the drain target —
+                            # the will must not fire (exactly the cm
+                            # takeover contract)
+                            conn.channel.will = None
+                            conn.channel.disconnect_reason = "drained"
+                        else:
+                            conn.channel.disconnect_reason = \
+                                "server_shutdown"
+                        conn.channel._shutdown(
+                            rc=self.shutdown_rc,
+                            server_ref=self.shutdown_ref)
                     conn._close_transport()
                 except Exception:
                     pass

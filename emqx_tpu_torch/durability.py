@@ -41,10 +41,13 @@ Consistency protocol:
     died with the process, exactly as if they had disconnected).
 
 ``DurabilityConfig(enabled=False)`` (the default) builds none of this —
-every hot-path site is one ``None`` attribute test. Journal shipping
-to a standby on another cluster node is not part of this layer (it
-comes with replicated durability): ``standby``, ``standbys`` and
-``ack_quorum`` other than their defaults raise ``ValueError``.
+every hot-path site is one ``None`` attribute test. On a clustered
+node whose config names standbys (``standby``/``standbys``), the
+cluster arms a journal shipper (``replication.py``) into
+:attr:`DurabilityManager.repl`: every appended record is offered to
+it, each group commit wakes it (and, with ``ack_quorum > 0``, waits
+bounded for the quorum's acks), and a graceful shutdown ships the
+tail and says a clean goodbye.
 """
 
 from __future__ import annotations
@@ -111,28 +114,47 @@ class DurabilityConfig:
     #: differential deltas whose cost tracks churn, not table size.
     #: 1 = every checkpoint full (the pre-incremental cost shape)
     checkpoint_full_every: int = 8
-    #: journal-shipping warm standby: peer NODE NAME to stream the
-    #: journal to over the cluster transport; "" = no replication (the
-    #: only value the port takes: it has no cluster transport)
+    #: journal-shipping warm standby (``replication.py``): peer NODE
+    #: NAME to stream the journal to over the cluster transport; "" =
+    #: no replication
     standby: str = ""
-    #: replication GROUP: peer node names the journal fans out to — each holds an
-    #: independent warm replica. Mutually exclusive with the legacy
-    #: single ``standby`` (which is exactly ``standbys = [peer]``)
+    #: replication GROUP: peer node names the journal fans out to —
+    #: each holds an independent warm replica. Mutually exclusive with
+    #: the legacy single ``standby`` (which is exactly
+    #: ``standbys = [peer]``)
     standbys: tuple = ()
-    #: group-commit ack quorum over the standbys; 0 = fully async
-    #: shipping (the only value the port takes). The JAX package's
-    #: shipping knobs (quorum timeout, ack timeout, lag alarm, ship
-    #: queue bound) come with journal shipping
+    #: group-commit ack quorum: K > 0 makes each local group commit
+    #: wait (bounded by quorum_timeout_ms, degrade-don't-wedge) until
+    #: K standbys acked the flushed range — quorum-acked records
+    #: survive the loss of any K-1 nodes. 0 = fully async shipping
     ack_quorum: int = 0
+    #: bounded quorum wait per group commit; a timeout degrades
+    #: (counter + repl_quorum_degraded alarm), never wedges
+    quorum_timeout_ms: float = 250.0
+    #: bounded wait for the standby's ack (shutdown tail hand-off,
+    #: per-ship call deadline)
+    repl_ack_timeout_s: float = 5.0
+    #: replication_lagging alarm thresholds (records), with
+    #: hysteresis: raise above the first, clear at/below the second
+    repl_lag_alarm_records: int = 100_000
+    repl_lag_clear_records: int = 10_000
+    #: bounded outbound ship queue; exceeding it drops to local-only
+    #: and schedules a full resync on the next standby contact
+    repl_queue_max_records: int = 500_000
 
     #: live-reloadable knobs (the JAX package's config reload):
-    #: cadences read per tick or per flush. Layout (dir,
-    #: wal_shards), the fsync/backoff/buffer values baked into the
-    #: Wal group at build and ``enabled`` itself need a restart (not
-    #: a dataclass field: unannotated)
+    #: cadences/bounds read per tick, per flush or per ship pass.
+    #: Layout (dir, wal_shards), the fsync/backoff/buffer values
+    #: baked into the Wal group at build, the shipping topology
+    #: (standby/standbys/ack_quorum, copied at arm_shipper) and
+    #: ``enabled`` itself need a restart (not a dataclass field:
+    #: unannotated)
     RELOADABLE = frozenset({
         "flush_interval_ms", "checkpoint_interval_s",
-        "checkpoint_min_records", "checkpoint_full_every"})
+        "checkpoint_min_records", "checkpoint_full_every",
+        "quorum_timeout_ms", "repl_ack_timeout_s",
+        "repl_lag_alarm_records", "repl_lag_clear_records",
+        "repl_queue_max_records"})
 
     def __post_init__(self) -> None:
         if self.flush_interval_ms <= 0:
@@ -152,6 +174,16 @@ class DurabilityConfig:
         if self.checkpoint_full_every < 1:
             raise ValueError(
                 "durability.checkpoint_full_every must be >= 1")
+        if self.repl_ack_timeout_s <= 0:
+            raise ValueError(
+                "durability.repl_ack_timeout_s must be > 0")
+        if self.repl_lag_clear_records > self.repl_lag_alarm_records:
+            raise ValueError(
+                "durability.repl_lag_clear_records must be <= "
+                "repl_lag_alarm_records")
+        if self.repl_queue_max_records <= 0:
+            raise ValueError(
+                "durability.repl_queue_max_records must be > 0")
         if not isinstance(self.standbys, (list, tuple)):
             raise ValueError(
                 "durability.standbys must be a list of node names")
@@ -166,16 +198,15 @@ class DurabilityConfig:
             raise ValueError(
                 "set durability.standby OR durability.standbys, "
                 "not both (standby = exactly standbys = [peer])")
+        if self.quorum_timeout_ms <= 0:
+            raise ValueError(
+                "durability.quorum_timeout_ms must be > 0")
         if self.ack_quorum < 0:
             raise ValueError("durability.ack_quorum must be >= 0")
         if self.ack_quorum > len(self.standby_list):
             raise ValueError(
                 "durability.ack_quorum cannot exceed the number of "
                 "configured standbys")
-        if self.standby_list or self.ack_quorum:
-            raise ValueError(
-                "durability.standby/standbys/ack_quorum: no journal "
-                "shipping to standbys without replicated durability")
 
     @property
     def standby_list(self) -> tuple:
@@ -258,6 +289,9 @@ class DurabilityManager:
             "recovery.sessions": 0, "recovery.routes.pruned": 0,
         }
         self._last_fold: Dict[str, int] = {}
+        #: journal shipper (replication.py), armed by the cluster
+        #: layer when the config names standbys
+        self.repl = None
         #: counters of journal groups closed by :meth:`shutdown`
         self._wal_retired: Dict[str, int] = {}
         #: thread-recorded alarm events, drained on the main loop by
@@ -325,6 +359,9 @@ class DurabilityManager:
                 if len(self._pending_ops) > self.cfg.max_buffer_records:
                     del self._pending_ops[0]
                     self._pending_dropped += 1
+        r = self.repl
+        if r is not None:
+            r.offer(op)
 
     def _note_delta(self, op: tuple) -> None:
         """Track the key this record touches for the next incremental
@@ -444,7 +481,8 @@ class DurabilityManager:
         """The per-publish-batch hook (Broker.publish_fetch, executor
         thread) and the timer body: coalesce dirty session states,
         then one batched group commit (concurrent flushes coalesce
-        through the WalGroup leader)."""
+        through the WalGroup leader), then wake the journal shipper —
+        only locally-durable records ship."""
         w = self.wal
         if w is None:
             return
@@ -452,6 +490,13 @@ class DurabilityManager:
             self._flush_states()
         if w.pending():
             w.flush()
+        r = self.repl
+        if r is not None:
+            # quorum-aware group commit: wake the shipper, then — with
+            # ack_quorum > 0 — block bounded until the quorum acked
+            # the flushed range
+            r.notify_flush()
+            r.wait_quorum()
 
     flush = on_batch
 
@@ -1033,14 +1078,20 @@ class DurabilityManager:
                 log.exception("durability tick failed")
 
     def shutdown(self) -> None:
-        """Graceful stop: flush everything, one final FULL checkpoint
-        stamped ``clean_shutdown``, close the journal. Restart
-        recovery then starts from the checkpoint instead of a journal
-        replay."""
+        """Graceful stop: flush everything, hand the journal tail to
+        the standbys (bounded wait for their acks, then the
+        clean-departure announcement — failback never replays a torn
+        tail), one final FULL checkpoint stamped ``clean_shutdown``,
+        close the journal. Restart recovery then starts from the
+        checkpoint instead of a journal replay."""
         if self.wal is None:
             return
         self._flush_states()
         self.wal.flush()
+        r = self.repl
+        if r is not None:
+            r.ship_sync(self.cfg.repl_ack_timeout_s)
+            r.bye(clean=True)
         self.checkpoint_now(clean_shutdown=True)
         # records made while the node is stopped buffer pre-arm, as
         # before recovery; :meth:`resume` drains them into a new
@@ -1129,6 +1180,8 @@ class DurabilityManager:
             "last_recovery": self.last_recovery,
             "counters": dict(self.counters),
         }
+        if self.repl is not None:
+            out["replication"] = self.repl.info()
         return out
 
 

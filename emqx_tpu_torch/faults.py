@@ -31,10 +31,9 @@ Actions:
     effect (report a saturated queue, reset a socket), for points
     whose failure is not an exception.
 
-The catalog is the JAX package's, whole. The sites of ``xloop.*``,
-``wal.*``, ``checkpoint.*``, ``repl.*``, ``net.*`` and ``peer.*`` come
-with the slices that port those modules; arming one of them here
-fires nowhere yet.
+The catalog is the JAX package's, whole. The ``xloop.*`` sites come
+with the multi-loop front door; arming one of them here fires nowhere
+yet.
 """
 
 from __future__ import annotations

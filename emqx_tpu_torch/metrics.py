@@ -142,6 +142,33 @@ NAMES = (
     "checkpoint.saves", "checkpoint.errors", "checkpoint.delta.saves",
     "recovery.replayed", "recovery.torn", "recovery.sessions",
     "recovery.routes.pruned",
+    # replicated durability (replication.py), folded on the stats
+    # tick: `durability.repl.shipped`/`.acked` = records shipped to /
+    # acknowledged by the standbys, `.ship_errors` = ship calls that
+    # failed (that link drops to local-only), `.resyncs` = full
+    # snapshot re-syncs (first contact, gap repair, queue overflow),
+    # `.dropped` = queued-but-unshipped records discarded by the
+    # bounded ship queue, `.promotions` = standby promotions after a
+    # primary death, `.quorum.waits`/`.quorum.timeouts` = group
+    # commits that blocked for the ack quorum / hit quorum_timeout_ms,
+    # `.failbacks`/`.failback_errors` = completed / aborted FAILBACK
+    # hand-offs
+    "durability.repl.shipped", "durability.repl.acked",
+    "durability.repl.ship_errors", "durability.repl.resyncs",
+    "durability.repl.dropped", "durability.repl.promotions",
+    "durability.repl.quorum.waits", "durability.repl.quorum.timeouts",
+    "durability.repl.failbacks", "durability.repl.failback_errors",
+    # the graceful drain (drain.py): `drain.rejected.connects` =
+    # CONNECTs refused with 0x9C while DRAINING, `drain.redirects` =
+    # live clients redirected by the paced waves, `drain.waves` /
+    # `drain.waves.deferred` = waves executed / held because the
+    # target reported critical overload, `drain.handoff.sessions` =
+    # persistent sessions whose custody moved to the drain target,
+    # `drain.handoff.errors` = hand-offs that failed or whose digest
+    # never settled inside the bound
+    "drain.rejected.connects", "drain.redirects", "drain.waves",
+    "drain.waves.deferred", "drain.handoff.sessions",
+    "drain.handoff.errors",
     # sampled tracing and slow-subscriber attribution (tracing.py),
     # folded on the stats tick: `tracing.spans` = span records drained
     # from the per-thread rings, `tracing.dropped` = spans shed because

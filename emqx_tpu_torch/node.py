@@ -14,9 +14,10 @@ and the MQTT listeners, in the reference's boot order
 (src/emqx_app.erl:31-44, src/emqx_sup.erl:64-80), and, when enabled,
 the durability layer (journal, checkpoints, crash recovery) and the
 cluster (:meth:`Node.enable_cluster`: a socket transport and a
-``Cluster`` agent come up in :meth:`start`, on the running loop).
-Plugins, several front-door loops and replicated durability come with
-their slices.
+``Cluster`` agent come up in :meth:`start`, on the running loop)
+with replicated durability (journal shipping to warm standbys,
+promotion, failback), and the drain (:attr:`Node.drain`, passive until
+started). Plugins and several front-door loops come with their slices.
 
 ``Node(overload=OverloadConfig(enabled=False))`` builds no monitor,
 breaker or recovery: every guard reads ``None``.
@@ -26,7 +27,10 @@ before any listener accepts, and :meth:`stop` commits a clean-shutdown
 checkpoint. The default builds none. ``node.enable_cluster(port=0)``
 before :meth:`start`, then ``node.cluster.join_remote(host, port)``,
 joins a cluster over TCP; every node keeps its own automaton on its
-own device (several nodes may share one card).
+own device (several nodes may share one card). A durable clustered
+node whose ``DurabilityConfig`` names ``standbys`` ships its journal to
+them; ``node.drain.start(target=peer)`` on a running node redirects
+its clients and hands its persistent sessions to ``peer``.
 
     node = Node(device="cuda")
     node.modules.load(RetainerModule)
@@ -47,6 +51,7 @@ from emqx_tpu_torch.alarm import AlarmManager
 from emqx_tpu_torch.broker import Broker, DispatchConfig
 from emqx_tpu_torch.cm import ConnectionManager
 from emqx_tpu_torch.connection import Listener
+from emqx_tpu_torch.drain import NODE_RUNNING, NODE_STOPPING, DrainManager
 from emqx_tpu_torch.gc import GlobalGc
 from emqx_tpu_torch.hooks import Hooks
 from emqx_tpu_torch.ingress import IngressBatcher
@@ -65,10 +70,6 @@ from emqx_tpu_torch.zone import Zone, get_zone
 
 log = logging.getLogger("emqx_tpu_torch.node")
 
-#: the ``node.state`` gauge's values (the drain's ``1`` comes with it)
-NODE_RUNNING = 0
-NODE_STOPPING = 2
-
 
 class Node:
     def __init__(self, name: str = "emqx_tpu@127.0.0.1",
@@ -80,6 +81,7 @@ class Node:
                  overload: Optional[OverloadConfig] = None,
                  faults_config: Optional[_faults.FaultsConfig] = None,
                  durability=None,
+                 drain=None,
                  telemetry: Optional[TelemetryConfig] = None,
                  tracing: Optional[TracingConfig] = None,
                  sys_interval: float = 60.0) -> None:
@@ -169,10 +171,17 @@ class Node:
             self.durability = DurabilityManager(self, durability)
             self.broker.durability = self.durability
             self.cm.durability = self.durability
+        # graceful drain (drain.py): always built, passive until
+        # ``node.drain.start(target=...)`` — the channel's CONNECT gate
+        # reads broker.draining (None until a drain is active)
         self.node_state = NODE_RUNNING
+        self.drain = DrainManager(self, drain)
+        self.broker.draining = None
         # the cluster (cluster.py): set by Cluster, or built in
-        # start() after enable_cluster. Replicated durability comes
-        # with replication.py: None
+        # start() after enable_cluster; Cluster also sets the
+        # replicated-durability agent (replication.py): journal
+        # shipper when the durability config names standbys, warm
+        # standby replicas for peers that ship here
         self.cluster = None
         self.replication = None
         self._cluster_cfg = None
@@ -308,6 +317,11 @@ class Node:
             return
         self._started = False
         self.node_state = NODE_STOPPING
+        # a still-active drain's wave task dies with the node; its
+        # CONNECT gate is moot once the listeners close
+        if self.drain.active:
+            self.drain.stop()
+            self.node_state = NODE_STOPPING
         for t in self._bg_tasks:
             t.cancel()
         self._bg_tasks.clear()
@@ -327,7 +341,20 @@ class Node:
             # backoff loop early)
             br.recovery.stop()
         self.modules.on_loop_stop()
-        if self.durability is not None:
+        drain_ref = self.drain.server_ref()
+        if drain_ref is not None:
+            # a drain target is configured: the stop is a REDIRECT —
+            # v5 clients get 0x9C Use-Another-Server + the
+            # Server-Reference instead of 0x8B, and wills are
+            # suppressed like the cm takeover path (custody moves; the
+            # sessions are not dying)
+            from emqx_tpu_torch.mqtt import reason_codes as RC
+
+            for lst in self.listeners:
+                lst.shutdown_rc = RC.USE_ANOTHER_SERVER
+                lst.shutdown_ref = drain_ref
+                lst.shutdown_drain = True
+        elif self.durability is not None:
             # graceful shutdown: v5 clients get DISCONNECT
             # Server-Shutting-Down (0x8B) before their sockets close,
             # so they reconnect and resume
@@ -386,8 +413,10 @@ class Node:
         fired fault points; the durability layer's counters, alarms
         and gauges; the robustness alarms; the span counts; the trace
         drain; the loop lag; the mesh's device counters; the cluster's
-        counters, alarm and gauges. The per-loop rows come with their
-        slice."""
+        counters, alarm and gauges; the replication counters, lag
+        gauges and alarms. The per-loop rows come with their slice."""
+        # the node lifecycle gauge: 0 running / 1 draining (drain.py)
+        # / 2 stopping
         stats.setstat("node.state", self.node_state)
         stats.setstat("connections.count", self.cm.connection_count(),
                       "connections.max")
@@ -432,6 +461,10 @@ class Node:
             self._tick_durability(stats)
         if self.cluster is not None:
             self._fold_cluster_stats(stats)
+        if self.replication is not None:
+            # replication counters/lag gauges + the replication_lagging
+            # and repl_quorum_degraded alarm hysteresis
+            self.replication.fold(self.metrics, self.alarms, stats)
         self.drain_robustness_events()
         stats.setstat("publish.spans.count", self.telemetry.spans_total,
                       "publish.spans.max")

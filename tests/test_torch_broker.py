@@ -226,7 +226,8 @@ def test_port_never_imports_jax_or_the_jax_package():
                     else rel)
     # the front door's, the router's, the host engine's, overload
     # protection's, the durability layer's, observability's, the
-    # mesh's and the cluster's modules are among those imported
+    # mesh's, the cluster's, replicated durability's and the drain's
+    # modules are among those imported
     assert {"emqx_tpu_torch.faults", "emqx_tpu_torch.alarm",
             "emqx_tpu_torch.overload", "emqx_tpu_torch.devloss",
             "emqx_tpu_torch.ops.warmup", "emqx_tpu_torch.mqtt", "emqx_tpu_torch.mqtt.constants",
@@ -253,7 +254,8 @@ def test_port_never_imports_jax_or_the_jax_package():
             "emqx_tpu_torch.parallel.sharded",
             "emqx_tpu_torch.parallel.distributed",
             "emqx_tpu_torch.cluster", "emqx_tpu_torch.cluster_net",
-            "emqx_tpu_torch.cm_locker", "chip_smoke"} <= set(mods)
+            "emqx_tpu_torch.cm_locker", "emqx_tpu_torch.replication",
+            "emqx_tpu_torch.drain", "chip_smoke"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'emqx_tpu'):\n"
             "    sys.modules[m] = None\n"

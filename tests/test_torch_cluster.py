@@ -380,6 +380,39 @@ def test_cross_node_takeover_moves_session_and_subs():
     _both(_cross_node_takeover_moves_session_and_subs)
 
 
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_takeover_leaves_a_shared_filter_route_in_place(pkg):
+    """Fault C.4 on the takeover path: two detached sessions on n0 hold
+    ``sh/+``; n1 takes one over. n0 must keep one route ref for the
+    other, which still gets n0's publishes. The JAX package drops the
+    moved session's ref twice (``_local_takeover``'s own delete, then
+    ``detach_subscriber``'s unsubscribe): n0's route goes, and the
+    session left there misses the message."""
+    P = _jax() if pkg == "jax" else _port()
+    (n0, n1), clusters = _mk_cluster(P, 2)
+    stay = None
+    for cid in ("mover", "stayer"):
+        ch = object()
+        sess, _ = n0.cm.open_session(cid, True, channel=ch)
+        sess.subscribe("sh/+", P.SubOpts(qos=1))
+        n0.cm.connection_closed(cid, ch, sess, 300)
+        stay = sess
+    assert n0.router.route_refs("sh/+", "n0") == 2
+    moved, present = n1.cm.open_session("mover", False, channel=object())
+    assert present and "sh/+" in moved.subscriptions
+    n0.broker.publish(P.msg("sh/x", b"after", qos=1))
+    stay.replay()
+    got = [m.payload for _pid, m in stay.drain_outbox()
+           if hasattr(m, "payload")]
+    if pkg == "jax":
+        # the reference's fault, pinned
+        assert n0.router.route_refs("sh/+", "n0") == 0
+        assert got == []
+    else:
+        assert n0.router.route_refs("sh/+", "n0") == 1
+        assert got == [b"after"]
+
+
 def _cross_node_clean_start_discards_remote_session(P):
     (n0, n1), clusters = _mk_cluster(P, 2)
     chan0 = object()
@@ -569,17 +602,28 @@ def test_remote_only_filter_is_walked_and_forwarded(key):
 
 
 def test_port_cluster_has_no_replication_and_no_bans():
-    """The deliberate gaps, until replication.py and banned.py: the
-    replication ops raise, the ban plane is empty and ``ban_add``
-    changes nothing — the digest of a JAX node that holds no ban."""
+    """Every cluster member carries the replication manager (no
+    standby configured: no shipper), whose operations answer as the
+    JAX package's do; the deliberate gap until banned.py: the ban
+    plane is empty and ``ban_add`` changes nothing — the digest of a
+    JAX node that holds no ban."""
+    from emqx_tpu_torch.replication import ReplicationManager
+
     P, J = _port(), _jax()
     (pn0, _), (pc0, _) = _mk_cluster(P, 2)
     (_, _), (jc0, _) = _mk_cluster(J, 2)
-    assert pc0.replication is None and pn0.replication is None
-    for op in ("repl_hello", "repl_ship", "repl_bye", "repl_replica_info",
-               "repl_failback", "drain_digest"):
-        with pytest.raises(ValueError, match="replication.py"):
-            pc0.handle_rpc(op, "x", 0, [])
+    assert isinstance(pc0.replication, ReplicationManager)
+    assert pn0.replication is pc0.replication
+    assert pc0.replication._thread is None
+    for c in (pc0, jc0):
+        # a stray ship to a node with no replica answers resync
+        assert c.handle_rpc("repl_ship", "ghost", 1, []) == \
+            {"resync": True, "applied": 0}
+        assert c.handle_rpc("repl_replica_info", "ghost") == \
+            {"exists": False}
+        assert c.handle_rpc("repl_bye", "ghost", True) is None
+    assert pc0.handle_rpc("drain_digest", ["nobody"]) == \
+        jc0.handle_rpc("drain_digest", ["nobody"])
     pc0.handle_rpc("ban_add", "clientid", "evil", "op", "", None, True)
     pc0.handle_rpc("ban_del", "clientid", "evil")
     assert pc0._plane_entries("bans", None) == []

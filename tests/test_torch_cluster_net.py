@@ -9,7 +9,8 @@ persistent session (with a queued message) moves to this process by a
 cross-node takeover, MQTT clients on both sides; retained stores and
 deletes cross the wire; a cast buffered just before ``close()`` still
 lands. The same ``(op, args)`` frames to the same bytes through both
-packages' ``_send_frame``.
+packages' ``_send_frame``, the replication operations' (a resync
+snapshot, a shipped journal range, a failback chunk) among them.
 """
 
 import asyncio
@@ -319,6 +320,13 @@ def _frames(Msg, Opts):
     msg = Msg(topic="a/b", payload=b"\x00\xffp", qos=1, from_="c1",
               flags={"retain": True}, headers={"k": [1, 2.5, None]},
               id=b"0123456789abcdef", timestamp=1700000000.25)
+    # a session's wire state, as Session.to_wire gives it
+    sd = {"client_id": "c1", "clean_start": False,
+          "expiry_interval": 300.0, "next_pkt_id": 4,
+          "subscriptions": {"a/+": Opts(qos=1),
+                            "$share/g/s/#": Opts(qos=2, share="g")},
+          "inflight": [(2, msg, 1700000003.0)], "awaiting_rel": {3: 1.5},
+          "mqueue": [(0.0, [msg])]}
     return [
         ("cast", 0, ("forward", ("a/+", msg))),
         ("cast", 0, ("route_add", ("a/#", ("g", "n1")))),
@@ -330,10 +338,27 @@ def _frames(Msg, Opts):
         ("hello", 0, ("n0", "cookie", True)),
         ("call", 1, ("opts", (Opts(qos=2, nl=1, share="g"),
                               frozenset({1}), {3}))),
+        # replicated durability: a resync snapshot, a shipped journal
+        # range and a failback chunk
+        ("call", 2, ("repl_hello", ("n0", {
+            "sessions": [("c1", None, sd), ("c2", 1700000001.5, sd)],
+            "retained": [("r/1", msg)], "tombstones": [("r/2", 17.5)],
+            "routes": [("a/+", "n0", 2), ("a/#", ("g", "n0"), 1)],
+            "standbys": ["n1", "n2"]}, 7))),
+        ("call", 3, ("repl_ship", ("n0", 7, [
+            ("route", "a/+", "n0", 3), ("route", "s/#", ("g", "n0"), 0),
+            ("retain", "r/1", msg, 1700000000.25),
+            ("retain", "r/2", None, 1700000002.0),
+            ("sess.state", "c1", 1700000001.5, sd),
+            ("sess.sub", "c1", "b/#", Opts(qos=1)),
+            ("sess.unsub", "c1", "a/+"), ("sess.close", "c2")]))),
+        ("call", 4, ("repl_failback", ("n1", {
+            "sessions": [("c1", 1700000001.5, sd)], "final": True,
+            "keep": ["c3"], "closed": []}))),
     ]
 
 
-@pytest.mark.parametrize("i", range(8))
+@pytest.mark.parametrize("i", range(11))
 def test_frames_are_byte_equal_across_packages(i):
     """The same ``(kind, req, (op, args))`` through both packages'
     ``_send_frame``: the same length prefix and payload bytes, and the
@@ -355,7 +380,7 @@ def test_frames_are_byte_equal_across_packages(i):
         return await pnet._recv_frame(r)
 
     dec = asyncio.run(back())
-    if i in (0, 5):  # Message has no __eq__: compare its fields
+    if i in (0, 5, 8, 9, 10):  # Message has no __eq__: compare fields
         assert pnet.wire.dumps(dec) == pnet.wire.dumps(frame)
     elif i == 7:
         assert pnet.wire.dumps(dec) == pnet.wire.dumps(frame)

@@ -671,9 +671,14 @@ async def test_disabled_builds_nothing(tmp_path):
                                 {"standbys": ("a@h", "b@h")},
                                 {"standbys": ("a@h",), "ack_quorum": 1}])
 def test_standby_refused_until_journal_shipping(kw):
-    JConfig(enabled=True, **kw)  # the JAX package ships the journal
-    with pytest.raises(ValueError):
-        PConfig(enabled=True, **kw)
+    """The port ships the journal (replication.py): it takes the
+    replication group the JAX package takes, with equal values."""
+    j = JConfig(enabled=True, **kw)
+    p = PConfig(enabled=True, **kw)
+    assert p.standby_list == j.standby_list
+    assert (p.standby, p.standbys, p.ack_quorum) == \
+        (j.standby, j.standbys, j.ack_quorum)
+    assert PConfig.RELOADABLE == JConfig.RELOADABLE
 
 
 @pytest.mark.parametrize("kw", [{"flush_interval_ms": 0},
@@ -690,11 +695,11 @@ def test_config_checks_equal(kw):
     with pytest.raises(ValueError) as pe:
         PConfig(**kw)
     assert str(pe.value) == str(je.value)
-    assert PConfig.RELOADABLE == JConfig.RELOADABLE - set(SHIPPING)
+    assert PConfig.RELOADABLE == JConfig.RELOADABLE
 
 
 #: the JAX package's journal-shipping knobs, each with a value it
-#: takes; the port has no shipping, so it has none of them
+#: takes; the port takes the same
 SHIPPING = {"quorum_timeout_ms": 100.0, "repl_ack_timeout_s": 1.0,
             "repl_lag_alarm_records": 200_000, "repl_lag_clear_records": 5,
             "repl_queue_max_records": 1000}
@@ -702,9 +707,14 @@ SHIPPING = {"quorum_timeout_ms": 100.0, "repl_ack_timeout_s": 1.0,
 
 @pytest.mark.parametrize("name", sorted(SHIPPING))
 def test_shipping_knobs_wait_for_journal_shipping(name):
-    JConfig(enabled=True, **{name: SHIPPING[name]})
-    with pytest.raises(TypeError):
-        PConfig(enabled=True, **{name: SHIPPING[name]})
+    """Each shipping knob is a field of the port's config, with the
+    JAX default, the value set, and live-reloadable as in the JAX
+    package."""
+    j = JConfig(enabled=True, **{name: SHIPPING[name]})
+    p = PConfig(enabled=True, **{name: SHIPPING[name]})
+    assert getattr(p, name) == getattr(j, name) == SHIPPING[name]
+    assert getattr(PConfig(), name) == getattr(JConfig(), name)
+    assert (name in PConfig.RELOADABLE) == (name in JConfig.RELOADABLE)
 
 
 async def test_metrics_fold_alarms_and_gauges(tmp_path):
