@@ -285,6 +285,33 @@ kernels against their plain PyTorch versions:
      holder; a batch on bd1 through B1 (:data:`P14_DRAIN_DEVICE_MIN`)
      delivering to the handed sessions; bd0's stop with its target set
      sends 0x9C and the reference.
+ 15. the access plane and the built-in modules (``banned.py``,
+     ``flapping.py``, ``modules/``), its time against
+     :data:`P15_BUDGET_S` printed: (15a) on phase 5's node after 9b,
+     ``load_default_modules()`` (delayed, the file ACL, the retainer),
+     then rewrite (:data:`P15_REWRITE`), topic_metrics on
+     :data:`P15_METERED` topics of batch 0 and presence;
+     :data:`P15_BATCHES` of phase 5's batches with every topic under
+     :data:`P15_PREFIX` (a cold match cache first): B1 and B2 on every
+     batch, every delivery against the TrieOracle of the rewritten
+     topics, topic_metrics' in/out against the oracle's counts, msgs/s
+     and p50/p99 beside phase 5's; then :data:`P15_DELAYED` messages
+     ``$delayed/1/<topic>``: held (``messages.delayed``), nothing
+     delivered, ``tick(now + 2)`` republishes each alone, one B1 launch
+     a message, the deliveries against the oracle, ms a message;
+     (15b) a listener on the same node with ``enable_flapping_detect``
+     and :data:`P15_RETAINED` retained names: a banned clientid gets
+     CONNACK 0x8A, a client closing ``max_count`` times is auto-banned
+     and refused, a drained one is not counted; then the subscription
+     module (its auto-subscription checked), and a non-local client
+     (:data:`P15_NONLOCAL`) under the default ACL rules is denied
+     ``$SYS/#`` in its SUBACK while its wildcard filters replay through
+     B3, equal to the host match, a presence event arrives; B1, B2 and
+     B3 on the node's tables against their plain twins; (15c) inside
+     13d's cluster after the heal: a ban on one node held on every node
+     with equal non-empty ``bans`` digests, a CONNECT of that clientid
+     on another node refused, a delete on a third clearing it
+     everywhere.
 
 The last two lines are one JSON object per kernel row
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Every
@@ -311,6 +338,8 @@ import random
 import subprocess
 import sys
 import time
+
+from typing import Optional
 
 import numpy as np
 
@@ -1576,8 +1605,9 @@ def timed(label, fn, *args):
 
 
 def run(opts, device, card):
-    """Phases 3-5, 8, 7a, 9a-9b, 12 and 13 on ``device``; returns phase
-    13's numbers and the kernel rows."""
+    """Phases 3-5, 8, 7a, 9a-9b, 15a-15b, 12 and 13 (with 15c) on
+    ``device``; returns phase 13's and phase 15's numbers and the kernel
+    rows."""
     from emqx_tpu_torch.node import Node
     from emqx_tpu_torch.types import Message
 
@@ -1636,6 +1666,10 @@ def run(opts, device, card):
     p9 = timed("9a and 9b (breaker, device loss)", phase_devloss, node,
                draw, opts.batch, card, oracle)
     log_gc(node, "9a and 9b", gmark)
+    gmark = gc_mark(node)
+    p15 = timed("15a and 15b (modules, access plane)", run_modules, node,
+                batches, draw, card, oracle, sl)
+    log_gc(node, "15a and 15b", gmark)
     # one 1M-filter node at a time, as before the A/B: the plain node
     # starts once the collector has freed this one
     del node, broker
@@ -1655,9 +1689,14 @@ def run(opts, device, card):
     cluster = p13["13a"]
     walk["max_abs_err"] = max([walk["max_abs_err"],
                                p8["kernels"]["max_abs_err"],
-                               p12["cells"]["max_abs_err"]]
+                               p12["cells"]["max_abs_err"],
+                               p15["kernels"]["max_abs_err"]]
                               + [k["max_abs_err"] for k in cluster["kernels"]])
-    return p13, [
+    mods = {name: {"15a": p15["15a"]["slice"]["launches"][name],
+                   "15a_delayed": p15["15a"]["delayed_launches"].get(name, 0),
+                   "15b": p15["15b"]["launches"].get(name, 0)}
+            for name in PUBLISH_KERNELS}
+    return p13, p15, [
         {"name": "walk", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/walk.cu",
          "replaces": "emqx_tpu/ops/walk_pallas.py:87",
@@ -1673,6 +1712,8 @@ def run(opts, device, card):
          "mesh_cell_plain_ms": p12["cells"]["walk_plain_ms"],
          "cluster_launches": cluster["launches"].get("walk", 0),
          "cluster_node_ms": [k["walk_ms"] for k in cluster["kernels"]],
+         "modules_launches": mods["walk"],
+         "modules_ms": p15["kernels"]["walk_ms"],
          "equal": True,
          "bound_by": "bytes", "library_ms": None, **walk},
         {"name": "bitmap_or", "route": "cuda",
@@ -1687,6 +1728,8 @@ def run(opts, device, card):
          "mesh_cell_bound_ms": p12["cells"]["or_bound_ms"],
          "cluster_launches": cluster["launches"].get("bitmap_or", 0),
          "cluster_node_ms": [k["or_ms"] for k in cluster["kernels"]],
+         "modules_launches": mods["bitmap_or"],
+         "modules_ms": p15["kernels"]["or_ms"],
          "equal": True,
          "bound_by": "bytes", "library_ms": None, **bmp},
         # B4 lies on no path: its launches on the publish path (0) are
@@ -1695,6 +1738,10 @@ def run(opts, device, card):
          "source": "emqx_tpu_torch/csrc/bitmap_or.cu",
          "replaces": "emqx_tpu/ops/bitmap.py:137",
          "launches": sl["launches"]["or_bitmaps"], "on_path": False,
+         "modules_launches": {k: v.get("or_bitmaps", 0) for k, v in (
+             ("15a", p15["15a"]["slice"]["launches"]),
+             ("15a_delayed", p15["15a"]["delayed_launches"]),
+             ("15b", p15["15b"]["launches"]))},
          "cluster_launches": cluster["launches"].get("or_bitmaps", 0),
          "devloss_launches": p9["launches"]["or_bitmaps"],
          "equal": True, "bound_by": "bytes", "library_ms": None, **b4},
@@ -3174,9 +3221,12 @@ def cluster_13a(pairs, batches, warm, opts, device, card, p5):
         (t - begin_at[pos[mid][0]]) * 1e3 for mid, sid, t in stamps
         if sid % 2 != pos[mid][2]]))
     digests = [c.plane_digests() for c in cls]
-    if digests[0] != digests[1]:
-        raise AssertionError(f"[13a] plane digests differ: {digests}")
     counters = [c.drain_counters() for c in cls]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"[13a] plane digests differ: {digests}; "
+                             f"routes held {[routes_held(n) for n in nodes]}"
+                             f"; the detector's and anti-entropy's counters "
+                             f"{counters}")
     dropped = sum(c.get("forward.dropped", 0) for c in counters)
     if dropped:
         raise AssertionError(f"[13a] {dropped} forwards dropped")
@@ -3399,6 +3449,8 @@ def cluster_13d(device, opts, card):
                              for c in cls), 60, "13d membership re-merge")
         heal_s = wait_for(lambda: digests_equal(cls), 60,
                           "13d plane-digest convergence") - t1
+        bans = timed("15c (the ban plane)", ban_plane_15c, nodes, trs, cls,
+                     card)
         counters = {}
         for c in cls:
             for k, v in c.drain_counters().items():
@@ -3415,7 +3467,7 @@ def cluster_13d(device, opts, card):
         f"{routes}; forwards dropped {counters.get('forward.dropped', 0)}; "
         f"counters {dict(sorted(counters.items()))} — {card}")
     return {"detect_s": detect_s, "heal_s": heal_s, "churn": churn,
-            "dropped": counters.get("forward.dropped", 0)}
+            "dropped": counters.get("forward.dropped", 0), "15c": bans}
 
 
 def run_cluster(pairs, batches, warm, opts, device, card, p5):
@@ -3931,9 +3983,13 @@ class WireClient:
     each PUBLISH it receives with its arrival time, answers QoS 1 with
     a PUBACK, and resolves a future per CONNACK, SUBACK and PUBACK."""
 
-    def __init__(self, cid: str, version: int) -> None:
+    def __init__(self, cid: str, version: int,
+                 local_host: Optional[str] = None) -> None:
         self.cid = cid
         self.version = version
+        # the source address (a loopback one other than 127.0.0.1
+        # reaches the broker as a non-local peer)
+        self.local_host = local_host
         self.got = []          # (topic, payload, retain, arrival)
         self.raw = bytearray()  # every byte received
         self.sent = 0          # packets sent
@@ -3966,7 +4022,8 @@ class WireClient:
         loop = asyncio.get_running_loop()
         self.parser = Parser(version=self.version)
         self.reader, self.writer = await asyncio.open_connection(
-            "127.0.0.1", port)
+            "127.0.0.1", port, local_addr=(self.local_host, 0)
+            if self.local_host else None)
         self.closed = loop.create_future()
         fut = self.expect("connack", 0)
         self.send(Connect(client_id=self.cid, proto_ver=self.version,
@@ -4901,16 +4958,20 @@ P9_BACKOFF_S = 0.2
 P9_INJECTED = {"n": 0}
 
 
-def check_quiet(node, label, index=None):
+def check_quiet(node, label, index=None, since=None):
     """Phases 1-8: no number is taken on the breaker's host path — no
     trip, no fallback batch, no fault injected, and (retained node) no
     failed retained match and no match served by the host scan in the
-    device's place (the index's counters only grow)."""
+    device's place (the index's counters only grow). ``since`` holds the
+    breaker's counters at a phase's start (:func:`breaker_mark`) on a
+    node whose earlier phase tripped it on purpose (phase 9)."""
     from emqx_tpu_torch import faults
 
     m = node.metrics
-    got = {"trips": m.val("breaker.trips"),
-           "fallback_batches": m.val("breaker.fallback.batches"),
+    base = since or {"trips": 0, "fallback_batches": 0}
+    got = {"trips": m.val("breaker.trips") - base["trips"],
+           "fallback_batches": m.val("breaker.fallback.batches")
+           - base["fallback_batches"],
            "injected_faults": faults.info()["injected_total"]
            - P9_INJECTED["n"]}
     if index is not None:
@@ -4921,6 +4982,12 @@ def check_quiet(node, label, index=None):
         + ", ".join(f"{k.replace('_', ' ')} {v}" for k, v in got.items()))
     if any(got.values()) or node.broker.breaker.state:
         raise AssertionError(f"[{label}] the breaker's host path ran: {got}")
+
+
+def breaker_mark(node):
+    m = node.metrics
+    return {"trips": m.val("breaker.trips"),
+            "fallback_batches": m.val("breaker.fallback.batches")}
 
 
 OVERLOAD_KEYS = ("overload.transitions", "overload.shed.connect",
@@ -6134,7 +6201,8 @@ def adopted_batch(node, sessions, topics, seq0, label):
     return lat[0], launches, n
 
 
-def p14_kernels(node, topics, index, bursts, card, label):
+def p14_kernels(node, topics, index, bursts, card, label,
+                what="the adopted tables"):
     """B1 and B2 on ``node``'s tables (the adopted filters) and B3 on its
     retained index (the adopted store) at the main path's inputs, each
     held against its plain twin, with device times; launches made here
@@ -6159,7 +6227,7 @@ def p14_kernels(node, topics, index, bursts, card, label):
                                  "retained_match_kernel")
         torch.cuda.synchronize()
         _build.LAUNCHES.update(saved)
-    log(f"[{label}] on the adopted tables: B1 {out['walk_ms']:.5f} ms, B2 "
+    log(f"[{label}] on {what}: B1 {out['walk_ms']:.5f} ms, B2 "
         f"{out['or_ms']:.5f} ms over {out['big_rows']} bitmap rows"
         + (f", B3 {out['b3_ms']:.5f} ms" if "b3_ms" in out else "")
         + f", each equal to its plain twin — {card}")
@@ -6542,6 +6610,435 @@ def run_repl(opts, device, card):
             "launches": launches, "seconds": took}
 
 
+# -- phase 15: the access plane and the built-in modules ---------------------
+
+P15_BUDGET_S = 45.0
+#: 15a: phase 5's batches published under the rewrite rule's prefix, the
+#: literal topics of batch 0 that topic_metrics counts, and the delayed
+#: messages (``$delayed/1/<topic>``, each republished alone)
+P15_BATCHES = 3
+P15_PREFIX = "mod/"
+P15_REWRITE = ("pub", "mod/#", r"^mod/(.+)$", r"$1")
+P15_METERED = 64
+P15_DELAYED = 256
+#: 15b: the retained names its wildcard SUBSCRIBEs replay through B3, a
+#: loopback source address the default ACL rules treat as non-local, the
+#: subscription module's template and the replayed filters
+P15_RETAINED = P13_RETAINED
+P15_NONLOCAL = "127.0.0.2"
+P15_AUTOSUB = ("p15/%c/inbox", 1)
+P15_REPLAY = ("s7/#", "s11/+/+/state")
+
+
+def oracle_count(broker, oracle, topic: str) -> int:
+    """The deliveries the oracle gives ``topic``: every local subscriber
+    of every matched filter, one member per shared group."""
+    n = 0
+    for f in oracle.match(topic):
+        n += len(broker.subscribers(f))
+        n += sum(1 for r in broker.router.lookup_routes(f)
+                 if isinstance(r.dest, tuple))
+    return n
+
+
+def modules_15a(node, batches, draw, card, oracle, tm, metered):
+    """15a: phase 5's batches under the rewrite prefix through the
+    node's modules (every count at 0 at the start), topic_metrics
+    against the oracle, then the delayed path, one batch a message."""
+    from collections import Counter
+
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.types import Message
+
+    broker = node.broker
+    sent = [[P15_PREFIX + t for t in b] for b in batches[:P15_BATCHES]]
+    # phase 5 published these batches on this node: a cold match cache
+    # (the router builds a new one at the next dispatch), so 15a walks
+    # them as phase 5 first did
+    broker.router._match_cache_obj = None
+    sl = phase_slice(broker, sent, card, oracle, label="15a")
+    count = Counter(t for b in batches[:P15_BATCHES] for t in b)
+    for t in metered:
+        m = tm.metrics(t)
+        want = (count[t], count[t] * oracle_count(broker, oracle, t))
+        if (m["messages.in"], m["messages.out"]) != want:
+            raise AssertionError(f"[15a] topic_metrics of {t!r}: in/out "
+                                 f"{m['messages.in']}/{m['messages.out']}, "
+                                 f"the oracle {want}")
+    n_in = sum(tm.metrics(t)["messages.in"] for t in metered)
+    n_out = sum(tm.metrics(t)["messages.out"] for t in metered)
+    log(f"[15a] topic_metrics: {len(metered)} topics of batch 0, "
+        f"messages.in {n_in}, messages.out {n_out}, each equal to the "
+        f"oracle's — {card}")
+    # the delayed path: distinct topics no batch sent, held, then each
+    # republished alone by the tick
+    dm = node.modules._loaded["delayed"]
+    fresh = zipf_topics(np.random.default_rng(15), draw, 8 * P15_DELAYED)
+    seen = set(count)
+    topics = [t for t in dict.fromkeys(fresh) if t not in seen]
+    topics = topics[:P15_DELAYED]
+    if len(topics) < P15_DELAYED:
+        raise AssertionError(f"[15a] {len(topics)} fresh topics drawn")
+    d0 = node.metrics.val("messages.delayed")
+    Sink.log = []
+    held = broker.publish_batch([
+        Message(topic=f"$delayed/1/{t}", payload=b"d%d" % i)
+        for i, t in enumerate(topics)])
+    if any(held) or Sink.log or len(dm) != P15_DELAYED \
+            or node.metrics.val("messages.delayed") - d0 != P15_DELAYED:
+        raise AssertionError(f"[15a] $delayed: results {sum(held)}, "
+                             f"{len(Sink.log)} deliveries, {len(dm)} held, "
+                             f"messages.delayed "
+                             f"{node.metrics.val('messages.delayed') - d0}")
+    # the tick republishes each topic alone: with a cold match cache
+    # none is served from it, so each walks once
+    broker.router._match_cache_obj = None
+    import threading
+
+    from emqx_tpu_torch.ops import delta as delta_ops
+
+    done, per_msg, side, inner, frames = [], [], [0], [], []
+    orig = broker.publish
+    side_walk = delta_ops.match_batch_auto
+
+    def walks():
+        return np.array([tl.main().get("walk", 0), side[0]])
+
+    def publish(msg):
+        # one frame a publish; a publish made inside another (the
+        # telemetry's slow_publish alarm's $SYS message at a batch's
+        # close) is counted apart from the delayed message's own
+        frames.append(np.zeros(2, np.int64))
+        before = walks()
+        try:
+            res = orig(msg)
+        finally:
+            child = frames.pop()
+        n = walks() - before
+        if frames:
+            frames[-1] += n
+            inner.append((msg, res, n))
+        else:
+            done.append((msg, res))
+            per_msg.append(n - child)
+        return res
+
+    def counted_side_walk(*a, **k):
+        # B1 on the delta's side automaton (pending adds), apart from
+        # the main automaton's one launch a message
+        if threading.current_thread() is threading.main_thread():
+            side[0] += 1
+        return side_walk(*a, **k)
+
+    broker.publish = publish
+    delta_ops.match_batch_auto = counted_side_walk
+    # the tick's own launches, on this thread (a background compaction
+    # re-warms the kernels on its own thread)
+    _build.reset_launches()
+    saved = _build.LAUNCHES
+    tl = _build.LAUNCHES = ThreadLaunches(saved)
+    try:
+        t0 = time.perf_counter()
+        ticked = dm.tick(now=time.time() + 2)
+        tick_s = time.perf_counter() - t0
+    finally:
+        del broker.publish
+        delta_ops.match_batch_auto = side_walk
+        _build.LAUNCHES = saved
+        saved.update(tl)
+    launches = tl.main()
+    others = {t: d for t, d in tl.by_thread.items()
+              if t != "MainThread" and any(d.values())}
+    deliveries, Sink.log = Sink.log, None
+    own = np.array(per_msg)
+    main_walks = own[:, 0] - own[:, 1]
+    if ticked != P15_DELAYED or len(dm) or len(done) != P15_DELAYED \
+            or (main_walks != 1).any():
+        raise AssertionError(f"[15a] the tick republished {ticked}, left "
+                             f"{len(dm)}, B1 launches "
+                             f"{launches.get('walk', 0)} (on the main "
+                             f"automaton a message: {sorted(set(main_walks.tolist()))}; "
+                             f"{side[0]} on the delta's side automaton; "
+                             f"{len(inner)} publishes inside them; other "
+                             f"threads {others})")
+    done += [(m, r) for m, r, _n in inner]
+    check_batches(broker, [([m for m, _r in done], [r for _m, r in done])],
+                  deliveries, oracle)
+    log(f"[15a] $delayed/1/<topic>: {P15_DELAYED} held (messages.delayed "
+        f"+{P15_DELAYED}, nothing delivered), tick(now + 2) republished "
+        f"them one batch a message in {tick_s * 1e3:.3f} ms, "
+        f"{tick_s * 1e3 / P15_DELAYED:.3f} ms a message; "
+        f"{len(deliveries)} deliveries equal the TrieOracle's; launches "
+        f"{launches} (B1 once a message on the main automaton, "
+        f"{int(own[:, 1].sum())} on the delta's side automaton; "
+        f"{len(inner)} publishes inside them, the telemetry alarm's), on "
+        f"other threads {others} — {card}")
+    return {"slice": sl, "delayed_launches": launches,
+            "delayed_ms_per_msg": tick_s * 1e3 / P15_DELAYED,
+            "metered_in": n_in, "metered_out": n_out}
+
+
+async def until_async(cond, timeout: float, what: str) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"[15b] {what} not reached in {timeout} s")
+        await asyncio.sleep(0.002)
+
+
+async def access_15b(node, card):
+    """15b: a listener on ``node`` with flapping detection on; a banned
+    client, a flapping client, a drained one, the default ACL rules for
+    a non-local client, a wildcard replay through B3 and a presence
+    publish, every count at 0 once the retained names are stored."""
+    from emqx_tpu_torch.connection import Listener
+    from emqx_tpu_torch.modules.subscription import SubscriptionModule
+    from emqx_tpu_torch.mqtt import reason_codes as RC
+    from emqx_tpu_torch.mqtt.packet import Subscribe
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.zone import Zone
+
+    zone = Zone(name="p15", enable_flapping_detect=True)
+    fcfg = node.flapping.config
+    store_s = store_retained(node, P15_RETAINED)
+    ret = node.modules._loaded["retainer"]
+    if len(ret._index) != P15_RETAINED:
+        raise AssertionError(f"[15b] {len(ret._index)} names indexed")
+    lst = Listener(node.broker, node.cm, port=0, zone=zone, name="tcp:p15",
+                   device=node.device, frame=node.frame)
+    await lst.start()
+    clients = []
+
+    def client(cid, version, local_host=None):
+        c = WireClient(cid, version, local_host)
+        clients.append(c)
+        return c
+
+    steps = {}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = round(now - t_step[0], 3)
+        t_step[0] = now
+
+    _build.reset_launches()
+    try:
+        watch = client("p15-watch", 5)
+        await watch.connect(lst.port)
+        presence = f"$SYS/brokers/{node.name}/clients/+/connected"
+        fut = watch.expect("suback", 1)
+        watch.send(Subscribe(packet_id=1,
+                             topic_filters=[(presence, {"qos": 0})]))
+        if (await fut).reason_codes != [0]:
+            raise AssertionError("[15b] the presence SUBSCRIBE was refused")
+        step("watcher")
+        # a client banned by clientid
+        node.banned.create("clientid", "p15-banned", by="chip_smoke",
+                           reason="15b")
+        ack = await client("p15-banned", 5).connect_once(lst.port)
+        if ack.reason_code != RC.BANNED:
+            raise AssertionError(f"[15b] banned CONNACK {ack.reason_code}")
+        step("banned")
+        # a client that closes max_count times is auto-banned
+        cid = "p15-flap"
+        cycles = []
+        for i in range(fcfg.max_count):
+            t0 = time.perf_counter()
+            c = client(cid, 4)
+            await c.connect(lst.port)
+            await c.close()
+
+            def counted(n=i + 1):
+                t = node.flapping._tracks.get(cid)
+                if n == fcfg.max_count:
+                    return node.banned.look_up("clientid", cid) is not None
+                return t is not None and t.count >= n
+
+            await until_async(counted, 30.0, f"disconnect {i + 1} counted")
+            cycles.append(time.perf_counter() - t0)
+            track = node.flapping._tracks.get(cid)
+            if i + 1 < fcfg.max_count and track.count != i + 1:
+                raise AssertionError(
+                    f"[15b] disconnect {i + 1} counted as {track.count}; "
+                    f"cycles {[round(x, 3) for x in cycles]} s")
+        rule = node.banned.look_up("clientid", cid)
+        if rule is None or rule.by != "flapping":
+            raise AssertionError(f"[15b] no flapping ban: {rule}")
+        ack = await client(cid, 5).connect_once(lst.port)
+        if ack.reason_code != RC.BANNED:
+            raise AssertionError(f"[15b] flapper's CONNACK {ack.reason_code}")
+        step("flapping")
+        # the drain's reason is not counted
+        cid = "p15-drained"
+        c = client(cid, 4)
+        await c.connect(lst.port)
+        node.cm.lookup_channel(cid).drain_redirect(None)
+        await c.closed
+        await until_async(lambda: node.cm.lookup_channel(cid) is None, 5.0,
+                          "the drained channel's close")
+        if cid in node.flapping._tracks or node.banned.check(clientid=cid):
+            raise AssertionError("[15b] a drained disconnect was counted")
+        step("drained")
+        # auto-subscribe loads only now: with it, every connect and clean
+        # disconnect is a fan-out membership change, and the next
+        # publish (a presence event) rebuilds the fan-out tables, 2.6 s
+        # at 1.03M filters, so the default 15 cycles would outlast the
+        # 60 s window (PERF.md §6)
+        node.modules.load(SubscriptionModule, {"topics": [P15_AUTOSUB]})
+        # a non-local client under DEFAULT_RULES: $SYS/# denied, the
+        # wildcard filters replay through B3
+        b3 = _build.LAUNCHES["retained_match"]
+        c = client("p15-acl", 5, local_host=P15_NONLOCAL)
+        await c.connect(lst.port)
+        fut = c.expect("suback", 1)
+        c.send(Subscribe(packet_id=1, topic_filters=[
+            ("$SYS/#", {"qos": 0})] + [(f, {"qos": 0}) for f in P15_REPLAY]))
+        suback = (await fut).reason_codes
+        if suback != [RC.NOT_AUTHORIZED] + [0] * len(P15_REPLAY):
+            raise AssertionError(f"[15b] SUBACK {suback}")
+        step("acl")
+        family = NameFamily(P15_RETAINED)
+        want = sorted(retained_name(int(i)) for f in P15_REPLAY
+                      for i in family.match(f))
+        await until_async(lambda: len(c.got) >= len(want), 10.0,
+                          f"{len(want)} replayed messages")
+        got = sorted(t for t, _p, _r, _a in c.got)
+        b3 = _build.LAUNCHES["retained_match"] - b3
+        if got != want or not all(r for _t, _p, r, _a in c.got) or b3 < 1:
+            raise AssertionError(f"[15b] replayed {len(got)} of "
+                                 f"{len(want)}, B3 launches {b3}")
+        step("replay")
+        sess = node.cm.lookup_channel("p15-acl").session
+        auto = P15_AUTOSUB[0].replace("%c", "p15-acl")
+        if auto not in sess.subscriptions:
+            raise AssertionError(f"[15b] no auto-subscription {auto}")
+        await until_async(
+            lambda: any(t.endswith("/p15-acl/connected")
+                        for t, *_x in watch.got), 5.0, "the presence event")
+        body = next(json.loads(bytes(p)) for t, p, *_x in watch.got
+                    if t.endswith("/p15-acl/connected"))
+        if body["clientid"] != "p15-acl" or \
+                body["ipaddress"] != P15_NONLOCAL:
+            raise AssertionError(f"[15b] presence payload {body}")
+        step("presence")
+    finally:
+        for c in clients:
+            if c.closed is not None and not c.closed.done():
+                await c.close()
+        await lst.stop()
+    launches = dict(_build.LAUNCHES)
+    log(f"[15b] a listener with enable_flapping_detect: {P15_RETAINED} "
+        f"retained names stored in {store_s:.2f} s; a banned clientid got "
+        f"CONNACK 0x{RC.BANNED:02X}; {fcfg.max_count} connect-close cycles "
+        f"(window {fcfg.window:.0f} s) took {sum(cycles):.3f} s (the "
+        f"slowest {max(cycles):.3f} s) and auto-banned p15-flap (by "
+        f"flapping, {fcfg.ban_time:.0f} s); its next CONNECT got "
+        f"0x{RC.BANNED:02X}; "
+        f"a drained client was not counted; the non-local client "
+        f"({P15_NONLOCAL}) under DEFAULT_RULES got SUBACK {suback}, "
+        f"{len(got)} retained messages replayed through B3 ({b3} "
+        f"launches), equal to the host match, auto-subscribed to {auto}; "
+        f"{sum(1 for t, *_x in watch.got if t.endswith('/connected'))} "
+        f"presence events on {presence}, keys {sorted(body)}; seconds a "
+        f"step {steps}; launches {launches} — {card}")
+    return {"launches": launches, "index": ret._index, "steps": steps,
+            "flap_cycles_s": cycles}
+
+
+def run_modules(node, batches, draw, card, oracle, p5):
+    """Phase 15a-15b on phase 5's node (see the module docstring);
+    returns its numbers and launches."""
+    from emqx_tpu_torch.modules.presence import PresenceModule
+    from emqx_tpu_torch.modules.rewrite import RewriteModule
+    from emqx_tpu_torch.modules.topic_metrics import TopicMetricsModule
+
+    t_start = time.perf_counter()
+    quiet = breaker_mark(node)
+    node.load_default_modules()
+    node.modules.load(RewriteModule, {"rules": [P15_REWRITE]})
+    metered = list(dict.fromkeys(batches[0]))[:P15_METERED]
+    tm = node.modules.load(TopicMetricsModule, {"topics": metered})
+    node.modules.load(PresenceModule)
+    log(f"[15] P15_BUDGET_S {P15_BUDGET_S:.0f} s; modules loaded on phase "
+        f"5's node ({len(node.router._filter_ids)} filters): "
+        f"{node.modules.loaded()} (subscription in 15b); rewrite "
+        f"{P15_REWRITE}; "
+        f"{P15_BATCHES} of phase 5's {len(batches)} batches (cut to hold "
+        f"the budget) — {card}")
+    a = modules_15a(node, batches, draw, card, oracle, tm, metered)
+    sl = a["slice"]
+    log(f"[15a] with the modules' hooks: {sl['msgs_per_s']:.1f} msgs/s, p50 "
+        f"{sl['p50_ms']:.3f} ms, p99 {sl['p99_ms']:.3f} ms over "
+        f"{P15_BATCHES} batches; phase 5 on the same node "
+        f"{p5['msgs_per_s']:.1f} msgs/s, p50 {p5['p50_ms']:.3f} ms, p99 "
+        f"{p5['p99_ms']:.3f} ms over {len(batches)} — {card}")
+    b = asyncio.run(access_15b(node, card))
+    k = p14_kernels(node, batches[0], b["index"], [P15_REPLAY], card, "15",
+                    what="phase 5's node with the modules loaded")
+    check_quiet(node, "15", b["index"], since=quiet)
+    took = time.perf_counter() - t_start
+    log(f"[15] phase 15a-15b took {took:.1f} s of its {P15_BUDGET_S:.0f} s "
+        f"budget — {card}")
+    return {"15a": a, "15b": b, "kernels": k, "seconds": took}
+
+
+def ban_plane_15c(nodes, trs, cls, card):
+    """15c in 13d's cluster: a ban created on the first node reaches
+    every node and the ``bans`` digests; a CONNECT of that clientid on
+    the second node is refused; a delete on the third clears it
+    everywhere."""
+    from emqx_tpu_torch.channel import Channel
+    from emqx_tpu_torch.mqtt import constants as MC
+    from emqx_tpu_torch.mqtt import reason_codes as RC
+    from emqx_tpu_torch.mqtt.packet import Connect, Disconnect
+
+    cid = "p15-cluster-banned"
+    empty = cls[0]._digest([])
+
+    def connect(node):
+        ch = Channel(node.broker, node.cm)
+        return ch, ch.handle_in(Connect(proto_ver=MC.MQTT_V5,
+                                        client_id=cid))[0]
+
+    t0 = time.perf_counter()
+    nodes[0].banned.create("clientid", cid, by="chip_smoke", reason="15c",
+                           duration=600.0)
+    barrier(trs)
+    add_ms = (time.perf_counter() - t0) * 1e3
+    held = [n.banned.look_up("clientid", cid) is not None for n in nodes]
+    digests = {c.plane_digests()["bans"] for c in cls}
+    entries = cls[0]._plane_entries("bans", None)
+    if not all(held) or len(digests) != 1 or empty in digests \
+            or not entries:
+        raise AssertionError(f"[15c] the ban on {nodes[0].name}: held "
+                             f"{held}, {len(digests)} bans digests")
+    ch, ack = connect(nodes[1])
+    if ch.session is not None or ack.reason_code != RC.BANNED:
+        raise AssertionError(f"[15c] CONNECT on {nodes[1].name}: "
+                             f"{ack.reason_code}")
+    t0 = time.perf_counter()
+    nodes[2].banned.delete("clientid", cid)
+    barrier(trs)
+    del_ms = (time.perf_counter() - t0) * 1e3
+    left = [n.banned.look_up("clientid", cid) for n in nodes]
+    after = {c.plane_digests()["bans"] for c in cls}
+    ch, ack = connect(nodes[1])
+    if any(left) or after != {empty} or ch.session is None:
+        raise AssertionError(f"[15c] the delete on {nodes[2].name}: left "
+                             f"{left}, digests {after}, CONNACK "
+                             f"{ack.reason_code}")
+    ch.handle_in(Disconnect())
+    log(f"[15c] a ban created on {nodes[0].name} held on all "
+        f"{len(nodes)} nodes after {add_ms:.3f} ms (to the barrier), the "
+        f"bans digests equal and non-empty ({len(entries)} entry); a "
+        f"CONNECT of {cid} on {nodes[1].name} got CONNACK "
+        f"0x{RC.BANNED:02X}; the delete on {nodes[2].name} cleared it "
+        f"everywhere after {del_ms:.3f} ms and the next CONNECT was "
+        f"accepted — {card}")
+    return {"add_ms": add_ms, "del_ms": del_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--subs", type=int, default=1_000_000,
@@ -6591,10 +7088,15 @@ def main(argv=None) -> int:
     card = phase_env()
     phase_build(card)
     t0 = time.perf_counter()
-    p13, rows = run(opts, "cuda", card)
+    p13, p15, rows = run(opts, "cuda", card)
     t1 = time.perf_counter()
     rows.append(run_retained(opts, "cuda", card))
     rows[-1]["cluster_launches"] = p13["13b"]["launches"]
+    rows[-1]["modules_launches"] = {
+        "15b": p15["15b"]["launches"].get("retained_match", 0)}
+    rows[-1]["modules_ms"] = p15["kernels"]["b3_ms"]
+    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
+                                  p15["kernels"]["max_abs_err"])
     timed("9d (sentinel)", phase_sentinel, card)
     t2 = time.perf_counter()
     p10 = timed("10 (durability)", run_durable, opts, "cuda", card)

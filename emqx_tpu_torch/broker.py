@@ -235,6 +235,12 @@ class Broker:
         self.tracer = None
         self.telemetry = None
         self.tracing = None
+        # the access plane and the delayed module, wired by Node: the
+        # ban table (the channel checks it on CONNECT), flap detection
+        # (counted on disconnect) and the loaded DelayedModule
+        self.banned = None
+        self.flapping = None
+        self.delayed = None
 
     # -- subscribe / unsubscribe (emqx_broker.erl:127-196) ----------------
 

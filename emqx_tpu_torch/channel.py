@@ -8,7 +8,7 @@ come back.
 
 Pipelines follow the reference:
   - CONNECT: enrich conninfo → 'client.connect' hook → check proto →
-    authenticate → open session (clean/resume via CM)
+    banned check → authenticate → open session (clean/resume via CM)
     → CONNACK (+v5 props) → 'client.connected' (:237-261, 433-450)
   - PUBLISH: topic-alias resolve → ACL → caps → session.publish →
     PUBACK/PUBREC (:293-298, 456-543)
@@ -23,8 +23,11 @@ A PUBLISH reaches the device through the ingress batcher
 the transport and an event loop are there; a sans-IO caller publishes
 synchronously. A draining node refuses a CONNECT with 0x9C
 Use-Another-Server (and its Server-Reference on v5) and redirects a
-live client with :meth:`Channel.drain_redirect`. Banned and flapping
-checks and TLS certificate usernames come with their slices.
+live client with :meth:`Channel.drain_redirect`. A banned client
+(``broker.banned``, when the zone's ``enable_ban`` is on) gets CONNACK
+0x8A Banned, before authentication; with ``enable_flapping_detect``
+every disconnect is counted by ``broker.flapping`` with its reason.
+TLS certificate usernames come with their slice.
 """
 
 from __future__ import annotations
@@ -266,6 +269,15 @@ class Channel:
             # src/emqx_channel.erl:1132-1133 set_bridge_mode
             self.clientinfo["is_bridge"] = True
         self.broker.hooks.run("client.connect", (dict(self.clientinfo),))
+        # banned? (checked before authentication, as the reference does)
+        banned = self.broker.banned
+        if self.zone.enable_ban and banned is not None and banned.check(
+                clientid=client_id, username=username,
+                peerhost=self.peername[0]):
+            return self._connack_error(RC.BANNED)
+        flapping = self.broker.flapping
+        if flapping is not None and self.zone.enable_flapping_detect:
+            flapping.connected(client_id, self.peername[0])
         # auth
         auth = self.access.authenticate(self.clientinfo)
         if auth.get("auth_result") != "success":
@@ -1099,6 +1111,14 @@ class Channel:
             self.broker.hooks.run(
                 "client.disconnected",
                 (dict(self.clientinfo), self.disconnect_reason or "normal"))
+            flapping = self.broker.flapping
+            if flapping is not None and self.zone.enable_flapping_detect:
+                # the reason tags server-initiated disconnects (a drain
+                # redirect, a graceful shutdown), which flapping
+                # exempts: a drain must never auto-ban its fleet (the
+                # ban replicates cluster-wide)
+                flapping.disconnected(self.client_id, self.peername[0],
+                                      reason=self.disconnect_reason)
         if self.client_id and self.session is not None:
             self.cm.connection_closed(
                 self.client_id, self, self.session, self.expiry_interval)

@@ -34,9 +34,10 @@ peers, arms the journal shipper when its durability config names
 standbys, promotes on a primary's nodedown, hands the adopted state
 back when the primary heals, and answers the ``repl_*`` and
 ``drain_digest`` operations (the drain's custody hand-off,
-``drain.py``). The port's broker has no ban table, so the ``bans``
-plane is always empty and ``ban_add``/``ban_del`` do nothing — as on a
-JAX node that holds no ban.
+``drain.py``). The ban table (``banned.py``) replicates: a live
+create overwrites on every member, a join pushes the table with a
+longest-ban-wins merge, and the ``bans`` anti-entropy plane repairs
+what a lost cast missed.
 """
 
 from __future__ import annotations
@@ -289,6 +290,16 @@ class Cluster:
         shared.subscribe = self._shared_sub_replicated
         shared.unsubscribe = self._shared_unsub_replicated
         shared.subscriber_down = self._shared_down_replicated
+        # replicate the ban table (the reference's emqx_banned is a
+        # replicated Mnesia table: a ban on one node bans everywhere)
+        banned = node.broker.banned
+        if banned is not None:
+            self._orig_ban_create = banned.create
+            self._orig_ban_delete = banned.delete
+            self._orig_ban_auto = banned.create_unless_outlasted
+            banned.create = self._ban_create_replicated
+            banned.delete = self._ban_delete_replicated
+            banned.create_unless_outlasted = self._ban_auto_replicated
         # retained-store replication seam: the retainer module (if
         # loaded, now or later) broadcasts its stores/deletes (the
         # reference plugin replicates via Mnesia)
@@ -418,6 +429,16 @@ class Cluster:
             if members:
                 self._broadcast("shared_weight", group, flt,
                                 self.name, len(members))
+        # ...and the ban table (idempotent: every member pushes, the
+        # receiving apply() merges longest-ban-wins). Expired rules
+        # are swept first so a stale entry is never pushed at all.
+        banned = self.node.broker.banned
+        if banned is not None:
+            banned.expire()
+            for rule in banned.info():
+                # sync push: merge (longest wins), never overwrite
+                self._broadcast("ban_add", rule.who[0], rule.who[1],
+                                rule.by, rule.reason, rule.until, False)
         # ...and the retained store: ONE batched cast per peer
         # (idempotent timestamp-LWW on the receiver)
         ret = self._retainer()
@@ -763,6 +784,34 @@ class Cluster:
         for group, flt in before:
             self._broadcast_weight(group, flt)
 
+    def _ban_create_replicated(self, kind, value, by="admin",
+                               reason="", duration=None):
+        rule = self._orig_ban_create(kind, value, by=by, reason=reason,
+                                     duration=duration)
+        # live create: peers overwrite, as this node's own create()
+        # just did — LWW everywhere keeps the tables convergent
+        self._broadcast("ban_add", kind, value, by, reason,
+                        rule.until, True)
+        return rule
+
+    def _ban_auto_replicated(self, kind, value, by="auto", reason="",
+                             duration=None):
+        rule = self._orig_ban_auto(kind, value, by=by, reason=reason,
+                                   duration=duration)
+        if rule is not None:
+            # only an actual install replicates, and with MERGE
+            # semantics (overwrite=False), matching
+            # create_unless_outlasted's never-downgrade contract: an
+            # auto ban racing a replicated operator ban must not
+            # replace it on the peers
+            self._broadcast("ban_add", kind, value, by, reason,
+                            rule.until, False)
+        return rule
+
+    def _ban_delete_replicated(self, kind, value) -> None:
+        self._orig_ban_delete(kind, value)
+        self._broadcast("ban_del", kind, value)
+
     def _weight(self, group: str, flt: str, node: str) -> int:
         if node == self.name:
             return max(1, self._local_shared_count(group, flt))
@@ -844,8 +893,7 @@ class Cluster:
     #   routes / registry / weights — OWNER-authoritative: each
     #     node's view of node X's entries is replaced by X's own set
     #     (adds AND stale deletes repaired, no tombstones needed);
-    #   bans      — longest-ban-wins merge (empty on the port: no ban
-    #     table until banned.py);
+    #   bans      — longest-ban-wins merge (Banned.apply sync rules);
     #   retained  — timestamp LWW with delete tombstones (the
     #     retainer's join-sync rules).
 
@@ -1059,7 +1107,13 @@ class Cluster:
                         self._shared_weights.items() if n != self.name]
                 return sorted(out)
         if plane == "bans":
-            return []  # no ban table until banned.py
+            banned = self.node.broker.banned
+            if banned is None:
+                return []
+            banned.expire()
+            return sorted(
+                (r.who[0], r.who[1], r.by, r.reason, r.until)
+                for r in banned.info())
         raise ValueError(f"bad anti-entropy plane: {plane}")
 
     def _retained_idx(self) -> Dict[str, tuple]:
@@ -1129,7 +1183,16 @@ class Cluster:
                         repairs += 1
             return repairs
         if plane == "bans":
-            return 0  # no ban table until banned.py
+            banned = self.node.broker.banned
+            if banned is None:
+                return 0
+            for kind, value, by, reason, until in entries:
+                cur = banned.look_up(kind, value)
+                banned.apply(kind, value, by, reason, until,
+                             overwrite=False)
+                if banned.look_up(kind, value) is not cur:
+                    repairs += 1
+            return repairs
         if plane == "retained":
             ret = self._retainer()
             if ret is None or not isinstance(entries, dict):
@@ -1166,8 +1229,8 @@ class Cluster:
                     ret.apply_remote(topic, msg, sync=True)
                     repairs += 1
         push = [t for t, v in mine.items() if ridx.get(t) != v]
-        entries = [(t, ret._store[t]) for t in push
-                   if t in ret._store]
+        entries = [(t, m) for t, m in ((t, ret._store.get(t))
+                                       for t in push) if m is not None]
         tombs = ret.tombstones()
         if entries or tombs:
             n = tr.call(peer, "ae_apply", self.name, "retained",
@@ -1260,8 +1323,20 @@ class Cluster:
                 for topic, ts in (args[1] if len(args) > 1 else []):
                     ret.apply_tombstone(topic, ts)
             return None
-        if op in ("ban_add", "ban_del"):
-            return None  # no ban table until banned.py
+        if op == "ban_add":
+            kind, value, by, reason, until, overwrite = args
+            banned = self.node.broker.banned
+            if banned is not None:
+                banned.apply(kind, value, by, reason, until,
+                             overwrite=overwrite)
+            return None
+        if op == "ban_del":
+            # a receive never re-broadcasts: going through
+            # banned.delete (the replicating wrapper) would ping-pong
+            # between the members forever
+            if getattr(self, "_orig_ban_delete", None) is not None:
+                self._orig_ban_delete(*args)
+            return None
         if op == "shared_weight":
             group, flt, node, count = args
             with self._lock:
@@ -1321,8 +1396,8 @@ class Cluster:
             ret = self._retainer()
             if ret is None:
                 return []
-            return [(t, ret._store.get(t)) for t in args[0]
-                    if t in ret._store]
+            return [(t, m) for t, m in ((t, ret._store.get(t))
+                                        for t in args[0]) if m is not None]
         if op == "repl_hello":
             # replicated durability (replication.py): arm/resync the
             # warm standby replica for the calling primary

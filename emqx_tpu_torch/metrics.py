@@ -50,6 +50,7 @@ NAMES = (
     "messages.dropped", "messages.dropped.no_subscribers",
     "messages.dropped.expired",
     "messages.delivered", "messages.acked", "messages.redispatched",
+    "messages.delayed",
     "delivery.dropped", "delivery.dropped.no_local",
     "delivery.dropped.qos0_msg", "delivery.dropped.queue_full",
     "delivery.dropped.expired", "delivery.dropped.too_large",

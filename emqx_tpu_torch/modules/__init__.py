@@ -69,6 +69,9 @@ class ModuleRegistry:
         mod.unload()
         return True
 
+    def loaded(self):
+        return list(self._loaded)
+
     def on_loop_start(self) -> None:
         """Kick every loaded module's loop-start hook, crash-isolated
         like hook callbacks (one broken module must not block the

@@ -656,14 +656,26 @@ class RetainerModule(Module):
     def sweep_expired(self) -> int:
         """Drop expired entries (a matching subscribe also prunes them
         lazily; the stats-tick GC and the periodic sweep land here),
-        and delete tombstones past their time to live."""
-        dead = [t for t, m in self._store.items() if m.is_expired()]
-        for t in dead:
+        and delete tombstones past their time to live.
+
+        The cluster's heal thread sweeps too, while the serving thread
+        stores: the sweep walks a snapshot of the store (``list`` of
+        the items is one C call, which no other thread interleaves)
+        and pops an entry only while the store still holds the
+        message it judged expired, so a message stored meanwhile
+        stays (fault C.7)."""
+        dead = [(t, m) for t, m in list(self._store.items())
+                if m.is_expired()]
+        n = 0
+        for t, m in dead:
+            if self._store.get(t) is not m:
+                continue  # replaced while the sweep ran
             self._pop(t)
             self.node.metrics.dec("retained.count")
             self.node.metrics.inc("retained.expired")
+            n += 1
         self._sweep_tombstones()
-        return len(dead)
+        return n
 
     def entries(self):
         """Live snapshot for a cluster join sync (expired swept first —
@@ -689,7 +701,7 @@ class RetainerModule(Module):
 
     def _sweep_tombstones(self) -> None:
         cutoff = time.time() - self._TOMBSTONE_TTL
-        for t in [t for t, ts in self._tombstones.items()
+        for t in [t for t, ts in list(self._tombstones.items())
                   if ts < cutoff]:
             self._tombstones.pop(t, None)
 

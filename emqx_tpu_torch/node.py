@@ -3,7 +3,8 @@ the ported paths.
 
 Builds the kernel services (hooks, metrics, stats, the trace log),
 the router and broker on one device, the ingress batcher, the
-connection manager, the alarms, overload protection (the monitor, the
+connection manager, the access plane (the ban table checked on every
+CONNECT, flap detection), the alarms, overload protection (the monitor, the
 device-path breaker and device-loss recovery, at the JAX package's
 defaults), observability at the JAX package's defaults (publish-batch
 telemetry spans on, sampled tracing built at ``sample_rate = 0``, the
@@ -31,6 +32,9 @@ own device (several nodes may share one card). A durable clustered
 node whose ``DurabilityConfig`` names ``standbys`` ships its journal to
 them; ``node.drain.start(target=peer)`` on a running node redirects
 its clients and hands its persistent sessions to ``peer``.
+``Node(load_default_modules=True)`` loads the reference's default
+modules (delayed publish, the file ACL, the retainer) in :meth:`start`;
+:meth:`load_default_modules` loads them at once.
 
     node = Node(device="cuda")
     node.modules.load(RetainerModule)
@@ -48,15 +52,19 @@ from typing import List, Optional
 
 from emqx_tpu_torch import faults as _faults
 from emqx_tpu_torch.alarm import AlarmManager
+from emqx_tpu_torch.banned import Banned
 from emqx_tpu_torch.broker import Broker, DispatchConfig
 from emqx_tpu_torch.cm import ConnectionManager
 from emqx_tpu_torch.connection import Listener
 from emqx_tpu_torch.drain import NODE_RUNNING, NODE_STOPPING, DrainManager
+from emqx_tpu_torch.flapping import Flapping
 from emqx_tpu_torch.gc import GlobalGc
 from emqx_tpu_torch.hooks import Hooks
 from emqx_tpu_torch.ingress import IngressBatcher
 from emqx_tpu_torch.metrics import Metrics
 from emqx_tpu_torch.modules import ModuleRegistry
+from emqx_tpu_torch.modules.acl_file import AclFileModule
+from emqx_tpu_torch.modules.delayed import DelayedModule
 from emqx_tpu_torch.monitors import OsMon, SysMon, VmMon
 from emqx_tpu_torch.overload import (DeviceBreaker, OverloadConfig,
                                      OverloadMonitor)
@@ -84,7 +92,8 @@ class Node:
                  drain=None,
                  telemetry: Optional[TelemetryConfig] = None,
                  tracing: Optional[TracingConfig] = None,
-                 sys_interval: float = 60.0) -> None:
+                 sys_interval: float = 60.0,
+                 load_default_modules: bool = False) -> None:
         self.name = name
         self.zone = zone or get_zone()
         # [node] frame: the wire-framing parser of every connection,
@@ -126,6 +135,12 @@ class Node:
         self.broker.ingress = self.ingress
         # connection/session management (emqx_cm_sup)
         self.cm = ConnectionManager(broker=self.broker)
+        # the access plane: the ban table the channel checks on every
+        # CONNECT (zone ``enable_ban``, on by default) and flap
+        # detection (zone ``enable_flapping_detect``, off by default)
+        self.broker.banned = Banned()
+        self.broker.flapping = Flapping(
+            banned=self.broker.banned, metrics=self.metrics)
         self.alarms = AlarmManager(broker=self.broker, node=name)
         self.broker.alarms = self.alarms
         # overload protection and the device-path breaker
@@ -219,6 +234,7 @@ class Node:
         self.global_gc = GlobalGc()
         # extension system
         self.modules = ModuleRegistry(self)
+        self._load_default_modules = load_default_modules
         self.listeners: List[Listener] = []
         self._started = False
         self._bg_tasks: list = []
@@ -261,6 +277,8 @@ class Node:
         housekeeping on the running loop."""
         if self._started:
             return
+        if self._load_default_modules:
+            self.load_default_modules()
         if self.durability is not None:
             if self.durability.last_recovery is None:
                 # crash recovery BEFORE any listener accepts: newest
@@ -308,6 +326,24 @@ class Node:
         if self.durability is not None:
             self._bg_tasks.append(loop.create_task(self.durability.run()))
         self._started = True
+
+    @property
+    def banned(self) -> Banned:
+        return self.broker.banned
+
+    @property
+    def flapping(self) -> Flapping:
+        return self.broker.flapping
+
+    def load_default_modules(self) -> None:
+        """The reference's default loaded modules
+        (data/loaded_modules): delayed and the internal ACL, plus the
+        retainer, in the JAX package's order (idempotent)."""
+        from emqx_tpu_torch.modules.retainer import RetainerModule
+
+        self.modules.load(DelayedModule)
+        self.modules.load(AclFileModule)
+        self.modules.load(RetainerModule)
 
     async def stop(self) -> None:
         """Close the listeners and their connections, drain the ingress
@@ -387,6 +423,8 @@ class Node:
         while True:
             await asyncio.sleep(5.0)
             self.cm.expire_sessions()
+            self.broker.banned.expire()
+            self.broker.flapping.gc()
 
     async def _sys_loop(self) -> None:
         while True:

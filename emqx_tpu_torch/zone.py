@@ -3,9 +3,8 @@
 The port of the JAX package's ``Zone`` (``src/emqx_zone.erl`` + the
 zone sections of etc/emqx.conf): a zone snapshot is read lock-free by
 every connection. Defaults follow etc/emqx.conf:698-907, the forced-GC
-policy included. The knobs of modules not ported yet (banned,
-flapping) come with those modules. The registry below is this
-package's own.
+policy included, with the ban check on every CONNECT and flapping
+detection off. The registry below is this package's own.
 """
 
 from __future__ import annotations
@@ -71,6 +70,10 @@ class Zone:
     # the analogues here are the bounded per-session mqueue
     # (max_mqueue_len), the bytes/msgs limiters above, and the
     # host-level watermark alarms.
+    # the ban check on CONNECT (banned.py) and flap detection on
+    # disconnect (flapping.py)
+    enable_ban: bool = True
+    enable_flapping_detect: bool = False
     mountpoint: Optional[str] = None
     # rate limits (None = unlimited): (rate/sec, burst)
     ratelimit_msg_in: Optional[tuple] = None

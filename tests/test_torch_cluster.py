@@ -1,8 +1,8 @@
 """The port's cluster (``emqx_tpu_torch.cluster``) against the JAX
 package's, over the in-process ``LocalTransport``.
 
-Every case of ``tests/test_cluster.py`` that needs no ban table runs
-the same operations on a JAX cluster and on a port cluster
+Every case of ``tests/test_cluster.py`` runs the same operations on a
+JAX cluster and on a port cluster
 (``device="cpu"``): each keeps the original test's assertions, and the
 two runs must give the same deliveries (filter, topic, payload, QoS per
 subscriber), the same publish results, the same ``messages.forward``
@@ -10,7 +10,9 @@ on every node and the same ``plane_digests()`` — across the two
 packages, not only across the members. A parametrised case adds a
 remote-only filter on the device path: the publishing node's walk (B1's
 plain twin on the CPU) matches it, it has no fan-out row, and it
-forwards.
+forwards. The ban plane's cases compare the rules with only whether a
+ban is permanent of their expiry (the two runs are moments apart), and
+add an anti-entropy repair of a diverged ``bans`` plane.
 """
 
 import time
@@ -601,17 +603,17 @@ def test_remote_only_filter_is_walked_and_forwarded(key):
     _both(_remote_only_filter, key)
 
 
-def test_port_cluster_has_no_replication_and_no_bans():
+def test_port_cluster_replication_agent_and_ban_plane_equal_jax():
     """Every cluster member carries the replication manager (no
     standby configured: no shipper), whose operations answer as the
-    JAX package's do; the deliberate gap until banned.py: the ban
-    plane is empty and ``ban_add`` changes nothing — the digest of a
-    JAX node that holds no ban."""
+    JAX package's do; the ban plane's ``ban_add``/``ban_del`` receives
+    and ``bans`` digest equal a JAX node's holding the same bans (a
+    receive installs without re-broadcasting)."""
     from emqx_tpu_torch.replication import ReplicationManager
 
     P, J = _port(), _jax()
-    (pn0, _), (pc0, _) = _mk_cluster(P, 2)
-    (_, _), (jc0, _) = _mk_cluster(J, 2)
+    (pn0, pn1), (pc0, _) = _mk_cluster(P, 2)
+    (jn0, jn1), (jc0, _) = _mk_cluster(J, 2)
     assert isinstance(pc0.replication, ReplicationManager)
     assert pn0.replication is pc0.replication
     assert pc0.replication._thread is None
@@ -624,9 +626,174 @@ def test_port_cluster_has_no_replication_and_no_bans():
         assert c.handle_rpc("repl_bye", "ghost", True) is None
     assert pc0.handle_rpc("drain_digest", ["nobody"]) == \
         jc0.handle_rpc("drain_digest", ["nobody"])
-    pc0.handle_rpc("ban_add", "clientid", "evil", "op", "", None, True)
-    pc0.handle_rpc("ban_del", "clientid", "evil")
-    assert pc0._plane_entries("bans", None) == []
+    until = time.time() + 600.0
+    for c, peer in ((pc0, pn1), (jc0, jn1)):
+        c.handle_rpc("ban_add", "clientid", "evil", "op", "r", None, True)
+        c.handle_rpc("ban_add", "username", "u", "op", "", until, False)
+        c.handle_rpc("ban_add", "peerhost", "10.1.1.1", "op", "", None,
+                     True)
+        c.handle_rpc("ban_del", "peerhost", "10.1.1.1")
+        # a receive applies locally and never re-broadcasts
+        assert peer.broker.banned.info() == []
+    assert pc0._plane_entries("bans", None) == \
+        jc0._plane_entries("bans", None)
+    assert len(pc0._plane_entries("bans", None)) == 2
     assert pc0.plane_digests()["bans"] == jc0.plane_digests()["bans"]
+    assert pn0.banned.check(clientid="evil") and \
+        not pn0.banned.check(peerhost="10.1.1.1")
     assert pc0.handle_rpc("overload_level") == 0
 
+
+# -- the ban plane: the cases of tests/test_cluster.py:290-368 --------------
+
+def _rules(banned):
+    """The table's rules, comparable across packages: of ``until`` only
+    whether the ban is permanent."""
+    return sorted((r.who, r.by, r.reason, r.until is None)
+                  for r in banned.info())
+
+
+def _ban_replication(P):
+    (n0, n1), (c0, c1) = _mk_cluster(P, 2)
+    n0.broker.banned.create("clientid", "evil", duration=600)
+    out = [n1.broker.banned.check(clientid="evil")]
+    n1.broker.banned.delete("clientid", "evil")
+    out.append(n0.broker.banned.check(clientid="evil"))
+    # join sync: a third node learns existing bans
+    n0.broker.banned.create("peerhost", "10.0.0.9")
+    n2 = P.Node("n2")
+    c2 = P.Cluster(n2, c0.transport)
+    c0.join(c2)
+    out.append(n2.broker.banned.check(peerhost="10.0.0.9"))
+    assert out == [True, False, True]
+    digests = [c.plane_digests()["bans"] for c in (c0, c1, c2)]
+    assert len(set(digests)) == 1
+    return out, digests, [_rules(n.broker.banned) for n in (n0, n1, n2)]
+
+
+def test_ban_replication_cluster_wide():
+    """A ban created on one node rejects connections on every node; the
+    delete lifts it everywhere; a new joiner receives the table."""
+    _both(_ban_replication)
+
+
+def _ban_merge(P, Banned):
+    b = Banned()
+    b.create("clientid", "x")          # permanent
+    b.apply("clientid", "x", "peer", "", time.time() + 5)  # shorter
+    out = [b.look_up("clientid", "x").until is None]
+    b.apply("clientid", "x", "peer", "", time.time() - 5)  # expired
+    out.append(b.look_up("clientid", "x").until is None)
+    b2 = Banned()
+    b2.create("clientid", "y", duration=5)
+    b2.apply("clientid", "y", "peer", "", None)  # longer (forever)
+    out.append(b2.look_up("clientid", "y").until is None)
+    # a join-sync install of an absent rule, and an expired one skipped
+    b2.apply("clientid", "z", "peer", "r", time.time() + 60)
+    b2.apply("clientid", "gone", "peer", "", time.time() - 1)
+    out += [_rules(b), _rules(b2)]
+    assert out[:3] == [True, True, True]
+    return out
+
+
+def test_ban_merge_longer_ban_wins():
+    """Join-sync never lets a stale short ban clobber a permanent one
+    (apply() merges longest-wins; expired rules never install)."""
+    from emqx_tpu.banned import Banned as JBanned
+    from emqx_tpu_torch.banned import Banned as PBanned
+
+    assert _ban_merge(_port(), PBanned) == _ban_merge(_jax(), JBanned)
+
+
+def _live_ban_overwrite(P):
+    (n0, n1), (c0, c1) = _mk_cluster(P, 2)
+    n0.broker.banned.create("clientid", "z")            # permanent
+    first = n1.broker.banned.look_up("clientid", "z").until is None
+    n1.broker.banned.create("clientid", "z", duration=60)  # shorten
+    r0 = n0.broker.banned.look_up("clientid", "z")
+    r1 = n1.broker.banned.look_up("clientid", "z")
+    assert first
+    assert r0.until is not None and r1.until is not None
+    assert abs(r0.until - r1.until) < 1.0  # convergent
+    assert c0.plane_digests()["bans"] == c1.plane_digests()["bans"]
+    return first, _rules(n0.broker.banned), _rules(n1.broker.banned)
+
+
+def test_live_ban_create_overwrites_cluster_wide():
+    """A live create replaces the rule everywhere (an operator
+    shortening a permanent ban wins), while join-sync merges."""
+    _both(_live_ban_overwrite)
+
+
+def _flapping_no_downgrade(P, Flapping, FlappingConfig):
+    """In a cluster: a permanent operator ban on n1 replicates to n0,
+    where a flapping client's short auto-ban must not replace it,
+    locally or on n1."""
+    (n0, n1), (c0, c1) = _mk_cluster(P, 2)
+    n1.broker.banned.create("clientid", "vip-banned")  # operator
+    f = Flapping(banned=n0.broker.banned,
+                 config=FlappingConfig(max_count=2, window=60, ban_time=5))
+    for _ in range(3):
+        f.disconnected("vip-banned", "1.2.3.4")
+    f.disconnected("other", "1.2.3.4")
+    f.disconnected("other", "1.2.3.4")  # auto-banned, replicated
+    out = [_rules(n.broker.banned) for n in (n0, n1)]
+    for n in (n0, n1):
+        rule = n.broker.banned.look_up("clientid", "vip-banned")
+        assert rule is not None and rule.until is None
+        assert n.broker.banned.look_up("clientid", "other").by == \
+            "flapping"
+    return out
+
+
+def test_flapping_ban_never_downgrades_operator_ban():
+    from emqx_tpu.flapping import Flapping as JF
+    from emqx_tpu.flapping import FlappingConfig as JFC
+    from emqx_tpu_torch.flapping import Flapping as PF
+    from emqx_tpu_torch.flapping import FlappingConfig as PFC
+
+    assert _flapping_no_downgrade(_port(), PF, PFC) == \
+        _flapping_no_downgrade(_jax(), JF, JFC)
+
+
+def test_ban_apply_expired_overwrite_deletes():
+    """An overwrite that expired in transit DELETES (the originator's
+    table has expired it too), not a no-op; a merge of it is one."""
+    from emqx_tpu.banned import Banned as JBanned
+    from emqx_tpu_torch.banned import Banned as PBanned
+
+    out = []
+    for Banned in (JBanned, PBanned):
+        b = Banned()
+        b.create("clientid", "q")  # permanent
+        b.create("clientid", "keep")
+        b.apply("clientid", "q", "op", "", time.time() - 1, overwrite=True)
+        b.apply("clientid", "keep", "op", "", time.time() - 1)
+        assert b.look_up("clientid", "q") is None
+        out.append(_rules(b))
+    assert out[0] == out[1] == [(("clientid", "keep"), "admin", "", True)]
+
+
+def _ban_anti_entropy(P):
+    """A diverged ``bans`` plane (installs that skipped the broadcast,
+    as a lost cast leaves it) is repaired by one anti-entropy sync,
+    both ways, longest-ban-wins; a second sync finds nothing."""
+    (n0, n1), (c0, c1) = _mk_cluster(P, 2)
+    c0._orig_ban_create("clientid", "only-n0")          # permanent
+    c1._orig_ban_create("username", "only-n1")
+    c1._orig_ban_create("clientid", "only-n0", duration=30)  # shorter
+    before = [c.plane_digests()["bans"] for c in (c0, c1)]
+    assert before[0] != before[1]
+    repaired = c0.anti_entropy_sync("n1")
+    after = [c.plane_digests()["bans"] for c in (c0, c1)]
+    assert after[0] == after[1]
+    assert c0.anti_entropy_sync("n1") == 0
+    for n in (n0, n1):
+        assert n.broker.banned.look_up("clientid", "only-n0").until is None
+        assert n.broker.banned.check(username="only-n1")
+    return repaired > 0, after, [_rules(n.broker.banned) for n in (n0, n1)]
+
+
+def test_anti_entropy_repairs_a_diverged_ban_plane():
+    out = _both(_ban_anti_entropy)
+    assert out[0]

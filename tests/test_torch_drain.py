@@ -2,9 +2,8 @@
 package's: the CONNECT redirect, paced redirect waves, the custody
 hand-off, the redirecting stop, and a rolling restart.
 
-Every case of ``tests/test_drain.py`` but the two flapping ones (the
-port has no ``flapping.py`` yet) runs the same operations on JAX nodes
-and on port nodes (``device="cpu"``), each with a TCP listener on
+Every case of ``tests/test_drain.py`` runs the same operations on JAX
+nodes and on port nodes (``device="cpu"``), each with a TCP listener on
 loopback and the same MQTT clients (``tests/mqtt_client.py``). The
 ``ctl drain`` calls become ``node.drain.start(...)`` / ``.stop()``
 (the port has no ``ctl`` yet). Each keeps the original test's
@@ -28,7 +27,17 @@ from emqx_tpu.mqtt.packet import Publish as Pub
 from test_torch_repl_pkgs import (JAX, PORT, active_alarms, await_, both_async,
                              clear_faults, steady_cfg)
 
+from emqx_tpu.flapping import Flapping as JFlapping
+from emqx_tpu.flapping import FlappingConfig as JFlappingConfig
+from emqx_tpu.zone import Zone as JZone
+from emqx_tpu_torch.flapping import Flapping as PFlapping
+from emqx_tpu_torch.flapping import FlappingConfig as PFlappingConfig
+from emqx_tpu_torch.zone import Zone as PZone
 from tests.mqtt_client import TestClient
+
+#: each package's flapping detector and zone, by ``Pkg.name``
+FLAP = {"jax": (JFlapping, JFlappingConfig, JZone),
+        "port": (PFlapping, PFlappingConfig, PZone)}
 
 
 @pytest.fixture(autouse=True)
@@ -261,6 +270,69 @@ async def test_drain_v311_reconnects_on_peer_session_intact(tmp_path):
     session through the cluster registry — subscription state and
     queued QoS1 messages intact."""
     await both_async(_v311, tmp_path)
+
+
+# -- flapping exemption ---------------------------------------------------
+
+def _flap_exempt(name):
+    Flapping, FlappingConfig, _ = FLAP[name]
+    f = Flapping(config=FlappingConfig(max_count=2, window=60.0))
+    f.disconnected("c1", reason="drained")
+    f.disconnected("c1", reason="server_shutdown")
+    exempt = "c1" not in f._tracks
+    f.disconnected("c1", reason="sock_closed")
+    counted = f._tracks["c1"].count
+    f.disconnected("c1")  # an untagged call counts too
+    return exempt, counted, "c1" not in f._tracks
+
+
+def test_flapping_exempts_server_initiated():
+    """``drained``/``server_shutdown`` disconnects never count toward
+    the flap threshold; untagged ones still do."""
+    out = _flap_exempt("port")
+    assert out == _flap_exempt("jax") == (True, 1, True)
+
+
+async def _flap_drain(P, d):
+    _, FlappingConfig, Zone = FLAP[P.name]
+    ck = f"ck-fl-{P.name}"
+    zone = Zone(name="flapz", enable_flapping_detect=True)
+    n0 = await _mk_node(P, "fl0", d, ck, zone=zone, durable=False,
+                        drain_kw={"wave_interval_s": 0.05})
+    n1 = await _mk_node(P, "fl1", d, ck, durable=False,
+                        join_port=n0.cluster.transport.port)
+    # any single counted disconnect bans
+    n0.broker.flapping.config = FlappingConfig(max_count=1)
+    try:
+        await await_(lambda: len(n0.cluster.members) == 2, 10,
+                     "join did not converge")
+        c = TestClient("flapc", version=C.MQTT_V4, clean_start=False)
+        await c.connect(port=n0.listeners[0].port)
+        n0.drain.start(target="fl1")
+        await await_(lambda: n0.metrics.val("drain.redirects") == 1,
+                     10, "client was not redirected")
+        await asyncio.sleep(0.2)  # let any ban replicate
+        banned = (n0.banned.check(clientid="flapc"),
+                  n1.banned.check(clientid="flapc"))
+        assert banned == (False, False)
+        # the exemption is reason-scoped, not a disabled detector: a
+        # client-side abort right after reconnecting still counts
+        c2 = TestClient("flapc", version=C.MQTT_V4, clean_start=False)
+        await c2.connect(port=n1.listeners[0].port)
+        await c2.close()
+        return {"banned": banned, "present": c2.connack.session_present,
+                "redirects": n0.metrics.val("drain.redirects")}
+    finally:
+        n0.drain.stop()
+        await _stop_all(n0, n1)
+
+
+async def test_drain_does_not_trip_flapping_ban(tmp_path):
+    """Drain a node whose zone has flapping armed at the tightest
+    threshold: zero bans locally AND on the receiving peer (bans
+    replicate cluster-wide; a drain that banned its own fleet would
+    break every redirected reconnect)."""
+    await both_async(_flap_drain, tmp_path)
 
 
 # -- custody hand-off -----------------------------------------------------
