@@ -312,6 +312,40 @@ kernels against their plain PyTorch versions:
      with equal non-empty ``bans`` digests, a CONNECT of that clientid
      on another node refused, a delete on a third clearing it
      everywhere.
+ 16. the operations surface and the secure front door (``ctl.py``,
+     ``plugins.py``, ``vm.py``, the module-level API, ``tls.py``,
+     ``psk_tls.py``, ``ws_connection.py``), on phase 5's node right after
+     phase 15, its time against :data:`P16_BUDGET_S` printed: (16a)
+     ``profile start <dir>``, one of phase 5's batches (a cold match
+     cache), ``profile stop``: the Chrome trace holds the batch's B1 and
+     B2 launches; every ported ``ctl`` command (all of the JAX ``Ctl``'s
+     but ``reload``), ``status``'s topic count, ``routes``' line count,
+     ``listeners``, ``cache``'s hit rate, ``retained``'s device epoch
+     and ``vm``'s card and ``bytes_limit`` checked against the node;
+     ``Router.match_routes`` on :data:`P16_MATCH_ROUTES` of phase 5's
+     topics against the oracle, B1 a call; ``emqx_tpu_torch.subscribe``
+     of :data:`P16_API_FILTERS` filters on the default broker (built on
+     the card) and :data:`P16_API_PUBLISHES` ``emqx_tpu_torch.publish``
+     calls, each count the oracle's, B1 on each; a plugin discovered
+     from ``chip_smoke:OpsPlugin`` with its ``<config_dir>/<name>.toml``
+     env through ``ctl plugins``; (16b) TLS (the committed test
+     certificates, ``peer_cert_as_username="cn"``), WSS, WS and PSK-TLS
+     (the native engine) listeners, :data:`P16_CONNS` connections each
+     (7a's shape: half subscribers at QoS 1 on a config-2 '+' filter
+     and a big literal filter, half publishers of :data:`P16_PUBS` QoS 1
+     PUBLISHes of Zipf(1.1) topics, seed 0): every delivery against the
+     oracle, connects/s with the handshake, publish→delivery and PUBACK
+     p50/p99 and B1/B2 launches per listener; a retained SUBSCRIBE on
+     each secure listener replayed through B3 (:data:`P16_REPLAY`); a
+     client certificate's CN as the username; a listener with
+     ``max_connections = 2`` refusing the third connect; ``ctl
+     listeners`` with the TLS flags; B1, B2 and B3 on the node's tables
+     against their plain twins; then (16a) ``set_delta(False)``, ``ctl
+     checkpoint save`` of the node's router with its tables and ``ctl
+     checkpoint load`` into a fresh ``delta=False`` node, both timed,
+     and one of phase 5's batches on the loaded tables against the
+     oracle, B1 and B2 counted. Each kernel row carries
+     ``ops_launches`` (16a, 16b).
 
 The last two lines are one JSON object per kernel row
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Every
@@ -334,6 +368,7 @@ import argparse
 import asyncio
 import gc
 import json
+import os
 import random
 import subprocess
 import sys
@@ -574,37 +609,50 @@ def _dev_us(e) -> float:
 def device_events(prof):
     """The trace's device activities (kernels, copies), each once: an
     operator that launched a kernel reports the kernel's time as its
-    own device time too, so operators are left out, and so is the
+    own device time too, so operators are left out, and so are the
     profiler schedule's ``ProfilerStep`` annotation, a device-side span
-    around each step's kernels."""
+    around each step's kernels, and :func:`flush_trace`'s kernel."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep") and _dev_us(e) > 0]
+            and not e.key.startswith("ProfilerStep") and _dev_us(e) > 0
+            and FLUSH_KERNEL not in e.key]
 
 
-#: torch.profiler (2.11, NVIDIA H100 80GB HBM3, 700 W) loses launches of
-#: a short trace window more and more as the process ages: of 20
-#: back-to-back B3 launches an unpadded window keeps all 20 in a young
-#: process and none or a few after four minutes, which is when B3 is
-#: timed (``scripts/torch_trace_window.py`` prints the count against
-#: the age). A window that opens this long before the first launch
-#: loses fewer, and the CPU and CUDA activities together sometimes keep
-#: what CUDA alone loses; neither keeps every launch every time
-TRACE_PAD_S = 0.1
+#: torch.profiler (2.11, NVIDIA H100 80GB HBM3, 700 W) drops the first
+#: kernel records of each trace window, none in a young process and more
+#: the older it is (``scripts/torch_trace_window.py`` prints the count
+#: against the age): their launches are in the trace, their kernels are
+#: not, and a window that waits before its first launch drops as many.
+#: So every window opens with this many launches of a tiny kernel of its
+#: own (:func:`flush_trace`), which the readers of the trace leave out
+TRACE_FLUSH = 1000
+#: the kernel :func:`flush_trace` launches (``torch.cuda._sleep``'s)
+FLUSH_KERNEL = "spin_kernel"
 #: windows :func:`kernel_ms` traces at most before it keeps the fullest
 TRACE_WINDOWS = 5
 
 
+def flush_trace() -> None:
+    """:data:`TRACE_FLUSH` launches of :data:`FLUSH_KERNEL` (a one-cycle
+    spin), then a device sync: the records a new trace window drops are
+    theirs."""
+    import torch
+
+    for _ in range(TRACE_FLUSH):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
 def traced(fn, iters, activities):
     """``iters`` calls of ``fn`` under torch.profiler, in a window that
-    opens :data:`TRACE_PAD_S` before the first call."""
+    opens with :func:`flush_trace`."""
     import torch
     from torch.profiler import profile
 
     with profile(activities=activities) as prof:
-        time.sleep(TRACE_PAD_S)
+        flush_trace()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -665,7 +713,7 @@ def kernel_timer_ms(fn, iters: int = 20) -> float:
 def device_ms(fn, iters: int = 20) -> float:
     """Device time of one call of ``fn``: every kernel and copy it
     runs, from torch.profiler's CUDA trace (host time between launches
-    excluded), in windows that open :data:`TRACE_PAD_S` early. Up to
+    excluded), in windows that open with :func:`flush_trace`. Up to
     :data:`TRACE_WINDOWS` windows, CUDA and then CPU and CUDA activity
     in turn, are traced until a second one holds as many device
     activities as the fullest so far (the trace loses launches, never
@@ -1562,9 +1610,9 @@ def profile_steps(steps, kernels, card, label):
             step()
             torch.cuda.synchronize()
             if i == 0:
-                # the recorded window opens, padded (see TRACE_PAD_S)
+                # the recorded window opens, flushed (see TRACE_FLUSH)
                 prof.step()
-                time.sleep(TRACE_PAD_S)
+                flush_trace()
             marks.append((time.perf_counter(), dict(_build.LAUNCHES)))
             if i:
                 prof.step()
@@ -1605,9 +1653,9 @@ def timed(label, fn, *args):
 
 
 def run(opts, device, card):
-    """Phases 3-5, 8, 7a, 9a-9b, 15a-15b, 12 and 13 (with 15c) on
-    ``device``; returns phase 13's and phase 15's numbers and the kernel
-    rows."""
+    """Phases 3-5, 8, 7a, 9a-9b, 15a-15b, 16, 12 and 13 (with 15c) on
+    ``device``; returns phase 13's, phase 15's and phase 16's numbers and
+    the kernel rows."""
     from emqx_tpu_torch.node import Node
     from emqx_tpu_torch.types import Message
 
@@ -1670,6 +1718,10 @@ def run(opts, device, card):
     p15 = timed("15a and 15b (modules, access plane)", run_modules, node,
                 batches, draw, card, oracle, sl)
     log_gc(node, "15a and 15b", gmark)
+    gmark = gc_mark(node)
+    p16 = timed("16 (operations surface, secure front door)", run_ops,
+                node, pairs, batches, wl, draw, oracle, opts, card)
+    log_gc(node, "16", gmark)
     # one 1M-filter node at a time, as before the A/B: the plain node
     # starts once the collector has freed this one
     del node, broker
@@ -1690,13 +1742,16 @@ def run(opts, device, card):
     walk["max_abs_err"] = max([walk["max_abs_err"],
                                p8["kernels"]["max_abs_err"],
                                p12["cells"]["max_abs_err"],
-                               p15["kernels"]["max_abs_err"]]
+                               p15["kernels"]["max_abs_err"],
+                               p16["kernels"]["max_abs_err"]]
                               + [k["max_abs_err"] for k in cluster["kernels"]])
     mods = {name: {"15a": p15["15a"]["slice"]["launches"][name],
                    "15a_delayed": p15["15a"]["delayed_launches"].get(name, 0),
                    "15b": p15["15b"]["launches"].get(name, 0)}
             for name in PUBLISH_KERNELS}
-    return p13, p15, [
+    ops = {name: {g: p16["launches"][g].get(name, 0) for g in ("16a", "16b")}
+           for name in ("walk", "bitmap_or", "or_bitmaps")}
+    return p13, p15, p16, [
         {"name": "walk", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/walk.cu",
          "replaces": "emqx_tpu/ops/walk_pallas.py:87",
@@ -1714,6 +1769,8 @@ def run(opts, device, card):
          "cluster_node_ms": [k["walk_ms"] for k in cluster["kernels"]],
          "modules_launches": mods["walk"],
          "modules_ms": p15["kernels"]["walk_ms"],
+         "ops_launches": ops["walk"],
+         "ops_ms": p16["kernels"]["walk_ms"],
          "equal": True,
          "bound_by": "bytes", "library_ms": None, **walk},
         {"name": "bitmap_or", "route": "cuda",
@@ -1730,6 +1787,8 @@ def run(opts, device, card):
          "cluster_node_ms": [k["or_ms"] for k in cluster["kernels"]],
          "modules_launches": mods["bitmap_or"],
          "modules_ms": p15["kernels"]["or_ms"],
+         "ops_launches": ops["bitmap_or"],
+         "ops_ms": p16["kernels"]["or_ms"],
          "equal": True,
          "bound_by": "bytes", "library_ms": None, **bmp},
         # B4 lies on no path: its launches on the publish path (0) are
@@ -1742,6 +1801,7 @@ def run(opts, device, card):
              ("15a", p15["15a"]["slice"]["launches"]),
              ("15a_delayed", p15["15a"]["delayed_launches"]),
              ("15b", p15["15b"]["launches"]))},
+         "ops_launches": ops["or_bitmaps"],
          "cluster_launches": cluster["launches"].get("or_bitmaps", 0),
          "devloss_launches": p9["launches"]["or_bitmaps"],
          "equal": True, "bound_by": "bytes", "library_ms": None, **b4},
@@ -3734,7 +3794,7 @@ def phase_retained(opts, device, card):
     from emqx_tpu_torch.modules.retainer import RetainerModule
     from emqx_tpu_torch.node import Node
 
-    node = Node(device=device)
+    node = Node(device=device, boot_listeners=False)
     mod = node.modules.load(RetainerModule)
     store_s = store_retained(node, opts.names)
     if node.metrics.val("retained.count") != opts.names:
@@ -3996,6 +4056,9 @@ class WireClient:
         self.waiting = {}      # ("connack"|"suback"|"puback", pid) -> future
         self.on_publish = None
         self.closed = None
+        # ``opener(port)`` -> ``(reader, writer)`` for another transport
+        # than plain TCP (TLS, WebSocket, the native TLS-PSK engine)
+        self.opener = None
 
     async def connect(self, port: int) -> None:
         """CONNECT; a CONNECT refused with ServerBusy (the overload
@@ -4021,9 +4084,12 @@ class WireClient:
 
         loop = asyncio.get_running_loop()
         self.parser = Parser(version=self.version)
-        self.reader, self.writer = await asyncio.open_connection(
-            "127.0.0.1", port, local_addr=(self.local_host, 0)
-            if self.local_host else None)
+        if self.opener is not None:
+            self.reader, self.writer = await self.opener(port)
+        else:
+            self.reader, self.writer = await asyncio.open_connection(
+                "127.0.0.1", port, local_addr=(self.local_host, 0)
+                if self.local_host else None)
         self.closed = loop.create_future()
         fut = self.expect("connack", 0)
         self.send(Connect(client_id=self.cid, proto_ver=self.version,
@@ -4085,6 +4151,10 @@ class WireClient:
 
     async def close(self) -> None:
         self.writer.close()
+        if self.opener is not None:
+            # a stream pair over another transport (the TLS-PSK engine's
+            # plaintext reader) may see no EOF of its own
+            self._task.cancel()
         await self.closed
 
 
@@ -4347,6 +4417,7 @@ async def socket_publish(node, wl, draw, opts, card, oracle):
     before = dict(_build.LAUNCHES)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flush_trace()
         t0 = time.perf_counter()
         sent2, _l, _w = await window(per_pub, per_pub + 2)
         torch.cuda.synchronize()
@@ -5709,7 +5780,8 @@ async def phase_durable(opts, device, card):
         from emqx_tpu_torch.gc import GcPolicy
 
         gmark = GcPolicy.forced
-        node = Node(device=device, batch_size=opts.batch, durability=cfg())
+        node = Node(device=device, batch_size=opts.batch, durability=cfg(),
+                    boot_listeners=False)
         mod = node.modules.load(RetainerModule)
         await node.start()  # an empty directory: the baseline generation
         dur = node.durability
@@ -5904,7 +5976,7 @@ async def phase_durable(opts, device, card):
         # -- 10d: recovery --------------------------------------------------
         gmark = GcPolicy.forced
         node = Node(device=device, batch_size=opts.batch, name=name,
-                    durability=cfg())
+                    durability=cfg(), boot_listeners=False)
         mod = node.modules.load(RetainerModule)
         t0 = time.perf_counter()
         with GcPauses() as gcp:
@@ -6983,6 +7055,813 @@ def run_modules(node, batches, draw, card, oracle, p5):
     return {"15a": a, "15b": b, "kernels": k, "seconds": took}
 
 
+# -- phase 16: the operations surface and the secure front door --------------
+
+P16_BUDGET_S = 40.0
+#: 16b: connections a listener (half subscribers at QoS 1 on one
+#: config-2 '+' filter and one big literal filter, half publishers of
+#: P16_PUBS QoS 1 PUBLISHes each: 7a's shape on each transport)
+P16_CONNS = 100
+P16_PUBS = 5
+#: 16a: the topics match_routes runs on, the module-level API's
+#: filters (past device_min_filters, so the device path serves) and
+#: publishes
+P16_MATCH_ROUTES = 1000
+P16_API_FILTERS = 4096
+P16_API_PUBLISHES = 64
+#: 16b: a retained SUBSCRIBE a secure listener, over 15b's stored names
+P16_REPLAY = {"ssl:p16": "s3/#", "wss:p16": "s5/+/+/state",
+              "psk:p16": "s9/+/+/state"}
+#: the test-only certificates the repository carries
+P16_CERTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "emqx_tpu_torch", "etc", "certs")
+
+
+class OpsPlugin:
+    """The plugin 16a discovers from the spec ``chip_smoke:OpsPlugin``:
+    records the env it was loaded with."""
+
+    name = "p16_ops"
+    env = None
+
+    def load(self, node, env):
+        OpsPlugin.env = dict(env)
+
+    def unload(self, node):
+        OpsPlugin.env = None
+
+
+class WsPipe:
+    """One WebSocket client's MQTT byte stream over ``(reader,
+    writer)``: ``write`` sends masked binary frames, ``read`` returns the
+    payloads of the server's binary frames (``b""`` at a CLOSE or EOF).
+    Stands in for both streams of a :class:`WireClient`."""
+
+    def __init__(self, reader, writer) -> None:
+        self.r, self.w = reader, writer
+        self.buf = bytearray()
+
+    def write(self, data: bytes) -> None:
+        mask = os.urandom(4)
+        n = len(data)
+        head = bytearray([0x82])
+        if n < 126:
+            head.append(0x80 | n)
+        elif n < 65536:
+            head.append(0x80 | 126)
+            head += n.to_bytes(2, "big")
+        else:
+            head.append(0x80 | 127)
+            head += n.to_bytes(8, "big")
+        full = (mask * (n // 4 + 1))[:n]
+        body = (int.from_bytes(data, "big") ^ int.from_bytes(full, "big")
+                ).to_bytes(n, "big") if n else b""
+        self.w.write(bytes(head) + mask + body)
+
+    async def read(self, _n: int) -> bytes:
+        out = bytearray()
+        while not out:
+            buf = self.buf
+            while len(buf) >= 2:
+                op, n, pos = buf[0] & 0x0F, buf[1] & 0x7F, 2
+                if n == 126:
+                    if len(buf) < 4:
+                        break
+                    n, pos = int.from_bytes(buf[2:4], "big"), 4
+                elif n == 127:
+                    if len(buf) < 10:
+                        break
+                    n, pos = int.from_bytes(buf[2:10], "big"), 10
+                if len(buf) < pos + n:
+                    break
+                payload = bytes(buf[pos:pos + n])
+                del buf[:pos + n]
+                if op == 0x8:
+                    return bytes(out)
+                if op == 0x2:
+                    out += payload
+            if out:
+                break
+            data = await self.r.read(1 << 16)
+            if not data:
+                return bytes(out)
+            self.buf += data
+        return bytes(out)
+
+    def close(self) -> None:
+        self.w.close()
+
+
+async def ws_open(port: int, ssl_ctx=None):
+    """The WebSocket upgrade on ``/mqtt`` with the ``mqtt`` subprotocol;
+    returns the :class:`WsPipe` twice (reader and writer)."""
+    import base64
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port,
+                                                   ssl=ssl_ctx)
+    key = base64.b64encode(os.urandom(16)).decode()
+    writer.write((f"GET /mqtt HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n"
+                  "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                  f"Sec-WebSocket-Key: {key}\r\n"
+                  "Sec-WebSocket-Version: 13\r\n"
+                  "Sec-WebSocket-Protocol: mqtt\r\n\r\n").encode())
+    head = await reader.readuntil(b"\r\n\r\n")
+    if b" 101 " not in head.split(b"\r\n")[0]:
+        raise ConnectionError(f"WS upgrade refused: {head[:40]!r}")
+    pipe = WsPipe(reader, writer)
+    return pipe, pipe
+
+
+def launches_now():
+    from emqx_tpu_torch.ops import _build
+
+    return dict(_build.LAUNCHES)
+
+
+def run_counted(fn, *args):
+    """``fn(*args)`` with every launch counter at 0 just before;
+    returns its result and the launches it made."""
+    from emqx_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    out = fn(*args)
+    return out, launches_now()
+
+
+def add_launches(total, more):
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def ops_ctl(node, card):
+    """16a: every ported ``ctl`` command on the node, each checked
+    against the node's own state where the contract names one; returns
+    the commands' seconds."""
+    import torch
+
+    ctl = node.ctl
+    secs = {}
+    outs = {}
+    names = sorted(ctl._commands)
+    if "reload" in names:
+        raise AssertionError("[16a] the port registers reload")
+    runs = [[c] for c in names if c != "profile"] + [
+        ["profile"], ["profile", "kernels"], ["profile", "loops"],
+        ["clients", "list"], ["banned", "list"], ["telemetry", "slow"],
+        ["drain", "status"], ["trace", "list"], ["log", "show"]]
+    for argv in runs:
+        t0 = time.perf_counter()
+        out = ctl.run(argv)
+        secs[" ".join(argv)] = round(time.perf_counter() - t0, 3)
+        outs[" ".join(argv)] = out
+        if out.startswith("error:") or out.startswith("unknown command"):
+            raise AssertionError(f"[16a] ctl {argv}: {out[:200]}")
+    router = node.router
+    topics = router.topics()
+    status = dict(line.split(": ", 1) for line in outs["status"].splitlines())
+    if int(status["topics"]) != len(topics):
+        raise AssertionError(f"[16a] status topics {status['topics']}, the "
+                             f"router {len(topics)}")
+    n_routes = sum(len(d) for d in router._routes.values())
+    lines = outs["routes"].count("\n") + 1
+    if lines != n_routes:
+        raise AssertionError(f"[16a] routes: {lines} lines, {n_routes} "
+                             f"routes")
+    if outs["topics"].count("\n") + 1 != len(topics):
+        raise AssertionError("[16a] topics: a line a topic")
+    lst = json.loads(outs["listeners"])
+    if [d["name"] for d in lst] != [x.name for x in node.listeners] or \
+            [d["current_connections"] for d in lst] != \
+            [x.current_connections() for x in node.listeners]:
+        raise AssertionError(f"[16a] listeners {lst}")
+    cache = json.loads(outs["cache"])
+    if "hit_rate" not in cache.get("single", {}):
+        raise AssertionError(f"[16a] cache: no hit rate: {sorted(cache)}")
+    ret = node.modules._loaded["retainer"]
+    rinfo = json.loads(outs["retained"])
+    if rinfo["index"]["epoch"] != ret._index._epoch or \
+            rinfo["store"] != len(ret._store):
+        raise AssertionError(f"[16a] retained {rinfo['index']}")
+    vm = json.loads(outs["vm"])
+    dev = vm["devices"][0]
+    total = torch.cuda.get_device_properties(0).total_memory
+    if dev["kind"] != torch.cuda.get_device_name(0) or \
+            dev["bytes_limit"] != total or dev["platform"] != "gpu":
+        raise AssertionError(f"[16a] vm devices {vm['devices']}")
+    log(f"[16a] ctl: {len(runs)} runs of {len(names)} commands (all but "
+        f"reload, which comes with the config loader): status topics "
+        f"{len(topics)} = the router's; routes {lines} lines = "
+        f"{n_routes} routes; listeners {len(lst)} entries with their "
+        f"connections; cache hit rate {cache['single']['hit_rate']}; "
+        f"retained epoch {rinfo['index']['epoch']}, {rinfo['store']} "
+        f"stored; vm {dev['kind']}, bytes_limit {dev['bytes_limit']} = "
+        f"total_memory, bytes_in_use {dev['bytes_in_use']}; the slowest "
+        f"{sorted(secs.items(), key=lambda kv: -kv[1])[:3]} s — {card}")
+    return secs
+
+
+#: 16a's profiled batch runs inside this ``record_function`` range: the
+#: trace's kernel launches made within it (the host-side launch events
+#: of the CUDA APIs, joined to their kernel events by correlation id)
+#: are the batch's
+P16_TRACE_RANGE = "chip_smoke.16a.batch"
+
+
+def range_kernels(events, name):
+    """In a Chrome trace's ``events``, the kernels launched inside the
+    ``record_function`` range ``name``: per key of
+    :data:`PUBLISH_KERNELS`, the kernel events whose correlation id is
+    that of a host-side launch event within the range's span
+    (the kernels' own timestamps may lie milliseconds off their
+    launches'). Returns those counts, the launch events in the span and
+    how many of them have no kernel event."""
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == name]
+    if len(spans) != 1:
+        raise AssertionError(f"{len(spans)} ranges {name} in the trace")
+    lo = spans[0]["ts"]
+    hi = lo + spans[0]["dur"]
+    launch = {e["args"]["correlation"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "LaunchKernel" in e.get("name", "")
+              and lo <= e["ts"] <= hi and "correlation" in e.get("args", {})}
+    found = {k: 0 for k in PUBLISH_KERNELS}
+    kept = set()
+    for e in events:
+        c = e.get("args", {}).get("correlation")
+        if e.get("cat") != "kernel" or c not in launch:
+            continue
+        kept.add(c)
+        for k in PUBLISH_KERNELS:
+            if f"{k}_kernel" in e.get("name", ""):
+                found[k] += 1
+    return found, len(launch), len(launch) - len(kept)
+
+
+def ops_profile(node, batch, tmp, card):
+    """16a: ``profile start <dir>``, one of phase 5's batches, ``profile
+    stop``: the Chrome trace holds the batch's B1 and B2 launches, told
+    from the rest by the range :data:`P16_TRACE_RANGE` around the batch.
+    The window opens with :func:`flush_trace` (torch.profiler drops a
+    window's first kernel records; see :data:`TRACE_FLUSH`), and up to
+    :data:`TRACE_WINDOWS` windows are traced until one holds every
+    launch; each window's batch is counted."""
+    import torch
+    from torch.profiler import record_function
+
+    from emqx_tpu_torch.types import Message
+
+    total = {}
+    seen = []
+    for window in range(TRACE_WINDOWS):
+        d = os.path.join(tmp, f"profile{window}")
+        started = node.ctl.run(["profile", "start", d])
+        if not started.startswith("tracing to"):
+            raise AssertionError(f"[16a] profile start: {started}")
+        flush_trace()
+        node.router._match_cache_obj = None  # the batch walks, as 5's
+        t0 = time.perf_counter()
+        with record_function(P16_TRACE_RANGE):
+            res, launches = run_counted(node.broker.publish_batch,
+                                        [Message(topic=t) for t in batch])
+            torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        stopped = node.ctl.run(["profile", "stop"])
+        path = os.path.join(d, "trace.json")
+        if stopped != f"trace written to {path}":
+            raise AssertionError(f"[16a] profile stop: {stopped}")
+        add_launches(total, launches)
+        events = json.load(open(path))["traceEvents"]
+        traced, n_launch, lost = range_kernels(events, P16_TRACE_RANGE)
+        want = {k: launches[k] for k in PUBLISH_KERNELS}
+        flushed = sum(1 for e in events if e.get("cat") == "kernel"
+                      and FLUSH_KERNEL in e.get("name", ""))
+        seen.append({**traced, "launch_events": n_launch, "lost": lost,
+                     "flush_dropped": TRACE_FLUSH - flushed})
+        if min(want.values()) < 1:
+            raise AssertionError(f"[16a] the profiled batch launched "
+                                 f"{want}")
+        if all(traced[k] >= want[k] for k in PUBLISH_KERNELS):
+            break
+    else:
+        raise AssertionError(f"[16a] no trace of {TRACE_WINDOWS} held the "
+                             f"batch's launches: {seen}, the counters "
+                             f"{want}")
+    log(f"[16a] profile start/stop around one batch of {len(batch)} "
+        f"({sum(res)} deliveries, {batch_ms:.3f} ms under the profiler): "
+        f"{os.path.getsize(path)} bytes of Chrome trace, {len(events)} "
+        f"events; the batch's kernel launches in it {traced}, the "
+        f"counters {want}; windows traced {len(seen)} ({seen}) — {card}")
+    return total
+
+
+def ops_match_routes(node, topics, oracle, card):
+    """16a: ``Router.match_routes`` on distinct topics, a cold match
+    cache: B1 once a topic, every route the oracle's."""
+    router = node.router
+    router._match_cache_obj = None
+    t0 = time.perf_counter()
+
+    def run():
+        return [router.match_routes(t) for t in topics]
+
+    got, launches = run_counted(run)
+    secs = time.perf_counter() - t0
+    for t, routes in zip(topics, got):
+        want = sorted((f, str(r.dest)) for f in oracle.match(t)
+                      for r in router.lookup_routes(f))
+        if sorted((r.topic, str(r.dest)) for r in routes) != want:
+            raise AssertionError(f"[16a] match_routes({t!r}) differs from "
+                                 f"the oracle's")
+    if launches["walk"] < len(topics):
+        raise AssertionError(f"[16a] match_routes: {launches['walk']} B1 "
+                             f"launches for {len(topics)} topics")
+    n = sum(len(r) for r in got)
+    log(f"[16a] match_routes on {len(topics)} of phase 5's topics: {n} "
+        f"routes, each topic's equal to the TrieOracle's; {secs:.3f} s, "
+        f"{secs * 1e3 / len(topics):.3f} ms a call; launches "
+        f"{ {k: launches[k] for k in PUBLISH_KERNELS} } — {card}")
+    return launches
+
+
+def ops_module_api(device, card):
+    """16a: the module-level API on the process-default broker (built
+    on the card): subscribe past device_min_filters, then publishes,
+    each count the oracle's, B1 on each."""
+    import emqx_tpu_torch
+    from emqx_tpu_torch.oracle import TrieOracle
+    from emqx_tpu_torch.types import Message
+
+    saved = emqx_tpu_torch._default_broker
+    emqx_tpu_torch._default_broker = None
+    try:
+        b = emqx_tpu_torch.default_broker()
+        if b.device.type != device.type:
+            raise AssertionError(f"[16a] default broker on {b.device}")
+        from collections import Counter
+
+        oracle = TrieOracle()
+        members = Counter()
+        rng = np.random.default_rng(16)
+        k = int(np.sqrt(P16_API_FILTERS)) * 2
+        t0 = time.perf_counter()
+        for i in range(P16_API_FILTERS):
+            a, c = int(rng.integers(k)), int(rng.integers(k))
+            f = (f"api/{a}/+/{c}", f"api/+/{a}/{c}", f"api/{a}/{c}/#")[i % 3]
+            oracle.insert(f)
+            members[f] += 1
+            emqx_tpu_torch.subscribe(Sink(i), f)
+        sub_s = time.perf_counter() - t0
+        if not b.router.use_device_now():
+            raise AssertionError("[16a] the default broker is below its "
+                                 "device threshold")
+        topics = list(dict.fromkeys(
+            f"api/{int(rng.integers(k))}/{int(rng.integers(k))}/"
+            f"{int(rng.integers(k))}" for _ in range(4 * P16_API_PUBLISHES)
+        ))[:P16_API_PUBLISHES]
+        emqx_tpu_torch.publish(Message(topic="api/warm"))  # the first flatten
+        counts, per = [], []
+
+        def run():
+            for t in topics:
+                before = launches_now()["walk"]
+                counts.append(emqx_tpu_torch.publish(Message(topic=t)))
+                per.append(launches_now()["walk"] - before)
+
+        t0 = time.perf_counter()
+        _r, launches = run_counted(run)
+        pub_s = time.perf_counter() - t0
+        want = [sum(members[f] for f in oracle.match(t)) for t in topics]
+        if counts != want or min(per) < 1:
+            raise AssertionError(f"[16a] module-level publish counts "
+                                 f"{counts[:8]}..., the oracle {want[:8]}..."
+                                 f"; B1 a publish {sorted(set(per))}")
+        log(f"[16a] the module-level API: emqx_tpu_torch.subscribe of "
+            f"{P16_API_FILTERS} subscriptions ({len(members)} filters) in "
+            f"{sub_s:.3f} s on the default "
+            f"broker ({b.device}, device_min_filters "
+            f"{b.router.config.device_min_filters}); {len(topics)} "
+            f"emqx_tpu_torch.publish calls in {pub_s * 1e3:.3f} ms, "
+            f"{sum(counts)} deliveries, each count the oracle's, B1 on "
+            f"each; launches {launches} — {card}")
+        return launches
+    finally:
+        emqx_tpu_torch._default_broker = saved
+
+
+def ops_plugin(node, tmp, card):
+    """16a: a plugin discovered from a spec string, its
+    ``<config_dir>/<name>.toml`` env, loaded, listed, unloaded through
+    ``ctl plugins``."""
+    with open(os.path.join(tmp, "p16_ops.toml"), "w") as f:
+        f.write('greeting = "p16"\nlevel = 16\n')
+    node.plugins.config_dir = tmp
+    plugin = node.plugins.discover("chip_smoke:OpsPlugin")
+    steps = [node.ctl.run(["plugins", "load", "p16_ops"]),
+             node.ctl.run(["plugins", "list"])]
+    env = type(plugin).env
+    steps.append(node.ctl.run(["plugins", "unload", "p16_ops"]))
+    steps.append(node.ctl.run(["plugins", "list"]))
+    if steps != ["ok", "p16_ops (active)", "ok", "p16_ops (inactive)"] or \
+            env != {"greeting": "p16", "level": 16} or type(plugin).env:
+        raise AssertionError(f"[16a] plugin steps {steps}, env {env}")
+    log(f"[16a] plugin chip_smoke:OpsPlugin discovered, loaded with its "
+        f"p16_ops.toml env {env}, listed, unloaded: {steps} — {card}")
+
+
+def ops_checkpoint(node, pairs, batch, oracle, opts, tmp, card):
+    """16a: ``ctl checkpoint save`` of the node's router (its tables
+    placed in the file: ``set_delta(False)`` first), ``ctl checkpoint
+    load`` into a fresh ``delta=False`` node, then one of phase 5's
+    batches on it against the TrieOracle, B1 and B2 counted: the loaded
+    tables are the ones the card serves."""
+    import torch
+
+    from emqx_tpu_torch.node import Node
+    from emqx_tpu_torch.router import MatcherConfig
+    from emqx_tpu_torch.types import Message
+
+    path = os.path.join(tmp, "router.npz")
+    t0 = time.perf_counter()
+    node.router.set_delta(False)
+    flip_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    saved = node.ctl.run(["checkpoint", "save", path])
+    save_s = time.perf_counter() - t0
+    if not (saved.startswith("saved ") and saved.endswith("+ tables")):
+        raise AssertionError(f"[16a] checkpoint save: {saved}")
+    fresh = Node(device=node.device, name=node.name, boot_listeners=False,
+                 batch_size=opts.batch,
+                 matcher=MatcherConfig(delta=False))
+    t0 = time.perf_counter()
+    loaded = fresh.ctl.run(["checkpoint", "load", path])
+    load_s = time.perf_counter() - t0
+    if loaded != saved.replace("saved", "restored"):
+        raise AssertionError(f"[16a] checkpoint load: {loaded}")
+    rebuilds = fresh.router._rebuilds
+    # the batch's subscribers: every big filter's members and every
+    # shared group's (their routes came back with the file)
+    keep = [(s, f) for s, f in pairs
+            if f.startswith("$share/") or "/big" in f]
+    sub_s = subscribe_pairs(fresh.broker, keep)
+    if fresh.router._rebuilds != rebuilds or fresh.router._dirty:
+        raise AssertionError("[16a] the subscriptions changed the loaded "
+                             "tables")
+    msgs = [Message(topic=t) for t in batch]
+    Sink.log = []
+    t0 = time.perf_counter()
+    res, launches = run_counted(fresh.broker.publish_batch, msgs)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    deliveries, Sink.log = Sink.log, None
+    n_big = check_batches(fresh.broker, [(msgs, res)], deliveries, oracle)
+    if launches["walk"] < 1 or launches["bitmap_or"] < 1 or \
+            fresh.router._rebuilds != rebuilds:
+        raise AssertionError(f"[16a] the batch after the load: launches "
+                             f"{launches}, rebuilds {rebuilds} -> "
+                             f"{fresh.router._rebuilds}")
+    size = os.path.getsize(path)
+    log(f"[16a] ctl checkpoint: set_delta(False) {flip_s:.3f} s; save "
+        f"{save_s:.3f} s ({saved}, {size / 2**20:.1f} MiB); load into a "
+        f"fresh delta=False node {load_s:.3f} s ({loaded}, rebuilds "
+        f"{rebuilds}); {len(keep)} big-filter and shared subscriptions in "
+        f"{sub_s:.3f} s, no re-flatten; one of phase 5's batches "
+        f"({len(batch)}) on the loaded tables in {batch_ms:.3f} ms: "
+        f"{len(deliveries)} deliveries ({n_big} on the bitmap path) equal "
+        f"the TrieOracle's, launches "
+        f"{ {k: launches[k] for k in PUBLISH_KERNELS} } — {card}")
+    del fresh
+    gc.collect()
+    return launches, {"save_s": save_s, "load_s": load_s,
+                      "flip_s": flip_s, "bytes": size}
+
+
+async def front_door_16b(node, wl, draw, oracle, card):
+    """16b: TLS (server certificate, ``peer_cert_as_username="cn"``),
+    WSS, WS and PSK-TLS (the native engine) listeners on the node,
+    :data:`P16_CONNS` connections each: every delivery against the
+    oracle, connects/s, publish→delivery and PUBACK p50/p99 and the
+    launches per listener; a retained SUBSCRIBE through B3 on each
+    secure listener; a certificate's CN as a username; a listener with
+    ``max_connections = 2`` refusing the third connect; ``ctl
+    listeners``."""
+    from collections import Counter
+
+    from emqx_tpu_torch.mqtt.packet import Publish, Subscribe
+    from emqx_tpu_torch.ops import _build
+    from emqx_tpu_torch.psk import PskAuth
+    from emqx_tpu_torch.psk_tls import PskTlsListener, open_psk_connection
+    from emqx_tpu_torch.tls import TlsOptions, make_client_context
+
+    cert = {n: os.path.join(P16_CERTS, f"{n}.pem")
+            for n in ("cacert", "cert", "key", "client-cert",
+                      "client-key")}
+    n_sub = P16_CONNS // 2
+    n_pub = P16_CONNS - n_sub
+    kinds = ("ssl:p16", "wss:p16", "ws:p16", "psk:p16")
+    keys = {f"{k}-{r}{i}": f"key-{i}".encode() for k in kinds
+            for r in ("s", "p", "r") for i in range(max(n_sub, n_pub))}
+    psk = PskAuth(node.hooks, keys=keys)
+    tls = node.add_tls_listener(
+        port=0, name="ssl:p16", peer_cert_as_username="cn",
+        tls_options=TlsOptions(certfile=cert["cert"], keyfile=cert["key"],
+                               cacertfile=cert["cacert"],
+                               verify="verify_peer"))
+    wss = node.add_wss_listener(port=0, name="wss:p16", tls_options=
+                                TlsOptions(certfile=cert["cert"],
+                                           keyfile=cert["key"]))
+    ws = node.add_ws_listener(port=0, name="ws:p16")
+    pskl = node.add_tls_listener(port=0, name="psk:p16",
+                                 tls_options=TlsOptions(psk=psk))
+    if not isinstance(pskl, PskTlsListener):
+        raise AssertionError(f"[16b] the PSK listener is {type(pskl)}")
+    cap = node.add_listener(port=0, name="tcp:p16max", max_connections=2)
+    lsts = {"ssl:p16": tls, "wss:p16": wss, "ws:p16": ws, "psk:p16": pskl}
+    for lst in (*lsts.values(), cap):
+        await lst.start()
+    ctx = make_client_context(cacertfile=cert["cacert"])
+
+    def opener(kind, cid):
+        port = lsts[kind].port
+        if kind == "ssl:p16":
+            return lambda _p: asyncio.open_connection("127.0.0.1", port,
+                                                      ssl=ctx)
+        if kind == "wss:p16":
+            return lambda _p: ws_open(port, ctx)
+        if kind == "ws:p16":
+            return lambda _p: ws_open(port)
+        return lambda _p: open_psk_connection("127.0.0.1", port, cid,
+                                              keys[cid])
+
+    def client(kind, cid, version):
+        c = WireClient(cid, version)
+        c.opener = opener(kind, cid)
+        return c
+
+    plus_set = set(wl["plus"])
+    top_plus = [f for f in draw if f in plus_set][:n_sub]
+    fleets = {}
+    clients = []
+    out = {}
+    try:
+        # every listener's subscribers first: one fan-out rebuild for
+        # the four fleets' subscriptions (the warm-up publish below)
+        for kind in kinds:
+            subs = [client(kind, f"{kind}-s{i}", 4 + i % 2)
+                    for i in range(n_sub)]
+            pubs = [client(kind, f"{kind}-p{i}", 4 + i % 2)
+                    for i in range(n_pub)]
+            clients += subs + pubs
+            t0 = time.perf_counter()
+            await asyncio.gather(*(c.connect(0) for c in subs + pubs))
+            conn_s = time.perf_counter() - t0
+            acks, flts = [], {}
+            for i, c in enumerate(subs):
+                flts[c] = (top_plus[i % len(top_plus)],
+                           wl["big"][i % len(wl["big"])])
+                acks.append(c.expect("suback", 1))
+                c.send(Subscribe(packet_id=1, topic_filters=[
+                    (f, {"qos": 1}) for f in flts[c]]))
+            for a in await asyncio.gather(*acks):
+                if a.reason_codes != [1, 1]:
+                    raise AssertionError(f"[16b] {kind} SUBACK "
+                                         f"{a.reason_codes}")
+            fleets[kind] = (subs, pubs, flts, conn_s)
+        listed = json.loads(node.ctl.run(["listeners"]))
+        by_name = {d["name"]: d for d in listed}
+        want_tls = {"ssl:p16": True, "wss:p16": True, "ws:p16": False,
+                    "psk:p16": False, "tcp:p16max": False}
+        for name, flag in want_tls.items():
+            d = by_name[name]
+            lst = lsts.get(name, cap)
+            if d["tls"] != flag or d["current_connections"] != \
+                    lst.current_connections() or \
+                    d["current_connections"] != (0 if name == "tcp:p16max"
+                                                 else P16_CONNS):
+                raise AssertionError(f"[16b] ctl listeners: {d}")
+        if len(listed) != len(node.listeners):
+            raise AssertionError("[16b] ctl listeners: an entry a listener")
+        w = fleets["ssl:p16"][1][0]
+        fut = w.expect("puback", 0xFFFF)
+        w.send(Publish(topic="warmup/none", qos=1, packet_id=0xFFFF,
+                       payload=b"w"))
+        t0 = time.perf_counter()
+        await fut
+        warm_s = time.perf_counter() - t0
+        topics = zipf_topics(np.random.default_rng(0), draw,
+                             len(kinds) * n_pub * P16_PUBS)
+        # a window's PUBLISHes reach the subscribers of every listener
+        # (the big filters are shared): each window waits for and checks
+        # every subscriber's deliveries, and times its own listener's
+        subs_of = {}
+        all_subs = []
+        for kind in kinds:
+            for c, fs in fleets[kind][2].items():
+                all_subs.append(c)
+                for f in fs:
+                    subs_of.setdefault(f, []).append(c)
+        for k_i, kind in enumerate(kinds):
+            subs, pubs, flts, conn_s = fleets[kind]
+            base = k_i * n_pub * P16_PUBS
+            sent = {c: topics[base + j * P16_PUBS:base + (j + 1) * P16_PUBS]
+                    for j, c in enumerate(pubs)}
+            hits = {t: [c for f in oracle.match(t)
+                        for c in subs_of.get(f, ())]
+                    for m in sent.values() for t in m}
+            want_n = {c: 0 for c in all_subs}
+            for m in sent.values():
+                for t in m:
+                    for c in hits[t]:
+                        want_n[c] += 1
+            cd = Countdown(want_n)
+            for c in all_subs:
+                c.got.clear()
+                c.on_publish = cd
+            puback = []
+            done = {c: [] for c in pubs}
+
+            async def publisher(c, mine):
+                for j, t in enumerate(mine, 1):
+                    t0 = time.perf_counter()
+                    payload = b"%s:%d:%.9f" % (c.cid.encode(), j, t0)
+                    done[c].append((t, payload))
+                    fut = c.expect("puback", j)
+                    c.send(Publish(topic=t, qos=1, packet_id=j,
+                                   payload=payload))
+                    await fut
+                    puback.append(time.perf_counter() - t0)
+
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            await asyncio.gather(*(publisher(c, sent[c]) for c in pubs))
+            await asyncio.wait_for(cd.done, 60)
+            wall = time.perf_counter() - t0
+            launches = launches_now()
+            for c in all_subs:
+                c.on_publish = None
+            lat = []
+            n_all = 0
+            want = {c: Counter() for c in all_subs}
+            for mine in done.values():
+                for t, payload in mine:
+                    for s in hits[t]:
+                        want[s][(t, payload)] += 1
+            mine_subs = set(subs)
+            for c in all_subs:
+                got = Counter((t, p) for t, p, _r, _a in c.got)
+                if got != want[c]:
+                    raise AssertionError(f"[16b] {c.cid}: received "
+                                         f"{sum(got.values())}, the oracle "
+                                         f"gives {sum(want[c].values())}")
+                n_all += len(c.got)
+                if c in mine_subs:
+                    lat += [a - float(p.rsplit(b":", 1)[1])
+                            for _t, p, _r, a in c.got]
+            for k in PUBLISH_KERNELS:
+                if launches[k] < 1:
+                    raise AssertionError(f"[16b] {kind}: no {k} launch")
+            n_msgs = n_pub * P16_PUBS
+            row = {"connects_per_s": P16_CONNS / conn_s,
+                   "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+                   "puback_p50_ms": _pct(puback, 50),
+                   "puback_p99_ms": _pct(puback, 99),
+                   "deliveries": len(lat), "all_deliveries": n_all,
+                   "msgs_per_s": n_msgs / wall,
+                   "launches": launches}
+            out[kind] = row
+            log(f"[16b] {kind}: {P16_CONNS} connections, "
+                f"{row['connects_per_s']:.1f} connects/s (handshake "
+                f"included); {n_msgs} QoS 1 PUBLISHes in {wall:.3f} s, "
+                f"{n_all} deliveries over the four listeners equal the "
+                f"TrieOracle's, {len(lat)} of them on {kind} itself: "
+                f"publish→delivery p50 "
+                f"{row['p50_ms']:.3f} ms, p99 {row['p99_ms']:.3f} ms; "
+                f"PUBACK p50 {row['puback_p50_ms']:.3f} ms, p99 "
+                f"{row['puback_p99_ms']:.3f} ms; launches "
+                f"{ {k: launches[k] for k in PUBLISH_KERNELS} } — {card}")
+        # a retained SUBSCRIBE over each secure listener, the replay
+        # through B3 (after every window: a new filter is a fan-out
+        # membership change, which the next publish would rebuild)
+        for kind, flt in P16_REPLAY.items():
+            r = client(kind, f"{kind}-r0", 5)
+            clients.append(r)
+            await r.connect(0)
+            names = sorted(retained_name(int(i))
+                           for i in NameFamily(P15_RETAINED).match(flt))
+            _build.reset_launches()
+            fut = r.expect("suback", 1)
+            r.send(Subscribe(packet_id=1, topic_filters=[(flt, {"qos": 0})]))
+            await fut
+            await until_async(lambda: len(r.got) >= len(names), 10.0,
+                              f"{kind}'s replay of {flt}")
+            b3 = launches_now()["retained_match"]
+            got = sorted(t for t, _p, ret, _a in r.got if ret)
+            if got != names or b3 < 1:
+                raise AssertionError(f"[16b] {kind} replay of {flt}: "
+                                     f"{len(got)} of {len(names)}, B3 {b3}")
+            out[kind]["replay"] = {"filter": flt, "names": len(names),
+                                   "b3": b3}
+            add_launches(out[kind]["launches"], {"retained_match": b3})
+            log(f"[16b] {kind}: retained SUBSCRIBE {flt}: {len(names)} "
+                f"names replayed through B3 ({b3} launches), equal to the "
+                f"name family — {card}")
+        # a certificate's CN as the username
+        cc = make_client_context(cacertfile=cert["cacert"],
+                                 certfile=cert["client-cert"],
+                                 keyfile=cert["client-key"])
+        c = WireClient("p16-cert", 5)
+        c.opener = lambda _p: asyncio.open_connection(
+            "127.0.0.1", tls.port, ssl=cc)
+        clients.append(c)
+        await c.connect(0)
+        user = node.cm.lookup_channel("p16-cert").username
+        if user != "test-client":
+            raise AssertionError(f"[16b] peer_cert_as_username cn: {user}")
+        # max_connections = 2 refuses the third connect
+        held = [WireClient(f"p16-max{i}", 4) for i in range(2)]
+        clients.extend(held)
+        for h in held:
+            await h.connect(cap.port)
+        from emqx_tpu_torch.mqtt.frame import serialize
+        from emqx_tpu_torch.mqtt.packet import Connect
+
+        r3, w3 = await asyncio.open_connection("127.0.0.1", cap.port)
+        w3.write(serialize(Connect(client_id="p16-max2", proto_ver=4,
+                                   proto_name="MQTT", keepalive=0), 4))
+        try:
+            answer = await asyncio.wait_for(r3.read(), 5.0)
+        except ConnectionError:
+            answer = b""
+        w3.close()
+        refused = answer == b""
+        if not refused or cap.current_connections() != 2:
+            raise AssertionError("[16b] max_connections = 2 let a third in")
+        log(f"[16b] the fan-out rebuild for the fleets' subscriptions "
+            f"(warm-up publish) {warm_s:.3f} s; ctl listeners: "
+            f"{len(listed)} entries, tls flags "
+            f"{ {n: by_name[n]['tls'] for n in want_tls} }, "
+            f"{P16_CONNS} connections on each of the four; a client "
+            f"certificate's CN on ssl:p16 (peer_cert_as_username = cn) "
+            f"became the username {user!r}; tcp:p16max (max_connections "
+            f"= 2) held 2 and closed the third connect — {card}")
+        return out
+    finally:
+        await asyncio.gather(*(c.close() for c in clients
+                               if c.closed is not None
+                               and not c.closed.done()))
+        for lst in (*lsts.values(), cap):
+            await lst.stop()
+
+
+def run_ops(node, pairs, batches, wl, draw, oracle, opts, card):
+    """Phase 16 on phase 5's node after phase 15 (see the module
+    docstring); returns its launches and numbers."""
+    import tempfile
+
+    t_start = time.perf_counter()
+    quiet = breaker_mark(node)
+    raise_fd_limit(8 * P16_CONNS + 512)
+    log(f"[16] P16_BUDGET_S {P16_BUDGET_S:.0f} s; on phase 5's node "
+        f"({len(node.router._filter_ids)} filters, modules "
+        f"{node.modules.loaded()}); {P16_CONNS} connections a listener "
+        f"over TLS, WSS, WS and PSK-TLS, {P16_PUBS} QoS 1 PUBLISHes a "
+        f"publisher — {card}")
+    # with auto-subscribe every connect, and with presence every connect
+    # and disconnect, is a publish after a fan-out membership change: a
+    # full rebuild of the fan-out tables each (2.0 s at 1.03M filters;
+    # 400 connects and closes took 700 s with them): 16b runs without
+    # both
+    for name in ("subscription", "presence"):
+        node.modules.unload(name)
+    launches = {"16a": {}, "16b": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_trace_p16_",
+                                     dir=os.getcwd()) as tmp:
+        add_launches(launches["16a"], ops_profile(node, batches[0], tmp,
+                                                  card))
+        ctl_s = ops_ctl(node, card)
+        topics = list(dict.fromkeys(t for b in batches for t in b))
+        add_launches(launches["16a"], ops_match_routes(
+            node, topics[:P16_MATCH_ROUTES], oracle, card))
+        add_launches(launches["16a"], ops_module_api(node.device, card))
+        ops_plugin(node, tmp, card)
+        b = asyncio.run(front_door_16b(node, wl, draw, oracle, card))
+        for row in b.values():
+            add_launches(launches["16b"], row["launches"])
+        ret = node.modules._loaded["retainer"]
+        k = p14_kernels(node, batches[0], ret._index,
+                        [list(P16_REPLAY.values())], card, "16",
+                        what="phase 5's node after 16b")
+        check_quiet(node, "16", ret._index, since=quiet)
+        ck_launches, ck = ops_checkpoint(node, pairs, batches[1], oracle,
+                                         opts, tmp, card)
+        add_launches(launches["16a"], ck_launches)
+    took = time.perf_counter() - t_start
+    log(f"[16] phase 16 took {took:.1f} s of its {P16_BUDGET_S:.0f} s "
+        f"budget; launches {launches} — {card}")
+    return {"launches": launches, "16b": b, "kernels": k,
+            "checkpoint": ck, "ctl_s": ctl_s, "seconds": took}
+
+
 def ban_plane_15c(nodes, trs, cls, card):
     """15c in 13d's cluster: a ban created on the first node reaches
     every node and the ``bans`` digests; a CONNECT of that clientid on
@@ -7088,15 +7967,20 @@ def main(argv=None) -> int:
     card = phase_env()
     phase_build(card)
     t0 = time.perf_counter()
-    p13, p15, rows = run(opts, "cuda", card)
+    p13, p15, p16, rows = run(opts, "cuda", card)
     t1 = time.perf_counter()
     rows.append(run_retained(opts, "cuda", card))
     rows[-1]["cluster_launches"] = p13["13b"]["launches"]
     rows[-1]["modules_launches"] = {
         "15b": p15["15b"]["launches"].get("retained_match", 0)}
     rows[-1]["modules_ms"] = p15["kernels"]["b3_ms"]
+    rows[-1]["ops_launches"] = {
+        g: p16["launches"][g].get("retained_match", 0)
+        for g in ("16a", "16b")}
+    rows[-1]["ops_ms"] = p16["kernels"]["b3_ms"]
     rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
-                                  p15["kernels"]["max_abs_err"])
+                                  p15["kernels"]["max_abs_err"],
+                                  p16["kernels"]["max_abs_err"])
     timed("9d (sentinel)", phase_sentinel, card)
     t2 = time.perf_counter()
     p10 = timed("10 (durability)", run_durable, opts, "cuda", card)

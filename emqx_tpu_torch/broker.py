@@ -377,6 +377,9 @@ class Broker:
     def subscriptions(self, sub: object) -> Dict[str, SubOpts]:
         return dict(self._subscriptions.get(sub, {}))
 
+    def suboption(self, sub: object, topic_filter: str) -> Optional[SubOpts]:
+        return self._subscriptions.get(sub, {}).get(topic_filter)
+
     # -- publish (emqx_broker.erl:200-309) --------------------------------
 
     def publish(self, msg: Message) -> int:

@@ -110,6 +110,9 @@ class SubRegistry:
         if i:
             del self._quarantine[:i]
 
+    def count(self) -> int:
+        return len(self._by_sub)
+
     def capacity(self) -> int:
         return len(self._by_id)
 
@@ -218,6 +221,13 @@ class FanoutManager:
             if not row:
                 return np.empty(0, np.int64)
             return np.sort(np.fromiter(row, np.int64, len(row)))
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "subscribers.count": self.registry.count(),
+            "fanout.filters": len(self.rows),
+            "fanout.version": self._version,
+        }
 
     def invalidate_device(self) -> None:
         """Device-loss recovery: the cached fan-out snapshot holds

@@ -27,7 +27,8 @@ live client with :meth:`Channel.drain_redirect`. A banned client
 (``broker.banned``, when the zone's ``enable_ban`` is on) gets CONNACK
 0x8A Banned, before authentication; with ``enable_flapping_detect``
 every disconnect is counted by ``broker.flapping`` with its reason.
-TLS certificate usernames come with their slice.
+On a TLS listener the client certificate (``peercert``) can supply the
+CONNECT username (``peer_cert_as_username`` = ``"cn"`` or ``"dn"``).
 """
 
 from __future__ import annotations
@@ -63,6 +64,23 @@ from emqx_tpu_torch.zone import Zone, get_zone
 
 log = logging.getLogger("emqx_tpu_torch.channel")
 
+
+def cert_username(peercert: dict, mode: str):
+    """Username from a TLS client cert: ``cn`` = the subject
+    commonName, ``dn`` = the full subject as an RFC4514-ish string
+    (src/emqx_channel.erl:200-214 via esockd_peercert)."""
+    subject = peercert.get("subject") or ()
+    if mode == "cn":
+        for rdn in subject:
+            for key, val in rdn:
+                if key == "commonName":
+                    return val
+        return None
+    if mode == "dn":
+        parts = [f"{key}={val}" for rdn in subject for key, val in rdn]
+        return ",".join(parts) if parts else None
+    return None
+
 # channel states
 IDLE = "idle"
 CONNECTING = "connecting"
@@ -73,12 +91,21 @@ DISCONNECTED = "disconnected"
 class Channel:
     def __init__(self, broker, cm, zone: Optional[Zone] = None,
                  peername: Tuple[str, int] = ("127.0.0.1", 0),
-                 listener: str = "tcp:default") -> None:
+                 listener: str = "tcp:default",
+                 peercert: Optional[dict] = None,
+                 peer_cert_as_username: Optional[str] = None) -> None:
         self.broker = broker
         self.cm = cm
         self.zone = zone or get_zone()
         self.peername = peername
         self.listener = listener
+        # TLS peer certificate (getpeercert() dict) when the listener
+        # terminated TLS — the reference exposes it to auth plugins
+        # via conninfo (src/emqx_channel.erl peercert enrichment)
+        self.peercert = peercert
+        # "cn" | "dn": CONNECT username comes from the client cert
+        # (src/emqx_channel.erl:200-214 setting_peercert_infos)
+        self.peer_cert_as_username = peer_cert_as_username
         self.state = IDLE
         self.proto_ver = C.MQTT_V4
         self.client_id = ""
@@ -232,7 +259,15 @@ class Channel:
             return self._connack_error(
                 RC.USE_ANOTHER_SERVER,
                 props={"Server-Reference": ref} if ref else None)
+        # TLS-cert-derived username overrides the packet's, and feeds
+        # everything downstream (clientid derivation, auth, ACLs,
+        # bans) exactly as the reference's setting_peercert_infos
+        # result does (src/emqx_channel.erl:200-214)
         username = pkt.username
+        if self.peer_cert_as_username and self.peercert:
+            cu = cert_username(self.peercert, self.peer_cert_as_username)
+            if cu is not None:
+                username = cu
         client_id = pkt.client_id
         if client_id == "":
             if not pkt.clean_start:

@@ -138,7 +138,8 @@ class ConnectionManager:
     # -- session lifecycle (emqx_cm:open_session) -------------------------
 
     def open_session(self, client_id: str, clean_start: bool,
-                     channel, session_opts: Optional[dict] = None
+                     channel, session_opts: Optional[dict] = None,
+                     expiry_interval: float = 0.0
                      ) -> Tuple[Session, bool]:
         """Returns (session, session_present)."""
         with self._client_lock(client_id):

@@ -14,8 +14,12 @@ reach the device as one batch through the node's ingress batcher
 (:mod:`emqx_tpu_torch.ingress`). A listener's stop can be a
 redirect: with a drain target set (``shutdown_ref``,
 ``shutdown_drain``) its v5 clients get DISCONNECT 0x9C and the
-Server-Reference and no will fires. WebSocket, TLS and PSK and several
-front-door loops come with their slices.
+Server-Reference and no will fires. A listener with an
+``ssl_context`` terminates TLS (:mod:`emqx_tpu_torch.tls`); the
+WebSocket transport (:mod:`emqx_tpu_torch.ws_connection`) and the
+native TLS-PSK one (:mod:`emqx_tpu_torch.psk_tls`) subclass these
+classes through the ``_wrap_out``/``_writev``/``_decode`` and
+``_handshake`` seams. Several front-door loops come with their slice.
 """
 
 from __future__ import annotations
@@ -58,16 +62,25 @@ class Connection:
                  writer: asyncio.StreamWriter,
                  broker, cm, zone: Optional[Zone] = None,
                  listener: str = "tcp:default",
-                 peername=None, frame: str = "py") -> None:
+                 peername=None, peer_cert_as_username=None,
+                 frame: str = "py") -> None:
         self.reader = reader
         self.writer = writer
         self.zone = zone or get_zone()
         # an explicit peername wins: the listener's PROXY-protocol
         # parse carries the REAL client address from the LB
         peer = peername or writer.get_extra_info("peername") or ("?", 0)
+        peercert = None
+        ssl_obj = writer.get_extra_info("ssl_object")
+        if ssl_obj is not None:
+            try:
+                peercert = ssl_obj.getpeercert()
+            except Exception:
+                peercert = None
         self.channel = Channel(broker, cm, zone=self.zone,
                                peername=(str(peer[0]), int(peer[1])),
-                               listener=listener)
+                               listener=listener, peercert=peercert,
+                               peer_cert_as_username=peer_cert_as_username)
         self.channel.on_close = self._close_transport
         self.channel.on_deliver = self._schedule_flush
         self.channel.send_oob = self._send_packets
@@ -84,6 +97,9 @@ class Connection:
         self.recv_pkts = 0
         self.send_pkts = 0
         self._closing = False
+        # set by _decode: finish the loop after processing the packets
+        # it returned (e.g. a WS CLOSE frame behind an MQTT DISCONNECT)
+        self._finish_after_batch = False
         self._limiter = (TokenBucket(*self.zone.ratelimit_bytes_in)
                          if self.zone.ratelimit_bytes_in else None)
         # msgs-in limiter: counts inbound PUBLISHes and pauses the
@@ -107,6 +123,21 @@ class Connection:
         self._send_guard: Optional[asyncio.Task] = None
 
     # -- IO ----------------------------------------------------------------
+
+    def _wrap_out(self, data: bytes) -> bytes:
+        """Outbound framing seam: WS wraps MQTT bytes in a binary
+        frame; plain TCP is the identity."""
+        return data
+
+    def _writev(self, frames) -> None:
+        """Flush a run of MQTT frames in ONE transport ``writelines``.
+        ``frames`` are RAW MQTT bytes: plain TCP writes them as-is
+        (``_wrap_out`` is the identity here); the WS transport
+        overrides this to emit a flat (header, payload, header,
+        payload, …) run instead of wrapping — and copying — each
+        frame. A subclass overriding ``_wrap_out`` must override this
+        too."""
+        self.writer.writelines(frames)
 
     def _send_packets(self, pkts) -> None:
         if faults.enabled and faults.fire("socket.reset"):
@@ -163,7 +194,7 @@ class Connection:
                             "closing %s", type(pkt).__name__, max_out,
                             self.channel.peername)
                         if frames and not self._closing:
-                            self.writer.writelines(frames)
+                            self._writev(frames)
                         self._close_transport()
                         return
                 self.send_bytes += len(data)
@@ -172,7 +203,7 @@ class Connection:
                 n_bytes += len(data)
                 frames.append(data)
             if frames and not self._closing:
-                self.writer.writelines(frames)
+                self._writev(frames)
         finally:
             if n_pkts:
                 self.broker.metrics.inc("packets.sent", n_pkts)
@@ -354,10 +385,10 @@ class Connection:
                         # granularity; throughput is unchanged (the
                         # work is conserved, just sliced).
                         await asyncio.sleep(0)
-                if pkts is None:
-                    # framing violation: any packets decoded before it
-                    # were processed above, and their responses flush
-                    # before the close
+                if pkts is None or self._finish_after_batch:
+                    # framing violation / transport-level close: any
+                    # packets decoded before it were processed above,
+                    # and their responses flush before the close
                     await self._drain_and_close()
                     break
                 if not self._closing:
@@ -613,19 +644,24 @@ class Listener:
     (reference: src/emqx_listeners.erl + esockd acceptors), on the
     node's event loop. Like every entry point it runs on CUDA unless
     the caller passes ``device="cpu"``, and only on the broker's
-    device."""
+    device.
 
-    #: sockets open at once (esockd max_connections); past it a new
-    #: socket closes at accept
-    MAX_CONNECTIONS = 1024000
-    #: seconds a PROXY header may take to arrive
-    PROXY_PROTOCOL_TIMEOUT = 3.0
+    Subclasses override :attr:`connection_class` and
+    :meth:`_handshake` (the WS listener's HTTP upgrade, the native
+    TLS-PSK engine)."""
+
+    connection_class = Connection
 
     def __init__(self, broker, cm, host: str = "127.0.0.1",
                  port: int = 1883, zone: Optional[Zone] = None,
                  name: str = "tcp:default",
+                 max_connections: int = 1024000,
+                 ssl_context=None, reuse_port: bool = False,
                  proxy_protocol: bool = False,
+                 proxy_protocol_timeout: float = 3.0,
                  access_rules=None,
+                 max_conn_rate: float = 0.0,
+                 peer_cert_as_username=None,
                  device=None, frame: str = "py") -> None:
         dev = resolve(device)
         if dev != broker.device:
@@ -637,15 +673,35 @@ class Listener:
         self.port = port
         self.zone = zone or get_zone()
         self.name = name
+        # sockets open at once (esockd max_connections); past it a new
+        # socket closes at accept
+        self.max_connections = max_connections
         # parser variant of the accepted connections ([node] frame)
         self.frame = frame
         # PROXY protocol v1/v2 (esockd proxy_protocol): a fronting LB
         # prepends the REAL client address; the header must arrive
-        # within PROXY_PROTOCOL_TIMEOUT or the socket closes
+        # within proxy_protocol_timeout or the socket closes
         self.proxy_protocol = proxy_protocol
+        self.proxy_protocol_timeout = proxy_protocol_timeout
         # esockd access rules: ordered allow/deny on the SOCKET peer
+        # (pre-PROXY — the LB's address is what reaches the port)
         self.access_rules = (parse_access_rules(access_rules)
                              if access_rules else None)
+        # esockd max_conn_rate: accept-rate token bucket; beyond it
+        # sockets close immediately (the reference pauses its
+        # acceptor; with asyncio's accept loop a fast close is the
+        # equivalent backpressure)
+        self._conn_bucket = (TokenBucket(max_conn_rate, max_conn_rate)
+                             if max_conn_rate > 0 else None)
+        # ssl listeners: derive the CONNECT username from the client
+        # cert ("cn" | "dn", src/emqx_channel.erl:200-214)
+        self.peer_cert_as_username = peer_cert_as_username
+        # SO_REUSEPORT: several worker processes bind the same port
+        # and the kernel load-balances accepts
+        self.reuse_port = reuse_port
+        # ssl.SSLContext → TLS-terminating listener (mqtt:ssl / wss);
+        # built from TlsOptions by emqx_tpu_torch.tls.make_server_context
+        self.ssl_context = ssl_context
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: set = set()
         self._handshaking: set = set()
@@ -661,50 +717,77 @@ class Listener:
         self.shutdown_ref: Optional[str] = None
         self.shutdown_drain = False
 
+    async def _handshake(self, reader, writer):
+        """Pre-MQTT negotiation; False rejects the socket (the
+        override is responsible for any error response). An override
+        may return a replacement ``(reader, writer)`` pair — a
+        TLS-terminating engine substitutes its plaintext streams
+        (see psk_tls.PskTlsListener)."""
+        return True
+
     async def _on_client(self, reader, writer) -> None:
         if len(self._conns) + len(self._handshaking) >= \
-                self.MAX_CONNECTIONS:
+                self.max_connections:
             writer.close()
             return
+        # access BEFORE the rate bucket: a denied peer hammering the
+        # port must not drain the accept budget of allowed clients
         if self.access_rules is not None:
             peer = writer.get_extra_info("peername") or ("?",)
             if not check_access(self.access_rules, str(peer[0])):
                 writer.close()
                 return
+        if self._conn_bucket is not None:
+            if not self._conn_bucket.check(1.0):
+                writer.close()
+                return
+            self._conn_bucket.consume(1.0)
         conn = None
-        self._handshaking.add(writer)
+        raw_writer = writer  # the socket writer, for set bookkeeping
+        self._handshaking.add(raw_writer)
         try:
             peername = None
             if self.proxy_protocol:
                 try:
                     peername = await asyncio.wait_for(
                         read_proxy_header(reader),
-                        self.PROXY_PROTOCOL_TIMEOUT)
+                        self.proxy_protocol_timeout)
                 except Exception as e:
                     # no/garbled header within the window: the
                     # listener is LB-only by configuration
                     log.debug("proxy_protocol reject: %r", e)
                     return
-            conn = Connection(reader, writer, self.broker, self.cm,
-                              zone=self.zone, listener=self.name,
-                              peername=peername, frame=self.frame)
+            hs = await self._handshake(reader, writer)
+            if hs is False:
+                return
+            if isinstance(hs, tuple):
+                reader, writer = hs
+            conn = self.connection_class(
+                reader, writer, self.broker, self.cm,
+                zone=self.zone, listener=self.name,
+                peername=peername,
+                peer_cert_as_username=self.peer_cert_as_username,
+                frame=self.frame)
             self._conns.add(conn)
-            self._handshaking.discard(writer)
+            self._handshaking.discard(raw_writer)
             await conn.run()
         except (ConnectionResetError, BrokenPipeError):
             pass
         finally:
-            self._handshaking.discard(writer)
+            self._handshaking.discard(raw_writer)
             if conn is not None:
                 self._conns.discard(conn)
-            try:
-                writer.close()
-            except Exception:
-                pass
+            for w in (writer, raw_writer):
+                try:
+                    w.close()
+                except Exception:
+                    pass
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
-            self._on_client, self.host, self.port)
+            self._on_client, self.host, self.port,
+            ssl=self.ssl_context,
+            reuse_port=self.reuse_port or None)
         self.port = self._server.sockets[0].getsockname()[1]
         log.info("listener %s on %s:%s", self.name, self.host, self.port)
 

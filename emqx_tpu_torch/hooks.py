@@ -86,3 +86,10 @@ class Hooks:
             else:
                 acc = ret
         return acc
+
+
+_global = Hooks()
+
+
+def global_hooks() -> Hooks:
+    return _global

@@ -56,6 +56,9 @@ class Inflight:
     def keys(self) -> List[int]:
         return list(self._d)
 
+    def window(self) -> List[int]:
+        return self.keys()
+
     # -- serialization (session to_wire / durability checkpoints) ---------
 
     def restore(self, items: List[Tuple[int, Any]]) -> None:

@@ -7,10 +7,12 @@ from __future__ import annotations
 
 
 class Keepalive:
-    def __init__(self, interval: float) -> None:
+    def __init__(self, interval: float, backoff: float = 0.75) -> None:
         # MQTT spec: server closes after 1.5x the keepalive interval;
-        # the reference checks at interval with a byte-delta
+        # the reference checks at interval with a byte-delta (backoff
+        # applied by the caller when scheduling)
         self.interval = interval
+        self.backoff = backoff
         self.last_bytes = 0
 
     def check_interval(self) -> float:

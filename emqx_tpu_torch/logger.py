@@ -75,6 +75,19 @@ class BrokerFormatter(logging.Formatter):
         return super().format(record)
 
 
+def set_level(level: int) -> None:
+    """Runtime level change for the broker's logging (the ctl 'log
+    set-level' backend): adjusts the package logger plus only the
+    broker-OWNED handlers (BrokerFormatter — the same ownership test
+    setup() uses for idempotence). Handlers an embedding app attached
+    with a deliberately pinned level are never touched."""
+    root = logging.getLogger("emqx_tpu_torch")
+    root.setLevel(level)
+    for h in root.handlers:
+        if isinstance(h.formatter, BrokerFormatter):
+            h.setLevel(level)
+
+
 def setup(level: int = logging.INFO,
           handler: Optional[logging.Handler] = None) -> logging.Handler:
     """Attach the broker formatter + metadata filter to the package

@@ -9,7 +9,7 @@ the retainer does for ``retained.*`` and ``monitors.SysMon`` for
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 #: the mesh publish step's device accumulators, summed over the mesh
 #: and folded into the host counters by Metrics.fold_device_stats — the
@@ -39,126 +39,89 @@ CLUSTER_METRICS = (
     "cluster.locker.degraded",
 )
 
+# overload protection (overload.py) and the device-path breaker
+# (overload.DeviceBreaker, devloss.DeviceRecovery): the names
+# ``ctl overload`` reports when non-zero
+OVERLOAD_METRICS = (
+    "overload.shed.qos0", "overload.shed.connect",
+    "overload.shed.ingress_timeout", "overload.force_shutdown",
+    "overload.transitions", "overload.heal.executor",
+    "overload.heal.flatten",
+)
+BREAKER_METRICS = (
+    "breaker.failures", "breaker.trips", "breaker.probes",
+    "breaker.fallback.batches",
+    "breaker.rebuilds", "breaker.rebuild.failures",
+)
+
 NAMES = (
-    # the publish path
-    "messages.received",
-    "messages.qos0.received", "messages.qos1.received",
-    "messages.qos2.received",
-    "messages.sent",
-    "messages.qos0.sent", "messages.qos1.sent", "messages.qos2.sent",
-    "messages.publish", "messages.forward", "messages.retained",
-    "messages.dropped", "messages.dropped.no_subscribers",
-    "messages.dropped.expired",
-    "messages.delivered", "messages.acked", "messages.redispatched",
-    "messages.delayed",
-    "delivery.dropped", "delivery.dropped.no_local",
-    "delivery.dropped.qos0_msg", "delivery.dropped.queue_full",
-    "delivery.dropped.expired", "delivery.dropped.too_large",
-    # the front door (emqx_metrics.erl:82-183): bytes and packets on
-    # the wire, client and session lifecycle, auth and ACL
+    # the JAX package's catalogue, in its order (its ALL_METRICS), less
+    # the names of paths the port has not ported: ``Metrics.all`` and
+    # ``ctl metrics`` list them in this order
+    # bytes and packets on the wire (emqx_metrics.erl:82-183)
     "bytes.received", "bytes.sent",
-    "packets.received", "packets.sent",
-    "packets.connect.received", "packets.connack.sent",
-    "packets.connack.error", "packets.connack.auth_error",
-    "packets.publish.received", "packets.publish.sent",
-    "packets.publish.error", "packets.publish.auth_error",
-    "packets.publish.dropped",
+    "packets.received", "packets.sent", "packets.connect.received",
+    "packets.connack.sent", "packets.connack.error",
+    "packets.connack.auth_error", "packets.publish.received",
+    "packets.publish.sent", "packets.publish.error",
+    "packets.publish.auth_error", "packets.publish.dropped",
     "packets.puback.received", "packets.puback.sent",
     "packets.puback.inuse", "packets.puback.missed",
     "packets.pubrec.received", "packets.pubrec.sent",
     "packets.pubrec.inuse", "packets.pubrec.missed",
     "packets.pubrel.received", "packets.pubrel.sent",
-    "packets.pubrel.missed",
-    "packets.pubcomp.received", "packets.pubcomp.sent",
-    "packets.pubcomp.inuse", "packets.pubcomp.missed",
-    "packets.subscribe.received", "packets.suback.sent",
-    "packets.subscribe.error", "packets.subscribe.auth_error",
-    "packets.unsubscribe.received", "packets.unsuback.sent",
-    "packets.unsubscribe.error",
+    "packets.pubrel.missed", "packets.pubcomp.received",
+    "packets.pubcomp.sent", "packets.pubcomp.inuse",
+    "packets.pubcomp.missed", "packets.subscribe.received",
+    "packets.suback.sent", "packets.subscribe.error",
+    "packets.subscribe.auth_error", "packets.unsubscribe.received",
+    "packets.unsuback.sent", "packets.unsubscribe.error",
     "packets.pingreq.received", "packets.pingresp.sent",
     "packets.disconnect.received", "packets.disconnect.sent",
     "packets.auth.received", "packets.auth.sent",
+    # the publish path
+    "messages.received", "messages.sent", "messages.qos0.received",
+    "messages.qos0.sent", "messages.qos1.received", "messages.qos1.sent",
+    "messages.qos2.received", "messages.qos2.sent", "messages.publish",
+    "messages.dropped", "messages.dropped.expired",
+    "messages.dropped.no_subscribers", "messages.forward",
+    "messages.retained", "messages.redispatched", "messages.delayed",
+    "messages.delivered", "messages.acked",
+    # wills funnelled through the ingress batcher / published directly
+    "wills.batched", "wills.direct",
+    # deliveries dropped; connection flush wakeups after coalescing (≤ 1 per
+    # connection per batch with the dispatch planner); PUBLISHes that paid
+    # a full serialize on the event loop; cross-loop deliveries lost to a
+    # gone or wedged front-door loop (0 on the port's one loop, read by
+    # ``ctl overload``)
+    "delivery.dropped", "delivery.dropped.no_local",
+    "delivery.dropped.too_large", "delivery.dropped.qos0_msg",
+    "delivery.dropped.queue_full", "delivery.dropped.expired",
+    "delivery.wakeups", "delivery.serialize.onloop",
+    "delivery.xloop.orphaned",
+    # client and session lifecycle, auth and ACL
     "client.connect", "client.connack", "client.connected",
     "client.authenticate", "client.check_acl", "client.subscribe",
     "client.unsubscribe", "client.disconnected",
-    "client.auth.anonymous", "client.acl.cache_hit", "client.acl.deny",
     "session.created", "session.resumed", "session.takeovered",
     "session.discarded", "session.terminated",
-    # wills funnelled through the ingress batcher / published directly
-    "wills.batched", "wills.direct",
-    # connection flush wakeups after coalescing (≤ 1 per connection
-    # per batch with the dispatch planner)
-    "delivery.wakeups",
-    # oversized frames refused at header decode; frames the C parser
-    # framed (``Node(frame="native")``)
-    "frame.oversize", "frame.native.frames",
-    # PUBLISHes that paid a full serialize on the event loop (not
-    # eligible for a pre-serialized frame, or preserialize off)
-    "delivery.serialize.onloop",
-    # the mesh step's device counters (Router.drain_device_stats,
-    # folded by the stats flush: one host copy a flush)
+    "client.auth.anonymous", "client.acl.cache_hit", "client.acl.deny",
     *DEVICE_METRICS,
     # the publish match cache and its epoch bumps
     # (Router.drain_cache_stats, folded by the node's housekeeping)
-    "cache.match.hit", "cache.match.miss",
-    "cache.match.insert", "cache.match.stale",
-    "cache.match.bump.global", "cache.match.bump.partition",
+    "cache.match.hit", "cache.match.miss", "cache.match.insert",
+    "cache.match.stale", "cache.match.bump.global",
+    "cache.match.bump.partition",
     # the delta automaton and its compactions
     # (Router.drain_automaton_stats); compaction.* are table-state
     # gauges carried as deltas (a rebuild may shrink them)
     "automaton.delta.probes", "automaton.delta.filters",
     "automaton.delta.merges", "automaton.rebuild.stall_ms",
     "automaton.compaction.fused_edges", "automaton.compaction.chains",
-    # overload protection (overload.py): `shed.*` = work refused at
-    # warn/critical, `transitions` = level changes, `heal.*` = the
-    # supervision actions (fetch executor respawn, compaction alarm)
-    "overload.shed.qos0", "overload.shed.connect",
-    "overload.shed.ingress_timeout", "overload.force_shutdown",
-    "overload.transitions", "overload.heal.executor",
-    "overload.heal.flatten",
-    # the device-path circuit breaker and device-loss recovery
-    # (overload.DeviceBreaker, devloss.DeviceRecovery)
-    "breaker.failures", "breaker.trips", "breaker.probes",
-    "breaker.fallback.batches",
-    "breaker.rebuilds", "breaker.rebuild.failures",
+    *OVERLOAD_METRICS,
+    *BREAKER_METRICS,
     # armed fault points that fired (faults.py), folded by Node.tick
     "faults.injected",
-    # the durability layer (wal.py, durability.py), folded by
-    # Node.tick: `wal.appends` = journal records framed, `wal.fsyncs`
-    # = batched write+sync cycles (one per shard per group commit, not
-    # one per record), `wal.fsync_errors` = flushes that failed and
-    # degraded a shard to memory-only, `wal.degraded.dropped` =
-    # records shed by the bounded drop-oldest buffers,
-    # `wal.group.commits`/`.coalesced` = leader group-commit passes /
-    # follower flushes that rode one, `checkpoint.saves`/`.errors` =
-    # generation commits and failed attempts, `checkpoint.delta.saves`
-    # = the incremental ones, `recovery.replayed` = journal records
-    # applied at boot, `recovery.torn` = journals truncated at a torn
-    # tail, `recovery.sessions` = persistent sessions resurrected,
-    # `recovery.routes.pruned` = crash-dead clean-session route refs
-    # removed after restore
-    "wal.appends", "wal.fsyncs", "wal.fsync_errors",
-    "wal.degraded.dropped", "wal.group.commits",
-    "wal.group.coalesced",
-    "checkpoint.saves", "checkpoint.errors", "checkpoint.delta.saves",
-    "recovery.replayed", "recovery.torn", "recovery.sessions",
-    "recovery.routes.pruned",
-    # replicated durability (replication.py), folded on the stats
-    # tick: `durability.repl.shipped`/`.acked` = records shipped to /
-    # acknowledged by the standbys, `.ship_errors` = ship calls that
-    # failed (that link drops to local-only), `.resyncs` = full
-    # snapshot re-syncs (first contact, gap repair, queue overflow),
-    # `.dropped` = queued-but-unshipped records discarded by the
-    # bounded ship queue, `.promotions` = standby promotions after a
-    # primary death, `.quorum.waits`/`.quorum.timeouts` = group
-    # commits that blocked for the ack quorum / hit quorum_timeout_ms,
-    # `.failbacks`/`.failback_errors` = completed / aborted FAILBACK
-    # hand-offs
-    "durability.repl.shipped", "durability.repl.acked",
-    "durability.repl.ship_errors", "durability.repl.resyncs",
-    "durability.repl.dropped", "durability.repl.promotions",
-    "durability.repl.quorum.waits", "durability.repl.quorum.timeouts",
-    "durability.repl.failbacks", "durability.repl.failback_errors",
     # the graceful drain (drain.py): `drain.rejected.connects` =
     # CONNECTs refused with 0x9C while DRAINING, `drain.redirects` =
     # live clients redirected by the paced waves, `drain.waves` /
@@ -170,16 +133,32 @@ NAMES = (
     "drain.rejected.connects", "drain.redirects", "drain.waves",
     "drain.waves.deferred", "drain.handoff.sessions",
     "drain.handoff.errors",
-    # sampled tracing and slow-subscriber attribution (tracing.py),
-    # folded on the stats tick: `tracing.spans` = span records drained
-    # from the per-thread rings, `tracing.dropped` = spans shed because
-    # a ring was full (the ring never blocks the hot path),
-    # `slow_subs.flushes` = flush spans folded into the slow-subscriber
-    # ranking, `slow_subs.breaches` = flushes whose delivery latency
-    # crossed slow_subs_threshold_ms
-    "tracing.spans", "tracing.dropped",
-    "slow_subs.flushes", "slow_subs.breaches",
+    # the durability layer (wal.py, durability.py) and replicated
+    # durability (replication.py), folded by Node.tick: `wal.*` = journal
+    # appends, batched fsyncs, failed flushes, shed records and group
+    # commits; `checkpoint.*` = generation commits, failures and the
+    # incremental ones; `recovery.*` = what a boot replayed, truncated,
+    # resurrected and pruned; `durability.repl.*` = records shipped,
+    # acked, failed ship calls, re-syncs, dropped queue entries,
+    # promotions, quorum waits/timeouts and fail-backs
+    "wal.appends", "wal.fsyncs", "wal.fsync_errors",
+    "wal.degraded.dropped", "wal.group.commits", "wal.group.coalesced",
+    "checkpoint.saves", "checkpoint.errors", "checkpoint.delta.saves",
+    "recovery.replayed", "recovery.torn", "recovery.sessions",
+    "recovery.routes.pruned", "durability.repl.shipped",
+    "durability.repl.acked", "durability.repl.ship_errors",
+    "durability.repl.resyncs", "durability.repl.dropped",
+    "durability.repl.promotions", "durability.repl.quorum.waits",
+    "durability.repl.quorum.timeouts", "durability.repl.failbacks",
+    "durability.repl.failback_errors",
     *CLUSTER_METRICS,
+    # sampled tracing and slow-subscriber attribution (tracing.py),
+    # folded on the stats tick
+    "tracing.spans", "tracing.dropped", "slow_subs.flushes",
+    "slow_subs.breaches",
+    # oversized frames refused at header decode; frames the C parser
+    # framed (``Node(frame="native")``)
+    "frame.native.frames", "frame.oversize",
 )
 
 #: registry names that are NOT monotonic (``Metrics.dec`` runs on them,
@@ -256,3 +235,13 @@ class Metrics:
 
     def all(self) -> Dict[str, int]:
         return dict(self._counters)
+
+    def names(self) -> List[str]:
+        return list(self._counters)
+
+
+_global = Metrics()
+
+
+def global_metrics() -> Metrics:
+    return _global

@@ -861,11 +861,15 @@ class RetainerModule(Module):
                               opts_of.get((sid, fid)), False))
             sess.deliver_many(group)
 
+    def info(self) -> dict:
+        return {"retained": len(self._store)}
+
     def replay_info(self) -> dict:
-        """Store and replay counters."""
+        """Store and replay counters (``ctl retained``)."""
         m = self.node.metrics
         return {
             "store": len(self._store),
+            "tombstones": len(self._tombstones),
             "dropped": m.val("retained.dropped"),
             "expired": m.val("retained.expired"),
             "replay_batches": m.val("retained.replay.batches"),

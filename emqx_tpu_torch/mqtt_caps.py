@@ -18,6 +18,13 @@ from emqx_tpu_torch.zone import Zone
 # check_pub codes that count as a dropped publish (vs a malformed one)
 PUB_DROP_CODES = frozenset({RC.QOS_NOT_SUPPORTED, RC.RETAIN_NOT_SUPPORTED})
 
+#: the zone fields a CONNACK advertises (emqx_mqtt_caps:get_caps/1)
+DEFAULT_CAPS_KEYS = (
+    "max_packet_size", "max_clientid_len", "max_topic_alias",
+    "max_topic_levels", "max_qos_allowed", "retain_available",
+    "wildcard_subscription", "shared_subscription",
+)
+
 
 def check_pub(zone: Zone, qos: int, retain: bool,
               topic: str) -> Optional[int]:
@@ -45,3 +52,9 @@ def check_sub(zone: Zone, bare: str,
         return RC.TOPIC_FILTER_INVALID
     return None
 
+
+
+def get_caps(zone: Zone) -> Dict[str, object]:
+    """Snapshot of the zone's advertised capabilities
+    (emqx_mqtt_caps:get_caps/1) — what a CONNACK advertises."""
+    return {k: getattr(zone, k) for k in DEFAULT_CAPS_KEYS}

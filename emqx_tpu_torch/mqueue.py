@@ -71,6 +71,10 @@ class MQueue:
             return msg
         return None
 
+    def info(self) -> dict:
+        return {"store_qos0": self.store_qos0, "max_len": self.max_len,
+                "len": self._len, "dropped": self.dropped}
+
     # -- serialization (session to_wire / durability checkpoints) ---------
 
     def snapshot(self):

@@ -17,8 +17,20 @@ the durability layer (journal, checkpoints, crash recovery) and the
 cluster (:meth:`Node.enable_cluster`: a socket transport and a
 ``Cluster`` agent come up in :meth:`start`, on the running loop)
 with replicated durability (journal shipping to warm standbys,
-promotion, failback), and the drain (:attr:`Node.drain`, passive until
-started). Plugins and several front-door loops come with their slices.
+promotion, failback), the drain (:attr:`Node.drain`, passive until
+started), the plugins (:attr:`Node.plugins`) and the operations
+command registry (:attr:`Node.ctl`: ``node.ctl.run(["status"])``).
+Several front-door loops come with their slice.
+
+Listeners: :meth:`Node.add_listener` (plain TCP),
+:meth:`Node.add_tls_listener` (TLS with a server certificate, or
+TLS-PSK: a PSK-only option set on an interpreter whose ``ssl`` has no
+server-side PSK goes through the native OpenSSL engine,
+:mod:`emqx_tpu_torch.psk_tls`), :meth:`Node.add_ws_listener` and
+:meth:`Node.add_wss_listener` (MQTT over WebSocket, plain or TLS). With
+``boot_listeners=True`` (the default, as in the JAX package)
+:meth:`start` adds the default TCP listener on 127.0.0.1:1883 when
+none was added; pass ``boot_listeners=False`` for a node without one.
 
 ``Node(overload=OverloadConfig(enabled=False))`` builds no monitor,
 breaker or recovery: every guard reads ``None``.
@@ -38,7 +50,7 @@ modules (delayed publish, the file ACL, the retainer) in :meth:`start`;
 
     node = Node(device="cuda")
     node.modules.load(RetainerModule)
-    node.add_listener(port=1883)
+    node.add_listener(port=1883)   # or none: start() adds this one
     await node.start()      # accepts MQTT clients on the running loop
     ...
     await node.stop()
@@ -56,6 +68,7 @@ from emqx_tpu_torch.banned import Banned
 from emqx_tpu_torch.broker import Broker, DispatchConfig
 from emqx_tpu_torch.cm import ConnectionManager
 from emqx_tpu_torch.connection import Listener
+from emqx_tpu_torch.ctl import Ctl
 from emqx_tpu_torch.drain import NODE_RUNNING, NODE_STOPPING, DrainManager
 from emqx_tpu_torch.flapping import Flapping
 from emqx_tpu_torch.gc import GlobalGc
@@ -68,6 +81,7 @@ from emqx_tpu_torch.modules.delayed import DelayedModule
 from emqx_tpu_torch.monitors import OsMon, SysMon, VmMon
 from emqx_tpu_torch.overload import (DeviceBreaker, OverloadConfig,
                                      OverloadMonitor)
+from emqx_tpu_torch.plugins import Plugins
 from emqx_tpu_torch.router import MatcherConfig, Router
 from emqx_tpu_torch.stats import Stats
 from emqx_tpu_torch.sys_topics import SysTopics
@@ -93,7 +107,9 @@ class Node:
                  telemetry: Optional[TelemetryConfig] = None,
                  tracing: Optional[TracingConfig] = None,
                  sys_interval: float = 60.0,
-                 load_default_modules: bool = False) -> None:
+                 load_default_modules: bool = False,
+                 boot_listeners: bool = True,
+                 plugin_config_dir: Optional[str] = None) -> None:
         self.name = name
         self.zone = zone or get_zone()
         # [node] frame: the wire-framing parser of every connection,
@@ -229,13 +245,16 @@ class Node:
         # the periodic full collection (emqx_global_gc)
         self.os_mon = OsMon(self.alarms)
         self.vm_mon = VmMon(self.alarms, self.cm.connection_count,
-                            max_count=Listener.MAX_CONNECTIONS)
+                            max_count=1024000)
         self.sys_mon = SysMon(metrics=self.metrics, hooks=self.hooks)
         self.global_gc = GlobalGc()
         # extension system
         self.modules = ModuleRegistry(self)
+        self.plugins = Plugins(self, config_dir=plugin_config_dir)
+        self.ctl = Ctl(self)
         self._load_default_modules = load_default_modules
         self.listeners: List[Listener] = []
+        self.boot_listeners = boot_listeners
         self._started = False
         self._bg_tasks: list = []
         # fid-quarantine growth watch (stats tick): depth at the last
@@ -248,18 +267,102 @@ class Node:
     def add_listener(self, host: str = "127.0.0.1", port: int = 1883,
                      zone: Optional[Zone] = None,
                      name: str = "tcp:default",
+                     max_connections: int = 1024000,
+                     reuse_port: bool = False,
                      proxy_protocol: bool = False,
-                     access_rules=None) -> Listener:
+                     proxy_protocol_timeout: float = 3.0,
+                     access_rules=None,
+                     max_conn_rate: float = 0.0) -> Listener:
         """A plain-TCP MQTT listener on the node's broker; it accepts
         from the next :meth:`start` on (``port=0`` takes a free port,
         read back from ``listener.port`` after the start)."""
         lst = Listener(self.broker, self.cm, host=host, port=port,
                        zone=zone or self.zone, name=name,
+                       max_connections=max_connections,
+                       reuse_port=reuse_port,
                        proxy_protocol=proxy_protocol,
-                       access_rules=access_rules, device=self.device,
-                       frame=self.frame)
+                       proxy_protocol_timeout=proxy_protocol_timeout,
+                       access_rules=access_rules,
+                       max_conn_rate=max_conn_rate,
+                       device=self.device, frame=self.frame)
         self.listeners.append(lst)
         return lst
+
+    def add_ws_listener(self, host: str = "127.0.0.1", port: int = 8083,
+                        path: str = "/mqtt", zone: Optional[Zone] = None,
+                        name: str = "ws:default", ssl_context=None,
+                        max_connections: int = 1024000):
+        """MQTT over WebSocket (reference http:ws via cowboy): the HTTP
+        upgrade on ``path`` with the ``mqtt`` subprotocol, then binary
+        frames."""
+        from emqx_tpu_torch.ws_connection import WsListener
+
+        lst = WsListener(self.broker, self.cm, host=host, port=port,
+                         path=path, zone=zone or self.zone, name=name,
+                         ssl_context=ssl_context,
+                         max_connections=max_connections,
+                         device=self.device, frame=self.frame)
+        self.listeners.append(lst)
+        return lst
+
+    def add_tls_listener(self, host: str = "127.0.0.1", port: int = 8883,
+                         tls_options=None, zone: Optional[Zone] = None,
+                         name: str = "ssl:default",
+                         max_connections: int = 1024000,
+                         access_rules=None,
+                         max_conn_rate: float = 0.0,
+                         peer_cert_as_username=None) -> Listener:
+        """TLS-terminating MQTT listener (reference mqtt:ssl via
+        esockd, src/emqx_listeners.erl:43-76). A PSK-only option set
+        on an interpreter whose ``ssl`` lacks server-side PSK goes
+        through the native OpenSSL engine (psk_tls.py), which refuses
+        to start without ``libssl``."""
+        import ssl as _ssl
+
+        from emqx_tpu_torch.tls import TlsOptions, make_server_context
+
+        opts = tls_options or TlsOptions()
+        if (opts.psk is not None and not opts.certfile
+                and not hasattr(_ssl.SSLContext,
+                                "set_psk_server_callback")):
+            from emqx_tpu_torch.psk_tls import PskTlsListener
+
+            lst = PskTlsListener(
+                self.broker, self.cm, host=host, port=port,
+                zone=zone or self.zone, name=name,
+                max_connections=max_connections, psk=opts.psk,
+                psk_identity_hint=opts.psk_identity_hint,
+                psk_ciphers=opts.ciphers or "PSK",
+                access_rules=access_rules,
+                max_conn_rate=max_conn_rate,
+                device=self.device, frame=self.frame)
+            self.listeners.append(lst)
+            return lst
+        ctx = make_server_context(opts)
+        lst = Listener(self.broker, self.cm, host=host, port=port,
+                       zone=zone or self.zone, name=name,
+                       ssl_context=ctx,
+                       max_connections=max_connections,
+                       access_rules=access_rules,
+                       max_conn_rate=max_conn_rate,
+                       peer_cert_as_username=peer_cert_as_username,
+                       device=self.device, frame=self.frame)
+        self.listeners.append(lst)
+        return lst
+
+    def add_wss_listener(self, host: str = "127.0.0.1", port: int = 8084,
+                         path: str = "/mqtt", tls_options=None,
+                         zone: Optional[Zone] = None,
+                         name: str = "wss:default",
+                         max_connections: int = 1024000):
+        """TLS WebSocket listener (reference https:wss via cowboy)."""
+        from emqx_tpu_torch.tls import TlsOptions, make_server_context
+
+        ctx = make_server_context(tls_options or TlsOptions())
+        return self.add_ws_listener(host=host, port=port, path=path,
+                                    zone=zone, name=name,
+                                    ssl_context=ctx,
+                                    max_connections=max_connections)
 
     def enable_cluster(self, port: int = 0, host: str = "127.0.0.1",
                        cookie: str = "emqxtpu", config=None) -> None:
@@ -297,6 +400,8 @@ class Node:
         # a node started again after stop() runs again (the JAX node
         # keeps reporting the stop)
         self.node_state = NODE_RUNNING
+        if self.boot_listeners and not self.listeners:
+            self.add_listener()
         for lst in self.listeners:
             await lst.start()
         if self._cluster_cfg is not None and self.cluster is None:
@@ -311,9 +416,9 @@ class Node:
             log.info("cluster transport on %s:%s", tr.host, tr.port)
         # vm_mon watches the node-wide connection count, so the
         # watermark's denominator is the summed listener capacity
-        if self.listeners:
-            self.vm_mon.max_count = (Listener.MAX_CONNECTIONS
-                                     * len(self.listeners))
+        total_cap = sum(lst.max_connections for lst in self.listeners)
+        if total_cap > 0:
+            self.vm_mon.max_count = total_cap
         self.modules.on_loop_start()
         loop = asyncio.get_running_loop()
         self._bg_tasks.append(loop.create_task(self._housekeeping()))

@@ -377,6 +377,15 @@ class OverloadMonitor:
             except Exception:
                 log.exception("overload monitor tick failed")
 
+    def info(self) -> dict:
+        """The level, the clean-tick streak and the last samples
+        (``ctl overload``)."""
+        return {
+            "level": LEVEL_NAMES[self.level],
+            "clean_ticks": self._clean,
+            "samples": dict(self.samples),
+        }
+
     def reset(self) -> None:
         """The monitor stopped (``Node.stop``): no sample backs the
         level any more, so the shedding ends — back to ok, the alarm

@@ -46,3 +46,15 @@ class PQueue:
         if not q:
             del self._qs[priority]
         return True, item
+
+    def peek(self) -> Tuple[bool, Any]:
+        if self._len == 0:
+            return False, None
+        p = max(p for p, q in self._qs.items() if q)
+        return True, self._qs[p][0]
+
+    def to_list(self) -> list:
+        out = []
+        for p in sorted(self._qs, reverse=True):
+            out.extend(self._qs[p])
+        return out

@@ -13,12 +13,17 @@ wall-clock timing of whole calls. Exposed as:
     the output's device at the end of a span (per-call timing for the
     smoke script and the router's rebuilds);
   - :data:`timer` — the process-wide timer the router records its
-    ``automaton.rebuild`` durations into.
+    ``automaton.rebuild`` durations into;
+  - :func:`register_ctl` — the live node's ``profile`` command:
+    ``start [dir]`` / ``stop`` around a :func:`start_trace` /
+    :func:`stop_trace` pair (a Chrome trace where the JAX package
+    writes a TensorBoard dump), ``kernels`` (:data:`timer`'s stats)
+    and ``loops`` (the sampling loop profiler,
+    :class:`~emqx_tpu_torch.tracing.LoopProfiler`).
 
 The JAX package's ``enable_compile_cache`` has no counterpart: the
 port's kernels are compiled once into ``emqx_tpu_torch/_build/`` at
-first use and loaded from there afterwards. The live node's ``profile``
-command (``register_ctl``) comes with the operations tooling.
+first use and loaded from there afterwards.
 """
 
 from __future__ import annotations
@@ -27,24 +32,55 @@ import contextlib
 import os
 import time
 from collections import deque
-from typing import Dict
+from typing import Dict, Optional
 
 
-@contextlib.contextmanager
-def trace(logdir: str):
-    """A ``torch.profiler`` trace over the enclosed block (host ops,
-    and the card's kernels when CUDA is available), written to
-    ``<logdir>/trace.json`` in Chrome trace format."""
+#: the trace started by :func:`start_trace`: its directory and the
+#: running ``torch.profiler.profile``
+_active: Dict[str, Optional[object]] = {"dir": None, "prof": None}
+
+
+def start_trace(logdir: str):
+    """Start a ``torch.profiler`` trace (host ops, and the card's
+    kernels when CUDA is available) that :func:`stop_trace` writes to
+    ``<logdir>/trace.json``; returns the profiler. One at a time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if _active["prof"] is not None:
+        raise RuntimeError(f"already tracing to {_active['dir']}")
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    prof = profile(activities=acts)
+    prof.start()
+    _active["dir"], _active["prof"] = logdir, prof
+    return prof
+
+
+def stop_trace() -> str:
+    """Stop the running trace and write its Chrome trace; returns the
+    file's path."""
+    prof, logdir = _active["prof"], _active["dir"]
+    if prof is None:
+        raise RuntimeError("not tracing")
+    _active["dir"] = _active["prof"] = None
+    prof.stop()
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """A ``torch.profiler`` trace over the enclosed block, written to
+    ``<logdir>/trace.json`` in Chrome trace format."""
+    prof = start_trace(logdir)
+    try:
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    finally:
+        stop_trace()
 
 
 def _wait_for(out) -> None:
@@ -124,6 +160,89 @@ class KernelTimer:
 
     def reset(self) -> None:
         self._samples.clear()
+
+
+def register_ctl(ctl) -> None:
+    """``profile start <dir> | stop | kernels | loops ...`` on a live
+    node."""
+    import json
+    import tempfile
+
+    def _profile_loops(args):
+        # the per-loop sampling profiler (tracing.LoopProfiler):
+        # collapsed Python stacks over the node's loop and the ingress
+        # executor
+        trc = getattr(getattr(ctl, "node", None), "tracing", None)
+        if trc is None:
+            return "loop profiler unavailable (no node)"
+        prof = trc.profiler
+        if not args or args[0] == "show":
+            state = "running" if prof.running else "stopped"
+            head = f"loop profiler: {state}, {prof.samples} samples"
+            stacks = prof.collapsed(top=20)
+            return head + ("\n" + stacks if stacks else "")
+        if args[0] == "start":
+            if not prof.start():
+                return "loop profiler already running"
+            return (f"loop profiler sampling every "
+                    f"{prof.interval_ms:g}ms (front-door loops + "
+                    f"ingress executor + main loop)")
+        if args[0] == "stop":
+            if not prof.stop():
+                return "loop profiler not running"
+            return f"loop profiler stopped ({prof.samples} samples)"
+        if args[0] == "dump":
+            text = prof.collapsed()
+            if len(args) > 1:
+                with open(args[1], "w") as f:
+                    f.write(text + "\n")
+                return f"collapsed stacks written to {args[1]}"
+            return text or "(no samples)"
+        raise ValueError(f"bad subcommand: loops {args[0]}")
+
+    def _profile(args):
+        if not args:
+            trc = getattr(getattr(ctl, "node", None), "tracing", None)
+            loops = ("on" if trc is not None and trc.profiler.running
+                     else "off")
+            return (f"profiling: "
+                    f"{'on -> ' + _active['dir'] if _active['dir'] else 'off'}"
+                    f" | loops: {loops}")
+        if args[0] == "loops":
+            return _profile_loops(args[1:])
+        if args[0] == "start":
+            if _active["dir"] is not None:
+                return f"already tracing to {_active['dir']}"
+            logdir = args[1] if len(args) > 1 else os.path.join(
+                tempfile.gettempdir(), "emqx_tpu_torch_trace")
+            try:
+                start_trace(logdir)
+            except Exception as e:
+                # an unwritable dir must not strand a half-started
+                # trace: the registry stays clear and the operator
+                # gets the reason as text
+                _active["dir"] = _active["prof"] = None
+                return f"profile start failed: {e}"
+            return (f"tracing to {logdir} (a Chrome trace, "
+                    f"chrome://tracing or Perfetto)")
+        if args[0] == "stop":
+            if _active["dir"] is None:
+                return "not tracing"
+            try:
+                path = stop_trace()
+            except Exception as e:
+                # the registry is already cleared, so the next `start`
+                # works
+                return f"profile stop failed: {e}"
+            return f"trace written to {path}"
+        if args[0] == "kernels":
+            return json.dumps(timer.stats(), indent=2)
+        raise ValueError(f"bad subcommand: {args[0]}")
+
+    ctl.register_command(
+        "profile", _profile,
+        "start [dir] | stop | kernels | "
+        "loops start|stop|show|dump [path]")
 
 
 #: process-wide timer the router feeds (spans recorded only where

@@ -682,6 +682,21 @@ class Router:
     def has_dest(self, filter_: str, dest: object) -> bool:
         return dest in self._routes.get(filter_, ())
 
+    def ensure_route(self, filter_: str, dest: object) -> None:
+        """Idempotent add — one logical route per (filter, dest), used
+        by replication (Mnesia-bag semantics, no refcount)."""
+        with self._lock:
+            if not self.has_dest(filter_, dest):
+                self.add_route(filter_, dest=dest)
+
+    def drop_route(self, filter_: str, dest: object) -> None:
+        """Remove a (filter, dest) route regardless of refcount."""
+        with self._lock:
+            dests = self._routes.get(filter_)
+            if dests is not None and dest in dests:
+                dests[dest] = 1
+                self.delete_route(filter_, dest=dest)
+
     def filter_id(self, filter_: str) -> Optional[int]:
         return self._filter_ids.get(filter_)
 
@@ -1173,6 +1188,16 @@ class Router:
             return pair[0], pair[1]
 
     # -- matching (emqx_router:match_routes/1) ----------------------------
+
+    def match_routes(self, topic: str) -> List[Route]:
+        """All routes whose filter matches ``topic``: the device walk
+        (kernel B1 on CUDA, its plain twin on the CPU) past
+        ``device_min_filters``, the host trie below it."""
+        [filters] = self.match_filters([topic])
+        out: List[Route] = []
+        for f in filters:
+            out.extend(self.lookup_routes(f))
+        return out
 
     def host_match(self, topic: str) -> List[str]:
         """Host-side exact match (the overflow re-match path)."""

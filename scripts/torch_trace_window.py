@@ -1,15 +1,17 @@
 """How many kernel launches torch.profiler's CUDA trace keeps as the
-process ages, with and without the padded window that ``chip_smoke.py``
+process ages, with and without the flushed window that ``chip_smoke.py``
 profiles in.
 
 Every ``--every`` seconds, for ``--rounds`` rounds, 20 back-to-back
 launches of kernel B3 (the retained match, F = 32 filters against
-65,536 names) are traced in: an unpadded window (CUDA activity; CPU
-and CUDA), a window opened ``chip_smoke.TRACE_PAD_S`` before the first
-launch (``chip_smoke.traced``), and ``chip_smoke.kernel_ms``'s recipe
-(which prints a line of its own when its fullest window holds fewer
-than 20). Prints one line per round with the launches each window
-kept, then the card's name and power limit.
+65,536 names) are traced in: a bare window (CUDA activity; CPU and
+CUDA), a window that opens with ``chip_smoke.flush_trace``'s
+``TRACE_FLUSH`` launches of a tiny kernel (``chip_smoke.traced``), and
+``chip_smoke.kernel_ms``'s recipe (which prints a line of its own when
+its fullest window holds fewer than 20). Prints one line per round with
+the B3 launches each window kept and how many of the flushed window's
+first records (its flush kernels) the trace dropped, then the card's
+name and power limit.
 Needs one CUDA card; run from the repository's root::
 
     python3 scripts/torch_trace_window.py [--rounds 10] [--every 25]
@@ -62,10 +64,10 @@ def main() -> int:
         fn()
     torch.cuda.synchronize()
 
-    def kept(prof):
-        return sum(e.count for e in prof.key_averages() if NAME in e.key)
+    def kept(prof, name=NAME):
+        return sum(e.count for e in prof.key_averages() if name in e.key)
 
-    def unpadded(acts):
+    def bare(acts):
         from torch.profiler import profile
 
         with profile(activities=acts) as prof:
@@ -79,9 +81,12 @@ def main() -> int:
     for rnd in range(opts.rounds):
         if rnd:
             time.sleep(opts.every)
-        row = {"unpadded": unpadded(cuda),
-               "unpadded_cpu_cuda": unpadded(both),
-               "padded": kept(cs.traced(fn, 20, cuda))}
+        prof = cs.traced(fn, 20, cuda)
+        row = {"bare": bare(cuda),
+               "bare_cpu_cuda": bare(both),
+               "flushed": kept(prof),
+               "flush_dropped": cs.TRACE_FLUSH - kept(prof,
+                                                      cs.FLUSH_KERNEL)}
         ms = cs.kernel_ms(fn, NAME)
         print(f"[trace] age {time.monotonic() - t0:7.1f} s: of 20 launches "
               f"kept {row}; kernel_ms {ms:.5f} ms", flush=True)

@@ -227,7 +227,8 @@ def test_port_never_imports_jax_or_the_jax_package():
     # the front door's, the router's, the host engine's, overload
     # protection's, the durability layer's, observability's, the
     # mesh's, the cluster's, replicated durability's, the drain's, the
-    # access plane's and the built-in modules are among those imported
+    # access plane's, the built-in modules, the operations surface's
+    # and the secure front door's are among those imported
     assert {"emqx_tpu_torch.faults", "emqx_tpu_torch.alarm",
             "emqx_tpu_torch.overload", "emqx_tpu_torch.devloss",
             "emqx_tpu_torch.ops.warmup", "emqx_tpu_torch.mqtt", "emqx_tpu_torch.mqtt.constants",
@@ -264,6 +265,10 @@ def test_port_never_imports_jax_or_the_jax_package():
             "emqx_tpu_torch.modules.topic_metrics",
             "emqx_tpu_torch.modules.presence",
             "emqx_tpu_torch.modules.subscription",
+            "emqx_tpu_torch.ctl", "emqx_tpu_torch.plugins",
+            "emqx_tpu_torch.vm", "emqx_tpu_torch.tls",
+            "emqx_tpu_torch.psk", "emqx_tpu_torch.psk_tls",
+            "emqx_tpu_torch.ws_connection",
             "chip_smoke"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'emqx_tpu'):\n"

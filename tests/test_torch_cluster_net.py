@@ -50,7 +50,7 @@ class Sub:
 
 async def main():
     cookie, name, listen = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
-    n = Node(name=name, device="cpu")
+    n = Node(name=name, device="cpu", boot_listeners=False)
     if listen:
         n.add_listener(port=0)
     await n.start()
@@ -123,7 +123,7 @@ def _send(proc, line: bytes) -> None:
 
 
 async def _node_with_cluster(name, cookie, listen=False, retainer=False):
-    n = Node(name=name, device="cpu")
+    n = Node(name=name, device="cpu", boot_listeners=False)
     if listen:
         n.add_listener(port=0)
     await n.start()

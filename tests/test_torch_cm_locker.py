@@ -155,7 +155,7 @@ class FakeChan:
 
 async def main():
     cookie = sys.argv[1]
-    n = Node(name="nodeB", device="cpu")
+    n = Node(name="nodeB", device="cpu", boot_listeners=False)
     await n.start()
     tr = SocketTransport("nodeB", cookie=cookie)
     tr.serve()
@@ -228,7 +228,7 @@ def test_two_process_race_and_link_loss():
             ready = await _read_line(proc, "READY")
             peer_port = int(ready.split()[1])
 
-            a = PNode(name="nodeA", device="cpu")
+            a = PNode(name="nodeA", device="cpu", boot_listeners=False)
             await a.start()
             tr = SocketTransport("nodeA", cookie="lock-cookie")
             tr.serve()

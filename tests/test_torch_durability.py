@@ -61,7 +61,7 @@ class Pkg:
         if self.name == "jax":
             return JNode(boot_listeners=False, load_default_modules=True,
                          durability=cfg)
-        n = PNode(device="cpu", durability=cfg)
+        n = PNode(device="cpu", boot_listeners=False, durability=cfg)
         n.modules.load(RetainerModule)
         return n
 
@@ -649,7 +649,7 @@ async def test_retained_restore_then_replay_through_b3_twin(tmp_path,
 
 async def test_disabled_builds_nothing(tmp_path):
     d = tmp_path / "off"
-    n = PNode(device="cpu",
+    n = PNode(device="cpu", boot_listeners=False,
               durability=PConfig(enabled=False, dir=str(d)))
     assert n.durability is None
     assert n.broker.durability is None and n.cm.durability is None

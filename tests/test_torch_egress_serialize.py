@@ -567,7 +567,8 @@ async def _replay_run(pkg, preserialize):
                                 JRetainer)
     else:
         node = Node(dispatch_config=DispatchConfig(
-            preserialize=preserialize), device="cpu")
+            preserialize=preserialize), device="cpu",
+            boot_listeners=False)
         Chan, P, M, ser, Ret = (Channel, PP, Message, PF.serialize,
                                 RetainerModule)
     node.modules.load(Ret, {"index_device_threshold": 0})

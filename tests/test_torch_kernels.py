@@ -698,3 +698,64 @@ def test_cluster_on_the_card_launches_b1_on_the_publisher_only(cuda_device):
     assert len(s0.got) == 8 and len(s1.got) == 1
     assert n1.metrics.val("messages.forward") == 8
     assert c0.plane_digests() == c1.plane_digests()
+
+
+@pytest.mark.gpu
+def test_match_routes_on_card_equals_the_cpu_router(cuda_device):
+    """``Router.match_routes`` on the card walks B1 and gives the CPU
+    router's routes and the oracle's filters."""
+    from emqx_tpu_torch.router import Router
+
+    rs = np.random.RandomState(11)
+    filters = _filters(rs, 300)
+    topics = _topics(rs, 50)
+    out = []
+    for dev in ("cpu", cuda_device):
+        r = Router(config=MatcherConfig(device_min_filters=1), node="n1",
+                   device=dev)
+        for i, f in enumerate(filters):
+            r.add_route(f, dest="n1" if i % 3 else "n2")
+        r.automaton()
+        _build.reset_launches()
+        out.append([sorted((rt.topic, str(rt.dest))
+                           for rt in r.match_routes(t)) for t in topics])
+        if dev != "cpu":
+            # the walk of the main automaton (and of the delta's side
+            # one while adds are pending); a match-cache hit walks none
+            assert 1 <= _build.LAUNCHES["walk"] <= 2 * len(topics)
+    assert out[0] == out[1]
+    oracle = TrieOracle()
+    for f in filters:
+        oracle.insert(f)
+    assert [sorted({f for f, _d in rts}) for rts in out[1]] == \
+        [sorted(oracle.match(t)) for t in topics]
+
+
+@pytest.mark.gpu
+def test_module_level_publish_on_card(cuda_device):
+    """``emqx_tpu_torch.subscribe``/``publish`` on the default broker,
+    built on the card: past ``device_min_filters`` each publish
+    launches B1, and its count is the CPU broker's."""
+    import emqx_tpu_torch
+
+    saved = emqx_tpu_torch._default_broker
+    emqx_tpu_torch._default_broker = None
+    try:
+        b = emqx_tpu_torch.default_broker()
+        assert b.device.type == "cuda"
+        ref = Broker(device="cpu")
+        rs = np.random.RandomState(12)
+        n = b.router.config.device_min_filters + 64
+        for i in range(n):
+            f = f"mod/{i}/+" if i % 2 else f"mod/+/{i}"
+            s = Sink(f"m{i}")
+            emqx_tpu_torch.subscribe(s, f)
+            ref.subscribe(Sink(f"m{i}"), f)
+        for _ in range(16):
+            t = f"mod/{rs.randint(n)}/{rs.randint(n)}"
+            _build.reset_launches()
+            got = emqx_tpu_torch.publish(Message(topic=t))
+            assert _build.LAUNCHES["walk"] >= 1
+            assert got == ref.publish(Message(topic=t))
+    finally:
+        emqx_tpu_torch._default_broker = saved

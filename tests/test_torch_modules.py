@@ -78,7 +78,8 @@ PORT = _Pkg(name="port", Message=PMessage, Delayed=PDelayed,
             Subscription=PSubscription, Retainer=PRetainer, acl=pacl,
             Access=PAccess, ClientInfo=PClientInfo, Zone=PZone, STOP=P_STOP,
             Matcher=PMatcher,
-            Node=lambda **kw: PNode(device="cpu", **kw))
+            Node=lambda **kw: PNode(device="cpu", boot_listeners=False,
+                                    **kw))
 
 
 def both(scenario, *args):

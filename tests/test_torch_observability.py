@@ -68,7 +68,7 @@ def _nodes(matcher_kw, seed=0, **node_kw):
     j = JNode(name="obs@test", boot_listeners=False,
               matcher=JMatcherConfig(**matcher_kw),
               telemetry=jt.TelemetryConfig(**tel), **node_kw)
-    p = PNode(name="obs@test", device="cpu",
+    p = PNode(name="obs@test", device="cpu", boot_listeners=False,
               matcher=PMatcherConfig(**matcher_kw),
               telemetry=pt.TelemetryConfig(**tel), **node_kw)
     filters, batches = _workload(seed)
@@ -193,7 +193,8 @@ def test_one_heartbeat_publishes_the_same_sys_topics(kind):
 
 
 async def test_the_node_runs_the_heartbeat_every_sys_interval():
-    node = PNode(name="hb@test", device="cpu", sys_interval=0.05)
+    node = PNode(name="hb@test", device="cpu", boot_listeners=False,
+                 sys_interval=0.05)
     box = Q("sys")
     node.broker.subscribe(box, "$SYS/brokers")
     await node.start()
@@ -288,7 +289,7 @@ async def test_the_node_is_observable_by_default():
     from emqx_tpu.zone import Zone as JZone
     from emqx_tpu_torch.zone import Zone as PZone
 
-    node = PNode(device="cpu")
+    node = PNode(device="cpu", boot_listeners=False)
     assert node.telemetry.enabled and node.broker.telemetry is node.telemetry
     assert node.router.telemetry is node.telemetry
     assert node.broker.tracing is node.tracing

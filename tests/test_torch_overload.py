@@ -353,7 +353,7 @@ def test_flatten_crash_alarms_backoff_then_retries():
 async def test_stopping_the_node_ends_the_shedding():
     """The port's Node may publish after a stop and start again: a
     level the monitor set must not outlive its task."""
-    node = Node(device="cpu", overload=OverloadConfig(
+    node = Node(device="cpu", boot_listeners=False, overload=OverloadConfig(
         lag_warn_ms=50, lag_critical_ms=500))
     await node.start()
     assert node.overload.tick(900.0) == CRITICAL

@@ -277,7 +277,8 @@ _ENV = {"index_device_threshold": 0, "max_payload": 64, "max_retained": 54}
 def _nodes(planner):
     jnode = JaxNode(boot_listeners=False, dispatch_config=JaxDispatchConfig(
         planner=planner, preserialize=False))
-    pnode = Node(device="cpu", dispatch_config=DispatchConfig(planner=planner))
+    pnode = Node(device="cpu", boot_listeners=False,
+                 dispatch_config=DispatchConfig(planner=planner))
     out = []
     for node, mod, sess_cls, M in (
             (jnode, JaxRetainerModule, JaxSession, JaxMessage),
@@ -372,7 +373,7 @@ def test_sweep_expired_on_the_stats_tick_and_the_node_facade():
 async def test_node_start_stop_and_failed_flush_reaches_the_loop():
     """start/stop kick the sweep task; a flush that raises is not
     swallowed by the module: it reaches the loop's handler."""
-    node = Node(device="cpu")
+    node = Node(device="cpu", boot_listeners=False)
     mod = node.modules.load(RetainerModule, {"index_device_threshold": 0})
     await node.start()
     assert mod._sweep_task is not None and not mod._sweep_task.done()
