@@ -318,8 +318,8 @@ kernels against their plain PyTorch versions:
      phase 15, its time against :data:`P16_BUDGET_S` printed: (16a)
      ``profile start <dir>``, one of phase 5's batches (a cold match
      cache), ``profile stop``: the Chrome trace holds the batch's B1 and
-     B2 launches; every ported ``ctl`` command (all of the JAX ``Ctl``'s
-     but ``reload``), ``status``'s topic count, ``routes``' line count,
+     B2 launches; every ``ctl`` command (all of the JAX ``Ctl``'s;
+     ``reload`` without a file prints its usage, 17a reloads files), ``status``'s topic count, ``routes``' line count,
      ``listeners``, ``cache``'s hit rate, ``retained``'s device epoch
      and ``vm``'s card and ``bytes_limit`` checked against the node;
      ``Router.match_routes`` on :data:`P16_MATCH_ROUTES` of phase 5's
@@ -346,6 +346,38 @@ kernels against their plain PyTorch versions:
      and one of phase 5's batches on the loaded tables against the
      oracle, B1 and B2 counted. Each kernel row carries
      ``ops_launches`` (16a, 16b).
+ 17. the multi-loop front door, the worker pool and the config-file
+     boot (``loops.py``, ``workers.py``, ``config.py``, ``reload.py``,
+     ``__main__.py``), after phase 13 with one 1.02M-filter node alive at
+     a time, its time against :data:`P17_BUDGET_S` printed: (17a) a TOML
+     file (``[node] loops = 4``, one tcp listener on port 0,
+     ``[modules.retainer]``) booted with ``boot_from_file(path,
+     device="cuda")``; phase 5's subscriptions (1.02M filters) and
+     :data:`P17_RETAINED` retained names; :data:`P17_CONNS` connections,
+     100 a loop (7a's shape: half subscribers at QoS 1 on a config-2 '+'
+     filter and a big literal filter, half publishers of
+     :data:`P17_PUBS` QoS 1 PUBLISHes of Zipf(1.1) topics, seed 0): every
+     delivery against the TrieOracle, msgs/s, publish→delivery and
+     PUBACK p50/p99, the delivery ring's handoffs and deliveries with 0
+     orphaned, B1 and B2 launched; a retained SUBSCRIBE on each peer
+     loop (:data:`P17_REPLAY`) replayed through B3 launched on that
+     loop's thread (``ThreadLaunches``); a persistent session with
+     :data:`P17_BACKLOG` unacked QoS 1 messages taken over onto another
+     loop, its backlog redelivered; the ``loop.<i>.lag_ms`` and
+     ``loop.<i>.connections`` rows; ``ctl reload`` of an edited copy
+     (``[telemetry] slow_threshold_ms``) applied with every client held,
+     and of a copy with ``loops = 2`` rejected whole; no error on a peer
+     loop; B1, B2 and B3 on the node's tables against their plain twins,
+     0 trips; (17b) ``WorkerPool(2, port=0, device="cuda")``: 6
+     subscribers × 3 publishes across the workers, one client id twice,
+     a worker killed under traffic, then ``restart_worker`` rejoining the
+     cluster, every delivery checked, each worker's seconds to READY;
+     (17c) ``python -m emqx_tpu_torch --config`` as a process on the card
+     (``loops = 2``, ``[durability] enabled``): a persistent session's
+     queued QoS 1 messages survive a SIGTERM (exit 0 within
+     :data:`P17C_TERM_S`) through the 2-shard journal, and a second boot
+     from the same file and directory delivers them. Each kernel row
+     carries ``loops_launches`` (17a).
 
 The last two lines are one JSON object per kernel row
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``. Every
@@ -370,6 +402,7 @@ import gc
 import json
 import os
 import random
+import signal
 import subprocess
 import sys
 import time
@@ -1653,8 +1686,8 @@ def timed(label, fn, *args):
 
 
 def run(opts, device, card):
-    """Phases 3-5, 8, 7a, 9a-9b, 15a-15b, 16, 12 and 13 (with 15c) on
-    ``device``; returns phase 13's, phase 15's and phase 16's numbers and
+    """Phases 3-5, 8, 7a, 9a-9b, 15a-15b, 16, 12, 13 (with 15c) and 17
+    on ``device``; returns phase 13's, 15's, 16's and 17's numbers and
     the kernel rows."""
     from emqx_tpu_torch.node import Node
     from emqx_tpu_torch.types import Message
@@ -1735,6 +1768,9 @@ def run(opts, device, card):
     p13 = timed("13 (cluster)", run_cluster, pairs, batches,
                 topics[:opts.batch], opts, device, card,
                 dict(sl, walk_ms=walk["ms"]))
+    gc.collect()
+    p17 = timed("17 (multi-loop node, worker pool, command line)",
+                run_loops, pairs, wl, draw, oracle, batches, device, card)
     mesh_launches = {name: {g: p12["launches"][g][name]
                             for g in ("12a", "12b")}
                      for name in PUBLISH_KERNELS}
@@ -1743,7 +1779,8 @@ def run(opts, device, card):
                                p8["kernels"]["max_abs_err"],
                                p12["cells"]["max_abs_err"],
                                p15["kernels"]["max_abs_err"],
-                               p16["kernels"]["max_abs_err"]]
+                               p16["kernels"]["max_abs_err"],
+                               p17["kernels"]["max_abs_err"]]
                               + [k["max_abs_err"] for k in cluster["kernels"]])
     mods = {name: {"15a": p15["15a"]["slice"]["launches"][name],
                    "15a_delayed": p15["15a"]["delayed_launches"].get(name, 0),
@@ -1751,7 +1788,9 @@ def run(opts, device, card):
             for name in PUBLISH_KERNELS}
     ops = {name: {g: p16["launches"][g].get(name, 0) for g in ("16a", "16b")}
            for name in ("walk", "bitmap_or", "or_bitmaps")}
-    return p13, p15, p16, [
+    loops = {name: p17["launches"].get(name, 0)
+             for name in ("walk", "bitmap_or", "or_bitmaps")}
+    return p13, p15, p16, p17, [
         {"name": "walk", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/walk.cu",
          "replaces": "emqx_tpu/ops/walk_pallas.py:87",
@@ -1771,6 +1810,8 @@ def run(opts, device, card):
          "modules_ms": p15["kernels"]["walk_ms"],
          "ops_launches": ops["walk"],
          "ops_ms": p16["kernels"]["walk_ms"],
+         "loops_launches": loops["walk"],
+         "loops_ms": p17["kernels"]["walk_ms"],
          "equal": True,
          "bound_by": "bytes", "library_ms": None, **walk},
         {"name": "bitmap_or", "route": "cuda",
@@ -1789,6 +1830,8 @@ def run(opts, device, card):
          "modules_ms": p15["kernels"]["or_ms"],
          "ops_launches": ops["bitmap_or"],
          "ops_ms": p16["kernels"]["or_ms"],
+         "loops_launches": loops["bitmap_or"],
+         "loops_ms": p17["kernels"]["or_ms"],
          "equal": True,
          "bound_by": "bytes", "library_ms": None, **bmp},
         # B4 lies on no path: its launches on the publish path (0) are
@@ -1802,6 +1845,7 @@ def run(opts, device, card):
              ("15a_delayed", p15["15a"]["delayed_launches"]),
              ("15b", p15["15b"]["launches"]))},
          "ops_launches": ops["or_bitmaps"],
+         "loops_launches": loops["or_bitmaps"],
          "cluster_launches": cluster["launches"].get("or_bitmaps", 0),
          "devloss_launches": p9["launches"]["or_bitmaps"],
          "equal": True, "bound_by": "bytes", "library_ms": None, **b4},
@@ -2860,8 +2904,9 @@ P13_BUDGET_S = 180.0
 #: the '+' one (route replication with both nodes in one process took
 #: 122-207 µs of host time a route at 252,508 routes on the card's
 #: hosts: the 1.02M routes of the uncut set would take 125-212 s, past
-#: the phase's budget before a batch is published)
-P13_ROUTES = 250_000
+#: the phase's budget before a batch is published; 250,000 until phase
+#: 17 needed the script's room, 55-80 s of replication at that size)
+P13_ROUTES = 125_000
 #: 13b: retained messages stored on node 0 and replicated, and the
 #: SUBSCRIBE burst on node 1
 P13_RETAINED = 10_000
@@ -4044,18 +4089,27 @@ class WireClient:
     a PUBACK, and resolves a future per CONNACK, SUBACK and PUBACK."""
 
     def __init__(self, cid: str, version: int,
-                 local_host: Optional[str] = None) -> None:
+                 local_host: Optional[str] = None,
+                 clean_start: bool = True, expiry: int = 0,
+                 auto_ack: bool = True) -> None:
         self.cid = cid
         self.version = version
         # the source address (a loopback one other than 127.0.0.1
         # reaches the broker as a non-local peer)
         self.local_host = local_host
+        # a persistent session: clean_start False and, on v5, a
+        # Session-Expiry-Interval; auto_ack False leaves every QoS 1
+        # delivery unacked (inflight on the broker)
+        self.clean_start = clean_start
+        self.expiry = expiry
+        self.auto_ack = auto_ack
         self.got = []          # (topic, payload, retain, arrival)
         self.raw = bytearray()  # every byte received
         self.sent = 0          # packets sent
         self.waiting = {}      # ("connack"|"suback"|"puback", pid) -> future
         self.on_publish = None
         self.closed = None
+        self.connack = None    # the last CONNACK connect() read
         # ``opener(port)`` -> ``(reader, writer)`` for another transport
         # than plain TCP (TLS, WebSocket, the native TLS-PSK engine)
         self.opener = None
@@ -4065,7 +4119,7 @@ class WireClient:
         monitor at critical) is counted in :data:`REFUSED` and retried
         after a short back-off, as a client library does."""
         for attempt in range(CONNECT_RETRIES + 1):
-            pkt = await self.connect_once(port)
+            pkt = self.connack = await self.connect_once(port)
             if pkt.reason_code == 0:
                 return
             if (pkt.reason_code not in (0x89, 3)
@@ -4093,7 +4147,10 @@ class WireClient:
         self.closed = loop.create_future()
         fut = self.expect("connack", 0)
         self.send(Connect(client_id=self.cid, proto_ver=self.version,
-                          proto_name="MQTT", keepalive=0))
+                          proto_name="MQTT", keepalive=0,
+                          clean_start=self.clean_start,
+                          properties={"Session-Expiry-Interval":
+                                      self.expiry} if self.expiry else {}))
         self._task = loop.create_task(self._read())
         return await fut
 
@@ -4124,7 +4181,7 @@ class WireClient:
                     if isinstance(pkt, Publish):
                         self.got.append((pkt.topic, pkt.payload, pkt.retain,
                                          now))
-                        if pkt.qos == 1:
+                        if pkt.qos == 1 and self.auto_ack:
                             self.send(PubAck(type=C.PUBACK,
                                              packet_id=pkt.packet_id))
                         if self.on_publish is not None:
@@ -6850,11 +6907,13 @@ def modules_15a(node, batches, draw, card, oracle, tm, metered):
             "metered_in": n_in, "metered_out": n_out}
 
 
-async def until_async(cond, timeout: float, what: str) -> None:
+async def until_async(cond, timeout: float, what: str,
+                      label: str = "15b") -> None:
     t0 = time.perf_counter()
     while not cond():
         if time.perf_counter() - t0 > timeout:
-            raise AssertionError(f"[15b] {what} not reached in {timeout} s")
+            raise AssertionError(f"[{label}] {what} not reached in "
+                                 f"{timeout} s")
         await asyncio.sleep(0.002)
 
 
@@ -7203,8 +7262,9 @@ def ops_ctl(node, card):
     secs = {}
     outs = {}
     names = sorted(ctl._commands)
-    if "reload" in names:
-        raise AssertionError("[16a] the port registers reload")
+    if "reload" not in names:
+        # without a file it prints its usage here; 17a reloads a file
+        raise AssertionError("[16a] the port lacks ctl reload")
     runs = [[c] for c in names if c != "profile"] + [
         ["profile"], ["profile", "kernels"], ["profile", "loops"],
         ["clients", "list"], ["banned", "list"], ["telemetry", "slow"],
@@ -7248,8 +7308,8 @@ def ops_ctl(node, card):
     if dev["kind"] != torch.cuda.get_device_name(0) or \
             dev["bytes_limit"] != total or dev["platform"] != "gpu":
         raise AssertionError(f"[16a] vm devices {vm['devices']}")
-    log(f"[16a] ctl: {len(runs)} runs of {len(names)} commands (all but "
-        f"reload, which comes with the config loader): status topics "
+    log(f"[16a] ctl: {len(runs)} runs of {len(names)} commands (reload "
+        f"without a file, its usage; 17a reloads files): status topics "
         f"{len(topics)} = the router's; routes {lines} lines = "
         f"{n_routes} routes; listeners {len(lst)} entries with their "
         f"connections; cache hit rate {cache['single']['hit_rate']}; "
@@ -7862,6 +7922,604 @@ def run_ops(node, pairs, batches, wl, draw, oracle, opts, card):
             "checkpoint": ck, "ctl_s": ctl_s, "seconds": took}
 
 
+# -- phase 17: the multi-loop front door, the worker pool, the command line --
+
+#: phase 17's time budget, printed beside its seconds
+P17_BUDGET_S = 200.0
+#: 17a's front-door loops, connections (half subscribers, half
+#: publishers: 7a's shape) and QoS 1 PUBLISHes a publisher
+P17_LOOPS = 4
+P17_CONNS = 400
+P17_PUBS = 5
+#: retained names stored on 17a's node (13b's store), and one retained
+#: filter for each peer loop's replay through B3
+P17_RETAINED = P13_RETAINED
+P17_REPLAY = ("s3/#", "s5/+/+/state", "s7/g1/+/state")
+#: QoS 1 messages left unacked before 17a's cross-loop takeover
+P17_BACKLOG = 8
+#: 17b's workers; 17c's loops
+P17B_WORKERS = 2
+P17C_LOOPS = 2
+#: seconds 17c's process may take to listen, and to exit after SIGTERM
+P17C_BOOT_S = 180.0
+P17C_TERM_S = 20.0
+
+P17_BOOT = """[node]
+name = "{name}"
+loops = {loops}
+
+[[listeners]]
+type = "tcp"
+port = 0
+"""
+
+
+def p17_file(path, loops, extra="", name="p17@127.0.0.1"):
+    with open(path, "w") as f:
+        f.write(P17_BOOT.format(name=name, loops=loops) + extra)
+    return path
+
+
+async def p17_subscribe(c, pid, flts, qos=1):
+    """SUBSCRIBE ``flts`` at ``qos``; raises unless every code grants
+    it."""
+    from emqx_tpu_torch.mqtt.packet import Subscribe
+
+    fut = c.expect("suback", pid)
+    c.send(Subscribe(packet_id=pid, topic_filters=[(f, {"qos": qos})
+                                                   for f in flts]))
+    ack = await asyncio.wait_for(fut, 30)
+    if ack.reason_codes != [qos] * len(flts):
+        raise AssertionError(f"{c.cid}: SUBACK {ack.reason_codes}")
+
+
+async def p17_publish(c, pid, topic, payload):
+    """One QoS 1 PUBLISH; returns once its PUBACK arrived."""
+    from emqx_tpu_torch.mqtt.packet import Publish
+
+    fut = c.expect("puback", pid)
+    c.send(Publish(topic=topic, qos=1, packet_id=pid, payload=payload))
+    await asyncio.wait_for(fut, 30)
+
+
+def loop_of(node, cid):
+    """The front-door loop index serving ``cid``'s connection."""
+    chan = node.cm.lookup_channel(cid)
+    return node.loop_group.index_of(chan.owner_loop)
+
+
+async def loops_17a(node, wl, draw, oracle, path, card):
+    """17a on the booted four-loop node (see the module docstring);
+    returns its numbers and launches."""
+    from collections import Counter
+
+    from emqx_tpu_torch.ops import _build
+
+    await node.start()
+    lg = node.loop_group
+    lst = node.listeners[0]
+    n_sub = P17_CONNS // 2
+    n_pub = P17_CONNS - n_sub
+    subs = [WireClient(f"p17-s{i}", 4 + i % 2) for i in range(n_sub)]
+    pubs = [WireClient(f"p17-p{i}", 4 + i % 2) for i in range(n_pub)]
+    clients = subs + pubs
+    accepted = 0
+    out = {"launches": {}}
+    try:
+        t0 = time.perf_counter()
+        for i in range(0, len(clients), 100):
+            await asyncio.gather(*(c.connect(lst.port)
+                                   for c in clients[i:i + 100]))
+        conn_s = time.perf_counter() - t0
+        accepted += len(clients)
+        per_loop = lst.loop_connections()
+        if per_loop != [P17_CONNS // P17_LOOPS] * P17_LOOPS:
+            raise AssertionError(f"[17a] connections a loop {per_loop}")
+        plus_set = set(wl["plus"])
+        top_plus = [f for f in draw if f in plus_set][:n_sub]
+        flts = {}
+        for i, c in enumerate(subs):
+            flts[c] = (top_plus[i % len(top_plus)],
+                       wl["big"][i % len(wl["big"])])
+        await asyncio.gather(*(p17_subscribe(c, 1, flts[c]) for c in subs))
+        # the fan-out tables' rebuild for the fleet's subscriptions
+        t0 = time.perf_counter()
+        await p17_publish(pubs[0], 0xFFFF, "warmup/none", b"w")
+        warm_s = time.perf_counter() - t0
+        topics = zipf_topics(np.random.default_rng(0), draw,
+                             n_pub * P17_PUBS)
+        sent = {c: topics[j * P17_PUBS:(j + 1) * P17_PUBS]
+                for j, c in enumerate(pubs)}
+        subs_of = {}
+        for c, fs in flts.items():
+            for f in fs:
+                subs_of.setdefault(f, []).append(c)
+        hits = {t: [c for f in oracle.match(t) for c in subs_of.get(f, ())]
+                for m in sent.values() for t in m}
+        want_n = {c: 0 for c in subs}
+        for m in sent.values():
+            for t in m:
+                for c in hits[t]:
+                    want_n[c] += 1
+        cd = Countdown(want_n)
+        for c in subs:
+            c.got.clear()
+            c.on_publish = cd
+        puback = []
+        done = {c: [] for c in pubs}
+
+        async def publisher(c, mine):
+            for j, t in enumerate(mine, 1):
+                t0 = time.perf_counter()
+                payload = b"%s:%d:%.9f" % (c.cid.encode(), j, t0)
+                done[c].append((t, payload))
+                await p17_publish(c, j, t, payload)
+                puback.append(time.perf_counter() - t0)
+
+        m0 = {k: node.metrics.val(k) for k in (
+            "delivery.xloop.handoffs", "delivery.xloop.deliveries",
+            "delivery.xloop.orphaned")}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        await asyncio.gather(*(publisher(c, sent[c]) for c in pubs))
+        await asyncio.wait_for(cd.done, 60)
+        wall = time.perf_counter() - t0
+        window = launches_now()
+        xl = {k: node.metrics.val(k) - v for k, v in m0.items()}
+        for c in subs:
+            c.on_publish = None
+        want = {c: Counter() for c in subs}
+        for mine in done.values():
+            for t, payload in mine:
+                for s in hits[t]:
+                    want[s][(t, payload)] += 1
+        lat = []
+        for c in subs:
+            got = Counter((t, p) for t, p, _r, _a in c.got)
+            if got != want[c]:
+                raise AssertionError(f"[17a] {c.cid}: received "
+                                     f"{sum(got.values())}, the oracle "
+                                     f"gives {sum(want[c].values())}")
+            lat += [a - float(p.rsplit(b":", 1)[1])
+                    for _t, p, _r, a in c.got]
+        for k in PUBLISH_KERNELS:
+            if window[k] < 1:
+                raise AssertionError(f"[17a] no {k} launch in the window")
+        if xl["delivery.xloop.handoffs"] < 1 or \
+                xl["delivery.xloop.deliveries"] < 1 or \
+                xl["delivery.xloop.orphaned"]:
+            raise AssertionError(f"[17a] the delivery ring: {xl}")
+        add_launches(out["launches"], window)
+        n_msgs = n_pub * P17_PUBS
+        out.update({"connects_per_s": P17_CONNS / conn_s,
+                    "msgs_per_s": n_msgs / wall, "deliveries": len(lat),
+                    "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+                    "puback_p50_ms": _pct(puback, 50),
+                    "puback_p99_ms": _pct(puback, 99), "xloop": xl,
+                    "per_loop": per_loop, "warm_s": warm_s})
+        log(f"[17a] {P17_CONNS} connections over {P17_LOOPS} loops "
+            f"{per_loop} in {conn_s:.3f} s ({out['connects_per_s']:.1f} "
+            f"connects/s); fan-out rebuild (warm-up publish) {warm_s:.3f} "
+            f"s; {n_msgs} QoS 1 PUBLISHes in {wall:.3f} s "
+            f"({out['msgs_per_s']:.1f} msgs/s), {len(lat)} deliveries equal "
+            f"the TrieOracle's: publish→delivery p50 {out['p50_ms']:.3f} "
+            f"ms, p99 {out['p99_ms']:.3f} ms; PUBACK p50 "
+            f"{out['puback_p50_ms']:.3f} ms, p99 {out['puback_p99_ms']:.3f}"
+            f" ms; the ring: {xl['delivery.xloop.handoffs']} handoffs, "
+            f"{xl['delivery.xloop.deliveries']} deliveries, "
+            f"{xl['delivery.xloop.orphaned']} orphaned; launches "
+            f"{ {k: window[k] for k in PUBLISH_KERNELS} } — {card}")
+        # a retained SUBSCRIBE on each peer loop: its replay (B3) runs on
+        # that loop's thread (ThreadLaunches names the launching thread)
+        replay = {}
+        while len(replay) < P17_LOOPS - 1:
+            r = WireClient(f"p17-r{accepted}", 5)
+            clients.append(r)
+            await r.connect(lst.port)
+            accepted += 1
+            idx = loop_of(node, r.cid)
+            if idx and idx not in replay:
+                replay[idx] = r
+        saved = _build.LAUNCHES
+        tl = _build.LAUNCHES = ThreadLaunches({k: 0 for k in saved})
+        try:
+            for idx, r in sorted(replay.items()):
+                flt = P17_REPLAY[idx - 1]
+                names = sorted(retained_name(int(i))
+                               for i in NameFamily(P17_RETAINED).match(flt))
+                await p17_subscribe(r, 1, [flt], qos=0)
+                await until_async(lambda: len(r.got) >= len(names), 10.0,
+                                  f"loop {idx}'s replay of {flt}",
+                                  label="17a")
+                got = sorted(t for t, _p, ret, _a in r.got if ret)
+                if got != names:
+                    raise AssertionError(f"[17a] loop {idx}'s replay of "
+                                         f"{flt}: {len(got)} of "
+                                         f"{len(names)}")
+        finally:
+            _build.LAUNCHES = saved
+        by_thread = {t: dict(d) for t, d in tl.by_thread.items()}
+        for idx in replay:
+            b3 = by_thread.get(f"frontdoor-loop-{idx}", {}).get(
+                "retained_match", 0)
+            if b3 < 1:
+                raise AssertionError(f"[17a] no B3 launch on loop {idx}'s "
+                                     f"thread: {by_thread}")
+        if by_thread.get("MainThread", {}).get("retained_match", 0):
+            raise AssertionError(f"[17a] a replay launched B3 on the main "
+                                 f"loop: {by_thread}")
+        add_launches(out["launches"], {k: tl[k] for k in tl})
+        out["replay_threads"] = by_thread
+        log(f"[17a] a retained SUBSCRIBE on each peer loop "
+            f"{ {i: P17_REPLAY[i - 1] for i in sorted(replay)} }: every "
+            f"replay equal to the name family, B3 launched on the loop's "
+            f"own thread {by_thread} — {card}")
+        # the cross-loop takeover of a session with a QoS 1 backlog
+        tk1 = WireClient("p17-tk", 5, clean_start=False, expiry=300,
+                         auto_ack=False)
+        clients.append(tk1)
+        await tk1.connect(lst.port)
+        accepted += 1
+        idx1 = loop_of(node, tk1.cid)
+        await p17_subscribe(tk1, 1, ["p17/tk/t"])
+        _build.reset_launches()
+        for j in range(1, P17_BACKLOG + 1):
+            await p17_publish(pubs[0], 100 + j, "p17/tk/t", b"tk%d" % j)
+        await until_async(lambda: len(tk1.got) >= P17_BACKLOG, 10.0,
+                          "the unacked backlog", label="17a")
+        taken = node.metrics.val("session.takeovered")
+        # the subscriptions since the window changed the fan-out
+        # membership: the backlog's first publish rebuilt the tables,
+        # a loop stall the overload monitor may read as critical (it
+        # then refuses CONNECTs); the reconnect waits for ok
+        await until_async(lambda: node.overload.level == 0, 60.0,
+                          "the overload level's return to ok",
+                          label="17a")
+        if accepted % P17_LOOPS == idx1:
+            filler = WireClient(f"p17-f{accepted}", 4)
+            clients.append(filler)
+            await filler.connect(lst.port)
+            accepted += 1
+        tk1.expect("disconnect", 0)   # 0x8E, Session-Taken-Over
+        tk2 = WireClient("p17-tk", 5, clean_start=False, expiry=300)
+        clients.append(tk2)
+        refused = REFUSED["connects"]
+        await tk2.connect(lst.port)
+        ack = tk2.connack
+        # a CONNECT refused with ServerBusy (the fan-out rebuild's lag can
+        # read as critical overload) is retried on a new connection
+        accepted += 1 + REFUSED["connects"] - refused
+        idx2 = loop_of(node, tk2.cid)
+        await until_async(lambda: len(tk2.got) >= P17_BACKLOG, 30.0,
+                          "the backlog after the takeover", label="17a")
+        backlog = sorted(p for _t, p, _r, _a in tk2.got)
+        if ack.reason_code or not ack.session_present or idx2 == idx1 \
+                or backlog != sorted(b"tk%d" % j
+                                     for j in range(1, P17_BACKLOG + 1)) \
+                or node.metrics.val("session.takeovered") != taken + 1:
+            raise AssertionError(f"[17a] the cross-loop takeover: loop "
+                                 f"{idx1} -> {idx2}, CONNACK {ack}, "
+                                 f"backlog {backlog}")
+        add_launches(out["launches"], launches_now())
+        log(f"[17a] cross-loop takeover: p17-tk moved from loop {idx1} to "
+            f"loop {idx2} with session present, its {P17_BACKLOG} unacked "
+            f"QoS 1 messages redelivered on the new loop — {card}")
+        # the per-loop rows of the stats flush
+        node.tick()
+        lags = {i: node.stats.getstat(f"loop.{i}.lag_ms")
+                for i in range(P17_LOOPS)}
+        conns = {i: node.stats.getstat(f"loop.{i}.connections")
+                 for i in range(P17_LOOPS)}
+        out["lag_ms"] = lags
+        log(f"[17a] loop.<i>.lag_ms {lags}, loop.<i>.connections {conns} "
+            f"— {card}")
+        # ctl reload: a reloadable knob applied with the clients
+        # connected, then a boot-only edit rejected whole
+        held = lst.current_connections()
+        edited = p17_file(path + ".telemetry.toml", P17_LOOPS,
+                          "\n[telemetry]\nslow_threshold_ms = 250.0\n")
+        t0 = time.perf_counter()
+        text = node.ctl.run(["reload", edited])
+        reload_ms = (time.perf_counter() - t0) * 1000.0
+        if "applied: telemetry.slow_threshold_ms 100.0 -> 250.0" not in \
+                text or node.telemetry.config.slow_threshold_ms != 250.0 \
+                or lst.current_connections() != held:
+            raise AssertionError(f"[17a] ctl reload: {text!r}")
+        await p17_publish(pubs[1], 0xFFFE, "p17/tk/t", b"after-reload")
+        loops2 = p17_file(path + ".loops.toml", 2)
+        rejected = node.ctl.run(["reload", loops2])
+        if not rejected.startswith("reload rejected") or \
+                "node.loops: 4 -> 2" not in rejected or lg.n != P17_LOOPS:
+            raise AssertionError(f"[17a] ctl reload: {rejected!r}")
+        log(f"[17a] ctl reload of an edited copy in {reload_ms:.3f} ms: "
+            f"{text.splitlines()[-1]!r}, {held} connections held; a copy "
+            f"with loops = 2: {rejected.splitlines()[-1].strip()!r} — "
+            f"{card}")
+        if lg.errors:
+            raise AssertionError(f"[17a] errors on the peer loops: "
+                                 f"{lg.errors}")
+        return out
+    finally:
+        await asyncio.gather(*(c.close() for c in clients
+                               if c.closed is not None
+                               and not c.closed.done()))
+        await node.stop()
+
+
+async def pool_17b(device, card):
+    """17b: the JAX tests' three worker-pool scenarios, each worker a
+    node on ``device``."""
+    from emqx_tpu_torch.workers import WorkerPool
+
+    out = {}
+    with WorkerPool(P17B_WORKERS, port=0, device=device,
+                    cookie="p17b") as pool:
+        port = pool.port
+        out["ready_s"] = list(pool.ready_s)
+        log(f"[17b] {P17B_WORKERS} workers on port {port}, each a node on "
+            f"{device} in its own process: seconds to READY "
+            f"{[round(s, 3) for s in pool.ready_s]} — {card}")
+        # delivery across workers: 6 subscribers x 3 publishes
+        subs = [WireClient(f"p17b-s{i}", 5) for i in range(6)]
+        for s in subs:
+            await s.connect(port)
+            await p17_subscribe(s, 1, ["p17b/+"], qos=0)
+        await asyncio.sleep(0.7)  # route replication settles
+        pub = WireClient("p17b-p", 5)
+        await pub.connect(port)
+        for k in range(3):
+            await p17_publish(pub, k + 1, f"p17b/{k}", b"m%d" % k)
+        await until_async(lambda: all(len(s.got) >= 3 for s in subs), 30.0,
+                          "the cross-worker deliveries", label="17b")
+        got = sorted((s.cid, t, p) for s in subs for t, p, _r, _a in s.got)
+        want = sorted((s.cid, f"p17b/{k}", b"m%d" % k) for s in subs
+                      for k in range(3))
+        stats = pool.stats()
+        if got != want or sum(c for c, _ in stats) != 7:
+            raise AssertionError(f"[17b] cross-worker delivery: {len(got)} "
+                                 f"of 18, stats {stats}")
+        log(f"[17b] 6 subscribers x 3 publishes across the workers: 18 "
+            f"deliveries exact; (connections, delivered) a worker {stats} "
+            f"— {card}")
+        for c in subs + [pub]:
+            await c.close()
+        # one client id across the workers: one live session
+        c1 = WireClient("p17b-dup", 5)
+        await c1.connect(port)
+        c2 = WireClient("p17b-dup", 5)
+        c1.expect("disconnect", 0)
+        await c2.connect(port)
+        await asyncio.sleep(0.7)
+        stats = pool.stats()
+        if sum(c for c, _ in stats) != 1:
+            raise AssertionError(f"[17b] duplicate client id: {stats}")
+        log(f"[17b] one client id twice through the shared port: one live "
+            f"session, {stats} — {card}")
+        await c2.close()
+        # a worker killed mid-traffic, then restarted into the cluster
+        subs = [WireClient(f"p17b-k{i}", 5) for i in range(6)]
+        for s in subs:
+            await s.connect(port)
+            await p17_subscribe(s, 1, ["p17b/k/+"])
+        await asyncio.sleep(0.7)
+        pub = WireClient("p17b-kp", 5)
+        await pub.connect(port)
+        await p17_publish(pub, 1, "p17b/k/a", b"before")
+        await until_async(lambda: all(len(s.got) >= 1 for s in subs), 30.0,
+                          "the deliveries before the kill", label="17b")
+        pool.procs[1].kill()
+        t_kill = time.perf_counter()
+        await asyncio.sleep(4.0)  # the probe declares the worker down
+        live = [s for s in subs if not s.closed.done()]
+        fresh = WireClient("p17b-fresh", 5)
+        await fresh.connect(port)
+        await p17_subscribe(fresh, 1, ["p17b/k/+"])
+        pub2 = WireClient("p17b-kp2", 5)
+        await pub2.connect(port)
+        await p17_publish(pub2, 1, "p17b/k/b", b"after")
+        await until_async(lambda: all(len(s.got) >= 2 for s in live)
+                          and len(fresh.got) >= 1, 30.0,
+                          "the deliveries after the kill", label="17b")
+        bad = [s.cid for s in live + [fresh]
+               if [p for _t, p, _r, _a in s.got][-1] != b"after"]
+        if bad:
+            raise AssertionError(f"[17b] after the kill: {bad}")
+        t0 = time.perf_counter()
+        pool.restart_worker(1)
+        restart_s = time.perf_counter() - t0
+        await asyncio.sleep(1.0)
+        more = [WireClient(f"p17b-r{i}", 5) for i in range(6)]
+        for s in more:
+            await s.connect(port)
+            await p17_subscribe(s, 1, ["p17b/r/t"])
+        await asyncio.sleep(0.7)
+        pub3 = WireClient("p17b-rp", 5)
+        await pub3.connect(port)
+        await p17_publish(pub3, 1, "p17b/r/t", b"rebuilt")
+        await until_async(lambda: all(len(s.got) >= 1 for s in more), 30.0,
+                          "the deliveries after the restart", label="17b")
+        stats = pool.stats()
+        if any(p.poll() is not None for p in pool.procs) or \
+                any(s.got[0][1] != b"rebuilt" for s in more) or \
+                min(c for c, _ in stats) < 1:
+            raise AssertionError(f"[17b] after the restart: {stats}")
+        out.update({"restart_s": restart_s,
+                    "restart_ready_s": pool.ready_s[1],
+                    "killed_at": t_kill})
+        log(f"[17b] worker 1 killed under traffic: {len(live)} of 6 "
+            f"subscribers kept their socket, they and a fresh one got the "
+            f"next publish exactly; restart_worker(1) in {restart_s:.3f} s "
+            f"({pool.ready_s[1]:.3f} s to READY), 6 new subscribers spread "
+            f"{stats} all got the next publish — {card}")
+        for c in live + more + [fresh, pub, pub2, pub3]:
+            if not c.closed.done():
+                await c.close()
+    return out
+
+
+async def p17c_boot(cfg, device, label):
+    """Start ``python -m emqx_tpu_torch --config cfg`` (on the card, its
+    default; ``--device`` otherwise); returns the process, its listener
+    port, its output, the task that keeps reading it and the seconds to
+    the ``listening:`` line."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    dev = [] if device == "cuda" else ["--device", device]
+    t0 = time.perf_counter()
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "emqx_tpu_torch", "--config", cfg, *dev,
+        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.STDOUT,
+        cwd=repo)
+    lines = []
+    port = None
+    try:
+        while port is None:
+            line = await asyncio.wait_for(proc.stdout.readline(),
+                                          P17C_BOOT_S)
+            if not line:
+                raise AssertionError(f"[17c] {label}: the process exited "
+                                     f"before listening: {lines[-20:]}")
+            lines.append(line.decode(errors="replace").rstrip())
+            if b"listening:" in line:
+                port = int(line.rsplit(b":", 1)[1])
+    except BaseException:
+        proc.kill()
+        await proc.wait()
+        raise
+
+    async def drain():
+        # keep the pipe empty: a full one would block the node's logging
+        while True:
+            line = await proc.stdout.readline()
+            if not line:
+                return
+            lines.append(line.decode(errors="replace").rstrip())
+
+    task = asyncio.get_running_loop().create_task(drain())
+    return proc, port, lines, task, time.perf_counter() - t0
+
+
+async def p17c_term(proc, task, label):
+    proc.send_signal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    try:
+        rc = await asyncio.wait_for(proc.wait(), P17C_TERM_S)
+    except asyncio.TimeoutError:
+        proc.kill()
+        await proc.wait()
+        raise AssertionError(f"[17c] {label}: no exit {P17C_TERM_S:.0f} s "
+                             f"after SIGTERM")
+    await task
+    if rc != 0:
+        raise AssertionError(f"[17c] {label}: SIGTERM exit code {rc}")
+    return time.perf_counter() - t0
+
+
+async def cli_17c(tmp, device, card):
+    """17c: ``python -m emqx_tpu_torch --config`` on ``device``, two loops
+    and durability on: a persistent session's queued messages survive a
+    SIGTERM through the 2-shard journal and checkpoint."""
+    d = os.path.join(tmp, "p17c")
+    os.makedirs(d)
+    cfg = p17_file(os.path.join(d, "p17c.toml"), P17C_LOOPS,
+                   '\n[durability]\nenabled = true\ndir = "data"\n',
+                   name="p17c@127.0.0.1")
+    proc, port, lines, task, boot1 = await p17c_boot(cfg, device, "boot 1")
+    s = WireClient("p17c-s", 5, clean_start=False, expiry=300)
+    p = WireClient("p17c-p", 5)
+    try:
+        await s.connect(port)
+        await p17_subscribe(s, 1, ["p17c/t"])
+        await s.close()
+        await p.connect(port)
+        await p17_publish(p, 1, "p17c/t", b"queued")
+        await p17_publish(p, 2, "p17c/t", b"queued-2")
+        await p.close()
+    except BaseException:
+        proc.kill()
+        await proc.wait()
+        raise
+    term1 = await p17c_term(proc, task, "boot 1")
+    data = os.path.join(d, "data")
+    shards = sorted(f for f in os.listdir(data) if f.startswith("journal-"))
+    if len(shards) != P17C_LOOPS:
+        raise AssertionError(f"[17c] journal shards {shards}")
+    proc, port, lines2, task, boot2 = await p17c_boot(cfg, device,
+                                                      "boot 2")
+    s2 = WireClient("p17c-s", 5, clean_start=False, expiry=300)
+    try:
+        await s2.connect(port)
+        ack = s2.connack
+        await until_async(lambda: len(s2.got) >= 2, 10.0,
+                          "the recovered queue", label="17c")
+        got = [pl for _t, pl, _r, _a in s2.got]
+        await s2.close()
+    except BaseException:
+        proc.kill()
+        await proc.wait()
+        raise
+    term2 = await p17c_term(proc, task, "boot 2")
+    if ack.reason_code or not ack.session_present or \
+            got != [b"queued", b"queued-2"]:
+        raise AssertionError(f"[17c] the recovered session: {ack}, {got}")
+    out = {"boot_s": [boot1, boot2], "term_s": [term1, term2],
+           "shards": shards}
+    log(f"[17c] python -m emqx_tpu_torch --config (loops = {P17C_LOOPS}, "
+        f"durability on, on {device}): listening after {boot1:.3f} s, "
+        f"SIGTERM exit 0 in {term1:.3f} s, journal shards {shards}; "
+        f"booted again from the same file and directory in {boot2:.3f} s: "
+        f"p17c-s resumed with session present and its 2 queued QoS 1 "
+        f"messages in order; exit 0 in {term2:.3f} s — {card}")
+    return out
+
+
+def run_loops(pairs, wl, draw, oracle, batches, device, card):
+    """Phase 17 (see the module docstring): 17a on a four-loop node
+    booted from a config file at phase 5's full width, 17b the worker
+    pool, 17c the command line; returns its numbers and 17a's
+    launches."""
+    import tempfile
+
+    from emqx_tpu_torch.config import boot_from_file
+
+    t_start = time.perf_counter()
+    raise_fd_limit(4 * P17_CONNS + 512)
+    log(f"[17] P17_BUDGET_S {P17_BUDGET_S:.0f} s; 17a: {P17_LOOPS} loops, "
+        f"{P17_CONNS} connections, {P17_PUBS} QoS 1 PUBLISHes a publisher, "
+        f"{P17_RETAINED} retained names; 17b: {P17B_WORKERS} workers; 17c: "
+        f"{P17C_LOOPS} loops with durability — {card}")
+    with tempfile.TemporaryDirectory(prefix="chip_p17_",
+                                     dir=os.getcwd()) as tmp:
+        path = p17_file(os.path.join(tmp, "p17a.toml"), P17_LOOPS,
+                        "\n[modules.retainer]\n")
+        t0 = time.perf_counter()
+        node = boot_from_file(path, device=device)
+        boot_s = time.perf_counter() - t0
+        sub_s = subscribe_pairs(node.broker, pairs)
+        t0 = time.perf_counter()
+        node.router.automaton()
+        build_s = time.perf_counter() - t0
+        store_s = store_retained(node, P17_RETAINED)
+        log(f"[17a] booted from a config file in {boot_s:.3f} s (loops "
+            f"{node.loop_group.n}, modules {node.modules.loaded()}); "
+            f"{len(node.router._filter_ids)} filters subscribed in "
+            f"{sub_s:.1f} s, the automaton in {build_s:.1f} s, "
+            f"{P17_RETAINED} retained names in {store_s:.1f} s — {card}")
+        a = asyncio.run(loops_17a(node, wl, draw, oracle, path, card))
+        ret = node.modules._loaded["retainer"]
+        k = p14_kernels(node, batches[0], ret._index, [list(P17_REPLAY)],
+                        card, "17a", what="the four-loop node's tables")
+        check_quiet(node, "17a", ret._index)
+        del node, ret
+        gc.collect()
+        b = asyncio.run(pool_17b(device, card))
+        c = asyncio.run(cli_17c(tmp, device, card))
+    took = time.perf_counter() - t_start
+    log(f"[17] phase 17 took {took:.1f} s of its {P17_BUDGET_S:.0f} s "
+        f"budget; 17a launches {a['launches']} — {card}")
+    return {"launches": a["launches"], "17a": a, "17b": b, "17c": c,
+            "kernels": k, "seconds": took}
+
+
 def ban_plane_15c(nodes, trs, cls, card):
     """15c in 13d's cluster: a ban created on the first node reaches
     every node and the ``bans`` digests; a CONNECT of that clientid on
@@ -7967,7 +8625,7 @@ def main(argv=None) -> int:
     card = phase_env()
     phase_build(card)
     t0 = time.perf_counter()
-    p13, p15, p16, rows = run(opts, "cuda", card)
+    p13, p15, p16, p17, rows = run(opts, "cuda", card)
     t1 = time.perf_counter()
     rows.append(run_retained(opts, "cuda", card))
     rows[-1]["cluster_launches"] = p13["13b"]["launches"]
@@ -7978,9 +8636,12 @@ def main(argv=None) -> int:
         g: p16["launches"][g].get("retained_match", 0)
         for g in ("16a", "16b")}
     rows[-1]["ops_ms"] = p16["kernels"]["b3_ms"]
+    rows[-1]["loops_launches"] = p17["launches"].get("retained_match", 0)
+    rows[-1]["loops_ms"] = p17["kernels"]["b3_ms"]
     rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
                                   p15["kernels"]["max_abs_err"],
-                                  p16["kernels"]["max_abs_err"])
+                                  p16["kernels"]["max_abs_err"],
+                                  p17["kernels"]["max_abs_err"])
     timed("9d (sentinel)", phase_sentinel, card)
     t2 = time.perf_counter()
     p10 = timed("10 (durability)", run_durable, opts, "cuda", card)

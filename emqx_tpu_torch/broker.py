@@ -100,12 +100,24 @@ class DispatchConfig:
     planner: bool = True
     preserialize: bool = True
 
+    #: live-reloadable knobs (``reload.py``): both flags are read per
+    #: publish batch (not a dataclass field: unannotated)
+    RELOADABLE = frozenset({"planner", "preserialize"})
+
 
 class _PlanState:
     """Per-batch routing state the planned tail shares between its
-    prologue and its group deliveries."""
+    prologue and its group deliveries — plus, on a multi-loop node, the
+    cross-loop delivery ring's join state: the set of handed-off
+    groups, the per-handoff delivered counts, and the events the fold
+    joins on. Everything after the prologue is read-only to the
+    handoff loops except the ``xloop_*`` fields, which mutate under
+    ``xloop_lock``."""
 
-    __slots__ = ("row_local", "row_fast", "ftabs", "counts")
+    __slots__ = ("row_local", "row_fast", "ftabs", "counts",
+                 "xg_set", "xloop_results", "xloop_deliveries",
+                 "xloop_left", "xloop_lock", "xloop_tev", "xloop_aev",
+                 "xloop_t0", "xloop_tdone", "folded")
 
 
 class PendingBatch:
@@ -124,7 +136,7 @@ class PendingBatch:
 
     __slots__ = (
         "done", "results", "live", "inv", "n_uniq", "plan", "plan_state",
-        "span", "tbatch",
+        "xgroups", "span", "tbatch",
         "host_topics", "host_matched", "host_inv", "host_only",
         "id_map", "epoch", "st", "ids_dev", "ovf_dev", "pm", "pq",
         "m_ptr_d", "ids_packed_d", "f_ptr_d", "subs_packed_d",
@@ -150,6 +162,9 @@ class PendingBatch:
         self.n_uniq = 0
         self.plan = None
         self.plan_state = None
+        # multi-loop: owning-loop index -> plan group indices of the
+        # groups whose sessions live on a peer loop (None: all home)
+        self.xgroups = None
         # a host-regime batch whose routing waits for the finish
         # (publish_begin(defer_host=True)): its topics, then the trie
         # walk's result and inverse index, made on the first chunk
@@ -241,6 +256,10 @@ class Broker:
         self.banned = None
         self.flapping = None
         self.delayed = None
+        # multi-loop front door (loops.LoopGroup), set by Node.start
+        # when the node runs more than one loop; None = single loop,
+        # and every multi-loop branch below is skipped
+        self.loop_group = None
 
     # -- subscribe / unsubscribe (emqx_broker.erl:127-196) ----------------
 
@@ -383,7 +402,30 @@ class Broker:
     # -- publish (emqx_broker.erl:200-309) --------------------------------
 
     def publish(self, msg: Message) -> int:
-        """Publish one message; returns its delivery count."""
+        """Publish one message; returns its delivery count.
+
+        On a multi-loop node a publish from a peer loop (a will firing
+        in a peer-loop disconnect, a shared redispatch during one)
+        never drives the device plane from that thread: it goes
+        through the ingress accumulator (ordered with the batches in
+        flight) or, without one, is posted to the main loop. Its
+        delivery count is then unknown here (0); those callers ignore
+        it."""
+        lg = self.loop_group
+        if lg is not None and not lg.on_home_thread():
+            ing = self.ingress
+            if ing is not None and ing.accepts_threadsafe():
+                ing.submit(msg, want_result=False)
+            else:
+                try:
+                    lg.post(0, lambda: self.publish_batch([msg]))
+                except RuntimeError:
+                    # the home loop is gone (shutdown race, dead
+                    # loop): this publish is lost — counted, not silent
+                    self.metrics.inc("delivery.xloop.orphaned")
+                    log.warning("publish of %r dropped: home loop "
+                                "gone", msg.topic)
+            return 0
         return self.publish_batch([msg])[0]
 
     def publish_will(self, msg: Message) -> None:
@@ -663,6 +705,7 @@ class Broker:
                 log.exception("device fetch failed — host-trie fallback "
                               "for this batch")
                 pb.plan = None
+                pb.xgroups = None
                 pb.host_topics = [m.topic for _, m in pb.live]
                 pb.host_matched = None
                 pb.host_only = True
@@ -833,6 +876,13 @@ class Broker:
                         sp.add("serialize", t_s)
                     if tb is not None:
                         self.tracing.span_mark(tb, "serialize", t_s)
+                if pb.plan is not None and self.loop_group is not None:
+                    # the cross-loop delivery ring: partition the plan's
+                    # subscriber groups by owning loop here — still off
+                    # the event loop when fetch runs on the ingress
+                    # executor — so the finish prologue only posts one
+                    # handoff per loop
+                    pb.xgroups = self._xloop_partition(pb.plan)
             if pb.plan is not None:
                 pb.subs_packed = subs_occ
                 pb.src_packed = src_occ
@@ -896,6 +946,9 @@ class Broker:
             self.publish_host_chunk(pb, 0, len(pb.live))
         elif pb.plan is not None:
             self.publish_finish_planned(pb, 0, pb.plan.n_groups)
+            # multi-loop: block until the cross-loop handoffs report
+            # back, then fold (a no-op on a single-loop node)
+            self.xloop_join_sync(pb)
         else:
             self.publish_finish_chunk(pb, 0, len(pb.live))
         pb.done = True
@@ -971,6 +1024,8 @@ class Broker:
                 ps.row_local[r] = 1
             if msg.qos == 0 and not msg.flags.get("retain"):
                 ps.row_fast[r] = 1
+        ps.xg_set = None
+        ps.folded = False
         return ps
 
     def publish_finish_planned(self, pb: PendingBatch, gstart: int,
@@ -980,22 +1035,33 @@ class Broker:
         ``deliver_many``. The first chunk runs the routing prologue;
         the chunk that reaches the last group folds the per-(message,
         filter) counts into metrics, hooks and results, and closes the
-        batch's span."""
+        batch's span — unless cross-loop handoffs are still in flight:
+        the first chunk posts them (their groups are skipped here), and
+        the fold then belongs to the join (:meth:`xloop_fold`,
+        :meth:`xloop_join_sync`)."""
         sp = pb.span
         if sp is not None:
             t_d = sp.clock()
         if gstart == 0:
             pb.plan_state = self._plan_prologue(pb)
+            if pb.xgroups:
+                # hand each owning loop its share of the plan now, so
+                # peer loops enqueue while this loop walks its groups
+                self._post_xloop_handoffs(pb, pb.plan_state)
         ps = pb.plan_state
         counts = ps.counts
+        xg_set = ps.xg_set
         n_groups = pb.plan.n_groups
         for g in range(gstart, min(gstop, n_groups)):
+            if xg_set is not None and g in xg_set:
+                continue  # handed to its owning loop
             for r, flt in self._deliver_plan_group(pb, ps, g):
                 d = counts[r]
                 if d is None:
                     d = counts[r] = {}
                 d[flt] = d.get(flt, 0) + 1
-        folded = gstop >= n_groups
+        folded = gstop >= n_groups and (xg_set is None
+                                        or ps.xloop_left == 0)
         if folded:
             self._plan_fold(pb, ps)
         if sp is not None:
@@ -1014,7 +1080,39 @@ class Broker:
             pb.tbatch = None
 
     def _plan_fold(self, pb: PendingBatch, ps: _PlanState) -> None:
+        """Fold the batch's per-(message, filter) delivery counts into
+        metrics, hooks and results. Runs once, on the main loop, after
+        every cross-loop handoff reported back (``ps.folded``)."""
+        if ps.folded:
+            return
+        ps.folded = True
         counts = ps.counts
+        if ps.xg_set and ps.xloop_left:
+            # folding with handoffs outstanding (the join timed out, a
+            # handoff was dropped, an owning loop died): their groups'
+            # counts are lost — counted instead of under-reported
+            self.metrics.inc("delivery.xloop.orphaned", ps.xloop_left)
+            log.warning("cross-loop delivery: %d handoff(s) never "
+                        "reported back — folding partial counts",
+                        ps.xloop_left)
+        if ps.xg_set:
+            # merge the handoff loops' counts (no writer is left once
+            # xloop_left reached zero)
+            for rc in ps.xloop_results:
+                for r, d in rc.items():
+                    tgt = counts[r]
+                    if tgt is None:
+                        tgt = counts[r] = {}
+                    for flt, c in d.items():
+                        tgt[flt] = tgt.get(flt, 0) + c
+            if ps.xloop_deliveries:
+                self.metrics.inc("delivery.xloop.deliveries",
+                                 ps.xloop_deliveries)
+            ms = (ps.xloop_tdone - ps.xloop_t0) * 1000.0
+            if pb.span is not None:
+                pb.span.add_ms("xloop", ms)
+            if pb.tbatch is not None:
+                self.tracing.span_abs(pb.tbatch, "xloop", ps.xloop_t0, ms)
         for r, (i, msg) in enumerate(pb.live):
             d = counts[r]
             if not d:
@@ -1084,6 +1182,141 @@ class Broker:
             except Exception:
                 log.exception("deliver to %r failed", sub)
         return delivered
+
+    # -- the cross-loop delivery ring -------------------------------------
+
+    def _xloop_partition(self, plan) -> Optional[Dict[int, List[int]]]:
+        """Owning-loop index → plan group indices, for every group
+        whose session lives on a peer loop (``Session.owner_loop``,
+        stamped at CONNECT). Runs wherever ``publish_fetch`` runs:
+        registry lookups and attribute reads only. ``None`` = every
+        group is home-owned (the single-loop path)."""
+        lg = self.loop_group
+        lookup = self.helper.registry.lookup
+        xg: Optional[Dict[int, List[int]]] = None
+        for g in range(plan.n_groups):
+            sub = lookup(plan.g_sids[g])
+            if sub is None:
+                continue
+            idx = lg.index_of(getattr(sub, "owner_loop", None))
+            if idx == 0:
+                continue
+            if xg is None:
+                xg = {}
+            xg.setdefault(idx, []).append(g)
+        return xg
+
+    def _post_xloop_handoffs(self, pb: PendingBatch,
+                             ps: _PlanState) -> None:
+        """Post each owning loop its share of the plan: ONE
+        ``call_soon_threadsafe`` per loop per batch, carrying the whole
+        group list (the pre-built wire images ride along in the live
+        messages' headers). The fold joins on the results through
+        :meth:`xloop_fold` / :meth:`xloop_join_sync`."""
+        import asyncio
+
+        lg = self.loop_group
+        xg_set: set = set()
+        for gids in pb.xgroups.values():
+            xg_set.update(gids)
+        ps.xg_set = xg_set
+        ps.xloop_results = []
+        ps.xloop_deliveries = 0
+        ps.xloop_lock = threading.Lock()
+        ps.xloop_left = len(pb.xgroups)
+        ps.xloop_t0 = ps.xloop_tdone = time.perf_counter()
+        ps.xloop_tev = threading.Event()
+        ps.xloop_aev = asyncio.Event()
+        self.metrics.inc("delivery.xloop.handoffs", len(pb.xgroups))
+        for idx, gids in pb.xgroups.items():
+            if faults.enabled and faults.fire("xloop.handoff"):
+                # an injected handoff loss: the join's bound and the
+                # orphan count take over, as for a loop that died with
+                # the handoff in flight
+                continue
+            try:
+                lg.post(idx, self._run_xloop_groups, pb, gids)
+            except RuntimeError:
+                # the owning loop is gone (shutdown race): deliver from
+                # here — a cross-thread enqueue beats dropped messages
+                self._run_xloop_groups(pb, gids)
+
+    def _run_xloop_groups(self, pb: PendingBatch, gids) -> None:
+        """One cross-loop handoff, ON the owning loop: deliver this
+        loop's subscriber groups (each session still gets its whole
+        batch in one ``deliver_many`` and one wakeup), then report the
+        delivered counts back for the main loop's fold."""
+        ps = pb.plan_state
+        counts: Dict[int, Dict[str, int]] = {}
+        n = 0
+        try:
+            for g in gids:
+                for r, flt in self._deliver_plan_group(pb, ps, g):
+                    d = counts.get(r)
+                    if d is None:
+                        d = counts[r] = {}
+                    d[flt] = d.get(flt, 0) + 1
+                    n += 1
+        except Exception:
+            log.exception("cross-loop delivery handoff failed")
+        finally:
+            with ps.xloop_lock:
+                ps.xloop_results.append(counts)
+                ps.xloop_deliveries += n
+                ps.xloop_left -= 1
+                done = ps.xloop_left == 0
+                if done:
+                    ps.xloop_tdone = time.perf_counter()
+            if done:
+                ps.xloop_tev.set()
+                lg = self.loop_group
+                if lg is not None:
+                    try:
+                        lg.home.call_soon_threadsafe(ps.xloop_aev.set)
+                    except RuntimeError:
+                        # the home loop is gone (shutdown race): the
+                        # deliveries happened, the async fold's wakeup
+                        # is lost (a sync join still sees the event)
+                        self.metrics.inc("delivery.xloop.orphaned")
+                        log.warning("cross-loop handoff result "
+                                    "orphaned: home loop gone")
+
+    def xloop_event(self, pb: PendingBatch):
+        """The home-loop asyncio event the ingress batcher awaits before
+        folding a batch with cross-loop handoffs; ``None`` = no
+        handoffs (one loop, or every group home-owned)."""
+        ps = pb.plan_state
+        if ps is None or not ps.xg_set:
+            return None
+        return ps.xloop_aev
+
+    def xloop_fold(self, pb: PendingBatch) -> None:
+        """The join once the handoffs completed: merge, fold, close the
+        span. A no-op without handoffs, or when the last local chunk
+        already folded (the handoffs beat it)."""
+        ps = pb.plan_state
+        if ps is None or not ps.xg_set:
+            return
+        self._plan_fold(pb, ps)
+        self._span_finish(pb)
+
+    #: bound on the synchronous cross-loop join (the shutdown flush, a
+    #: sync ``publish_batch``): peer loops run on their own threads, so
+    #: the wait cannot deadlock on them — the bound only breaks a
+    #: wedged loop out of the fold, with partial counts and a loud log
+    XLOOP_JOIN_TIMEOUT = 30.0
+
+    def xloop_join_sync(self, pb: PendingBatch) -> None:
+        """Blocking join for the synchronous publish path."""
+        ps = pb.plan_state
+        if ps is None or not ps.xg_set:
+            return
+        if not ps.folded and ps.xloop_left:
+            if not ps.xloop_tev.wait(self.XLOOP_JOIN_TIMEOUT):
+                log.error("cross-loop delivery handoff incomplete after "
+                          "%.0fs — folding partial counts",
+                          self.XLOOP_JOIN_TIMEOUT)
+        self.xloop_fold(pb)
 
     # -- the per-row tail ---------------------------------------------------
 

@@ -33,6 +33,7 @@ CONNECT username (``peer_cert_as_username`` = ``"cn"`` or ``"dn"``).
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -380,6 +381,16 @@ class Channel:
         self.session.wire_fast_hint = bool(
             self.wire_fast and not self.mountpoint
             and not self.client_alias_max)
+        # loop-affine session ownership: the cross-loop delivery ring
+        # routes this session's planned subscriber group to its
+        # connection's loop
+        loop = self.owner_loop
+        if loop is None:
+            try:
+                loop = asyncio.get_running_loop()
+            except RuntimeError:
+                loop = None
+        self.session.owner_loop = loop
         # durability: the session knows its own expiry (to_wire
         # carries it across crash recovery), and a session-expiry > 0
         # CONNECT arms journaling — lifecycle + QoS1/2 window changes

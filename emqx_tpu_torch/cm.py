@@ -180,7 +180,21 @@ class ConnectionManager:
         self.cancel_will(client_id)
         sess: Optional[Session] = None
         if old_chan is not None and old_chan is not channel:
-            sess = self._takeover(old_chan)
+            try:
+                sess = self._takeover(old_chan)
+            except RuntimeError as e:
+                # the bounded cross-loop takeover expired (the owning
+                # loop is wedged or dead): the old channel cannot be
+                # reached from here — unregister it and give the client
+                # a FRESH session rather than failing its CONNECT. A
+                # recovered loop finds its channel unregistered and
+                # shuts it down alone
+                log.warning("takeover of %r timed out (%s): starting a "
+                            "fresh session", client_id, e)
+                if self.broker is not None:
+                    self.broker.metrics.inc("overload.takeover.timeout")
+                self.unregister_channel(client_id, old_chan)
+                sess = None
         elif client_id in self._detached:
             repl = getattr(self.cluster, "replication", None) \
                 if self.cluster is not None else None
@@ -271,9 +285,11 @@ class ConnectionManager:
         return sess
 
     #: bound on a channel call marshalled onto the channel's owning
-    #: event loop from another thread (the drain's redirect waves run
-    #: on an executor thread): a wedged loop fails the call with a
-    #: clear error instead of blocking the caller forever
+    #: event loop from another thread (a takeover or kick of a session
+    #: another front-door loop owns; the drain's redirect waves, which
+    #: run on an executor thread): a wedged loop, or a crossed pair of
+    #: opposite takeovers, fails the call with a clear error instead of
+    #: blocking both loops forever
     XLOOP_CALL_TIMEOUT = 15.0
 
     def _call_channel(self, chan, fn):
@@ -308,15 +324,29 @@ class ConnectionManager:
                 f"wedged)") from None
 
     def _takeover(self, old_chan) -> Optional[Session]:
-        """The {takeover, begin/end} protocol against the old channel."""
-        sess = old_chan.takeover_begin()
-        old_chan.takeover_end(TAKEOVER_RC)
+        """The {takeover, begin/end} protocol against the old channel —
+        run on the old channel's owning loop when another front-door
+        loop accepted the new connection (bounded: a wedged owner
+        raises ``RuntimeError`` after :data:`XLOOP_CALL_TIMEOUT`)."""
+        def _do():
+            sess = old_chan.takeover_begin()
+            old_chan.takeover_end(TAKEOVER_RC)
+            return sess
+
+        sess = self._call_channel(old_chan, _do)
         if self.broker is not None:
             self.broker.metrics.inc("session.takeovered")
         return sess
 
     def _kick(self, chan, discard: bool) -> None:
-        chan.kick(discard=discard)
+        try:
+            self._call_channel(chan, lambda: chan.kick(discard=discard))
+        except Exception:
+            # a dead or wedged owner loop: the channel is unregistered
+            # below all the same, and shuts down alone if its loop
+            # recovers
+            log.warning("kick of %r failed",
+                        getattr(chan, "client_id", "?"), exc_info=True)
         self.unregister_channel(getattr(chan, "client_id", ""), chan)
 
     def discard_session(self, client_id: str,
@@ -372,9 +402,12 @@ class ConnectionManager:
             return
         if expiry_interval > 0:
             # stay subscribed: deliveries enqueue to the mqueue while
-            # the owner is away (the reference's `disconnected` state)
+            # the owner is away (the reference's `disconnected` state).
+            # The loop stamp clears too: a detached session's mqueue is
+            # fed from the main loop until a reconnect re-stamps it
             session.connected = False
             session.notify = None
+            session.owner_loop = None
             self._detached[client_id] = (
                 session, time.time(), expiry_interval)
             if self.durability is not None:

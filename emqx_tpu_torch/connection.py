@@ -19,7 +19,11 @@ Server-Reference and no will fires. A listener with an
 WebSocket transport (:mod:`emqx_tpu_torch.ws_connection`) and the
 native TLS-PSK one (:mod:`emqx_tpu_torch.psk_tls`) subclass these
 classes through the ``_wrap_out``/``_writev``/``_decode`` and
-``_handshake`` seams. Several front-door loops come with their slice.
+``_handshake`` seams. On a multi-loop node (``Node(loops=n)``, n > 1)
+the listener accepts on the main loop with a bare socket and hands
+each connection round-robin to a loop of the node's
+:class:`~emqx_tpu_torch.loops.LoopGroup`, where the whole connection
+then runs.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
-from typing import Optional
+from typing import List, Optional
 
 from emqx_tpu_torch import faults
 from emqx_tpu_torch.channel import Channel
@@ -227,7 +231,17 @@ class Connection:
         if loop is None:
             self._flush_deliver()  # not running yet (sync callers)
             return
-        loop.call_soon(self._flush_deliver)
+        # the wakeup lands on this connection's own loop, whatever
+        # thread delivers (a peer front-door loop's handoff, the cluster
+        # transport's IO thread)
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            running = None
+        if running is loop:
+            loop.call_soon(self._flush_deliver)
+        else:
+            loop.call_soon_threadsafe(self._flush_deliver)
 
     def _flush_deliver(self) -> None:
         self._flush_scheduled = False
@@ -716,6 +730,14 @@ class Listener:
         self.shutdown_rc: Optional[int] = None
         self.shutdown_ref: Optional[str] = None
         self.shutdown_drain = False
+        # the multi-loop front door (loops.LoopGroup, set by Node.start):
+        # with n > 1 loops, start() takes the dispatcher accept path — a
+        # plain listening socket on the main loop, each accepted socket
+        # handed round-robin to an owning loop
+        self.loop_group = None
+        self._lsock = None
+        self._accept_task: Optional[asyncio.Task] = None
+        self._loop_conns: List[int] = []
 
     async def _handshake(self, reader, writer):
         """Pre-MQTT negotiation; False rejects the socket (the
@@ -784,6 +806,10 @@ class Listener:
                     pass
 
     async def start(self) -> None:
+        lg = self.loop_group
+        if lg is not None and lg.n > 1:
+            await self._start_dispatch(lg)
+            return
         self._server = await asyncio.start_server(
             self._on_client, self.host, self.port,
             ssl=self.ssl_context,
@@ -791,37 +817,162 @@ class Listener:
         self.port = self._server.sockets[0].getsockname()[1]
         log.info("listener %s on %s:%s", self.name, self.host, self.port)
 
+    # -- multi-loop accept dispatch ------------------------------------------
+
+    async def _start_dispatch(self, lg) -> None:
+        """Accept on the main loop with a bare socket (nothing is read
+        before the handoff, so no byte is lost), assign each connection
+        round-robin to a loop, and run it there end to end — handshake
+        (server-side TLS through ``connect_accepted_socket`` too),
+        channel, timers and delivery flushes all on the owning loop.
+        Round-robin keeps the per-loop counts balanced and
+        deterministic."""
+        import socket as _socket
+
+        fam = _socket.AF_INET6 if ":" in self.host else _socket.AF_INET
+        s = _socket.socket(fam, _socket.SOCK_STREAM)
+        s.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)
+        if self.reuse_port:
+            try:
+                s.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEPORT, 1)
+            except (AttributeError, OSError):
+                pass
+        s.bind((self.host, self.port))
+        s.listen(1024)
+        s.setblocking(False)
+        self.port = s.getsockname()[1]
+        self._lsock = s
+        self._loop_conns = [0] * lg.n
+        self._accept_task = asyncio.get_running_loop().create_task(
+            self._accept_loop(lg))
+        log.info("listener %s on %s:%s (%d front-door loops)",
+                 self.name, self.host, self.port, lg.n)
+
+    async def _accept_loop(self, lg) -> None:
+        loop = asyncio.get_running_loop()
+        rr = 0
+        while True:
+            try:
+                sock, _addr = await loop.sock_accept(self._lsock)
+            except asyncio.CancelledError:
+                return
+            except OSError:
+                return  # the listening socket closed (stop())
+            idx = rr % lg.n
+            rr += 1
+            target = lg.loops[idx]
+            if target is loop:
+                _retain_task(loop.create_task(self._serve_sock(sock, idx)))
+            else:
+                try:
+                    target.call_soon_threadsafe(self._spawn_on_loop, sock,
+                                                idx)
+                except RuntimeError:
+                    sock.close()  # the owning loop is gone (shutdown)
+
+    def _spawn_on_loop(self, sock, idx: int) -> None:
+        # runs as a callback ON the owning loop
+        _retain_task(asyncio.get_running_loop().create_task(
+            self._serve_sock(sock, idx)))
+
+    async def _serve_sock(self, sock, idx: int) -> None:
+        """Wrap a dispatched socket in streams on THIS loop and run the
+        shared client path (access rules, PROXY protocol, the WS and
+        TLS handshakes — everything ``_on_client`` does)."""
+        loop = asyncio.get_running_loop()
+        sock.setblocking(False)
+        reader = asyncio.StreamReader(limit=2 ** 16, loop=loop)
+        proto = asyncio.StreamReaderProtocol(reader, loop=loop)
+        try:
+            transport, _ = await loop.connect_accepted_socket(
+                lambda: proto, sock, ssl=self.ssl_context)
+        except Exception:
+            try:
+                sock.close()
+            except OSError:
+                pass
+            return
+        writer = asyncio.StreamWriter(transport, proto, reader, loop)
+        self._loop_conns[idx] += 1  # only this loop touches slot idx
+        try:
+            await self._on_client(reader, writer)
+        finally:
+            self._loop_conns[idx] -= 1
+
+    def loop_connections(self) -> List[int]:
+        """Live connections per front-door loop (dispatcher mode; empty
+        on a single-loop listener)."""
+        return list(self._loop_conns)
+
     async def stop(self) -> None:
+        if self._accept_task is not None:
+            self._accept_task.cancel()
+            try:
+                await self._accept_task
+            except (asyncio.CancelledError, Exception):
+                pass
+            self._accept_task = None
+            if self._lsock is not None:
+                try:
+                    self._lsock.close()
+                except OSError:
+                    pass
+                self._lsock = None
+            self._close_all_conns()
+            # a bounded wait for the per-loop handlers to unwind (their
+            # loops keep running; LoopGroup.stop reaps stragglers)
+            for _ in range(100):
+                if not self._conns and not self._handshaking:
+                    break
+                await asyncio.sleep(0.02)
+            return
         if self._server is not None:
             self._server.close()
             # force-close live connections: wait_closed() (3.12+)
             # blocks until every client handler returns
-            for w in list(self._handshaking):
-                try:
-                    w.close()
-                except Exception:
-                    pass
-            for conn in list(self._conns):
-                try:
-                    if not conn.channel.closed:
-                        if self.shutdown_drain:
-                            # drain hand-off stop: the session's
-                            # custody is moving to the drain target —
-                            # the will must not fire (exactly the cm
-                            # takeover contract)
-                            conn.channel.will = None
-                            conn.channel.disconnect_reason = "drained"
-                        else:
-                            conn.channel.disconnect_reason = \
-                                "server_shutdown"
-                        conn.channel._shutdown(
-                            rc=self.shutdown_rc,
-                            server_ref=self.shutdown_ref)
-                    conn._close_transport()
-                except Exception:
-                    pass
+            self._close_all_conns()
             await self._server.wait_closed()
             self._server = None
+
+    def _close_all_conns(self) -> None:
+        """Shut every live connection down — on ITS loop: transports
+        are not thread-safe, so a multi-loop stop marshals each close
+        to the connection's serving loop."""
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            running = None
+        for w in list(self._handshaking):
+            try:
+                w.close()
+            except Exception:
+                pass
+        for conn in list(self._conns):
+            loop = conn._loop
+            if loop is None or loop is running or not loop.is_running():
+                self._shutdown_conn(conn)
+            else:
+                try:
+                    loop.call_soon_threadsafe(self._shutdown_conn, conn)
+                except RuntimeError:
+                    pass
+
+    def _shutdown_conn(self, conn) -> None:
+        try:
+            if not conn.channel.closed:
+                if self.shutdown_drain:
+                    # drain hand-off stop: the session's custody is
+                    # moving to the drain target — the will must not
+                    # fire (exactly the cm takeover contract)
+                    conn.channel.will = None
+                    conn.channel.disconnect_reason = "drained"
+                else:
+                    conn.channel.disconnect_reason = "server_shutdown"
+                conn.channel._shutdown(rc=self.shutdown_rc,
+                                       server_ref=self.shutdown_ref)
+            conn._close_transport()
+        except Exception:
+            pass
 
     def current_connections(self) -> int:
         return len(self._conns)

@@ -5,7 +5,8 @@ the port of the JAX package's ``ctl.py``.
 Commands operate on a live :class:`~emqx_tpu_torch.node.Node` and read
 the port's own subsystems; the registry is extensible the same way the
 reference's `emqx_ctl:register_command` is. Every built-in of the JAX
-``Ctl`` is here but ``reload``, which comes with the config loader.
+``Ctl`` is here, ``reload`` (the live config reload, ``reload.py``)
+included.
 Where the port runs on other hardware the text says so: ``vm`` lists
 the CUDA cards, and ``cache``'s and ``retained``'s walk variant is
 ``cuda`` (kernel B1) or ``torch`` (its plain twin) where the JAX
@@ -77,6 +78,12 @@ class Ctl:
                               "list | add <kind> <value> [secs] | del <kind> <value>")
         self.register_command("checkpoint", self._checkpoint,
                               "save|load <path>")
+        self.register_command(
+            "reload", self._reload,
+            "<config.toml> — diff the running config and apply "
+            "reloadable knobs + zones atomically; boot-only edits "
+            "are rejected with a per-knob report "
+            "(docs/OPERATIONS.md)")
         self.register_command(
             "drain", self._drain,
             "start [--target <peer>] [--ref <host:port>] | status | "
@@ -446,6 +453,34 @@ class Ctl:
             b.delete(args[1], args[2])
             return "ok"
         return "usage: banned list | add <kind> <value> [secs] | del <kind> <value>"
+
+    def _reload(self, args) -> str:
+        """The diff-based live reload (``reload.py``): re-parse and
+        validate the file in full, then all-or-nothing — a boot-only
+        edit rejects the whole reload with a per-knob report; otherwise
+        the zones re-publish and every changed reloadable knob applies."""
+        from emqx_tpu_torch.config import load_config
+        from emqx_tpu_torch.reload import apply_reload
+
+        if len(args) != 1:
+            return "usage: reload <config.toml>"
+        info = apply_reload(self.node, load_config(args[0]))
+        if info["rejected"]:
+            lines = ["reload rejected (boot-only changes; nothing "
+                     "applied):"]
+            for r in info["rejected"]:
+                lines.append(f"  {r['knob']}: {r['old']!r} -> "
+                             f"{r['new']!r} ({r['reason']})")
+            return "\n".join(lines)
+        out = f"zones reloaded: {', '.join(info['zones']) or '(none)'}"
+        if info["listeners"]:
+            out += f"; listeners rebound: {', '.join(info['listeners'])}"
+        if info["stale"]:
+            out += (f"; stale (no longer in config, kept): "
+                    f"{', '.join(info['stale'])}")
+        for a in info["applied"]:
+            out += f"\napplied: {a['knob']} {a['old']!r} -> {a['new']!r}"
+        return out
 
     def _drain(self, args) -> str:
         """Graceful drain control (drain.py, docs/OPERATIONS.md)."""

@@ -88,7 +88,7 @@ class DrainConfig:
     #: SIGTERM starts a drain (bounded by ``sigterm_grace_s``) before
     #: the normal graceful stop, instead of stopping immediately; a
     #: second SIGTERM skips straight to the stop (read by the
-    #: command-line entry point, which the port does not have yet)
+    #: command-line entry point, ``python -m emqx_tpu_torch``)
     on_sigterm: bool = False
     sigterm_grace_s: float = 30.0
 

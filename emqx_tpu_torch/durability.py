@@ -247,9 +247,9 @@ class DurabilityManager:
         self.cfg = cfg
         os.makedirs(cfg.dir, exist_ok=True)
         self.wal: Optional[WalGroup] = None
-        #: resolved shard count: 0 = auto, one per front-door loop —
-        #: the port's node runs one loop, so the single journal
-        self.shards = cfg.wal_shards or 1
+        #: resolved shard count: 0 = auto (one per front-door loop)
+        lg = getattr(node, "loop_group", None)
+        self.shards = cfg.wal_shards or (lg.n if lg is not None else 1)
         #: committed checkpoint generation (0 = none yet)
         self.gen = 0
         #: journal sequence the CURRENT segment writes under

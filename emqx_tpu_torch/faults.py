@@ -31,9 +31,8 @@ Actions:
     effect (report a saturated queue, reset a socket), for points
     whose failure is not an exception.
 
-The catalog is the JAX package's, whole. The ``xloop.*`` sites come
-with the multi-loop front door; arming one of them here fires nowhere
-yet.
+The catalog is the JAX package's, whole; ``xloop.handoff`` fires in
+the multi-loop node's delivery ring.
 """
 
 from __future__ import annotations

@@ -13,48 +13,60 @@ Pipelining: ``publish_begin`` runs on the event loop and enqueues the
 device work; ``publish_fetch`` (the one device→host copy and the
 dispatch plan) runs on an executor thread while the loop keeps parsing
 sockets. Both sides enqueue on the device's default stream, so the
-copy follows the kernels the begin enqueued. Up to ``MAX_INFLIGHT``
+copy follows the kernels the begin enqueued. Up to ``max_inflight``
 batches overlap; delivery stays ordered: batch N+1's delivery tail
 awaits batch N's.
 
 Flush policy: a batch flushes when it reaches ``batch_size``, else on
-the next event-loop iteration (``call_soon``). When all
-``MAX_INFLIGHT`` slots are busy, arrivals keep accumulating and flush
-as a bigger batch, of at most ``batch_cap`` (``CAP_BATCHES`` ×
-``batch_size``) messages, when a slot frees.
+the next event-loop iteration (``call_soon``), or after ``linger_ms``
+when set (bigger device batches under light load, for latency). When
+all ``max_inflight`` slots are busy, arrivals keep accumulating and
+flush as a bigger batch, of at most ``batch_cap`` messages, when a
+slot frees. The constructor's defaults are the JAX package's:
+``max_inflight`` :data:`MAX_INFLIGHT`, ``batch_cap`` :data:`CAP_BATCHES`
+× ``batch_size``, ``queue_hiwater`` one batch, ``finish_chunk``
+:data:`FINISH_CHUNK`.
 
 Callers without a running event loop (sync callers, sans-IO tests)
-get ``None`` from :meth:`submit` and publish inline. Several front-door
-loops feeding one batcher come with the multi-loop front door.
+get ``None`` from :meth:`submit` and publish inline. On a multi-loop
+node (:meth:`bind_multiloop`) several front-door loops feed the one
+accumulator: appends take a lock, flushes run on the home loop (the
+node's main loop, where every kernel of a publish batch is launched),
+and each ack future resolves on its own loop.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from emqx_tpu_torch import faults
-from emqx_tpu_torch.concurrency import owner_loop
+from emqx_tpu_torch.concurrency import any_thread, owner_loop, shared_state
 from emqx_tpu_torch.device import resolve
 from emqx_tpu_torch.types import Message
 
 log = logging.getLogger("emqx_tpu_torch.ingress")
 
 
-#: batches in flight at once (begun, not yet delivered)
+#: default batches in flight at once (begun, not yet delivered)
 MAX_INFLIGHT = 4
-#: the largest batch one flush takes, in batch sizes
+#: default largest batch one flush takes, in batch sizes
 CAP_BATCHES = 4
-#: the delivery tail yields to the event loop every this many finished
-#: rows (or subscriber groups)
+#: default finished rows (or subscriber groups) between the delivery
+#: tail's yields to the event loop
 FINISH_CHUNK = 64
 
 
+@shared_state(lock="_plock", attrs=("_pending",))
 class IngressBatcher:
-    def __init__(self, broker, batch_size: int = 256, device=None) -> None:
+    def __init__(self, broker, batch_size: int = 256,
+                 linger_ms: float = 0.0, max_inflight: int = MAX_INFLIGHT,
+                 batch_cap: int = 0, queue_hiwater: int = 0,
+                 finish_chunk: int = FINISH_CHUNK, device=None) -> None:
         # the batcher feeds the broker's device path: like every entry
         # point it runs on CUDA unless the caller asks for the CPU,
         # and on the broker's device
@@ -64,19 +76,32 @@ class IngressBatcher:
                              f"{broker.device}")
         self.broker = broker
         self.batch_size = batch_size
-        self.batch_cap = batch_size * CAP_BATCHES
-        # accumulator high-water mark (one batch): past it, connections
-        # pause their read loops (wait_ready) until a flush drains the
-        # backlog — the reference bounds per-connection ingest with
-        # active_n (src/emqx_connection.erl:99); the standing queue
-        # then lives in the publishers' TCP buffers
-        self.queue_hiwater = batch_size
+        self.linger_ms = linger_ms
+        self.max_inflight = max(1, max_inflight)
+        # the largest batch one flush takes (0 = CAP_BATCHES batches)
+        self.batch_cap = batch_cap or batch_size * CAP_BATCHES
+        # accumulator high-water mark (0 = one batch): past it,
+        # connections pause their read loops (wait_ready) until a flush
+        # drains the backlog — the reference bounds per-connection
+        # ingest with active_n (src/emqx_connection.erl:99); the
+        # standing queue then lives in the publishers' TCP buffers
+        self.queue_hiwater = queue_hiwater or batch_size
+        # the delivery tail yields to the loop every this many units
+        self.finish_chunk = max(1, finish_chunk)
         self._pending: List[Tuple[Message, Optional[asyncio.Future]]] = []
         self._handle = None
         self._inflight = 0
         self._chain: Optional[asyncio.Task] = None  # ordered delivery
         self._pool: Optional[ThreadPoolExecutor] = None
         self._ready: Optional[asyncio.Event] = None
+        # multi-loop front door (Node.start → bind_multiloop): the
+        # accumulator is then fed from several loop threads — appends
+        # and takes go under _plock, flushes run on the home loop,
+        # futures resolve on their own loops, and the backpressure
+        # event is per loop. None/empty on a single-loop node
+        self._plock: Optional[threading.Lock] = None
+        self._home: Optional[asyncio.AbstractEventLoop] = None
+        self._ready_multi: Dict[int, tuple] = {}
         # set_pressure's divisor of the high-water mark: the overload
         # monitor divides it at critical, so publisher read-pauses
         # engage earlier
@@ -95,28 +120,47 @@ class IngressBatcher:
 
     _DONE = object()  # sentinel: fire-and-forget submission accepted
 
+    def bind_multiloop(self, loop_group) -> None:
+        """Arm the thread-safe submission mode (the multi-loop front
+        door): the accumulator's home is the loop group's main loop;
+        peer-loop submits append under a lock and kick a flush over
+        ``call_soon_threadsafe``."""
+        self._home = loop_group.home
+        if self._plock is None:
+            self._plock = threading.Lock()
+
+    def accepts_threadsafe(self) -> bool:
+        return self._plock is not None
+
     def _executor(self) -> ThreadPoolExecutor:
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
-                max_workers=MAX_INFLIGHT,
+                max_workers=self.max_inflight,
                 thread_name_prefix="ingress-fetch")
         return self._pool
 
-    @owner_loop
+    @any_thread
     def submit(self, msg: Message, want_result: bool = True):
         """Queue one message. With ``want_result`` the returned future
         resolves to the delivery count at flush; without (QoS0, wills)
         no future is created. ``None`` = no running loop, the caller
-        must publish synchronously."""
+        must publish synchronously. On a multi-loop node the future
+        belongs to the CALLER's loop (its ack flushes from there) while
+        the batch always flushes on the home loop."""
         trc = self.broker.tracing
         if trc is not None and trc.active:
             # trace-context stamp at INGRESS: the context's t0 anchors
             # the ingress-wait span (submit → batch pickup); the
-            # broker's stamp keeps it (idempotent)
+            # broker's stamp keeps it (idempotent; it mutates only the
+            # message's own headers, so any loop may stamp)
             trc.stamp(msg)
         try:
             loop = asyncio.get_running_loop()
         except RuntimeError:
+            loop = None
+        if self._plock is not None:
+            return self._submit_threadsafe(msg, want_result, loop)
+        if loop is None:
             return None
         fut = loop.create_future() if want_result else None
         self._pending.append((msg, fut))
@@ -125,8 +169,63 @@ class IngressBatcher:
         if len(self._pending) >= self.batch_size:
             self._flush()
         elif len(self._pending) == 1:
-            self._handle = loop.call_soon(self._flush)
+            if self.linger_ms > 0:
+                self._handle = loop.call_later(self.linger_ms / 1000.0,
+                                               self._flush)
+            else:
+                self._handle = loop.call_soon(self._flush)
         return fut if fut is not None else self._DONE
+
+    @any_thread
+    def _submit_threadsafe(self, msg: Message, want_result: bool, loop):
+        """Multi-loop submit: append under the lock; flush decisions run
+        on the home loop (kicked over ``call_soon_threadsafe`` from
+        peer loops — at most one kick a tick, the coalescing the
+        single-loop path gets from ``_handle``)."""
+        if want_result and loop is None:
+            return None  # a sync caller publishes inline, as before
+        fut = loop.create_future() if want_result else None
+        with self._plock:
+            self._pending.append((msg, fut))
+            self.submitted += 1
+            n = len(self._pending)
+            if n > self.max_queue:
+                self.max_queue = n
+        home = self._home or loop
+        if loop is home:
+            if n >= self.batch_size:
+                self._flush()
+            elif n == 1:
+                if self.linger_ms > 0:
+                    self._handle = home.call_later(
+                        self.linger_ms / 1000.0, self._flush)
+                else:
+                    self._handle = home.call_soon(self._flush)
+        elif n == 1 or n >= self.batch_size:
+            try:
+                home.call_soon_threadsafe(self._remote_kick)
+            except RuntimeError:
+                pass  # the home loop is gone (shutdown race)
+        return fut if fut is not None else self._DONE
+
+    @owner_loop
+    def _remote_kick(self) -> None:
+        """A peer-loop submit's flush request, now ON the home loop: the
+        kick itself is the next-tick callback, so an un-lingered
+        accumulator flushes at once, and a lingering one arms its timer
+        once."""
+        if not self._pending:
+            return
+        if len(self._pending) >= self.batch_size:
+            self._flush()
+            return
+        if self._handle is not None:
+            return  # a flush is already scheduled
+        if self.linger_ms > 0:
+            self._handle = self._home.call_later(self.linger_ms / 1000.0,
+                                                 self._flush)
+        else:
+            self._flush()
 
     @owner_loop
     def _take_pending(self, cap: int = 0):
@@ -136,7 +235,17 @@ class IngressBatcher:
         if self._handle is not None:
             self._handle.cancel()
             self._handle = None
-        if cap and len(self._pending) > cap:
+        lock = self._plock
+        if lock is not None:
+            # multi-loop: peer loops append concurrently — the take
+            # must be atomic with their appends
+            with lock:
+                if cap and len(self._pending) > cap:
+                    pending = self._pending[:cap]
+                    del self._pending[:cap]
+                else:
+                    pending, self._pending = self._pending, []
+        elif cap and len(self._pending) > cap:
             pending = self._pending[:cap]
             del self._pending[:cap]
         else:
@@ -166,23 +275,42 @@ class IngressBatcher:
         self._pressure_div = max(1, int(div))
 
     async def wait_ready(self, timeout: float = 0.0) -> bool:
-        """Park until a flush takes the backlog below the mark.
+        """Park until a flush takes the backlog below the mark. On a
+        multi-loop node each loop parks on its OWN event (an asyncio
+        event belongs to one loop; waking them crosses threads).
         ``timeout`` bounds the park (0 = wait forever): returns False
         if the backlog still stands when it expires — the caller sheds
         the publisher instead of letting it wedge its read loop."""
         deadline = (time.monotonic() + timeout) if timeout > 0 else None
-        while self.backlogged():
-            if self._ready is None or self._ready.is_set():
-                self._ready = asyncio.Event()
+
+        async def _wait(ev) -> bool:
             if deadline is None:
-                await self._ready.wait()
-                continue
+                await ev.wait()
+                return True
             remain = deadline - time.monotonic()
             if remain <= 0:
                 return False
             try:
-                await asyncio.wait_for(self._ready.wait(), remain)
+                await asyncio.wait_for(ev.wait(), remain)
+                return True
             except asyncio.TimeoutError:
+                return False
+
+        if self._plock is None:
+            while self.backlogged():
+                if self._ready is None or self._ready.is_set():
+                    self._ready = asyncio.Event()
+                if not await _wait(self._ready):
+                    return False
+            return True
+        loop = asyncio.get_running_loop()
+        key = id(loop)
+        while self.backlogged():
+            ent = self._ready_multi.get(key)
+            if ent is None or ent[1].is_set():
+                ent = (loop, asyncio.Event())
+                self._ready_multi[key] = ent
+            if not await _wait(ent[1]):
                 return False
         return True
 
@@ -191,12 +319,30 @@ class IngressBatcher:
             return
         if self._ready is not None and not self._ready.is_set():
             self._ready.set()
+        if self._ready_multi:
+            # wake every parked loop on its own thread; a loop adding a
+            # fresh event after this snapshot parks until the next
+            # flush signals again
+            waiters = list(self._ready_multi.values())
+            self._ready_multi.clear()
+            try:
+                running = asyncio.get_running_loop()
+            except RuntimeError:
+                running = None
+            for lp, ev in waiters:
+                if lp is running:
+                    ev.set()
+                else:
+                    try:
+                        lp.call_soon_threadsafe(ev.set)
+                    except RuntimeError:
+                        pass
 
     @owner_loop
     def _flush(self) -> None:
         # a capped take can leave a backlog: keep flushing chunks
         # while pipeline slots are free
-        while self._pending and self._inflight < MAX_INFLIGHT:
+        while self._pending and self._inflight < self.max_inflight:
             pending = self._take_pending(cap=self.batch_cap)
             # while earlier batches are in flight, a host-regime batch
             # must not route (and no batch may resolve) ahead of them:
@@ -273,10 +419,29 @@ class IngressBatcher:
                 else:
                     chunk_fn = self.broker.publish_finish_chunk
                     n_units = len(pb.live)
-                for s in range(0, max(1, n_units), FINISH_CHUNK):
-                    chunk_fn(pb, s, min(s + FINISH_CHUNK, n_units))
-                    if s + FINISH_CHUNK < n_units:
+                fc = self.finish_chunk
+                for s in range(0, max(1, n_units), fc):
+                    chunk_fn(pb, s, min(s + fc, n_units))
+                    if s + fc < n_units:
                         await asyncio.sleep(0)
+                if pb.plan is not None:
+                    # multi-loop: the batch's fold — and so the ack
+                    # futures below — waits for the cross-loop handoffs
+                    # to report back, bounded like the sync join (a
+                    # wedged or dead owning loop folds partial counts,
+                    # the loss counted in delivery.xloop.orphaned).
+                    # None on a single-loop node
+                    ev = self.broker.xloop_event(pb)
+                    if ev is not None:
+                        try:
+                            await asyncio.wait_for(
+                                ev.wait(), self.broker.XLOOP_JOIN_TIMEOUT)
+                        except asyncio.TimeoutError:
+                            log.error(
+                                "cross-loop delivery handoff incomplete "
+                                "after %.0fs — folding partial counts",
+                                self.broker.XLOOP_JOIN_TIMEOUT)
+                        self.broker.xloop_fold(pb)
                 pb.done = True
                 results = pb.results
         except Exception as e:
@@ -292,17 +457,53 @@ class IngressBatcher:
                 loop.call_soon(self._flush)
         self._resolve(pending, results)
 
-    @staticmethod
-    def _resolve(pending, results) -> None:
+    def _resolve(self, pending, results) -> None:
+        xloop = self._plock is not None
         for (_, fut), n in zip(pending, results):
-            if fut is not None and not fut.done():
+            if fut is None or fut.done():
+                continue
+            if xloop:
+                self._set_future(fut, n, None)
+            else:
                 fut.set_result(n)
 
-    @staticmethod
-    def _resolve_exc(pending, e) -> None:
+    def _resolve_exc(self, pending, e) -> None:
+        xloop = self._plock is not None
         for _, fut in pending:
-            if fut is not None and not fut.done():
+            if fut is None or fut.done():
+                continue
+            if xloop:
+                self._set_future(fut, None, e)
+            else:
                 fut.set_exception(e)
+
+    @staticmethod
+    @any_thread
+    def _set_future(fut, value, exc) -> None:
+        """Resolve a submit future on ITS loop: a peer loop's future is
+        never completed from the home thread (the ack callbacks hanging
+        off it touch that loop's channel)."""
+        floop = fut.get_loop()
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            running = None
+
+        def _do(f=fut, v=value, e=exc):
+            if f.done():
+                return
+            if e is not None:
+                f.set_exception(e)
+            else:
+                f.set_result(v)
+
+        if floop is running:
+            _do()
+        else:
+            try:
+                floop.call_soon_threadsafe(_do)
+            except RuntimeError:
+                pass  # the owner loop is gone; QoS > 0 clients re-send
 
     def flush_now(self) -> None:
         """Drain whatever is pending synchronously (shutdown path and

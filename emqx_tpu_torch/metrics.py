@@ -9,7 +9,10 @@ the retainer does for ``retained.*`` and ``monitors.SysMon`` for
 
 from __future__ import annotations
 
-from typing import Dict, List
+import threading
+from typing import Dict, List, Optional
+
+from emqx_tpu_torch.concurrency import any_thread, shared_state
 
 #: the mesh publish step's device accumulators, summed over the mesh
 #: and folded into the host counters by Metrics.fold_device_stats — the
@@ -46,7 +49,8 @@ OVERLOAD_METRICS = (
     "overload.shed.qos0", "overload.shed.connect",
     "overload.shed.ingress_timeout", "overload.force_shutdown",
     "overload.transitions", "overload.heal.executor",
-    "overload.heal.flatten",
+    "overload.heal.flatten", "overload.heal.loop",
+    "overload.takeover.timeout",
 )
 BREAKER_METRICS = (
     "breaker.failures", "breaker.trips", "breaker.probes",
@@ -91,13 +95,15 @@ NAMES = (
     "wills.batched", "wills.direct",
     # deliveries dropped; connection flush wakeups after coalescing (≤ 1 per
     # connection per batch with the dispatch planner); PUBLISHes that paid
-    # a full serialize on the event loop; cross-loop deliveries lost to a
-    # gone or wedged front-door loop (0 on the port's one loop, read by
-    # ``ctl overload``)
+    # a full serialize on the event loop; the cross-loop delivery ring's
+    # handoffs (at most one a peer loop a batch) and the deliveries they
+    # carried, and deliveries lost to a gone or wedged front-door loop
+    # (all 0 on a single-loop node; ``ctl overload`` reads the last)
     "delivery.dropped", "delivery.dropped.no_local",
     "delivery.dropped.too_large", "delivery.dropped.qos0_msg",
     "delivery.dropped.queue_full", "delivery.dropped.expired",
     "delivery.wakeups", "delivery.serialize.onloop",
+    "delivery.xloop.handoffs", "delivery.xloop.deliveries",
     "delivery.xloop.orphaned",
     # client and session lifecycle, auth and ACL
     "client.connect", "client.connack", "client.connected",
@@ -133,6 +139,9 @@ NAMES = (
     "drain.rejected.connects", "drain.redirects", "drain.waves",
     "drain.waves.deferred", "drain.handoff.sessions",
     "drain.handoff.errors",
+    # `ctl reload` (reload.py): knobs applied, boot-only knobs that
+    # rejected a reload
+    "config.reload.applied", "config.reload.rejected",
     # the durability layer (wal.py, durability.py) and replicated
     # durability (replication.py), folded by Node.tick: `wal.*` = journal
     # appends, batched fsyncs, failed flushes, shed records and group
@@ -177,19 +186,43 @@ _QOS_SENT = ("messages.qos0.sent", "messages.qos1.sent",
              "messages.qos2.sent")
 
 
+@shared_state(lock="_lock", attrs=("_counters",))
 class Metrics:
     def __init__(self) -> None:
         self._counters: Dict[str, int] = dict.fromkeys(NAMES, 0)
+        # a multi-loop node increments from several loop threads, and
+        # the bare read-modify-write would lose updates: Node.start()
+        # arms the lock there; a single-loop node keeps the lock-free
+        # single-writer path
+        self._lock: Optional[threading.Lock] = None
+
+    def enable_threadsafe(self) -> None:
+        """Arm the increment lock (multi-loop nodes). One-way: a started
+        multi-loop node never goes back to a single writer."""
+        if self._lock is None:
+            self._lock = threading.Lock()
 
     def new(self, name: str) -> None:
         """Register ``name`` at 0; a registered name keeps its value."""
         self._counters.setdefault(name, 0)
 
+    @any_thread
     def inc(self, name: str, n: int = 1) -> None:
-        self._counters[name] += n
+        lock = self._lock
+        if lock is None:
+            self._counters[name] += n
+        else:
+            with lock:
+                self._counters[name] += n
 
+    @any_thread
     def dec(self, name: str, n: int = 1) -> None:
-        self._counters[name] -= n
+        lock = self._lock
+        if lock is None:
+            self._counters[name] -= n
+        else:
+            with lock:
+                self._counters[name] -= n
 
     def inc_msg(self, msg) -> None:
         """Count an inbound message by QoS."""

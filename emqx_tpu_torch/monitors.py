@@ -175,10 +175,29 @@ class SysMon:
         self.long_gc_count = 0
         self._gc_t0: Optional[float] = None
         self._gc_installed = False
-        # scheduling lag (ms) of the node's loop, index 0 (the JAX
-        # package's peer-loop probes come with several front-door
-        # loops)
+        # per-loop scheduling lag (ms), index 0 = the main loop. Peer
+        # entries are written by their own loop's probe callback and
+        # read by the main loop's tick and the stats flush — float
+        # stores are atomic under the GIL, no lock needed
+        self.loop_group = None
         self.loop_lags: List[float] = [0.0]
+        self._probe_seq: List[int] = [0]
+        self._seen_seq: List[int] = [0]
+
+    def bind_loops(self, loop_group) -> None:
+        """Extend lag monitoring over every loop of a LoopGroup: each
+        tick posts a timestamped probe to every live peer loop; the
+        probe (running ON that loop) records its scheduling delay."""
+        self.loop_group = loop_group
+        n = loop_group.n
+        self.loop_lags = [0.0] * n
+        self._probe_seq = [0] * n
+        self._seen_seq = [0] * n
+
+    def _probe_loop(self, idx: int, t_post: float) -> None:
+        # runs on peer loop `idx`: the post → run delay IS its lag
+        self.loop_lags[idx] = (time.perf_counter() - t_post) * 1000.0
+        self._probe_seq[idx] += 1
 
     # -- GC pause tracking (gc.callbacks) ------------------------------
 
@@ -237,5 +256,22 @@ class SysMon:
                 self.check_lag(self.tick, elapsed)
                 self.loop_lags[0] = max(
                     0.0, (elapsed - self.tick) * 1000.0)
+                lg = self.loop_group
+                if lg is not None:
+                    # fold the last tick's peer probes (events fire on
+                    # the main loop: hooks and metrics are not posted
+                    # from peer threads), then post the next round
+                    for i in range(1, lg.n):
+                        if self._probe_seq[i] != self._seen_seq[i]:
+                            self._seen_seq[i] = self._probe_seq[i]
+                            lag = self.loop_lags[i]
+                            if lag > self.long_schedule_ms:
+                                self.on_long_schedule(lag)
+                        if lg.alive(i):
+                            try:
+                                lg.post(i, self._probe_loop, i,
+                                        time.perf_counter())
+                            except RuntimeError:
+                                pass  # the loop died since alive()
         finally:
             self.remove_gc_hook()

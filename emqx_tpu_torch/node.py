@@ -20,7 +20,18 @@ with replicated durability (journal shipping to warm standbys,
 promotion, failback), the drain (:attr:`Node.drain`, passive until
 started), the plugins (:attr:`Node.plugins`) and the operations
 command registry (:attr:`Node.ctl`: ``node.ctl.run(["status"])``).
-Several front-door loops come with their slice.
+
+``Node(loops=n)`` with n > 1 shards the front door over n event loops
+(:class:`~emqx_tpu_torch.loops.LoopGroup`: the running loop plus n - 1
+peer loop threads, started before the listeners): each listener hands
+accepted connections round-robin to a loop, a session belongs to its
+connection's loop, and the cross-loop delivery ring hands each planned
+subscriber group to its owning loop. The device plane stays on the main
+loop: every publish batch's kernels are launched there (a retained
+replay runs on the subscribing connection's loop). ``loops=1`` (the
+default) builds no LoopGroup. ``batch_ingress=False`` builds no ingress
+batcher (every PUBLISH is published inline); ``batch_linger_ms`` holds
+a flush that long for a bigger batch.
 
 Listeners: :meth:`Node.add_listener` (plain TCP),
 :meth:`Node.add_tls_listener` (TLS with a server certificate, or
@@ -98,7 +109,10 @@ class Node:
                  zone: Optional[Zone] = None,
                  matcher: Optional[MatcherConfig] = None,
                  dispatch_config: Optional[DispatchConfig] = None,
+                 batch_ingress: bool = True,
                  batch_size: int = 256,
+                 batch_linger_ms: float = 0.0,
+                 loops: int = 1,
                  device=None, frame: str = "py",
                  overload: Optional[OverloadConfig] = None,
                  faults_config: Optional[_faults.FaultsConfig] = None,
@@ -112,6 +126,20 @@ class Node:
                  plugin_config_dir: Optional[str] = None) -> None:
         self.name = name
         self.zone = zone or get_zone()
+        # [node] loops: shard accepted connections over that many event
+        # loops with loop-affine sessions and a cross-loop delivery
+        # ring; 1 builds NO LoopGroup, and every path is the
+        # single-loop node's
+        if not isinstance(loops, int) or isinstance(loops, bool) \
+                or loops < 1:
+            raise ValueError(f"loops must be an integer >= 1, "
+                             f"got {loops!r}")
+        if loops > 1:
+            from emqx_tpu_torch.loops import LoopGroup
+
+            self.loop_group: Optional[LoopGroup] = LoopGroup(loops)
+        else:
+            self.loop_group = None
         # [node] frame: the wire-framing parser of every connection,
         # "py" (the default, as in the JAX package) or "native". The
         # native one is built here, so a failed build raises at boot
@@ -146,8 +174,10 @@ class Node:
         self.broker.tracer = self.tracer
         # ingress batcher: PUBLISHes from all connections aggregate
         # into one device publish batch per tick (ingress.py)
-        self.ingress = IngressBatcher(self.broker, batch_size=batch_size,
-                                      device=self.device)
+        self.ingress = (IngressBatcher(self.broker, batch_size=batch_size,
+                                       linger_ms=batch_linger_ms,
+                                       device=self.device)
+                        if batch_ingress else None)
         self.broker.ingress = self.ingress
         # connection/session management (emqx_cm_sup)
         self.cm = ConnectionManager(broker=self.broker)
@@ -185,7 +215,9 @@ class Node:
                         self.broker, self.metrics, self.alarms,
                         backoff_s=ocfg.rebuild_backoff_s,
                         sentinel_timeout_s=ocfg.sentinel_timeout_s)
-            self.ingress.submit_wait_timeout = ocfg.ingress_wait_timeout_s
+            if self.ingress is not None:
+                self.ingress.submit_wait_timeout = \
+                    ocfg.ingress_wait_timeout_s
         # fault injection ([faults], faults.py): arm specs applied at
         # build; no section leaves the process registry untouched
         self.faults_config = faults_config
@@ -253,6 +285,10 @@ class Node:
         self.plugins = Plugins(self, config_dir=plugin_config_dir)
         self.ctl = Ctl(self)
         self._load_default_modules = load_default_modules
+        # the parsed config a node booted from a file carries
+        # (config.build_node): the live reload's baseline for the
+        # listener topology (reload.py)
+        self.boot_config = None
         self.listeners: List[Listener] = []
         self.boot_listeners = boot_listeners
         self._started = False
@@ -402,7 +438,19 @@ class Node:
         self.node_state = NODE_RUNNING
         if self.boot_listeners and not self.listeners:
             self.add_listener()
+        if self.loop_group is not None:
+            # the peer loops come up BEFORE the listeners (a dispatched
+            # socket needs a running owner), and the shared-state paths
+            # arm their cross-thread modes
+            self.loop_group.start(asyncio.get_running_loop())
+            self.broker.loop_group = self.loop_group
+            self.metrics.enable_threadsafe()
+            if self.ingress is not None:
+                self.ingress.bind_multiloop(self.loop_group)
+            # per-loop lag probes: every peer loop gets a lag gauge
+            self.sys_mon.bind_loops(self.loop_group)
         for lst in self.listeners:
+            lst.loop_group = self.loop_group
             await lst.start()
         if self._cluster_cfg is not None and self.cluster is None:
             from emqx_tpu_torch.cluster import Cluster
@@ -507,7 +555,8 @@ class Node:
         # comes while live connections keep submitting publishes
         for lst in self.listeners:
             await lst.stop()
-        await self.ingress.drain()
+        if self.ingress is not None:
+            await self.ingress.drain()
         if self.durability is not None:
             # after the listeners closed (sessions detached, final
             # state records written) and the ingress drained: flush
@@ -523,6 +572,11 @@ class Node:
                 close = getattr(self.cluster.transport, "close", None)
                 if close is not None:
                     close()
+        if self.loop_group is not None:
+            # after the listeners and the ingress drain: in-flight
+            # cross-loop handoffs have reported back, the peer loops
+            # are idle
+            self.loop_group.stop()
 
     async def _housekeeping(self) -> None:
         while True:
@@ -557,7 +611,8 @@ class Node:
         and gauges; the robustness alarms; the span counts; the trace
         drain; the loop lag; the mesh's device counters; the cluster's
         counters, alarm and gauges; the replication counters, lag
-        gauges and alarms. The per-loop rows come with their slice."""
+        gauges and alarms; on a multi-loop node the per-loop connection
+        gauges."""
         # the node lifecycle gauge: 0 running / 1 draining (drain.py)
         # / 2 stopping
         stats.setstat("node.state", self.node_state)
@@ -592,6 +647,17 @@ class Node:
                       "match.cache.entries.max")
         stats.setstat("match.cache.partition.live",
                       self.router.cache_partitions_live())
+        if self.loop_group is not None:
+            # per-loop connection gauges: the dispatcher's round-robin
+            # keeps them balanced — a skewed row means a loop is wedged
+            # or leaking handlers
+            per = [0] * self.loop_group.n
+            for lst in self.listeners:
+                for i, c in enumerate(lst._loop_conns):
+                    per[i] += c
+            for i, c in enumerate(per):
+                stats.setstat(f"loop.{i}.connections", c,
+                              f"loop.{i}.connections.max")
         self._watch_quarantine(stats)
         if self.overload is not None:
             stats.setstat("overload.level", self.overload.level)

@@ -17,7 +17,9 @@ directory, so a CPU-only run needs ``g++`` and nothing else. The CUDA
 build lists its sources by name and never picks up the ``.cpp``.
 
 ``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one
-where it launches its kernel, and nowhere else. ``or_bitmaps`` counts
+(:func:`count_launch`, under a lock: a multi-loop node launches B3
+from its peer loops' threads) where it launches its kernel, and
+nowhere else. ``or_bitmaps`` counts
 the launches of the bitmap-OR kernel made through B4's entry point
 (:func:`emqx_tpu_torch.ops.bitmap.or_bitmaps`), which ``bitmap_or``
 counts too.
@@ -49,12 +51,22 @@ HOST_CXX = ["g++", "-O2", "-fPIC", "-std=c++17", "-shared"]
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS + ("or_bitmaps",), 0)
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name``: a read-modify-write of the
+    module's current ``LAUNCHES`` under a lock, exact whatever thread
+    launches."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def build(verbose: bool = False) -> float:

@@ -158,7 +158,7 @@ def _launch(bitmaps: torch.Tensor, rows: torch.Tensor,
         ctypes.c_void_p(out.data_ptr()), P, B, mb, W, R,
         ctypes.c_void_p(stream))
     _build.check(lib, rc, "bitmap_or")
-    _build.LAUNCHES["bitmap_or"] += 1
+    _build.count_launch("bitmap_or")
     return out
 
 
@@ -210,5 +210,5 @@ def or_bitmaps(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     if not bitmaps.is_cuda:
         return or_bitmaps_ref(bitmaps, rows)
     out = or_bitmaps_cuda(bitmaps, rows)
-    _build.LAUNCHES["or_bitmaps"] += 1
+    _build.count_launch("or_bitmaps")
     return out

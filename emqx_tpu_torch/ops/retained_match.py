@@ -102,7 +102,7 @@ def match_names_cuda(fw: torch.Tensor, fn: torch.Tensor,
             *(ctypes.c_void_p(t.data_ptr()) for t in tensors + [out]),
             F, cap, L, ctypes.c_void_p(stream))
         _build.check(lib, rc, "retained_match")
-        _build.LAUNCHES["retained_match"] += 1
+        _build.count_launch("retained_match")
     return out
 
 

@@ -116,7 +116,7 @@ def match_batch_cuda(
                             else scratch.data_ptr()),
             B, L, k, steps, slots, take, nb, ctypes.c_void_p(stream))
         _build.check(lib, rc, "walk")
-        _build.LAUNCHES["walk"] += 1
+        _build.count_launch("walk")
     return finish(emits, ovf > 0, n, m, pack_ids)
 
 

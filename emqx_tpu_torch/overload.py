@@ -26,8 +26,11 @@ built, before any breaker exists, so a build failure is never served
 from the host.
 
 ``OverloadConfig(enabled=False)`` builds none of this: every hot-path
-guard reads a ``None`` attribute. The JAX monitor's peer-loop probes
-and its dead-loop heal come with the multi-loop front door.
+guard reads a ``None`` attribute. On a multi-loop node the monitor
+also probes every peer loop each tick (a probe not run by the next tick
+reads as critical lag) and heals a loop whose thread died: it routes
+around it and closes its connections from the main loop, so their
+wills fire.
 """
 
 from __future__ import annotations
@@ -351,6 +354,11 @@ class OverloadMonitor:
         self._clean = 0
         #: the last sample set
         self.samples: Dict[str, object] = {}
+        # peer-loop probe bookkeeping: loop index -> the last posted
+        # and the last seen probe sequence
+        self._probe_sent: Dict[int, int] = {}
+        self._probe_seen: Dict[int, int] = {}
+        self._seq = 0
 
     # -- shedding predicates (consulted on hot paths) ---------------------
 
@@ -413,18 +421,42 @@ class OverloadMonitor:
         return self.level
 
     def _sample(self, home_lag_ms: float) -> Dict[str, object]:
-        from emqx_tpu_torch.ingress import MAX_INFLIGHT
-
+        node = self.node
         s: Dict[str, object] = {"lag_ms": round(home_lag_ms, 1)}
-        ing = self.node.ingress
+        ing = node.ingress
         if ing is not None:
             s["ingress_queue"] = len(ing._pending)
             s["ingress_hiwater"] = ing.queue_hiwater
             s["ingress_inflight"] = ing._inflight
-            s["executor_saturated"] = ing._inflight >= MAX_INFLIGHT
+            s["executor_saturated"] = ing._inflight >= ing.max_inflight
         rss = read_rss_mb()
         if rss is not None:
             s["rss_mb"] = round(rss, 1)
+        # peer-loop liveness probes: a posted probe that has not run by
+        # the NEXT tick means that loop lagged a whole interval —
+        # critical lag; a dead thread is the heal sweep's
+        lg = node.loop_group
+        if lg is not None and lg.loops:
+            stuck = []
+            for i in range(1, lg.n):
+                if not lg.alive(i):
+                    continue
+                sent = self._probe_sent.get(i, 0)
+                seen = self._probe_seen.get(i, 0)
+                if sent and seen < sent:
+                    stuck.append(i)
+                self._seq += 1
+                self._probe_sent[i] = self._seq
+
+                def _mark(idx=i, seq=self._seq):
+                    self._probe_seen[idx] = max(
+                        self._probe_seen.get(idx, 0), seq)
+
+                try:
+                    lg.post(i, _mark)
+                except RuntimeError:
+                    stuck.append(i)
+            s["loops_stuck"] = stuck
         return s
 
     def _evaluate(self, s: Dict[str, object]) -> int:
@@ -440,6 +472,8 @@ class OverloadMonitor:
             bump(CRITICAL)
         elif lag >= cfg.lag_warn_ms:
             bump(WARN)
+        if s.get("loops_stuck"):
+            bump(CRITICAL)
         q = s.get("ingress_queue")
         if q is not None:
             hw = max(1, int(s.get("ingress_hiwater", 1)))
@@ -491,10 +525,58 @@ class OverloadMonitor:
         # the compaction once its backoff elapsed
         node.drain_robustness_events()
         node.router.retry_compaction()
+        # a dead front-door loop: close its connections so their wills
+        # fire, and route the delivery ring around it
+        lg = node.loop_group
+        if lg is not None:
+            for idx in lg.dead_peer_indices():
+                self._heal_dead_loop(idx)
         # the ingress saturation alarm clears once the backlog drained
         ing = node.ingress
         if ing is not None and not ing.backlogged():
             node.alarms.deactivate("ingress_saturated")
+
+    def _heal_dead_loop(self, idx: int) -> None:
+        """A front-door loop's thread died: its connection tasks are
+        frozen mid-await and can never run their cleanup. Route around
+        it (``mark_dead``: the delivery ring and its sessions fall back
+        to the main loop) and shut its channels down FROM HERE, so
+        wills fire, sessions detach or terminate, and the registry
+        stays truthful."""
+        node = self.node
+        lg = node.loop_group
+        dead_loop = lg.loops[idx]
+        lg.mark_dead(idx)
+        node.metrics.inc("overload.heal.loop")
+        node.alarms.activate(
+            f"frontdoor_loop_{idx}_dead", details={"loop": idx},
+            message=f"front-door loop {idx} thread died; its "
+                    f"connections were closed and its sessions "
+                    f"re-homed to the main loop")
+        n = 0
+        for lst in node.listeners:
+            for conn in list(lst._conns):
+                if conn._loop is not dead_loop:
+                    continue
+                try:
+                    if not conn.channel.closed:
+                        conn.channel.disconnect_reason = "loop_dead"
+                        # fires the will (an abnormal disconnect) and
+                        # detaches or terminates the session; this runs
+                        # on the main thread, so the will's publish
+                        # takes the broker's own path from here
+                        conn.channel._shutdown(close_transport=False)
+                except Exception:
+                    log.exception("closing channel on dead loop %d", idx)
+                conn._closing = True
+                try:
+                    conn.writer.transport.abort()
+                except Exception:
+                    pass
+                lst._conns.discard(conn)
+                n += 1
+        log.error("front-door loop %d died: closed %d of its "
+                  "connections, re-homed its sessions", idx, n)
 
     def _sweep_force_shutdown(self) -> None:
         pol = self.cfg.force_shutdown_queue_len

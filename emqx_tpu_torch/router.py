@@ -134,6 +134,14 @@ class MatcherConfig:
     # than min(fanout_threshold, d) ride the bitmap path
     fanout_d: int = 128
 
+    #: live-reloadable knobs (``reload.py``): only fields the match and
+    #: mutation paths read at use time — everything else is table or
+    #: kernel geometry copied into built device structures at flatten
+    #: time (not a dataclass field: unannotated)
+    RELOADABLE = frozenset({
+        "delta", "delta_max_filters", "device_min_filters",
+        "patch_drain_batch", "host_reclaim_pending"})
+
 
 def topic_partition(topic: str, parts: int) -> int:
     """Match-cache partition of a concrete topic: a stable hash of its

@@ -112,6 +112,12 @@ class Session:
         # None/False = never pre-build for this subscriber
         self.proto_ver: Optional[int] = None
         self.wire_fast_hint = False
+        # the event loop that owns this session's connection (a
+        # multi-loop node): stamped by the channel at CONNECT, cleared
+        # on detach. The delivery ring routes this session's planned
+        # subscriber group to that loop, so its inflight window, mqueue
+        # and outbox are only touched there. None = the main loop
+        self.owner_loop = None
         # durability: True once the channel opened this session with a
         # session-expiry > 0 — its lifecycle, subscriptions and QoS1/2
         # window then journal through `_dur` (the node's

@@ -53,8 +53,9 @@ Stage semantics (all host wall-clock, milliseconds):
                      during the delivery tail (a subset of
                      ``dispatch``, recorded apart).
   ``dispatch``       the host delivery tail, summed over chunks.
-  ``xloop``          the cross-loop delivery ring; zero on the
-                     port's one-loop node.
+  ``xloop``          the cross-loop delivery ring (first handoff
+                     posted → last one reported back); absent on a
+                     one-loop node.
   ``rebuild``        automaton compaction / re-flatten durations
                      (observed directly, not a span stage).
   ``end_to_end``     ``publish_begin`` entry → last delivery chunk.

@@ -27,6 +27,10 @@ class Zone:
     wildcard_subscription: bool = True
     shared_subscription: bool = True
     server_keepalive: Optional[int] = None
+    # the keepalive check's backoff factor, and per-zone stats: read by
+    # no code path in either package, kept so one config file parses
+    # in both
+    keepalive_backoff: float = 0.75
     # session
     max_subscriptions: int = 0
     upgrade_qos: bool = False
@@ -74,6 +78,7 @@ class Zone:
     # disconnect (flapping.py)
     enable_ban: bool = True
     enable_flapping_detect: bool = False
+    enable_stats: bool = True
     mountpoint: Optional[str] = None
     # rate limits (None = unlimited): (rate/sec, burst)
     ratelimit_msg_in: Optional[tuple] = None

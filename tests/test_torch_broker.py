@@ -227,8 +227,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     # the front door's, the router's, the host engine's, overload
     # protection's, the durability layer's, observability's, the
     # mesh's, the cluster's, replicated durability's, the drain's, the
-    # access plane's, the built-in modules, the operations surface's
-    # and the secure front door's are among those imported
+    # access plane's, the built-in modules, the operations surface's,
+    # the secure front door's, the front-door loops', the worker
+    # pool's, the config loader's, the reload's and the command line's
+    # are among those imported
     assert {"emqx_tpu_torch.faults", "emqx_tpu_torch.alarm",
             "emqx_tpu_torch.overload", "emqx_tpu_torch.devloss",
             "emqx_tpu_torch.ops.warmup", "emqx_tpu_torch.mqtt", "emqx_tpu_torch.mqtt.constants",
@@ -269,6 +271,9 @@ def test_port_never_imports_jax_or_the_jax_package():
             "emqx_tpu_torch.vm", "emqx_tpu_torch.tls",
             "emqx_tpu_torch.psk", "emqx_tpu_torch.psk_tls",
             "emqx_tpu_torch.ws_connection",
+            "emqx_tpu_torch.loops", "emqx_tpu_torch.workers",
+            "emqx_tpu_torch.config", "emqx_tpu_torch.reload",
+            "emqx_tpu_torch.__main__",
             "chip_smoke"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'emqx_tpu'):\n"

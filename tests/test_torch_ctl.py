@@ -6,7 +6,8 @@ boot_listeners=False)`` are built from the same seeded state: four
 sans-IO clients (CONNECT, then a SUBSCRIBE of two filters), twenty
 broker subscriptions, two permanent bans, ten retained messages with
 the retainer loaded. Every command of the JAX ``Ctl`` but ``reload``
-runs on both, and the text must be equal. The exceptions, by name:
+(held against the JAX package in tests/test_torch_reload.py) runs on
+both, and the text must be equal. The exceptions, by name:
 
   - ``broker``: the version line names the port's ``SYSDESCR``;
   - ``cache`` and ``retained``: the walk variant is ``torch`` (the
@@ -20,8 +21,10 @@ runs on both, and the text must be equal. The exceptions, by name:
   - ``vm``: the device inventory lists the CUDA cards (none on a CPU
     node) where the JAX one lists its backend's devices, and the
     process counters are this process's at two moments;
-  - ``profile kernels``: the two packages' process-wide timers;
-  - ``help`` and an unknown command's usage: no ``reload`` line.
+  - ``profile kernels``: the two packages' process-wide timers.
+
+``help`` and an unknown command's usage are equal, ``reload``'s line
+included.
 
 The ``ctl.run`` cases of ``tests/test_ctl_obs.py`` and of the other
 JAX suites that call it (apart from ``test_reload.py`` and
@@ -174,8 +177,8 @@ def _same_but(cmd, want, got):
     return want, got
 
 
-#: every built-in of the JAX ``Ctl`` but ``reload``, and their
-#: read-only subcommands, on the seeded nodes
+#: every built-in of the JAX ``Ctl`` but ``reload`` (its own file), and
+#: their read-only subcommands, on the seeded nodes
 COMMANDS = [
     ["status"], ["broker"], ["clients"], ["clients", "list"],
     ["clients", "show", "c0"], ["clients", "show", "nobody"],
@@ -222,23 +225,22 @@ def test_profile_kernels_reads_the_process_timer():
 
 
 def test_help_equals_jax_without_reload():
+    """The usage text, once without ``reload``; the port now has the
+    command, so the text equals the JAX package's whole."""
     j, p = JAX.Node(), PORT.Node()
-    want = "\n".join(line for line in j.ctl.run(["help"]).splitlines()
-                     if not line.startswith("  reload "))
+    want = j.ctl.run(["help"])
+    assert "\n  reload " in want
     assert p.ctl.run(["help"]) == want
     assert p.ctl.run([]) == p.ctl.usage() == want
     assert p.ctl.run(["--help"]) == want
-    assert "reload" not in p.ctl._commands
-    assert set(j.ctl._commands) - set(p.ctl._commands) == {"reload"}
-    # unknown command: the line, then the usage without reload
+    assert set(j.ctl._commands) == set(p.ctl._commands)
+    # unknown command: the line, then the usage
     out = p.ctl.run(["bogus"])
-    jout = j.ctl.run(["bogus"])
     assert out.startswith("unknown command: bogus\n")
-    assert out == "\n".join(line for line in jout.splitlines()
-                            if not line.startswith("  reload "))
-    # reload is an unknown command on the port
-    assert p.ctl.run(["reload", "x.toml"]).startswith(
-        "unknown command: reload")
+    assert out == j.ctl.run(["bogus"])
+    # reload is a command: a missing file is an operator error
+    assert p.ctl.run(["reload"]) == j.ctl.run(["reload"])
+    assert p.ctl.run(["reload", "x.toml"]).startswith("error: ")
 
 
 #: operator input errors and usage fall-throughs: the text equal

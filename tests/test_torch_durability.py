@@ -766,3 +766,48 @@ async def test_sharded_journal_recovers_equal(tmp_path, shards):
                        if f.startswith("journal-"))
         assert len(names) == shards
     assert models[0] == models[1]
+
+
+def looped_node(pkg, d, loops):
+    """A durable node of ``pkg`` on ``loops`` front-door loops with
+    ``wal_shards = 0``: one journal shard a loop."""
+    cfg = pkg.Config(enabled=True, dir=str(d), fsync=False, wal_shards=0)
+    if pkg.name == "jax":
+        return JNode(boot_listeners=False, load_default_modules=True,
+                     durability=cfg, loops=loops)
+    n = PNode(device="cpu", boot_listeners=False, durability=cfg,
+              loops=loops)
+    n.modules.load(RetainerModule)
+    return n
+
+
+async def test_loop_sharded_journal_recovers_equal(tmp_path):
+    """``wal_shards = 0`` on a two-loop node: two journal shards, one a
+    loop; a crash recovers into a fresh two-loop node with the state
+    the workload left durable, equal to the JAX package's."""
+    models = []
+    for pkg in (JAX, PORT):
+        d = tmp_path / pkg.name
+        n = looped_node(pkg, d, 2)
+        await n.start()
+        assert n.durability.shards == n.durability.wal.n == 2
+        s = durable_session(pkg, n, "lp1")
+        for i in range(8):
+            s.subscribe(f"lp/{i}/+", pkg.SubOpts(qos=1))
+        s.deliver("lp/1/+", pkg.Message(topic="lp/1/x", payload=b"q",
+                                        qos=1))
+        n.broker.publish(pkg.Message(topic="lp/2/r", payload=b"k",
+                                     flags={"retain": True}))
+        n.durability.on_batch()
+        want = expect(n, ["lp1"])
+        await crash(n)
+        n2 = looped_node(pkg, d, 2)
+        await n2.start()
+        assert state_model(n2) == want
+        assert n2.durability.last_recovery["sessions"] == 1
+        models.append(want)
+        await n2.stop()
+        names = sorted(f for f in os.listdir(d)
+                       if f.startswith("journal-"))
+        assert len(names) == 2
+    assert models[0] == models[1]
