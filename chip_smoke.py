@@ -29,14 +29,17 @@ kernels against their plain PyTorch versions:
   4. B2 (the bitmap OR of the packed union rows) against
      ``or_union_rows_ref``, bit for bit, on the slice batch with the
      most live row slots at the learned packed-row budget and at one
-     below its live count (overflow); the dense union (a null slot
-     map) against ``or_bitmaps_ref`` at W = 32,768, B = 4,096, mb = 16
-     with -1 slots, and packed from it with an overflowing budget; the
-     same dense shape through ``or_bitmaps`` (kernel B4's entry point,
-     which launches the B2 kernel); the old route (dense OR, then
-     ``pack_union_rows``) against the packed launch on the main path's
-     batch: equal, times and peak device memory; kernel times and
-     bounds;
+     below its live count (overflow), and packed from a dense shape
+     (W = 32,768, B = 4,096, mb = 16) with an overflowing budget; the
+     old route (B4's dense OR, then ``pack_union_rows``) against the
+     packed launch on the main path's batch: equal, times and peak
+     device memory; then B4 (the dense union, ``or_bitmaps_cuda``,
+     ``csrc/bitmap_or_dense.cu``) and B2 run over every topic (B4's
+     design before its own kernel) against ``or_bitmaps_ref``, bit for
+     bit, on small edge shapes and, timed in turns with their bounds,
+     at W = 32,768, B = 4,096 and mb = 1, 4 and 16 on the main path's
+     bitmap table and on 64 distinct rows; B4's entry point
+     ``or_bitmaps`` at mb = 16; kernel times and bounds;
   5. the slice: ``Node(device="cuda")``'s broker at BASELINE config 2's
      shape
      (1M ``+`` subscriptions over a 5-level tree of 40 words per level,
@@ -204,13 +207,14 @@ kernels against their plain PyTorch versions:
      subscriptions cut to :data:`P12_ROUTES` filters (the '+' class
      cut, every other class whole; printed) and its batches, one node
      at a time, after the plain node: (12a) ``MatcherConfig(mesh=default_mesh())``, 1×1
-     on the one card, B1 and B2 once a batch, every message's
-     deliveries equal phase 5's node's and the TrieOracle's, msgs/s
-     and p50/p99 beside phase 5's; (12b) a 2×2 mesh naming the card
-     four times (:data:`MESH_GRID`): B1 and B2 four times a batch (one
-     a cell), deliveries equal 12a's; per cell, B1 on the cell's data
-     shard and trie shard against the plain walk and B2's dense union
-     against the plain OR, with their device times; one subscribe
+     on the one card, B1 and B4 (the dense union) once a batch and B2
+     never, every message's deliveries equal phase 5's node's and the
+     TrieOracle's, msgs/s and p50/p99 beside phase 5's; (12b) a 2×2
+     mesh naming the card four times (:data:`MESH_GRID`): B1 and B4
+     four times a batch (one a cell), deliveries equal 12a's; per cell,
+     B1 on the cell's data shard and trie shard against the plain walk
+     and B4's dense union against the plain OR, with their device times
+     and B2 run over every topic on the same rows beside B4; one subscribe
      patches its shard alone, then 256 route ops with no full rebuild
      and a batch against the TrieOracle; on a small 2×2 broker, a
      fan-only overflow grows d and not k; 12a and 12b print the idle
@@ -422,6 +426,9 @@ LEVELS = 5
 VOCAB = 40
 #: the kernels the publish path launches on every device batch
 PUBLISH_KERNELS = ("walk", "bitmap_or")
+#: the kernels a mesh node's publish path launches on every device
+#: batch: B1 and B4, the dense union, in every cell
+MESH_KERNELS = ("walk", "bitmap_or_dense")
 #: QoS 1 PUBLISHes a publisher of the 2,000-connection fleet sends
 FLEET_PUBS = 20
 #: phase 7a's connections through the native frame parser
@@ -1133,16 +1140,27 @@ def phase_c1(device, card):
 
 
 def check_or(bitmaps, rows, label):
+    """Kernel B4 (the dense OR) and B2 run over every topic (the design
+    B4 ran on before its own kernel) against the plain OR; ids at or
+    past R are skipped like -1."""
     import torch
 
-    from emqx_tpu_torch.ops.bitmap import or_bitmaps_cuda, or_bitmaps_ref
+    from emqx_tpu_torch.ops.bitmap import (or_bitmaps_cuda, or_bitmaps_ref,
+                                           or_union_rows_cuda)
 
-    want = or_bitmaps_ref(bitmaps, rows)
+    want = or_bitmaps_ref(bitmaps, torch.where(rows < bitmaps.shape[0],
+                                               rows, -1))
     got = or_bitmaps_cuda(bitmaps, rows)
+    every = torch.arange(rows.shape[0], dtype=torch.int32,
+                         device=rows.device)
+    b2 = or_union_rows_cuda(bitmaps, rows, every)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise AssertionError(f"bitmap OR kernel != plain OR ({label})")
-    log(f"[B2] {label}: equal")
+        raise AssertionError(f"dense bitmap OR kernel != plain OR ({label})")
+    if not torch.equal(b2, want):
+        raise AssertionError(f"bitmap OR kernel over every topic != plain "
+                             f"OR ({label})")
+    log(f"[B4] {label}: B4 and B2 over every topic equal to the plain OR")
     return int((got.long() - want.long()).abs().max())
 
 
@@ -1179,9 +1197,9 @@ def peak_mib(fn) -> float:
 
 
 def route_ab(bm, rows, has_big, pr, card):
-    """The publish path's old route (the dense [B, W] OR, then
-    ``pack_union_rows``' gather) against the packed launch, on the same
-    inputs in one call: equal outputs, the device time of each route
+    """The publish path's old route (the dense [B, W] OR, kernel B4,
+    then ``pack_union_rows``' gather) against the packed launch, on the
+    same inputs in one call: equal outputs, the device time of each route
     with its torch glue (profiler; old, new, new, old), its OR kernel
     alone, and the peak device memory it allocates."""
     import torch
@@ -1201,7 +1219,8 @@ def route_ab(bm, rows, has_big, pr, card):
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
         raise AssertionError("packed OR route != dense OR + pack_union_rows")
     t = [device_ms(fn) for fn in (old, new, new, old)]
-    old_kernel = kernel_ms(lambda: or_bitmaps_cuda(bm, rows), "bitmap_or_kernel")
+    old_kernel = kernel_ms(lambda: or_bitmaps_cuda(bm, rows),
+                           "bitmap_or_dense_kernel")
     mem = {"old": peak_mib(old), "new": peak_mib(new)}
     log(f"[B2] route A/B at the main path's batch, pr={pr}: equal; device "
         f"time old (dense OR + gather) {t[0]:.5f} / {t[3]:.5f} ms (its OR "
@@ -1213,12 +1232,12 @@ def route_ab(bm, rows, has_big, pr, card):
 def phase_bitmap(broker, batches, rng, card):
     """B2 against its plain twin at the main path's rows (of the slice
     batch with the most live row slots) at the learned budget and an
-    overflowing one, the dense union at W = 32,768 x B = 4,096 x
-    mb = 16, B4's entry point, and the old route against the new."""
+    overflowing one, packed from a dense shape (W = 32,768 x B = 4,096
+    x mb = 16) with an overflowing budget, and the old route against
+    the new; then B4 (:func:`phase_dense`) on the same bitmap table."""
     import torch
 
-    from emqx_tpu_torch.ops.bitmap import (or_bitmaps, or_bitmaps_cuda,
-                                           or_bitmaps_ref, or_union_rows_cuda,
+    from emqx_tpu_torch.ops.bitmap import (or_union_rows_cuda,
                                            or_union_rows_ref, rows_for_matches)
     from emqx_tpu_torch.ops.pack import mask_pad_rows, union_slots
     from emqx_tpu_torch.ops.walk_cuda import match_batch_auto
@@ -1254,10 +1273,10 @@ def phase_bitmap(broker, batches, rng, card):
                                    label + ", overflow"))
     dense = torch.from_numpy(rng.integers(-1, st.bm.n_rows, size=(4096, 16))
                              .astype(np.int32)).to(bm.device)
-    d_label = f"dense B=4096 mb=16 W={W} ({int((dense >= 0).sum())} live slots)"
-    err = max(err, check_or(bm, dense, d_label + ", null slot map"))
     err = max(err, check_union(bm, dense, (dense >= 0).any(dim=1), 64,
-                               d_label + ", overflow"))
+                               f"dense B=4096 mb=16 W={W} "
+                               f"({int((dense >= 0).sum())} live slots), "
+                               f"overflow"))
     route_ab(bm, rows, has_big, pr, card)
     src = union_slots(has_big, pr)[1]
     ms = kernel_ms(lambda: or_union_rows_cuda(bm, rows, src), "bitmap_or_kernel")
@@ -1266,31 +1285,117 @@ def phase_bitmap(broker, batches, rng, card):
     packed = rows[src[src >= 0].long()]
     live_rows = len(set(packed[packed >= 0].tolist()))
     bound = union_bound_ms(pr, mb, W, live_rows)
-    d_ms = kernel_ms(lambda: or_bitmaps_cuda(bm, dense), "bitmap_or_kernel")
-    d_plain = time_cuda_ms(lambda: or_bitmaps_ref(bm, dense), iters=3, warmup=1)
-    d_bound = or_bound_ms(R, W, 4096, 16, st.bm.n_rows)
     log(f"[B2] main path packed union B={B} pr={pr}, {total} live topics, "
         f"{live_rows} live bitmap rows: kernel {ms:.5f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound:.6f} ms (bytes of the packed "
         f"function) — {card}")
-    log(f"[B2] dense B=4096 mb=16 W={W}: kernel {d_ms:.5f} ms, plain "
-        f"{d_plain:.4f} ms, bound {d_bound:.5f} ms (bytes) — {card}")
-    # kernel B4's entry point (its contract: W a multiple of 1,024
-    # words) launches the same kernel
+    b4 = phase_dense(bm, st.bm.n_rows, rng, card)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "pr": pr, "live_rows": live_rows}, b4
+
+
+#: B4's timed dense shape (phase 4): topics and row slots a topic
+DENSE_B, DENSE_MB = 4096, 16
+
+
+def dense_ab(bm, rows, label, card):
+    """Kernel B4 against B2 run over every topic (the design B4 had
+    before its own kernel), on the same inputs: both equal to the plain
+    OR, then each kernel's device time in turns (B2, B4, B4, B2), the
+    bound (bytes) and B4's share of it. Returns B4's time, B2's and the
+    bound."""
+    import torch
+
+    from emqx_tpu_torch.ops.bitmap import or_bitmaps_cuda, or_union_rows_cuda
+
+    check_or(bm, rows, label)
+    every = torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)
+
+    def b2():
+        return or_union_rows_cuda(bm, rows, every)
+
+    def b4():
+        return or_bitmaps_cuda(bm, rows)
+
+    t = [kernel_ms(fn, name) for fn, name in (
+        (b2, "bitmap_or_kernel"), (b4, "bitmap_or_dense_kernel"),
+        (b4, "bitmap_or_dense_kernel"), (b2, "bitmap_or_kernel"))]
+    distinct = int(torch.unique(rows[rows >= 0]).numel())
+    bound = or_bound_ms(*bm.shape, *rows.shape, distinct)
+    ms, b2_ms = min(t[1], t[2]), min(t[0], t[3])
+    log(f"[B4] {label}, {distinct} distinct rows: B4 {t[1]:.5f} / "
+        f"{t[2]:.5f} ms, B2 over every topic {t[0]:.5f} / {t[3]:.5f} ms, "
+        f"bound {bound:.5f} ms (bytes): B4 at {bound / ms:.1%} of its "
+        f"bound, {b2_ms / ms:.2f}x B2's speed — {card}")
+    return {"ms": ms, "b2_ms": b2_ms, "bound_ms": bound}
+
+
+def phase_dense(bm, n_rows, rng, card):
+    """B4, the dense union (``or_bitmaps_cuda``, ``csrc/bitmap_or_dense.cu``),
+    against the plain OR and against B2 over every topic on the same
+    inputs: on the main path's bitmap table at W = 32,768, B = 4,096 and
+    mb = 1, 4 and 16 (ids drawn from the live rows and -1), on a table
+    of 64 distinct rows, and on small edges (B not a multiple of the
+    kernel's 8-topic chunk, a ragged strip, more distinct rows than it
+    stages, a topic's spill list overflowing, no slots, ids at or past
+    R, dead topics). Then B4's entry point ``or_bitmaps`` at mb = 16,
+    equal and timed, with the plain OR's time. Returns the kernel row's
+    numbers."""
+    import torch
+
+    from emqx_tpu_torch.ops.bitmap import or_bitmaps, or_bitmaps_ref
+
+    dev = bm.device
+    R, W = bm.shape
+
+    def ids(hi, shape):
+        return torch.from_numpy(rng.integers(-1, hi, size=shape)
+                                .astype(np.int32)).to(dev)
+
+    def table(r, w):
+        return torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(r, w))
+                                .astype(np.int32)).to(dev)
+
+    err = 0
+    for rr, b, m, w in ((8, 300, 16, 2048), (8, 64, 4, 1028),
+                        (80, 130, 16, 1024), (300, 40, 24, 1024),
+                        (4, 70, 0, 1024), (3, 1, 1, 1024)):
+        t, r = table(rr, w), ids(rr, (b, m))
+        err = max(err, check_or(t, r, f"R={rr} B={b} mb={m} W={w}"))
+    t, r = table(8, 1024), ids(8, (200, 16))
+    r[::5] = -1
+    r[1::3, ::2] = 8 + 2 * torch.arange(8, dtype=torch.int32, device=dev)
+    err = max(err, check_or(t, r, "R=8 B=200 mb=16 W=1024, every fifth "
+                                  "topic dead, ids at or past R"))
+    by_mb = {}
+    for m in (1, 4, DENSE_MB):
+        dense = ids(n_rows, (DENSE_B, m))
+        by_mb[m] = dense_ab(bm, dense, f"B={DENSE_B} mb={m} W={W} R={R} "
+                                       f"({n_rows} live rows)", card)
+    wide = table(64, W)
+    d64 = dense_ab(wide, ids(64, (DENSE_B, DENSE_MB)),
+                   f"B={DENSE_B} mb={DENSE_MB} W={W} R=64", card)
+    del wide
+    # B4's entry point (its contract: W a multiple of 1,024 words) on
+    # the last mb = 16 rows
     want = or_bitmaps_ref(bm, dense)
     got = or_bitmaps(bm, dense)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise AssertionError("or_bitmaps (B4) != plain OR")
-    b4_err = int((got.long() - want.long()).abs().max())
-    b4_ms = kernel_ms(lambda: or_bitmaps(bm, dense), "bitmap_or_kernel")
-    log(f"[B4] or_bitmaps dense B=4096 mb=16 W={W}: equal; kernel "
-        f"{b4_ms:.5f} ms, plain {d_plain:.4f} ms, bound {d_bound:.5f} ms "
-        f"(bytes) — {card}")
-    b4 = {"max_abs_err": b4_err, "ms": b4_ms, "plain_ms": d_plain,
-          "bound_ms": d_bound}
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "pr": pr, "live_rows": live_rows}, b4
+        raise AssertionError("or_bitmaps (B4's entry point) != plain OR")
+    err = max(err, int((got.long() - want.long()).abs().max()))
+    del got, want
+    ms = kernel_ms(lambda: or_bitmaps(bm, dense), "bitmap_or_dense_kernel")
+    plain = time_cuda_ms(lambda: or_bitmaps_ref(bm, dense), iters=3, warmup=1)
+    bound = by_mb[DENSE_MB]["bound_ms"]
+    log(f"[B4] or_bitmaps B={DENSE_B} mb={DENSE_MB} W={W}: equal; kernel "
+        f"{ms:.5f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms (bytes), "
+        f"{bound / ms:.1%} of it; B2 over every topic "
+        f"{by_mb[DENSE_MB]['b2_ms']:.5f} ms — {card}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "b2_ms": by_mb[DENSE_MB]["b2_ms"],
+            "by_mb": {str(m): v for m, v in by_mb.items()},
+            "distinct_64": d64}
 
 
 def check_batches(broker, batches, deliveries, oracle=None):
@@ -1339,7 +1444,7 @@ def check_batches(broker, batches, deliveries, oracle=None):
 
 
 def phase_slice(broker, batches, card, oracle, label="slice",
-                per_batch=None):
+                per_batch=None, kernels=PUBLISH_KERNELS):
     """The timed main-path run; every count starts at 0 here. Prints
     the match cache's hit rate over the run when the cache is on. With
     the node's telemetry on (the default), every batch's span is
@@ -1391,7 +1496,7 @@ def phase_slice(broker, batches, card, oracle, label="slice",
         t3 = time.perf_counter()
         lat.append(t3 - t0)
         split += (t1 - t0, t2 - t1, t3 - t2)
-        for name in PUBLISH_KERNELS:
+        for name in kernels:
             if _build.LAUNCHES[name] <= before[name]:
                 raise AssertionError(f"batch {bi} did not launch {name}")
         for name, n in (per_batch or {}).items():
@@ -1668,13 +1773,14 @@ def profile_steps(steps, kernels, card, label):
             f"{e.key[:90]}")
 
 
-def phase_profile(broker, batches, card):
-    """A warm-up batch and three more under torch.profiler."""
+def phase_profile(broker, batches, card, kernels=PUBLISH_KERNELS):
+    """A warm-up batch and three more under torch.profiler; ``kernels``
+    are the ones a batch launches."""
     from emqx_tpu_torch.types import Message
 
     msgs = [[Message(topic=t, payload=b"x") for t in b] for b in batches[:4]]
     profile_steps([lambda b=b: broker.publish_batch(b) for b in msgs],
-                  PUBLISH_KERNELS, card, "batches")
+                  kernels, card, "batches")
 
 
 def timed(label, fn, *args):
@@ -1726,7 +1832,7 @@ def run(opts, device, card):
     walk = timed("3 (B1)", phase_walk, broker, topics[:opts.batch], rng,
                  card, oracle)
     timed("3 (C.1)", phase_c1, device, card)
-    bmp, b4 = timed("4 (B2)", phase_bitmap, broker, batches, rng, card)
+    bmp, b4 = timed("4 (B2, B4)", phase_bitmap, broker, batches, rng, card)
     sl = timed("5 (slice)", phase_slice, broker, batches, card, oracle)
     timed("5 (spans A/B)", phase_spans_ab, broker, batches, card)
     timed("5 (profile)", phase_profile, broker, batches, card)
@@ -1773,7 +1879,7 @@ def run(opts, device, card):
                 run_loops, pairs, wl, draw, oracle, batches, device, card)
     mesh_launches = {name: {g: p12["launches"][g][name]
                             for g in ("12a", "12b")}
-                     for name in PUBLISH_KERNELS}
+                     for name in PUBLISH_KERNELS + MESH_KERNELS}
     cluster = p13["13a"]
     walk["max_abs_err"] = max([walk["max_abs_err"],
                                p8["kernels"]["max_abs_err"],
@@ -1782,14 +1888,14 @@ def run(opts, device, card):
                                p16["kernels"]["max_abs_err"],
                                p17["kernels"]["max_abs_err"]]
                               + [k["max_abs_err"] for k in cluster["kernels"]])
+    names = PUBLISH_KERNELS + ("bitmap_or_dense",)
     mods = {name: {"15a": p15["15a"]["slice"]["launches"][name],
                    "15a_delayed": p15["15a"]["delayed_launches"].get(name, 0),
                    "15b": p15["15b"]["launches"].get(name, 0)}
-            for name in PUBLISH_KERNELS}
+            for name in names}
     ops = {name: {g: p16["launches"][g].get(name, 0) for g in ("16a", "16b")}
-           for name in ("walk", "bitmap_or", "or_bitmaps")}
-    loops = {name: p17["launches"].get(name, 0)
-             for name in ("walk", "bitmap_or", "or_bitmaps")}
+           for name in names}
+    loops = {name: p17["launches"].get(name, 0) for name in names}
     return p13, p15, p16, p17, [
         {"name": "walk", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/walk.cu",
@@ -1821,9 +1927,6 @@ def run(opts, device, card):
          "socket_launches": sock["launches"]["bitmap_or"],
          "devloss_launches": p9["launches"]["bitmap_or"],
          "mesh_launches": mesh_launches["bitmap_or"],
-         "mesh_cell_ms": p12["cells"]["or_ms"],
-         "mesh_cell_plain_ms": p12["cells"]["or_plain_ms"],
-         "mesh_cell_bound_ms": p12["cells"]["or_bound_ms"],
          "cluster_launches": cluster["launches"].get("bitmap_or", 0),
          "cluster_node_ms": [k["or_ms"] for k in cluster["kernels"]],
          "modules_launches": mods["bitmap_or"],
@@ -1834,20 +1937,27 @@ def run(opts, device, card):
          "loops_ms": p17["kernels"]["or_ms"],
          "equal": True,
          "bound_by": "bytes", "library_ms": None, **bmp},
-        # B4 lies on no path: its launches on the publish path (0) are
-        # read like the others; it runs the B2 kernel
-        {"name": "or_bitmaps", "route": "cuda",
-         "source": "emqx_tpu_torch/csrc/bitmap_or.cu",
+        # B4's path is the mesh's per-cell union: "launches" are 12a's
+        # and 12b's, each counted from 0; the single-device paths launch
+        # it no time, and its entry point or_bitmaps none
+        {"name": "bitmap_or_dense", "route": "cuda",
+         "source": "emqx_tpu_torch/csrc/bitmap_or_dense.cu",
          "replaces": "emqx_tpu/ops/bitmap.py:137",
-         "launches": sl["launches"]["or_bitmaps"], "on_path": False,
-         "modules_launches": {k: v.get("or_bitmaps", 0) for k, v in (
-             ("15a", p15["15a"]["slice"]["launches"]),
-             ("15a_delayed", p15["15a"]["delayed_launches"]),
-             ("15b", p15["15b"]["launches"]))},
-         "ops_launches": ops["or_bitmaps"],
-         "loops_launches": loops["or_bitmaps"],
-         "cluster_launches": cluster["launches"].get("or_bitmaps", 0),
-         "devloss_launches": p9["launches"]["or_bitmaps"],
+         "launches": sum(mesh_launches["bitmap_or_dense"].values()),
+         "path": "mesh (12a, 12b)",
+         "mesh_launches": mesh_launches["bitmap_or_dense"],
+         "mesh_cell_ms": p12["cells"]["or_ms"],
+         "mesh_cell_b2_ms": p12["cells"]["or_b2_ms"],
+         "mesh_cell_plain_ms": p12["cells"]["or_plain_ms"],
+         "mesh_cell_bound_ms": p12["cells"]["or_bound_ms"],
+         "main_launches": sl["launches"]["bitmap_or_dense"],
+         "or_bitmaps_launches": sl["launches"]["or_bitmaps"],
+         "socket_launches": sock["launches"].get("bitmap_or_dense", 0),
+         "devloss_launches": p9["launches"].get("bitmap_or_dense", 0),
+         "cluster_launches": cluster["launches"].get("bitmap_or_dense", 0),
+         "modules_launches": mods["bitmap_or_dense"],
+         "ops_launches": ops["bitmap_or_dense"],
+         "loops_launches": loops["bitmap_or_dense"],
          "equal": True, "bound_by": "bytes", "library_ms": None, **b4},
     ]
 
@@ -2658,15 +2768,17 @@ def same_deliveries(want, got, label, what):
 
 def mesh_cells(node, topics, card):
     """12b, per cell: B1 on the cell's inputs (its data shard of one
-    batch, its trie shard's tables) against the plain walk, and B2's
-    dense union of the cell's big-filter rows against its plain twin;
-    the kernels' device times per cell. Launches made here do not
-    count."""
+    batch, its trie shard's tables) against the plain walk, and B4's
+    dense union of the cell's big-filter rows, and B2 over every topic
+    on the same rows (the design B4 had before its own kernel), against
+    the plain OR; the kernels' device times per cell (B4 and B2 in
+    turns). Launches made here do not count."""
     import torch
 
     from emqx_tpu_torch.ops import _build
     from emqx_tpu_torch.ops.bitmap import (BitmapTable, or_bitmaps_cuda,
-                                           or_bitmaps_ref, rows_for_matches)
+                                           or_bitmaps_ref, or_union_rows_cuda,
+                                           rows_for_matches)
     from emqx_tpu_torch.ops.match import match_batch
     from emqx_tpu_torch.ops.walk_cuda import match_batch_cuda
     from emqx_tpu_torch.parallel.sharded import _cell_auto
@@ -2684,7 +2796,7 @@ def mesh_cells(node, topics, card):
               **router._walk_kw(ids.shape[-1]))
     err = 0
     out = {"walk_ms": [], "walk_plain_ms": [], "or_ms": [],
-           "or_plain_ms": [], "or_bound_ms": []}
+           "or_plain_ms": [], "or_bound_ms": [], "or_b2_ms": []}
     for i, t, _dev in mesh.cells():
         a = _cell_auto(auto, i, t)
         args = (ids.cell(i, t), n.cell(i, t), sysm.cell(i, t))
@@ -2695,29 +2807,45 @@ def mesh_cells(node, topics, card):
         bt = BitmapTable(st.bm.bitmaps.cell(i, t), st.bm.big_row.cell(i, t),
                          0, 0)
         rows_b, _ovf = rows_for_matches(bt, res.ids, mb=cfg.fanout_mb)
+        every = torch.arange(b, dtype=torch.int32, device=rows_b.device)
         got = or_bitmaps_cuda(bt.bitmaps, rows_b)
         want = or_bitmaps_ref(bt.bitmaps, rows_b)
+        b2 = or_union_rows_cuda(bt.bitmaps, rows_b, every)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"[12b] cell ({i}, {t}): B2 != plain OR")
+        if not torch.equal(got, want) or not torch.equal(b2, want):
+            raise AssertionError(f"[12b] cell ({i}, {t}): B4 or B2 != "
+                                 f"plain OR")
+        del got, want, b2
         live = int((rows_b >= 0).sum())
         out["b"] = b
         out["walk_ms"].append(kernel_ms(
             lambda: match_batch_cuda(a, *args, **kw), "walk_kernel"))
         out["walk_plain_ms"].append(time_cuda_ms(
             lambda: match_batch(a, *args, **kw), iters=3, warmup=1))
-        out["or_ms"].append(kernel_ms(
-            lambda: or_bitmaps_cuda(bt.bitmaps, rows_b), "bitmap_or_kernel"))
+        dense = [kernel_ms(fn, name) for fn, name in (
+            (lambda: or_union_rows_cuda(bt.bitmaps, rows_b, every),
+             "bitmap_or_kernel"),
+            (lambda: or_bitmaps_cuda(bt.bitmaps, rows_b),
+             "bitmap_or_dense_kernel"),
+            (lambda: or_bitmaps_cuda(bt.bitmaps, rows_b),
+             "bitmap_or_dense_kernel"),
+            (lambda: or_union_rows_cuda(bt.bitmaps, rows_b, every),
+             "bitmap_or_kernel"))]
+        out["or_ms"].append(min(dense[1], dense[2]))
+        out["or_b2_ms"].append(min(dense[0], dense[3]))
         out["or_plain_ms"].append(time_cuda_ms(
             lambda: or_bitmaps_ref(bt.bitmaps, rows_b), iters=3, warmup=1))
         distinct = int(torch.unique(rows_b[rows_b >= 0]).numel())
         out["or_bound_ms"].append(or_bound_ms(*bt.bitmaps.shape, b,
                                               cfg.fanout_mb, distinct))
-        log(f"[12b] cell ({i}, {t}): B2 dense union [{b}, "
+        log(f"[12b] cell ({i}, {t}): B4 dense union [{b}, "
             f"{bt.bitmaps.shape[1]}] of {live} live row slots equal to the "
-            f"plain OR; B1 {out['walk_ms'][-1]:.5f} ms (plain "
-            f"{out['walk_plain_ms'][-1]:.4f}), B2 {out['or_ms'][-1]:.5f} ms "
-            f"(plain {out['or_plain_ms'][-1]:.4f}, bound "
+            f"plain OR, and B2 over every topic; B1 "
+            f"{out['walk_ms'][-1]:.5f} ms (plain "
+            f"{out['walk_plain_ms'][-1]:.4f}), B4 {dense[1]:.5f} / "
+            f"{dense[2]:.5f} ms against B2's {dense[0]:.5f} / "
+            f"{dense[3]:.5f} ms ({out['or_ms'][-1] / out['or_b2_ms'][-1]:.3f}"
+            f"x; plain {out['or_plain_ms'][-1]:.4f}, bound "
             f"{out['or_bound_ms'][-1]:.5f}, bytes) — {card}")
     _build.LAUNCHES.update(saved)
     out["max_abs_err"] = err
@@ -2831,10 +2959,11 @@ def run_mesh(pairs, batches, warm, opts, device, card, p5, walk):
     time: (12a) ``default_mesh()``
     (1×1 on the one card), every message's deliveries equal phase 5's
     and the TrieOracle's, msgs/s and p50/p99 beside phase 5's; (12b) a
-    :data:`MESH_GRID` grid of the card: B1 and B2 four times a batch,
-    deliveries equal 12a's; both with the idle share of three batches
-    under the profiler; each cell's B1 and B2 equal to their plain
-    twins with device times, the churn of :func:`mesh_churn` and the
+    :data:`MESH_GRID` grid of the card: B1 and B4 (the dense union) four
+    times a batch, B2 never, deliveries equal 12a's; both with the idle
+    share of three batches under the profiler; each cell's B1 and B4
+    equal to their plain twins with device times, B4 beside B2 run over
+    every topic on the same rows, the churn of :func:`mesh_churn` and the
     ``boost_d`` of :func:`mesh_boost_d`. Returns the launches and
     times for the kernel line."""
     from emqx_tpu_torch.parallel.mesh import default_mesh, make_mesh
@@ -2854,25 +2983,27 @@ def run_mesh(pairs, batches, warm, opts, device, card, p5, walk):
     oracle = route_oracle(node.router)
     log(f"[12] the checks' TrieOracle of the {len(node.router._filter_ids)} "
         f"filters {time.perf_counter() - t0:.1f} s")
-    cells = {"walk": mesh.size, "bitmap_or": mesh.size}
+    cells = {"walk": mesh.size, "bitmap_or_dense": mesh.size,
+             "bitmap_or": 0}
     sa = phase_slice(node.broker, batches[:P12A_BATCHES], card, oracle,
-                     label="12a", per_batch=cells)
+                     label="12a", per_batch=cells, kernels=MESH_KERNELS)
     same_deliveries(local_on({k: v for k, v in p5["local"].items()
                               if k[0] < P12A_BATCHES}, keep), sa["local"],
                     "12a", "phase 5's node's (its deliveries on 12's "
                     "filters)")
-    phase_profile(node.broker, batches, card)
+    phase_profile(node.broker, batches, card, MESH_KERNELS)
     check_quiet(node, "12a")
     del node
     gc.collect()
     mesh = make_mesh(*MESH_GRID, [device] * 4)
     node = mesh_node(keep, warm, mesh, opts, device, card, "12b")
-    cells = {"walk": mesh.size, "bitmap_or": mesh.size}
+    cells = {"walk": mesh.size, "bitmap_or_dense": mesh.size,
+             "bitmap_or": 0}
     sb = phase_slice(node.broker, batches[:P12B_BATCHES], card, oracle,
-                     label="12b", per_batch=cells)
+                     label="12b", per_batch=cells, kernels=MESH_KERNELS)
     same_deliveries({k: v for k, v in sa["local"].items()
                      if k[0] < P12B_BATCHES}, sb["local"], "12b", "12a's")
-    phase_profile(node.broker, batches, card)
+    phase_profile(node.broker, batches, card, MESH_KERNELS)
     per_cell = mesh_cells(node, batches[0], card)
     churn = mesh_churn(node, keep, batches[1], np.random.default_rng(
         opts.seed + 12), card, oracle)

@@ -14,7 +14,7 @@ A publish batch runs in three phases, as in the JAX package:
      On a mesh (``MatcherConfig.mesh``) the match and the fan-out are
      one collective step (:meth:`Router.publish_dispatch_sharded`:
      B1 once per (data, trie) cell, the per-shard subscriber gather,
-     kernel B2's dense union per cell with big filters), then the
+     kernel B4's dense union per cell with big filters), then the
      dense results pack for the copy;
   2. :meth:`Broker.publish_fetch` — ONE device→host copy of everything
      packed, with a re-pack at the next power-of-two budget when a

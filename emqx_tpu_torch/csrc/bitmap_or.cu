@@ -2,9 +2,9 @@
 // Hopper (sm_90a).
 //
 // Replaces the Pallas kernel emqx_tpu/ops/bitmap.py::_or_kernel_dma
-// (launched by or_bitmaps_dma) and, with a null src, honours the
-// contract of its BlockSpec twin _or_kernel (or_bitmaps, kernel B4):
-// one kernel serves both.
+// (launched by or_bitmaps_dma). The dense union over every topic, the
+// function of its BlockSpec twin _or_kernel, has a kernel of its own:
+// bitmap_or_dense.cu (kernel B4).
 //
 //     b      = src ? src[p] : p                       for p < P
 //     out[p] = OR over m of bitmaps[rows[b, m], :]    for rows[b, m] >= 0

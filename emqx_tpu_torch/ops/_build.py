@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels at first use and bind them.
 
-``csrc/walk.cu``, ``csrc/bitmap_or.cu`` and ``csrc/retained_match.cu``
-expose a plain C interface and include no PyTorch header. :func:`build`
-compiles all three with ``torch.utils.cpp_extension.load`` — ``nvcc``
-for ``sm_90a``, one compiler process per source run side by side by
-ninja — into one shared library under ``emqx_tpu_torch/_build/``
-(listed in ``.gitignore``); ``load`` rebuilds when a source changes.
-The library is then bound with ``ctypes``. Nothing here runs at import time: the
+``csrc/walk.cu``, ``csrc/bitmap_or.cu``, ``csrc/bitmap_or_dense.cu``
+and ``csrc/retained_match.cu`` expose a plain C interface and include
+no PyTorch header. :func:`build` compiles all four with
+``torch.utils.cpp_extension.load`` — ``nvcc`` for ``sm_90a``, one
+compiler process per source run side by side by ninja — into one
+shared library under ``emqx_tpu_torch/_build/`` (listed in
+``.gitignore``); ``load`` rebuilds when a source changes. The library
+is then bound with ``ctypes``. Nothing here runs at import time: the
 first wrapper call on a CUDA tensor builds, and a CPU-only run never
 needs ``nvcc``.
 
@@ -20,9 +21,9 @@ build lists its sources by name and never picks up the ``.cpp``.
 (:func:`count_launch`, under a lock: a multi-loop node launches B3
 from its peer loops' threads) where it launches its kernel, and
 nowhere else. ``or_bitmaps`` counts
-the launches of the bitmap-OR kernel made through B4's entry point
-(:func:`emqx_tpu_torch.ops.bitmap.or_bitmaps`), which ``bitmap_or``
-counts too.
+the launches of the dense bitmap-OR kernel made through B4's entry point
+(:func:`emqx_tpu_torch.ops.bitmap.or_bitmaps`), which
+``bitmap_or_dense`` counts too.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from typing import Dict, Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("walk", "bitmap_or", "retained_match")
+KERNELS = ("walk", "bitmap_or", "bitmap_or_dense", "retained_match")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-Xptxas=-v"]
 HOST_SRC = CSRC / "host_native.cpp"
 HOST_LIB = BUILD_DIR / "libemqx_host.so"
@@ -100,6 +101,8 @@ def build(verbose: bool = False) -> float:
         for fn, args in (
                 (lib.emqx_walk, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7),
                 (lib.emqx_bitmap_or, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5),
+                (lib.emqx_bitmap_or_dense,
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4),
                 (lib.emqx_retained_match,
                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3)):
             fn.argtypes = args + [ctypes.c_void_p]  # + the stream

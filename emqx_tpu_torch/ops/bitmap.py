@@ -1,4 +1,4 @@
-"""Subscriber-bitmap fan-out for huge-fan-out filters (kernel B2).
+"""Subscriber-bitmap fan-out for huge-fan-out filters (kernels B2, B4).
 
 Filters past the fan-out threshold keep their subscriber set as a
 bitmap row (bit i = subscriber id i); a publish batch's fan-out is the
@@ -10,7 +10,7 @@ OR of its matched rows:
 builders, copied. The publish path needs only the union rows of the
 topics that matched a big filter, packed into a budget of ``pr`` rows
 (``pack.union_slots`` gives the slot map ``src``).
-:func:`or_union_rows_cuda` launches the hand-written CUDA kernel
+:func:`or_union_rows_cuda` launches the hand-written CUDA kernel B2
 (``csrc/bitmap_or.cu``, which replaces the Pallas
 ``emqx_tpu/ops/bitmap.py::_or_kernel_dma``) over those ``pr`` rows
 only: one launch and no ``[B, W]`` union, since at the main path's
@@ -19,14 +19,17 @@ only: one launch and no ``[B, W]`` union, since at the main path's
 package's ``pack_union_rows(or_bitmaps(...))`` composition.
 :func:`or_union_rows_auto` picks by the device of the tensors it is
 given: CUDA tensors launch the kernel (or raise), CPU tensors run the
-plain version. The same kernel with a null slot map computes the dense
-union: :func:`or_bitmaps_cuda`, whose plain version is
-:func:`or_bitmaps_ref`.
+plain version.
 
-:func:`or_bitmaps` is the entry point of the JAX package's BlockSpec
-twin ``_or_kernel`` (kernel B4): the dense function under a stricter
-contract (W a multiple of 1,024 words). On Hopper the two TPU
-schedules are one kernel, so it launches the B2 kernel.
+The dense ``[B, W]`` union has a kernel of its own, B4
+(``csrc/bitmap_or_dense.cu``, which replaces the Pallas
+``emqx_tpu/ops/bitmap.py::_or_kernel``): bound by the union's write,
+it reads each distinct row's strip once a chunk of topics.
+:func:`or_bitmaps_cuda` launches it (plain version
+:func:`or_bitmaps_ref`); the device mesh's per-cell union and
+:func:`or_bitmaps`, the entry point of the JAX package's ``_or_kernel``
+(the dense function under a stricter contract, W a multiple of 1,024
+words), go through it.
 
 Rows are held as ``int32`` on the torch side: OR ignores sign, and
 torch's ``uint32`` lacks most CPU ops.
@@ -125,49 +128,44 @@ def or_bitmaps_ref(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _launch(bitmaps: torch.Tensor, rows: torch.Tensor,
-            src: torch.Tensor | None, name: str) -> torch.Tensor:
-    """One launch of kernel B2 over ``P`` output rows: ``src[p]`` (or
-    ``p`` when ``src`` is None) names each row's topic. Raises on
-    anything the kernel does not take, or when the launch fails."""
-    tensors = (bitmaps, rows) + (() if src is None else (src,))
-    if any(not t.is_cuda or t.device != bitmaps.device for t in tensors):
+def _check(tensors, name: str) -> None:
+    """Raise unless every tensor is int32 on the first one's CUDA
+    device."""
+    dev = tensors[0].device
+    if any(not t.is_cuda or t.device != dev for t in tensors):
         raise ValueError(f"{name}: tensors must share one CUDA device")
     if any(t.dtype != torch.int32 for t in tensors):
-        raise TypeError(f"{name}: int32 bitmaps, rows and slot map")
+        raise TypeError(f"{name}: int32 tensors only")
+    if tensors[0].shape[1] % 4:
+        raise ValueError(f"{name}: W={tensors[0].shape[1]} is not a "
+                         f"multiple of 4")
+
+
+def or_bitmaps_cuda(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Launch kernel B4: the dense ``out[b] = OR bitmaps[rows[b, m]]``
+    for ``0 <= rows[b, m] < R``, zero where no slot is live;
+    ``bitmaps`` int32[R, W] with W a multiple of 4 words, ``rows``
+    int32[B, mb]. Raises on anything the kernel does not take, or when
+    the launch fails."""
+    name = "or_bitmaps_cuda"
+    _check((bitmaps, rows), name)
     R, W = bitmaps.shape
     B, mb = rows.shape
-    if W % 4:
-        raise ValueError(f"{name}: W={W} is not a multiple of 4")
-    if src is not None and src.dim() != 1:
-        raise ValueError(f"{name}: the slot map must be 1-D")
-    P = B if src is None else src.shape[0]
     bitmaps = bitmaps.contiguous()
     rows = rows.contiguous()
-    src = None if src is None else src.contiguous()
-    out = torch.empty((P, W), dtype=torch.int32, device=bitmaps.device)
-    if P == 0:
+    out = torch.empty((B, W), dtype=torch.int32, device=bitmaps.device)
+    if B == 0 or W == 0:
         return out
     if bitmaps.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError(f"{name}: rows must be 16-byte aligned")
     lib = _build.library()
     stream = torch.cuda.current_stream(bitmaps.device).cuda_stream
-    rc = lib.emqx_bitmap_or(
+    rc = lib.emqx_bitmap_or_dense(
         ctypes.c_void_p(bitmaps.data_ptr()), ctypes.c_void_p(rows.data_ptr()),
-        ctypes.c_void_p(None if src is None else src.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), P, B, mb, W, R,
-        ctypes.c_void_p(stream))
-    _build.check(lib, rc, "bitmap_or")
-    _build.count_launch("bitmap_or")
+        ctypes.c_void_p(out.data_ptr()), B, mb, W, R, ctypes.c_void_p(stream))
+    _build.check(lib, rc, "bitmap_or_dense")
+    _build.count_launch("bitmap_or_dense")
     return out
-
-
-def or_bitmaps_cuda(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Launch kernel B2 over every topic (a null slot map): the dense
-    ``out[b] = OR bitmaps[rows[b, m]]`` for ``rows[b, m] >= 0``;
-    ``bitmaps`` int32[R, W] with W a multiple of 4 words, ``rows``
-    int32[B, mb]."""
-    return _launch(bitmaps, rows, None, "or_bitmaps_cuda")
 
 
 def or_union_rows_ref(bitmaps: torch.Tensor, rows: torch.Tensor,
@@ -182,8 +180,32 @@ def or_union_rows_cuda(bitmaps: torch.Tensor, rows: torch.Tensor,
                        src: torch.Tensor) -> torch.Tensor:
     """Launch kernel B2 over the packed rows only: ``out[p] = OR
     bitmaps[rows[src[p], m]]`` for ``rows[src[p], m] >= 0``, zero where
-    ``src[p] < 0``; ``src`` int32[pr] from ``pack.union_slots``."""
-    return _launch(bitmaps, rows, src, "or_union_rows_cuda")
+    ``src[p] < 0``; ``src`` int32[pr] from ``pack.union_slots``. Raises
+    on anything the kernel does not take, or when the launch fails."""
+    name = "or_union_rows_cuda"
+    _check((bitmaps, rows, src), name)
+    R, W = bitmaps.shape
+    B, mb = rows.shape
+    if src.dim() != 1:
+        raise ValueError(f"{name}: the slot map must be 1-D")
+    P = src.shape[0]
+    bitmaps = bitmaps.contiguous()
+    rows = rows.contiguous()
+    src = src.contiguous()
+    out = torch.empty((P, W), dtype=torch.int32, device=bitmaps.device)
+    if P == 0:
+        return out
+    if bitmaps.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be 16-byte aligned")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(bitmaps.device).cuda_stream
+    rc = lib.emqx_bitmap_or(
+        ctypes.c_void_p(bitmaps.data_ptr()), ctypes.c_void_p(rows.data_ptr()),
+        ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        P, B, mb, W, R, ctypes.c_void_p(stream))
+    _build.check(lib, rc, "bitmap_or")
+    _build.count_launch("bitmap_or")
+    return out
 
 
 def or_union_rows_auto(bitmaps: torch.Tensor, rows: torch.Tensor,
@@ -197,11 +219,11 @@ def or_union_rows_auto(bitmaps: torch.Tensor, rows: torch.Tensor,
 def or_bitmaps(bitmaps: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Kernel B4's entry point: ``out[b] = OR bitmaps[rows[b, m]]`` for
     ``rows[b, m] >= 0``; ``bitmaps`` int32[R, W] with W a multiple of
-    1,024 words, and of 65,536 when wider than that, as B4's 64-block
-    programs need (``words_for`` widths always are); ``rows``
-    int32[B, mb].
-    CUDA tensors launch the B2 kernel, CPU tensors run
-    :func:`or_bitmaps_ref`."""
+    1,024 words, and of 65,536 when wider than that, as the JAX
+    ``_or_kernel``'s 64-block programs need (``words_for`` widths always
+    are); ``rows`` int32[B, mb].
+    CUDA tensors launch kernel B4 (:func:`or_bitmaps_cuda`), CPU tensors
+    run :func:`or_bitmaps_ref`."""
     W = bitmaps.shape[1]
     wt = W // _TILE2D
     if W % _TILE2D or (wt > _MAX_BLK and wt % _MAX_BLK):

@@ -18,10 +18,11 @@ maps each of the ``pr`` packed rows to its source topic, and kernel B2
 launch. What bounds it at the main path's shapes is that launch's
 latency, not bytes (about 1-2 MiB), so the design drops the dense
 ``[B, W]`` union (512 MiB a 4,096-topic batch at W = 32,768) and its
-gather rather than pipelining the copies. One kernel serves both the
-packed union (B2) and the dense one (B4, a null slot map).
-:func:`pack_union_rows` keeps the dense composition, the JAX
-package's function, for the tests and the old-route comparison.
+gather rather than pipelining the copies. The dense union has a
+kernel of its own (B4, ``csrc/bitmap_or_dense.cu``), which the device
+mesh runs; :func:`pack_union_rows` packs its rows there and keeps the
+dense composition, the JAX package's function, for the tests and the
+old-route comparison.
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ The port of the JAX package's ``parallel/sharded.py``:
     match_batch_auto` — kernel B1 on CUDA tensors, the plain walk on
     CPU tensors; the JAX mesh runs the lax walk there), gathers its
     shard's subscribers and ORs its shard's big-filter bitmap rows
-    (kernel B2's dense entry point on CUDA). The collectives are torch
+    (kernel B4, the dense OR, on CUDA). The collectives are torch
     ops over the cells' results: the match ids, subscribers and
     sources concatenate over ``trie``, the unions OR over ``trie``, the
     counters sum over the mesh;
@@ -445,8 +445,8 @@ class _MeshAxes:
 
 
 def _or_bitmaps_auto(bitmaps, rows):
-    """The dense union: kernel B2 (a null slot map) on CUDA tensors,
-    its plain version on CPU tensors."""
+    """The dense union: kernel B4 on CUDA tensors, its plain version on
+    CPU tensors."""
     if bitmaps.is_cuda:
         return or_bitmaps_cuda(bitmaps, rows)
     return or_bitmaps_ref(bitmaps, rows)

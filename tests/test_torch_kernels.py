@@ -236,7 +236,52 @@ def test_or_bitmaps_entry_point_launches_the_bitmap_kernel(cuda_device):
     got = or_bitmaps(bm, rows)
     torch.cuda.synchronize()
     assert torch.equal(got, or_bitmaps_ref(bm, rows))
-    assert _build.LAUNCHES["or_bitmaps"] == _build.LAUNCHES["bitmap_or"] == 1
+    assert _build.LAUNCHES["or_bitmaps"] == \
+        _build.LAUNCHES["bitmap_or_dense"] == 1
+    assert _build.LAUNCHES["bitmap_or"] == 0
+
+
+#: (R, B, mb, W, dead every n-th topic or 0), the grid of
+#: tests/test_torch_dense_or.py, and the card's shapes beside it
+DENSE_CASES = {
+    "b_not_a_multiple_of_t": (8, 300, 16, 2048, 0),
+    "more_distinct_rows_than_staged": (80, 130, 16, 1024, 0),
+    "one_topic_one_slot": (3, 1, 1, 1024, 0),
+    "ragged_last_strip": (8, 64, 4, 1028, 0),
+    "every_fifth_topic_dead": (16, 200, 8, 3072, 5),
+    "no_slots": (4, 70, 0, 1024, 0),
+    "sixty_four_distinct_rows": (64, 1024, 16, 8192, 0),
+    "thirty_two_rows": (32, 512, 16, 8192, 0),
+    "spill_list_full": (300, 40, 24, 1024, 0),
+    "b4_rows_at_a_quarter_width": (8, 4096, 16, 8192, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(DENSE_CASES) + ["row_ids_past_r"])
+def test_dense_kernel_matches_plain_or(cuda_device, name):
+    """Kernel B4 against ``or_bitmaps_ref``, one launch counted under
+    ``bitmap_or_dense`` and none under B2's ``bitmap_or``; ids at or
+    past R are skipped like -1."""
+    R, B, mb, W, dead = DENSE_CASES.get(name, (8, 70, 16, 1024, 0))
+    rs = np.random.RandomState(len(name))
+    bm = torch.from_numpy(rs.randint(-2**31, 2**31 - 1, size=(R, W))
+                          .astype(np.int32)).to(cuda_device)
+    rows = rs.randint(-1, R, size=(B, mb)).astype(np.int32)
+    if dead:
+        rows[::dead] = -1
+    if name == "row_ids_past_r":
+        rows[::3, ::2] = R + np.arange(0, mb, 2)
+    live = np.where(rows < R, rows, -1)
+    _build.reset_launches()
+    got = or_bitmaps_cuda(bm, torch.from_numpy(rows).to(cuda_device))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bitmap_or_dense"] == 1
+    assert _build.LAUNCHES["bitmap_or"] == 0
+    want = or_bitmaps_ref(bm, torch.from_numpy(live).to(cuda_device))
+    assert got.shape == (B, W) and torch.equal(got, want)
+    if dead:
+        assert not got[::dead].any()
 
 
 @pytest.mark.gpu
@@ -591,8 +636,8 @@ def _mesh_case(rs, n_trie):
 
 @pytest.mark.gpu
 def test_mesh_step_on_a_2x2_grid_of_one_card_equals_the_cpu_mesh(cuda_device):
-    """publish_step on a 2×2 mesh of the one card: B1 and B2 launch once
-    per cell (4 each), and every output equals the same step on a 2×2
+    """publish_step on a 2×2 mesh of the one card: B1 and B4 (the dense
+    union) launch once per cell (4 each), and every output equals the same step on a 2×2
     CPU mesh (the plain walk and the plain OR in every cell)."""
     from emqx_tpu_torch.parallel.mesh import make_mesh
     from emqx_tpu_torch.parallel.sharded import place_sharded, publish_step
@@ -609,7 +654,8 @@ def test_mesh_step_on_a_2x2_grid_of_one_card_equals_the_cpu_mesh(cuda_device):
         torch.cuda.synchronize()
         if devs[0] == cuda_device:
             assert _build.LAUNCHES["walk"] == 4
-            assert _build.LAUNCHES["bitmap_or"] == 4
+            assert _build.LAUNCHES["bitmap_or_dense"] == 4
+            assert _build.LAUNCHES["bitmap_or"] == 0
     got, want = outs
     for j in (0, 1, 2, 4, 5):
         assert torch.equal(got[j].cpu(), want[j]), j
@@ -625,7 +671,7 @@ def test_mesh_broker_on_a_2x2_grid_of_one_card_delivers_like_one_device(
         cuda_device):
     """A mesh broker on a 2×2 grid of the card delivers what a
     one-device broker on the card delivers, message by message, with
-    B1 and B2 launched once per cell and batch."""
+    B1 and B4 (the dense union) launched once per cell and batch."""
     from emqx_tpu_torch.parallel.mesh import make_mesh
 
     rs = np.random.RandomState(23)
@@ -653,7 +699,8 @@ def test_mesh_broker_on_a_2x2_grid_of_one_card_delivers_like_one_device(
         torch.cuda.synchronize()
         if mesh is not None:
             assert _build.LAUNCHES["walk"] == 4
-            assert _build.LAUNCHES["bitmap_or"] == 4
+            assert _build.LAUNCHES["bitmap_or_dense"] == 4
+            assert _build.LAUNCHES["bitmap_or"] == 0
         results.append((counts, [sorted(s.got) for s in subs]))
     assert results[0] == results[1]
 
