@@ -282,11 +282,15 @@ kernels against their plain PyTorch versions:
      two durable nodes, each the other's standby (``ack_quorum=1``),
      :data:`P14_DRAIN_SESSIONS` detached sessions on ``bench/<i % 97>/+``
      (cut from the bench's 5,000; printed) and :data:`P14_DRAIN_LIVE`
-     live v5 clients on bd0, waves of
+     live v5 clients on bd0 with persistent sessions on
+     :data:`P14_DRAIN_LIVE_TOPIC` at QoS 1, waves of
      :data:`P14_DRAIN_WAVE`; a CONNECT meanwhile gets 0x9C with the
-     Server-Reference; time-to-empty, sessions/s, the wave p99, 50
+     Server-Reference; publishes on bd1 during the live sessions'
+     finalize; time-to-empty, sessions/s, the wave p99, 50
      redirected, every session handed off, the digest equal with one
-     holder; a batch on bd1 through B1 (:data:`P14_DRAIN_DEVICE_MIN`)
+     holder; the live clients resume on bd1 with their sessions, none
+     lost, and the repeats without DUP printed on their own line, 0
+     (fault C.9); a batch on bd1 through B1 (:data:`P14_DRAIN_DEVICE_MIN`)
      delivering to the handed sessions; bd0's stop with its target set
      sends 0x9C and the reference.
  15. the access plane and the built-in modules (``banned.py``,
@@ -4235,6 +4239,7 @@ class WireClient:
         self.expiry = expiry
         self.auto_ack = auto_ack
         self.got = []          # (topic, payload, retain, arrival)
+        self.dup = False       # the DUP flag of the last PUBLISH
         self.raw = bytearray()  # every byte received
         self.sent = 0          # packets sent
         self.waiting = {}      # ("connack"|"suback"|"puback", pid) -> future
@@ -4312,6 +4317,7 @@ class WireClient:
                     if isinstance(pkt, Publish):
                         self.got.append((pkt.topic, pkt.payload, pkt.retain,
                                          now))
+                        self.dup = bool(pkt.dup)
                         if pkt.qos == 1 and self.auto_ack:
                             self.send(PubAck(type=C.PUBACK,
                                              packet_id=pkt.packet_id))
@@ -6395,6 +6401,20 @@ P14_DRAIN_SESSIONS = 1000
 P14_DRAIN_LIVE = 50
 P14_DRAIN_WAVE = 200
 P14_DRAIN_FILTERS = 97
+#: 14c's live clients keep persistent v5 sessions and take QoS 1 on one
+#: topic, published on bd1 while bd0 finalizes their hand-off (the
+#: fleet's finalize runs first: the publisher waits until only the live
+#: sessions are left); each resumes on bd1 after its redirect and must
+#: get every message, a repeat only with DUP (fault C.9: such a publish
+#: was queued twice or lost). Each publish pays a fan-out rebuild on
+#: bd1, whose membership every finalize changes, so the count is small
+#: (78 took the drain to 23.177 s on an H100 80GB HBM3 at 700 W); a
+#: broker without the C.9 fix lost 18 and 28 of the 16 x 50 deliveries
+#: in two CPU rehearsals (``scripts/rehearse_14c.py --root`` on such a
+#: checkout)
+P14_DRAIN_LIVE_TOPIC = "drain-live/t"
+P14_DRAIN_LIVE_MSGS = 16
+P14_DRAIN_LIVE_EVERY_S = 0.002
 #: 14c's router threshold: the drain bench's 97 filters sit below the
 #: JAX default device threshold (1,024 filters), where the router
 #: matches on the host; at 0 the target's batch walks them with B1
@@ -6693,8 +6713,9 @@ def repl_14ab(opts, device, card, tmp):
 async def repl_14c(opts, device, card, tmp):
     """14c, the drain (emqx_tpu/bench_live.py:953-1063): two durable
     nodes on ``device``, each the other's standby (ack_quorum 1), a
-    detached fleet and live v5 clients on bd0, ``bd0.drain.start(target=
-    "bd1")``; then a batch on bd1 and bd0's redirecting stop."""
+    detached fleet and live v5 QoS 1 subscribers on bd0, a publisher on
+    bd1, ``bd0.drain.start(target="bd1")``; the subscribers resume on
+    bd1; then a batch on bd1 and bd0's redirecting stop."""
     import os
 
     from emqx_tpu_torch.cluster import ClusterConfig
@@ -6748,13 +6769,42 @@ async def repl_14c(opts, device, card, tmp):
         await loop.run_in_executor(None, n0.durability.on_batch)
         pre = sessions_digest(n0, cids)
         port0 = n0.listeners[0].port
+        repeats = [0]
+
+        def on_live(c):
+            payload = bytes(c.got[-1][1])
+            if payload not in c.seen:
+                c.seen.add(payload)
+            elif not c.dup:
+                repeats[0] += 1
+
         for i in range(P14_DRAIN_LIVE):
-            c = WireClient(f"bench-l{i}", 5)
+            c = WireClient(f"bench-l{i}", 5, clean_start=False, expiry=3600)
+            c.seen = set()
+            c.on_publish = on_live
             await c.connect(port0)
+            await p17_subscribe(c, 1, [P14_DRAIN_LIVE_TOPIC])
             c.redirect = c.expect("disconnect", 0)
             clients.append(c)
+        published = []
+
+        async def live_publisher():
+            while len(published) < P14_DRAIN_LIVE_MSGS \
+                    and n0.drain.time_to_empty_s is None:
+                await asyncio.sleep(P14_DRAIN_LIVE_EVERY_S)
+                # the finalize has begun (the bulk rounds are done) and
+                # reached the live sessions
+                if n0.drain.handoff_ok is None \
+                        or len(n0.cm._detached) > P14_DRAIN_LIVE:
+                    continue
+                seq = len(published)
+                n1.broker.publish(Message(topic=P14_DRAIN_LIVE_TOPIC,
+                                          payload=str(seq).encode(), qos=1))
+                published.append(seq)
+
         t0 = time.perf_counter()
         n0.drain.start(target="bd1")
+        pub_task = asyncio.get_running_loop().create_task(live_publisher())
         late = WireClient("bench-late", 5)
         refused = await late.connect_once(port0)
         await late.closed
@@ -6767,6 +6817,7 @@ async def repl_14c(opts, device, card, tmp):
             if time.perf_counter() - t0 > 120:
                 raise AssertionError("[14c] the drain did not empty bd0 "
                                      "in 120 s")
+        await pub_task
         info = n0.drain.info()
         codes = set()
         for c in clients:
@@ -6776,7 +6827,8 @@ async def repl_14c(opts, device, card, tmp):
         on_target = sum(1 for cid in cids if cid in n1.cm._detached)
         one_holder = not any(cid in n0.cm._detached for cid in cids)
         digest_ok = sessions_digest(n1, cids) == pre
-        if (info["redirected"] != P14_DRAIN_LIVE or info["handed_off"] != n_sess
+        if (info["redirected"] != P14_DRAIN_LIVE
+                or info["handed_off"] != n_sess + P14_DRAIN_LIVE
                 or not info["handoff_ok"] or on_target != n_sess
                 or not one_holder or not digest_ok
                 or codes != {(RC.USE_ANOTHER_SERVER, "bd1")}):
@@ -6784,6 +6836,45 @@ async def repl_14c(opts, device, card, tmp):
                                  f"one holder {one_holder}, digest "
                                  f"{digest_ok}, redirects {codes}")
         tte = info["time_to_empty_s"]
+        # the redirected live clients resume on the target and must get
+        # every message published there, each repeat flagged DUP. First
+        # the target's resync of the adopted set to its standby (bd0),
+        # which the final marker started, must land: both nodes share
+        # this loop, so a CONNECT meanwhile waits on its cluster lock
+        # for an answer bd0 sends only after that resync's apply, which
+        # needs this same loop (until the call times out)
+        r1 = n1.replication
+        await until_async(
+            lambda: r1.state == "replicating"
+            and not any(p.need_hello for p in r1.peers.values()),
+            60, "bd1's resync to bd0", "14c")
+        port1 = n1.listeners[0].port
+        resumed = 0
+        for c in clients:
+            # the redirect's close reaches a client whose PUBACKs the
+            # broker left unread as a reset: it ends that connection,
+            # nothing more
+            await asyncio.wait([c._task])
+            if not c._task.cancelled():
+                c._task.exception()
+            await c.connect(port1)
+            resumed += bool(c.connack.session_present)
+        n_pub = len(published)
+        t_wait = time.perf_counter()
+        while any(len(c.seen) < n_pub for c in clients) \
+                and time.perf_counter() - t_wait < 60:
+            await asyncio.sleep(0.02)
+        lost = sum(n_pub - len(c.seen) for c in clients)
+        log(f"[14c] {P14_DRAIN_LIVE} live v5 QoS 1 clients on "
+            f"{P14_DRAIN_LIVE_TOPIC}, redirected and resumed on bd1 "
+            f"({resumed} with their session): {n_pub} messages published "
+            f"on bd1 while their hand-off's finalize ran; {lost} lost "
+            f"— {card}")
+        log(f"[14c] repeats without DUP: {repeats[0]}")
+        if resumed != P14_DRAIN_LIVE or lost or repeats[0]:
+            raise AssertionError(f"[14c] live clients: {resumed} resumed, "
+                                 f"{lost} lost, {repeats[0]} repeats "
+                                 f"without DUP")
         # a batch on the target: one topic a filter (each reaching its
         # ~52 handed sessions) among topics that match nothing
         handed = [n1.cm._detached[cid][0] for cid in cids]
@@ -6821,7 +6912,8 @@ async def repl_14c(opts, device, card, tmp):
         check_quiet(n1, "14c bd1")
         return {"time_to_empty_s": tte, "wave_p99_ms": info["wave_p99_ms"],
                 "sessions_per_s": info["handed_off"] / max(tte, 1e-9),
-                "batch_ms": lat * 1e3, "launches": launches}
+                "batch_ms": lat * 1e3, "launches": launches,
+                "live_msgs": n_pub, "live_repeats_without_dup": repeats[0]}
     finally:
         for c in clients:
             try:

@@ -58,6 +58,10 @@ from emqx_tpu_torch.types import Message
 
 log = logging.getLogger("emqx_tpu_torch.cluster")
 
+#: the header a QoS>0 forward carries: the nodes its sender routed the
+#: filter to (see ``Cluster._forward``)
+FWD_DESTS = "fwd_dests"
+
 
 class PeerUnavailableError(ConnectionError):
     """A call was refused WITHOUT touching the wire because the
@@ -746,17 +750,25 @@ class Cluster:
     # -- data plane (gen_rpc analogue) ------------------------------------
 
     def _forward(self, node: str, flt: str, msg: Message) -> None:
-        if "_wire" in msg.headers:
-            # the local-delivery wire cache must not travel: rebuild
-            # with the headers minus the cache (a full msg.copy()
-            # would deep-copy the very bytes being discarded, once
-            # per destination node)
+        stamp = msg.qos > 0 and "fwd_bounce" not in msg.headers
+        if stamp or "_wire" in msg.headers:
+            # rebuild with the headers minus the local-delivery wire
+            # cache, which must not travel (a full msg.copy() would
+            # deep-copy the very bytes being discarded, once per
+            # destination node). A QoS>0 forward also names every node
+            # this one routes the filter to, itself included when it
+            # delivers locally: the receiver's bounce skips them, as
+            # each has its copy already (fault C.9)
+            headers = {k: v for k, v in msg.headers.items()
+                       if k != "_wire"}
+            if stamp:
+                headers[FWD_DESTS] = tuple(
+                    r.dest for r in self.node.router.lookup_routes(flt)
+                    if not isinstance(r.dest, tuple))
             msg = Message(
                 topic=msg.topic, payload=msg.payload, qos=msg.qos,
                 from_=msg.from_, flags=dict(msg.flags),
-                headers={k: v for k, v in msg.headers.items()
-                         if k != "_wire"},
-                id=msg.id, timestamp=msg.timestamp)
+                headers=headers, id=msg.id, timestamp=msg.timestamp)
         try:
             self.transport.cast(node, "forward", flt, msg)
         except ConnectionError:
@@ -1246,6 +1258,10 @@ class Cluster:
             return self._apply_route("del", args[0], args[1])
         if op == "forward":
             flt, msg = args
+            # the sender's stamp leaves before dispatch: no session
+            # stores it
+            headers = getattr(msg, "headers", None)
+            routed = headers.pop(FWD_DESTS, ()) if headers else ()
             b = self.node.broker
             b.metrics.inc("messages.received")
             # dispatch by the already-matched filter (no re-match, no
@@ -1259,12 +1275,15 @@ class Cluster:
                 # replayed after a heal): re-route once to the
                 # filter's CURRENT owners — scoped to this filter's
                 # routes, one bounce max, so a QoS>0 delivery survives
-                # a custody move instead of dying on the stale owner
+                # a custody move instead of dying on the stale owner.
+                # A node the sender routed this filter to has its copy
+                # already: a bounce there would queue it twice, the
+                # repeat without DUP (fault C.9)
                 msg.headers["fwd_bounce"] = True
                 for r in self.node.router.lookup_routes(flt):
                     if isinstance(r.dest, tuple):
                         continue  # shared groups pick per-dispatch
-                    if r.dest != self.name:
+                    if r.dest != self.name and r.dest not in routed:
                         self._forward(r.dest, flt, msg)
             return n
         if op == "forward_shared":

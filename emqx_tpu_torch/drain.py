@@ -323,6 +323,7 @@ class DrainManager:
         (live cluster forwards land in both copies once the target's
         routes are up), then drop the local copies + exactly their
         route refs and repoint the registry."""
+        from emqx_tpu_torch.cluster import PeerUnavailableError
         from emqx_tpu_torch.replication import sessions_digest
 
         node = self.node
@@ -333,6 +334,23 @@ class DrainManager:
         if cl is None or repl is None or target is None:
             return
         deadline = time.monotonic() + self.cfg.handoff_timeout_s
+
+        def call(*args):
+            # a target the detector holds suspect is unconfirmed, not
+            # lost: wait its hysteresis out inside the hand-off's bound.
+            # Giving up at once kept custody on a node about to stop,
+            # whose restart recovers the sessions where no registry
+            # entry points (a reconnect elsewhere then got a fresh
+            # session: the rolling restart's session loss)
+            while True:
+                try:
+                    return cl.transport.call(target, *args)
+                except PeerUnavailableError as e:
+                    if e.state != "suspect" or not self.active \
+                            or time.monotonic() >= deadline:
+                        raise
+                time.sleep(0.05)
+
         d = node.durability
         if d is not None and d.wal is not None:
             # local durability first, then the replicated tail: the
@@ -377,13 +395,10 @@ class DrainManager:
                 for i in range(0, len(handed),
                                HANDOFF_BATCH_SESSIONS):
                     chunk = handed[i:i + HANDOFF_BATCH_SESSIONS]
-                    cl.transport.call(
-                        target, "repl_failback", node.name,
-                        {"sessions": chunk, "final": False})
+                    call("repl_failback", node.name,
+                         {"sessions": chunk, "final": False})
                 if sessions_digest(node, cids) == local_digest \
-                        and cl.transport.call(
-                            target, "drain_digest", cids) \
-                        == local_digest:
+                        and call("drain_digest", cids) == local_digest:
                     ok = True
                     break
                 # digests differ: a forward landed mid-transfer —
@@ -442,11 +457,10 @@ class DrainManager:
                         if s is None:
                             continue  # taken over mid-hand-off
                     try:
-                        cl.transport.call(
-                            target, "repl_failback", node.name,
-                            {"sessions": [(cid, float(dts),
-                                           s.to_wire())],
-                             "final": False})
+                        call("repl_failback", node.name,
+                             {"sessions": [(cid, float(dts),
+                                            s.to_wire())],
+                              "final": False})
                     except (ConnectionError, OSError):
                         # already dropped locally: park so the copy
                         # stays reachable (takeover/claim) instead
@@ -464,9 +478,8 @@ class DrainManager:
             # unless the registry meanwhile placed it on the target
             # itself, which handle_failback's live-wins rule keeps)
             taken = sorted(universe - set(moved))
-            cl.transport.call(target, "repl_failback", node.name,
-                              {"sessions": [], "final": True,
-                               "keep": taken})
+            call("repl_failback", node.name,
+                 {"sessions": [], "final": True, "keep": taken})
         except (ConnectionError, OSError) as e:
             log.warning("drain hand-off to %s failed (%s); local "
                         "custody kept for what was not finalized",

@@ -60,8 +60,8 @@ BREAKER_METRICS = (
 
 NAMES = (
     # the JAX package's catalogue, in its order (its ALL_METRICS), less
-    # the names of paths the port has not ported: ``Metrics.all`` and
-    # ``ctl metrics`` list them in this order
+    # ``frame.fallback``: the port's frame parser has no fallback path.
+    # ``Metrics.all`` and ``ctl metrics`` list them in this order
     # bytes and packets on the wire (emqx_metrics.erl:82-183)
     "bytes.received", "bytes.sent",
     "packets.received", "packets.sent", "packets.connect.received",
@@ -124,6 +124,8 @@ NAMES = (
     "automaton.delta.probes", "automaton.delta.filters",
     "automaton.delta.merges", "automaton.rebuild.stall_ms",
     "automaton.compaction.fused_edges", "automaton.compaction.chains",
+    # slow-consumer guard closes (zone send_timeout)
+    "connections.closed.slow_consumer",
     *OVERLOAD_METRICS,
     *BREAKER_METRICS,
     # armed fault points that fired (faults.py), folded by Node.tick

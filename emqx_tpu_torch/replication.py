@@ -1298,27 +1298,35 @@ class ReplicationManager:
             if cid in cm._channels:
                 continue  # the client already came home live
             stale = cm._detached.pop(cid, None)
-            if stale is not None:
-                self._drop_local_session(cid, stale[0],
-                                         registry=False)
+            # an earlier chunk of this same hand-off: from its apply
+            # on, live forwards reach that copy, and the ones that
+            # landed after the sender quiesced its own copy are in no
+            # snapshot of the sender's — the overwrite below must keep
+            # them (fault C.9)
+            carry = stale[0] if stale is not None \
+                and self.adopting(cid) \
+                and self._adopting[cid][0] == standby else None
             try:
                 sess = Session.from_wire(sd)
+                expiry = float(sd.get("expiry_interval", 0.0) or 0.0)
             except Exception as e:
                 log.warning("failback session %r unrecoverable: %s",
                             cid, e)
-                continue
-            expiry = float(sd.get("expiry_interval", 0.0) or 0.0)
-            if expiry <= 0:
-                continue
+                sess = None
             detach = float(dts) if dts is not None else down_ts
-            if down_ts - detach >= expiry:
-                continue  # expired while failed over
+            if sess is None or expiry <= 0 \
+                    or down_ts - detach >= expiry:
+                # unrecoverable, not persistent, or expired while
+                # failed over
+                if stale is not None:
+                    self._drop_local_session(cid, stale[0],
+                                             registry=False)
+                continue
             sess.client_id = cid
             sess.broker = node.broker
             if d is not None:
                 sess.durable = True
                 sess._dur = d
-                d._detach_ts[cid] = detach
             for key, opts in list(sess.subscriptions.items()):
                 try:
                     flt, dest = _sub_route(key, me)
@@ -1333,6 +1341,17 @@ class ReplicationManager:
                 except Exception:
                     log.exception("failback restore of %r for %r "
                                   "failed", key, cid)
+            if stale is not None:
+                # only now that the new copy holds its route refs: a
+                # drop first took a filter's last ref on this node, and
+                # a publish between the route_del and route_add that
+                # went out reached no copy at all (fault C.9)
+                self._drop_local_session(cid, stale[0],
+                                         registry=False)
+            if d is not None:
+                d._detach_ts[cid] = detach
+            if carry is not None and sess.carry_queued(carry):
+                sd = sess.to_wire()  # the journal holds the merge
             cm._detached[cid] = (sess, detach, expiry)
             self._adopting[cid] = (standby, time.time())
             self._handed_by[cid] = standby

@@ -215,6 +215,28 @@ class Session:
         s.connected = False
         return s
 
+    def carry_queued(self, other: "Session") -> int:
+        """Queue, after this session's own, each message of
+        ``other``'s queue that this session holds nowhere (by message
+        id): a hand-off's snapshot applied over the target's copy from
+        an earlier chunk of the same hand-off keeps what live forwards
+        queued there after the sender quiesced (fault C.9). Returns
+        how many it queued."""
+        held = {m.id for _pid, (m, _ts) in self.inflight.to_list()
+                if isinstance(m, Message)}
+        held.update(m.id for _p, msgs in self.mqueue.snapshot()
+                    for m in msgs)
+        held.update(m.id for pid, m in self.outbox
+                    if pid != PUBREL_MARKER)
+        n = 0
+        for _p, msgs in other.mqueue.snapshot():
+            for m in msgs:
+                if m.id not in held:
+                    held.add(m.id)
+                    self.mqueue.push(m)
+                    n += 1
+        return n
+
     # -- SUBSCRIBE / UNSUBSCRIBE ------------------------------------------
 
     def subscribe(self, topic_filter: str,

@@ -3,9 +3,12 @@ functions (reference: src/emqx_stats.erl — subsystems register update
 funs that run on the stats tick, e.g. src/emqx_broker_helper.erl:118).
 
 The key table is the JAX package's: every row a JAX node presets is
-preset here, so ``Stats.all`` lists the same keys. Rows of the layers
-not ported yet (the cluster plane, journal shipping, several loops)
-stay at 0; any other key is created by its first :meth:`Stats.setstat`.
+preset here, so ``Stats.all`` lists the same keys. The node's stats
+tick (``node.py``) and the replication fold (``replication.py``) set
+the same rows the JAX package sets, the cluster plane's, journal
+shipping's and each loop's included; a row stays at 0 on a node
+without that layer (no cluster, no standbys, one loop). Any other key
+is created by its first :meth:`Stats.setstat`.
 """
 
 from __future__ import annotations

@@ -397,6 +397,149 @@ async def test_drain_handoff_custody_digest_exact(tmp_path):
     await both_async(_handoff, tmp_path)
 
 
+# -- fault C.9: a publish that meets the hand-off's finalize -------------
+
+class _HeldCasts:
+    """A ``LocalTransport`` mixin that holds the ``forward``,
+    ``route_del`` and ``route_add`` casts while ``hold`` is set, so a
+    test can release them at the step it chooses (the socket
+    transport's in-flight window, made deterministic)."""
+
+    HELD = ("forward", "route_del", "route_add")
+
+    def __init__(self):
+        super().__init__()
+        self.hold = False
+        self.held = []
+
+    def cast(self, node, op, *args):
+        if self.hold and op in self.HELD:
+            self.held.append((node, op, args))
+            return None
+        return super().cast(node, op, *args)
+
+    def release(self, ops=HELD):
+        """Deliver the held casts of ``ops``, in the order sent, and
+        every cast they cause (a bounce) at once."""
+        hold, self.hold = self.hold, False
+        held, self.held = self.held, []
+        for node, op, args in held:
+            if op in ops:
+                super().cast(node, op, *args)
+            else:
+                self.held.append((node, op, args))
+        self.hold = hold
+
+
+def _c9_handoff(pkg, order):
+    """The drain's custody hand-off of one detached QoS 1 subscriber
+    from n0 (the drained node) to n1 (its target), with the publisher
+    on n2, stepped as the rolling restart's traces of failing runs show
+    it:
+
+    1. a bulk round: n1 adopts a snapshot and installs its route;
+    2. the finalize on n0: the session is quiesced, and n0's
+       ``route_del`` to n2 is in flight;
+    3. n2 publishes ``b"1"`` and n1 applies the finalize's snapshot
+       over its copy, in the ``order`` given:
+
+       - ``"after"``: the publish first, its forwards to n0 and n1 in
+         flight until after the apply;
+       - ``"before"``: the publish first, its forwards landing before
+         the apply;
+       - ``"between"``: the apply first, then the route changes in
+         flight reach n2, then the publish.
+
+    n0 bounces a forward that finds no subscriber there to n1. Returns
+    the (payload, DUP) of each PUBLISH the session sends once it
+    resumes on n1."""
+    if pkg == "jax":
+        from emqx_tpu.cluster import LocalTransport as Local
+        P = JAX
+    else:
+        from emqx_tpu_torch.cluster import LocalTransport as Local
+        P = PORT
+    tr = type("Held", (_HeldCasts, Local), {})()
+    nodes = [P.Node(f"n{i}") for i in range(3)]
+    clusters = [P.Cluster(n, tr) for n in nodes]
+    for c in clusters[1:]:
+        clusters[0].join(c)
+    clusters[1].join(clusters[2])
+    n0, n1, n2 = nodes
+    chan = object()
+    sess, _ = n0.cm.open_session("sub", False, channel=chan)
+    sess.expiry_interval = 300.0
+    sess.subscribe("roll/t", P.SubOpts(qos=1))
+    n0.cm.connection_closed("sub", chan, sess, 300.0)
+    n2.broker.publish(P.Message(topic="roll/t", payload=b"0", qos=1))
+    dts = time.time()
+    n1.replication.handle_failback(
+        "n0", {"sessions": [("sub", dts, sess.to_wire())],
+               "final": False})
+    tr.hold = True
+    s, _ts, _exp = n0.cm._detached.pop("sub")
+    n0.replication._drop_local_session("sub", s, registry=False)
+
+    def publish():
+        n2.broker.publish(P.Message(topic="roll/t", payload=b"1", qos=1))
+
+    def apply_final():
+        n1.replication.handle_failback(
+            "n0", {"sessions": [("sub", dts, s.to_wire())],
+                   "final": False})
+
+    if order == "between":
+        apply_final()
+        tr.release(("route_del",))
+        publish()
+    else:
+        publish()
+        assert [op for _n, op, _a in tr.held].count("forward") == 2
+        if order == "before":
+            tr.release()
+        apply_final()
+    tr.hold = False
+    tr.release()
+    n1.replication.handle_failback(
+        "n0", {"sessions": [], "final": True, "keep": []})
+    resumed, present = n1.cm.open_session("sub", False, channel=object())
+    assert present
+    resumed.replay()
+    return [(bytes(m.payload), bool(m.get_flag("dup")))
+            for _pid, m in resumed.drain_outbox() if hasattr(m, "payload")]
+
+
+@pytest.mark.parametrize("order", ["after", "before", "between"])
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_handoff_finalize_delivers_each_publish_once(pkg, order):
+    """Fault C.9 (in the reference too): a publish that meets the
+    finalize of a drain's custody hand-off. In the JAX package:
+
+    - the drained node bounces the forward that found no subscriber
+      there to the target, which the publisher had forwarded to as
+      well: a forward landing after the final apply is queued twice,
+      the repeat without DUP (``after``);
+    - the final snapshot overwrites the target's copy and drops what
+      the copy had received (``before``: lost);
+    - the apply drops the old copy's route ref first, so the target
+      broadcasts a ``route_del`` and then a ``route_add``: a publish
+      between the two reaches no copy (``between``: lost).
+
+    The port bounces only to nodes the publisher did not route to,
+    keeps what the target's copy of the same hand-off queued beyond the
+    snapshot, and drops the old copy only once the new one holds its
+    route ref: each message goes out once."""
+    got = _c9_handoff(pkg, order)
+    if pkg == "jax":
+        # the reference's fault, pinned
+        want = {"after": [(b"0", False), (b"1", False), (b"1", False)],
+                "before": [(b"0", False)],
+                "between": [(b"0", False)]}[order]
+        assert got == want
+    else:
+        assert got == [(b"0", False), (b"1", False)]
+
+
 # -- graceful stop with a drain target ------------------------------------
 
 async def _stop_target(P, d):

@@ -97,6 +97,27 @@ def test_the_key_tables_are_the_jax_packages():
     assert "x.count" not in s.all() and s.getstat("x.count") == 0
 
 
+#: the one name of the JAX catalogue the port leaves out: the port's
+#: frame parser has no fallback path to count (ROADMAP, deliberate
+#: differences)
+NOT_PORTED_METRICS = ("frame.fallback",)
+
+
+def test_the_metric_catalogue_is_the_jax_packages_in_order():
+    """Name by name and in order: the port's ``NAMES`` is the JAX
+    package's ``ALL_METRICS`` less ``frame.fallback``, and a fresh port
+    node lists every one of them at 0 (``connections.closed.slow_consumer``
+    included, before any slow-consumer close)."""
+    want = [n for n in jm.ALL_METRICS if n not in NOT_PORTED_METRICS]
+    assert list(pm.NAMES) == want
+    assert set(jm.ALL_METRICS) - set(pm.NAMES) == set(NOT_PORTED_METRICS)
+    node = PNode("emqx_tpu@127.0.0.1", device="cpu")
+    listed = node.metrics.all()
+    assert listed["connections.closed.slow_consumer"] == 0
+    assert [n for n in listed if n in set(pm.NAMES)] == want
+    assert all(listed[n] == 0 for n in want)
+
+
 MATCHERS = {
     "host": {"use_native": False},
     "device_cache": {"use_native": False, "device_min_filters": 0},
