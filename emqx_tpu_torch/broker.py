@@ -76,6 +76,7 @@ from emqx_tpu_torch.ops.pack import (budget_for, bundle_i32, mask_pad_flags,
                                      union_slots)
 from emqx_tpu_torch.router import MatcherConfig, Router
 from emqx_tpu_torch.shared_sub import SharedSub
+from emqx_tpu_torch.telemetry import cpu_ns
 from emqx_tpu_torch.types import Message, SubOpts
 from emqx_tpu_torch.utils.batch import dedup_topics
 
@@ -461,6 +462,15 @@ class Broker:
         finish (``pb.done`` stays False): the ingress batcher uses it
         while earlier batches are in flight, so a host batch cannot
         deliver ahead of them."""
+        pb = self._publish_begin(msgs, defer_host)
+        if pb.span is not None:
+            # the begin's own time (hooks, veto, metrics, dedup) and
+            # the mark the fetch's wait starts from
+            pb.span.end_begin()
+        return pb
+
+    def _publish_begin(self, msgs: Sequence[Message],
+                       defer_host: bool) -> PendingBatch:
         pb = PendingBatch()
         tel = self.telemetry
         if tel is not None and tel.enabled:
@@ -498,6 +508,8 @@ class Broker:
             return pb
         if tctxs is not None:
             pb.tbatch = trc.batch_begin(tctxs)
+            if sp is not None:
+                sp.trace(trc, pb.tbatch)
         if sp is not None:
             sp.topic = pb.live[0][1].topic
         topics = [m.topic for _, m in pb.live]
@@ -687,9 +699,14 @@ class Broker:
 
         With durability on, the batched journal flush runs at the end,
         whatever the batch took: one fsync a batch, on this thread."""
+        sp = pb.span
         try:
             if pb.done or pb.host_topics is not None:
                 return
+            if sp is not None:
+                # begin's return to here: the executor's queue and the
+                # interpreter lock
+                sp.add("fetch_wait", sp.t_ready)
             br = self.breaker
             if br is None:
                 self._fetch_device(pb)
@@ -718,6 +735,8 @@ class Broker:
                 # buffered route/retain records hit disk with ONE
                 # fsync here, off the event loop
                 d.on_batch()
+            if sp is not None:
+                sp.t_ready = sp.clock()  # the delivery's wait starts
 
     def _fetch_device(self, pb: PendingBatch) -> None:
         """The fetch body: on a packed-budget overflow, re-pack with
@@ -730,8 +749,10 @@ class Broker:
         if sp is not None:
             # the synchronizing stage: device work queued by the begin
             # surfaces as copy wait here (no sync added — the copy
-            # already waits)
+            # already waits). Each stage's CPU clock reads inside its
+            # wall marks, so ``fetch_cpu`` never exceeds their sum
             t_f = sp.clock()
+            c_f = cpu_ns()
         cfg = self.router.config
         Bp = pb.ids_dev.shape[0]
         budgets = self._pack_budgets.get(Bp)
@@ -848,6 +869,7 @@ class Broker:
             pb.bovf = bovf
             if sp is not None:
                 sp.fallbacks = n_fb
+                sp.add_ms("fetch_cpu", (cpu_ns() - c_f) / 1e6)
                 sp.add("fetch", t_f)
             tb = pb.tbatch
             if tb is not None:
@@ -855,9 +877,12 @@ class Broker:
                 # the batch's begin (the dispatch was asynchronous)
                 self.tracing.mark_match(tb, tb.t0p)
             if self.dispatch_config.planner:
-                t_pl = sp.clock() if sp is not None else 0.0
+                if sp is not None:
+                    t_pl = sp.clock()
+                    c_pl = cpu_ns()
                 pb.plan = self._build_plan(pb, subs_occ, src_occ)
                 if sp is not None:
+                    sp.add_ms("fetch_cpu", (cpu_ns() - c_pl) / 1e6)
                     sp.add("dispatch_plan", t_pl)
                 if pb.plan is not None \
                         and self.dispatch_config.preserialize:
@@ -866,6 +891,7 @@ class Broker:
                     # runs on the ingress executor
                     if sp is not None:
                         t_s = sp.clock()
+                        c_s = cpu_ns()
                     else:
                         t_s = time.perf_counter() \
                             if tb is not None else 0.0
@@ -873,6 +899,7 @@ class Broker:
                                       self._subscribers,
                                       self.helper.registry.lookup)
                     if sp is not None:
+                        sp.add_ms("fetch_cpu", (cpu_ns() - c_s) / 1e6)
                         sp.add("serialize", t_s)
                     if tb is not None:
                         self.tracing.span_mark(tb, "serialize", t_s)
@@ -1042,6 +1069,7 @@ class Broker:
         sp = pb.span
         if sp is not None:
             t_d = sp.clock()
+            c_d = cpu_ns()
         if gstart == 0:
             pb.plan_state = self._plan_prologue(pb)
             if pb.xgroups:
@@ -1065,16 +1093,23 @@ class Broker:
         if folded:
             self._plan_fold(pb, ps)
         if sp is not None:
+            sp.add_ms("dispatch_cpu", (cpu_ns() - c_d) / 1e6)
             sp.add("dispatch", t_d)
         if folded:
             self._span_finish(pb)
 
     def _span_finish(self, pb: PendingBatch) -> None:
         """Close a batch's telemetry span and trace batch, once (a
-        no-op when both are off, or already closed)."""
-        if pb.span is not None:
-            self.telemetry.finish(pb.span)
+        no-op when both are off, or already closed). A span the
+        ingress batcher holds only takes its end here: the batcher
+        folds it once the acknowledgements are set."""
+        sp = pb.span
+        if sp is not None:
             pb.span = None
+            if sp.held:
+                sp.t_end = sp.clock()
+            else:
+                self.telemetry.finish(sp)
         if pb.tbatch is not None:
             self.tracing.close_batch(pb.tbatch)
             pb.tbatch = None
@@ -1344,6 +1379,7 @@ class Broker:
                 self.tracing.mark_match(tb, t_m)
         if sp is not None:
             t_d = sp.clock()
+            c_d = cpu_ns()
         for row in range(start, stop):
             i, msg = pb.live[row]
             filters = pb.host_matched[pb.host_inv[row]]
@@ -1352,6 +1388,7 @@ class Broker:
                 continue
             pb.results[i] = self._route(filters, msg)
         if sp is not None:
+            sp.add_ms("dispatch_cpu", (cpu_ns() - c_d) / 1e6)
             sp.add("dispatch", t_d)
         if stop >= len(pb.live):
             self._span_finish(pb)
@@ -1366,6 +1403,7 @@ class Broker:
         sp = pb.span
         if sp is not None:
             t_d = sp.clock()
+            c_d = cpu_ns()
         for row in range(start, stop):
             i, msg = pb.live[row]
             urow = pb.inv[row]  # packed results are per UNIQUE topic
@@ -1392,6 +1430,7 @@ class Broker:
             pb.results[i] = self._route_packed(urow, row_ids, filters,
                                                msg, pb)
         if sp is not None:
+            sp.add_ms("dispatch_cpu", (cpu_ns() - c_d) / 1e6)
             sp.add("dispatch", t_d)
         if stop >= len(pb.live):
             self._span_finish(pb)

@@ -27,6 +27,13 @@ slot frees. The constructor's defaults are the JAX package's:
 × ``batch_size``, ``queue_hiwater`` one batch, ``finish_chunk``
 :data:`FINISH_CHUNK`.
 
+Telemetry: each submit stamps the clock beside its pending entry;
+the batcher holds the spans of the batches it completes and stamps the
+stages between the broker's phases — ``queue`` (submit → begin, the
+batch's mean), ``order_wait`` (fetch done → first delivery chunk),
+``tail_yield`` (the loop's other work between chunks) and ``ack`` (last
+chunk → futures set) — then folds the span (``telemetry.py``).
+
 Callers without a running event loop (sync callers, sans-IO tests)
 get ``None`` from :meth:`submit` and publish inline. On a multi-loop
 node (:meth:`bind_multiloop`) several front-door loops feed the one
@@ -48,6 +55,8 @@ from emqx_tpu_torch import faults
 from emqx_tpu_torch.concurrency import any_thread, owner_loop, shared_state
 from emqx_tpu_torch.device import resolve
 from emqx_tpu_torch.types import Message
+
+_now = time.perf_counter
 
 log = logging.getLogger("emqx_tpu_torch.ingress")
 
@@ -88,7 +97,9 @@ class IngressBatcher:
         self.queue_hiwater = queue_hiwater or batch_size
         # the delivery tail yields to the loop every this many units
         self.finish_chunk = max(1, finish_chunk)
-        self._pending: List[Tuple[Message, Optional[asyncio.Future]]] = []
+        # (message, ack future or None, submit clock)
+        self._pending: List[Tuple[Message, Optional[asyncio.Future],
+                                  float]] = []
         self._handle = None
         self._inflight = 0
         self._chain: Optional[asyncio.Task] = None  # ordered delivery
@@ -163,7 +174,7 @@ class IngressBatcher:
         if loop is None:
             return None
         fut = loop.create_future() if want_result else None
-        self._pending.append((msg, fut))
+        self._pending.append((msg, fut, _now()))
         self.submitted += 1
         self.max_queue = max(self.max_queue, len(self._pending))
         if len(self._pending) >= self.batch_size:
@@ -185,8 +196,9 @@ class IngressBatcher:
         if want_result and loop is None:
             return None  # a sync caller publishes inline, as before
         fut = loop.create_future() if want_result else None
+        t = _now()
         with self._plock:
-            self._pending.append((msg, fut))
+            self._pending.append((msg, fut, t))
             self.submitted += 1
             n = len(self._pending)
             if n > self.max_queue:
@@ -351,7 +363,7 @@ class IngressBatcher:
                             and not self._chain.done())
             try:
                 pb = self.broker.publish_begin(
-                    [m for m, _ in pending], defer_host=chain_active)
+                    [p[0] for p in pending], defer_host=chain_active)
             except Exception as e:
                 log.exception("ingress batch publish failed")
                 self._resolve_exc(pending, e)
@@ -359,6 +371,17 @@ class IngressBatcher:
             if pb.done and not chain_active:
                 self._resolve(pending, pb.results)
                 continue
+            sp = pb.span
+            if sp is not None:
+                # the batch's span is folded by _complete, after its
+                # acknowledgements; its queue wait is the mean submit
+                # → begin of its messages
+                sp.held = True
+                t_sub = sum(p[2] for p in pending) / len(pending)
+                sp.add_ms("queue", (sp.t0 - t_sub) * 1000.0)
+                if sp.tb is not None:
+                    sp.interval("queue", t_sub, sp.t0,
+                                {"msgs": len(pending)})
             if not pb.done and pb.host_topics is None:
                 self.device_batches += 1
                 self.device_msgs += len(pending)
@@ -372,6 +395,7 @@ class IngressBatcher:
     async def _complete(self, pb, pending, prev) -> None:
         """Fetch off-loop, then deliver in batch order."""
         loop = asyncio.get_running_loop()
+        sp = pb.span  # held: folded below, after the acknowledgements
         try:
             if not pb.done and pb.host_topics is None:
                 if faults.enabled and self._pool is not None \
@@ -401,6 +425,12 @@ class IngressBatcher:
                     await asyncio.shield(prev)
                 except Exception:
                     pass
+            if sp is not None:
+                # the predecessor's tail and the loop's turn; the
+                # delivery window opens here
+                t_first = sp.add("order_wait", sp.t_ready)
+                busy0 = sp.stages.get("dispatch", 0.0) + \
+                    sp.stages.get("match", 0.0)
             if pb.done:
                 results = self.broker.publish_finish(pb)
             else:
@@ -423,7 +453,21 @@ class IngressBatcher:
                 for s in range(0, max(1, n_units), fc):
                     chunk_fn(pb, s, min(s + fc, n_units))
                     if s + fc < n_units:
-                        await asyncio.sleep(0)
+                        if sp is not None and sp.tb is not None:
+                            t_y = _now()
+                            await asyncio.sleep(0)
+                            sp.interval("tail_yield", t_y, _now())
+                        else:
+                            await asyncio.sleep(0)
+                if sp is not None:
+                    # the window less the chunks' own stages (a host
+                    # batch's first chunk also walks the trie): the
+                    # loop's other work between chunks
+                    t_last = _now()
+                    busy = sp.stages.get("dispatch", 0.0) + \
+                        sp.stages.get("match", 0.0) - busy0
+                    sp.add_ms("tail_yield",
+                              (t_last - t_first) * 1000.0 - busy)
                 if pb.plan is not None:
                     # multi-loop: the batch's fold — and so the ack
                     # futures below — waits for the cross-loop handoffs
@@ -447,6 +491,8 @@ class IngressBatcher:
         except Exception as e:
             log.exception("ingress batch completion failed")
             self._resolve_exc(pending, e)
+            if sp is not None and sp.t_end:
+                self.broker.telemetry.finish(sp)  # it was delivered
             return
         finally:
             self._inflight -= 1
@@ -456,10 +502,14 @@ class IngressBatcher:
                 # after this completion instead
                 loop.call_soon(self._flush)
         self._resolve(pending, results)
+        if sp is not None:
+            # a held span is a delivered batch's: t_last is set
+            sp.add("ack", t_last)
+            self.broker.telemetry.finish(sp)
 
     def _resolve(self, pending, results) -> None:
         xloop = self._plock is not None
-        for (_, fut), n in zip(pending, results):
+        for (_, fut, _t), n in zip(pending, results):
             if fut is None or fut.done():
                 continue
             if xloop:
@@ -469,7 +519,7 @@ class IngressBatcher:
 
     def _resolve_exc(self, pending, e) -> None:
         xloop = self._plock is not None
-        for _, fut in pending:
+        for _, fut, _t in pending:
             if fut is None or fut.done():
                 continue
             if xloop:
@@ -513,7 +563,7 @@ class IngressBatcher:
         if not pending:
             return
         try:
-            results = self.broker.publish_batch([m for m, _ in pending])
+            results = self.broker.publish_batch([p[0] for p in pending])
         except Exception as e:
             log.exception("ingress batch publish failed")
             self._resolve_exc(pending, e)

@@ -13,7 +13,10 @@ Linux, so:
     the asyncio analogue of the process count) against a watermark;
   - :class:`SysMon` measures event-loop lag (the analogue of
     long_schedule: the scheduler not getting to our task on time) and
-    Python GC pauses via ``gc.callbacks`` (the analogue of long_gc).
+    Python GC pauses via ``gc.callbacks`` (the analogue of long_gc);
+    its hook also feeds every full collection to the node's telemetry
+    (the ``gc`` stage) and, while tracing samples, to a ``gc``
+    interval on the collecting thread's ring.
 
 Each monitor has a pure ``check(...)`` (unit-testable with injected
 readings) and an async ``run()`` loop the node supervises. Alarm
@@ -175,6 +178,10 @@ class SysMon:
         self.long_gc_count = 0
         self._gc_t0: Optional[float] = None
         self._gc_installed = False
+        # the node's telemetry and tracing planes (wired by Node): the
+        # full collections' ``gc`` stage and intervals; None = neither
+        self.telemetry = None
+        self.tracing = None
         # per-loop scheduling lag (ms), index 0 = the main loop. Peer
         # entries are written by their own loop's probe callback and
         # read by the main loop's tick and the stats flush — float
@@ -220,6 +227,13 @@ class SysMon:
         elif phase == "stop" and self._gc_t0 is not None:
             ms = (time.perf_counter() - self._gc_t0) * 1000.0
             self._gc_t0 = None
+            if info.get("generation") == 2:
+                tel = self.telemetry
+                if tel is not None:
+                    tel.observe_gc(ms)
+                trc = self.tracing
+                if trc is not None and trc.active:
+                    trc.interval_at("gc", time.time() - ms / 1000.0, ms)
             if ms > self.long_gc_ms:
                 self.on_long_gc(ms)
 

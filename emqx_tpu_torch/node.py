@@ -279,6 +279,8 @@ class Node:
         self.vm_mon = VmMon(self.alarms, self.cm.connection_count,
                             max_count=1024000)
         self.sys_mon = SysMon(metrics=self.metrics, hooks=self.hooks)
+        self.sys_mon.telemetry = self.telemetry
+        self.sys_mon.tracing = self.tracing
         self.global_gc = GlobalGc()
         # extension system
         self.modules = ModuleRegistry(self)

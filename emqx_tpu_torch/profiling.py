@@ -11,15 +11,14 @@ wall-clock timing of whole calls. Exposed as:
     Perfetto);
   - :class:`KernelTimer` — named wall-clock accumulators that wait for
     the output's device at the end of a span (per-call timing for the
-    smoke script and the router's rebuilds);
-  - :data:`timer` — the process-wide timer the router records its
-    ``automaton.rebuild`` durations into;
+    smoke script);
   - :func:`register_ctl` — the live node's ``profile`` command:
     ``start [dir]`` / ``stop`` around a :func:`start_trace` /
     :func:`stop_trace` pair (a Chrome trace where the JAX package
-    writes a TensorBoard dump), ``kernels`` (:data:`timer`'s stats)
-    and ``loops`` (the sampling loop profiler,
-    :class:`~emqx_tpu_torch.tracing.LoopProfiler`).
+    writes a TensorBoard dump; ``stop`` lays the node's publish-stage
+    intervals over it, :func:`merge_intervals`) and ``loops`` (the
+    sampling loop profiler, :class:`~emqx_tpu_torch.tracing.LoopProfiler`).
+    The automaton's rebuilds are the telemetry's ``rebuild`` stage.
 
 The JAX package's ``enable_compile_cache`` has no counterpart: the
 port's kernels are compiled once into ``emqx_tpu_torch/_build/`` at
@@ -29,15 +28,23 @@ first use and loaded from there afterwards.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from collections import deque
 from typing import Dict, Optional
 
 
-#: the trace started by :func:`start_trace`: its directory and the
-#: running ``torch.profiler.profile``
-_active: Dict[str, Optional[object]] = {"dir": None, "prof": None}
+#: the trace started by :func:`start_trace`: its directory, the
+#: running ``torch.profiler.profile`` and its start on the wall clock
+_active: Dict[str, Optional[object]] = {"dir": None, "prof": None,
+                                        "t0": None}
+
+#: the annotation that ties the wall clock to the profiler's; it
+#: encloses no launch or copy, so the trace holds it on the host alone
+CLOCK_MARK = "emqx_tpu_torch.clock_mark"
+#: the first row id of the merged intervals, past any OS thread id
+INTERVAL_TID_BASE = 1 << 32
 
 
 def start_trace(logdir: str):
@@ -56,20 +63,64 @@ def start_trace(logdir: str):
     prof = profile(activities=acts)
     prof.start()
     _active["dir"], _active["prof"] = logdir, prof
+    _active["t0"] = time.time()
     return prof
 
 
-def stop_trace() -> str:
+def clock_mark() -> int:
+    """Two empty :data:`CLOCK_MARK` annotations; returns the wall
+    clock (ns) read just before the second, whose start the trace
+    holds (the first takes the annotation's one-time set-up)."""
+    from torch.profiler import record_function
+
+    with record_function(CLOCK_MARK):
+        pass
+    t = time.time_ns()
+    with record_function(CLOCK_MARK):
+        pass
+    return t
+
+
+def stop_trace(tracing=None) -> str:
     """Stop the running trace and write its Chrome trace; returns the
-    file's path."""
-    prof, logdir = _active["prof"], _active["dir"]
+    file's path. With a node's ``tracing`` plane, a clock mark is
+    taken inside the window and the intervals its rings retained over
+    the window are laid over the trace (:func:`merge_intervals`)."""
+    prof, logdir, t0 = _active["prof"], _active["dir"], _active["t0"]
     if prof is None:
         raise RuntimeError("not tracing")
-    _active["dir"] = _active["prof"] = None
+    _active["dir"] = _active["prof"] = _active["t0"] = None
+    mark_ns = clock_mark() if tracing is not None else None
+    t1 = time.time()
     prof.stop()
     path = os.path.join(logdir, "trace.json")
     prof.export_chrome_trace(path)
+    if tracing is not None:
+        tracing.collect()
+        merge_intervals(path, tracing, mark_ns, t0, t1)
     return path
+
+
+def merge_intervals(path: str, tracing, mark_ns: int, t0: float,
+                    t1: float) -> None:
+    """Add ``tracing``'s intervals over wall-clock ``[t0, t1]`` to the
+    Chrome trace at ``path``, moved onto the profiler's clock by the
+    last :data:`CLOCK_MARK` (read at wall clock ``mark_ns``): each
+    thread's stages, waits and full collections on rows of their own
+    in the trace's own process."""
+    with open(path) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    marks = [e for e in evs
+             if e.get("name") == CLOCK_MARK and e.get("ph") == "X"]
+    if not marks:
+        raise RuntimeError(f"no {CLOCK_MARK} in {path}")
+    mark = max(marks, key=lambda e: e["ts"])
+    shift_us = mark["ts"] - mark_ns / 1000.0
+    evs += tracing.interval_events(t0, t1, shift_us, mark["pid"],
+                                   INTERVAL_TID_BASE)
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @contextlib.contextmanager
@@ -163,9 +214,7 @@ class KernelTimer:
 
 
 def register_ctl(ctl) -> None:
-    """``profile start <dir> | stop | kernels | loops ...`` on a live
-    node."""
-    import json
+    """``profile start <dir> | stop | loops ...`` on a live node."""
     import tempfile
 
     def _profile_loops(args):
@@ -229,22 +278,16 @@ def register_ctl(ctl) -> None:
             if _active["dir"] is None:
                 return "not tracing"
             try:
-                path = stop_trace()
+                path = stop_trace(
+                    getattr(getattr(ctl, "node", None), "tracing", None))
             except Exception as e:
                 # the registry is already cleared, so the next `start`
                 # works
                 return f"profile stop failed: {e}"
             return f"trace written to {path}"
-        if args[0] == "kernels":
-            return json.dumps(timer.stats(), indent=2)
         raise ValueError(f"bad subcommand: {args[0]}")
 
     ctl.register_command(
         "profile", _profile,
-        "start [dir] | stop | kernels | "
+        "start [dir] | stop | "
         "loops start|stop|show|dump [path]")
-
-
-#: process-wide timer the router feeds (spans recorded only where
-#: instrumented)
-timer = KernelTimer()

@@ -68,7 +68,6 @@ from emqx_tpu_torch.ops.match import depth_bucket
 from emqx_tpu_torch.ops.patch import AutoPatcher, PatchOverflow
 from emqx_tpu_torch.ops.tokenize import WordTable, encode_batch
 from emqx_tpu_torch.ops.walk_cuda import match_batch_auto
-from emqx_tpu_torch.profiling import timer as _ktimer
 from emqx_tpu_torch.types import Route
 
 log = logging.getLogger("emqx_tpu_torch.router")
@@ -778,12 +777,17 @@ class Router:
                 prev.wt.shape[0] * self._grow["edge"])
 
     def _rebuild_locked(self):
+        """The inline rebuild (a sync flatten, or the background one
+        outside delta mode): its duration is the telemetry's
+        ``rebuild`` stage, as the off-lock compaction's is."""
         t0 = time.perf_counter()
         try:
             return self._rebuild_flatten_locked()
         finally:
-            _ktimer.record("automaton.rebuild",
-                           (time.perf_counter() - t0) * 1000.0)
+            tel = self.telemetry
+            if tel is not None and tel.enabled:
+                tel.observe_stage(
+                    "rebuild", (time.perf_counter() - t0) * 1000.0)
 
     def _rebuild_flatten_locked(self):
         if self.config.mesh is not None:
@@ -1079,12 +1083,9 @@ class Router:
             cap_s2, nb = self._flatten_caps()
             stall = time.perf_counter() - t0
         try:
-            t_fl = time.perf_counter()
             host_auto = self._flatten_main(cap_s2, nb)
             # the upload runs on this thread, on the default stream
             auto = convert.automaton(host_auto, self.device)
-            _ktimer.record("automaton.rebuild",
-                           (time.perf_counter() - t_fl) * 1000.0)
         except BaseException:
             with self._lock:
                 self._unfreeze_locked()

@@ -56,9 +56,50 @@ Stage semantics (all host wall-clock, milliseconds):
   ``xloop``          the cross-loop delivery ring (first handoff
                      posted → last one reported back); absent on a
                      one-loop node.
-  ``rebuild``        automaton compaction / re-flatten durations
-                     (observed directly, not a span stage).
+  ``rebuild``        automaton compaction / re-flatten durations,
+                     inline and background (observed directly, not a
+                     span stage).
   ``end_to_end``     ``publish_begin`` entry → last delivery chunk.
+
+The port's stages past the JAX package's, which close the rest of a
+batch's life (on a device batch under the ingress batcher,
+``begin_host`` + ``match`` + ``cache_gather`` + ``pack`` +
+``fetch_wait`` + ``fetch`` + ``dispatch_plan`` + ``serialize`` +
+``order_wait`` + ``dispatch`` + ``tail_yield`` + ``ack`` is the time
+from ``publish_begin`` entry to the last acknowledgement set):
+
+  ``queue``          mean, over the batch's messages, of
+                     ``IngressBatcher.submit`` → ``publish_begin``
+                     entry (loop).
+  ``begin_host``     ``publish_begin`` outside ``match``,
+                     ``cache_gather`` and ``pack``: hooks, veto,
+                     metrics, dedup (loop).
+  ``fetch_wait``     ``publish_begin`` return → ``publish_fetch``
+                     entry: the executor's queue and the interpreter
+                     lock (executor).
+  ``order_wait``     ``publish_fetch`` return → the first delivery
+                     chunk: the predecessor's tail and the loop's turn
+                     (loop).
+  ``tail_yield``     first delivery chunk → last chunk's end, less
+                     the chunks' own time: the loop's other work
+                     between chunks (loop).
+  ``ack``            last chunk's end → the batch's acknowledgement
+                     futures set; on a multi-loop node it holds the
+                     cross-loop join (loop).
+  ``gc``             each full (generation 2) collection's pause, from
+                     ``monitors.SysMon``'s collector hook (any
+                     thread, not a span stage); a span's ``gc_ms`` tag
+                     is the collection time inside its life.
+  ``fetch_cpu``      thread CPU time of ``fetch`` + ``dispatch_plan``
+                     + ``serialize`` (executor).
+  ``dispatch_cpu``   thread CPU time of the delivery chunks (loop).
+
+The ingress batcher holds its batches' spans (``PublishSpan.held``):
+the last chunk stamps ``end_to_end``'s end, and the batcher folds the
+span once the acknowledgements are set. While tracing samples a batch
+(``pb.tbatch``), each stage is also recorded as an interval on the
+ring of the thread that ran it (:meth:`PublishSpan.interval`,
+``tracing.Tracing.interval``).
 
 Where the port's stages read differently from the TPU's: on CUDA the
 host→device copies inside ``match`` (the encoded batch,
@@ -72,7 +113,10 @@ Cost model: disabled (``TelemetryConfig(enabled=False)``) the broker
 takes one predicate branch per batch and records nothing — the
 deliveries are identical to the enabled run's (pinned by
 tests/test_torch_telemetry.py). Enabled, the cost is a handful of
-``perf_counter`` reads per batch (not per message). This module
+``perf_counter`` reads per batch, two thread-CPU clock reads per
+stage that has a ``_cpu`` twin (each delivery chunk), and the ingress
+batcher's one ``perf_counter`` read per submitted message (taken
+whatever the setting: cheaper than a branch on it). This module
 imports no torch: it never touches a tensor.
 """
 
@@ -90,8 +134,10 @@ log = logging.getLogger("emqx_tpu_torch.telemetry")
 
 #: guards direct (cross-thread) stage observes — see
 #: :meth:`Telemetry.observe_stage`; span folds stay lock-free
-#: (single-writer on the event loop)
-_observe_lock = threading.Lock()
+#: (single-writer on the event loop). Reentrant: the collector hook
+#: observes ``gc`` on whichever thread a collection interrupts, which
+#: may be inside an observe on this same lock
+_observe_lock = threading.RLock()
 
 #: the publish pipeline's stage names, in pipeline order (ctl and the
 #: $SYS heartbeat render in this order; Prometheus sorts its own).
@@ -102,7 +148,14 @@ _observe_lock = threading.Lock()
 #: publish latencies it would otherwise silently explain
 STAGES = ("match", "cache_gather", "pack", "fetch", "dispatch_plan",
           "serialize", "host_fallback", "dispatch", "xloop",
-          "rebuild", "end_to_end")
+          "rebuild", "end_to_end",
+          # the port's: the rest of a batch's life, the full
+          # collections, and CPU against wall
+          "queue", "begin_host", "fetch_wait", "order_wait",
+          "tail_yield", "ack", "gc", "fetch_cpu", "dispatch_cpu")
+
+#: the stages past the JAX package's (``STAGES`` ends with them)
+PORT_STAGES = STAGES[11:]
 
 #: fixed log-spaced bucket upper bounds, milliseconds (1-2.5-5 per
 #: decade, 10µs..5s). Fixed — not adaptive — so scrapes from
@@ -113,6 +166,8 @@ BUCKETS_MS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
               2500.0, 5000.0)
 
 _now = time.perf_counter
+#: this thread's CPU clock (``fetch_cpu``, ``dispatch_cpu``)
+cpu_ns = time.thread_time_ns
 
 
 @dataclasses.dataclass
@@ -214,7 +269,8 @@ class PublishSpan:
 
     __slots__ = ("t0", "stages", "batch", "n_uniq", "bucket", "path",
                  "cache_hit", "cache_miss", "fallbacks", "topic",
-                 "closed")
+                 "closed", "t_ready", "t_end", "held", "gc0", "gc_ms",
+                 "trc", "tb", "begin_ivs")
 
     def __init__(self, batch: int) -> None:
         self.t0 = _now()
@@ -228,35 +284,99 @@ class PublishSpan:
         self.fallbacks = 0
         self.topic: Optional[str] = None  # sample (tracer tee)
         self.closed = False
+        # the batch's hand-off marks: ``t_ready`` the end of its last
+        # phase (begin, then fetch), ``t_end`` the last delivery
+        # chunk's (0.0 until then)
+        self.t_ready = 0.0
+        self.t_end = 0.0
+        # held by the ingress batcher, which folds the span after the
+        # acknowledgements (the last chunk only stamps ``t_end``)
+        self.held = False
+        # the node's collection total at begin, and the collection
+        # time inside the span's life (set when it folds)
+        self.gc0 = 0.0
+        self.gc_ms = 0.0
+        # the tracing plane and trace batch while the batch is
+        # sampled (then each stage is also an interval), else None
+        self.trc = None
+        self.tb = None
+        self.begin_ivs: Optional[List[tuple]] = None
 
     @staticmethod
     def clock() -> float:
         return _now()
 
-    def add(self, stage: str, t_start: float) -> None:
+    def add(self, stage: str, t_start: float) -> float:
         """Accumulate ``now - t_start`` into a stage (chunked stages
-        call this once per chunk)."""
-        self.add_ms(stage, (_now() - t_start) * 1000.0)
+        call this once per chunk) and return now, the stage's end."""
+        now = _now()
+        self.stages[stage] = self.stages.get(stage, 0.0) + \
+            (now - t_start) * 1000.0
+        if self.tb is not None:
+            self.interval(stage, t_start, now)
+        return now
 
     def add_ms(self, stage: str, ms: float) -> None:
         self.stages[stage] = self.stages.get(stage, 0.0) + ms
+
+    def trace(self, trc, tb) -> None:
+        """Record this batch's stages as intervals too (a sampled
+        batch: ``tb`` is its ``tracing._TraceBatch``)."""
+        self.trc = trc
+        self.tb = tb
+        self.begin_ivs = []
+
+    def interval(self, stage: str, t0: float, t1: float,
+                 args: Optional[dict] = None) -> None:
+        """One interval of ``stage`` on the calling thread's ring
+        (perf-counter ``t0``..``t1``); a sampled batch only."""
+        self.trc.interval(self.tb, stage, t0, t1, args)
+        if self.begin_ivs is not None:
+            self.begin_ivs.append((t0, t1))
 
     def stamp_match(self, router, t_start: float) -> None:
         """Close the match-dispatch stage, splitting out the
         cache-gather share when the router's cache-split path left
         its per-dispatch info (set only while telemetry is enabled —
         see Router._match_dispatch_cached)."""
-        total = (_now() - t_start) * 1000.0
+        now = _now()
+        total = (now - t_start) * 1000.0
         info = router._last_dispatch
+        gather = 0.0
         if info is not None:
             router._last_dispatch = None
             self.cache_hit = info["hit"]
             self.cache_miss = info["miss"]
             gather = min(total, info["cache_gather_ms"])
             self.add_ms("cache_gather", gather)
-            self.add_ms("match", total - gather)
-        else:
-            self.add_ms("match", total)
+        self.add_ms("match", total - gather)
+        if self.tb is not None:
+            # one interval: the cache's probe and merge run inside the
+            # match call, their share rides as an argument
+            self.interval("match", t_start, now,
+                          {"cache_gather_ms": gather} if info else None)
+
+    def end_begin(self) -> None:
+        """``publish_begin`` returns: its time outside ``match``,
+        ``cache_gather`` and ``pack`` is ``begin_host``; the batch is
+        ready for its fetch."""
+        now = _now()
+        st = self.stages
+        inner = st.get("match", 0.0) + st.get("cache_gather", 0.0) + \
+            st.get("pack", 0.0)
+        self.add_ms("begin_host", (now - self.t0) * 1000.0 - inner)
+        ivs = self.begin_ivs
+        if ivs is not None:
+            # the begin's intervals are the gaps between its stages
+            self.begin_ivs = None
+            t = self.t0
+            for a, b in ivs:
+                if a > t:
+                    self.interval("begin_host", t, a)
+                t = max(t, b)
+            if now > t:
+                self.interval("begin_host", t, now)
+        self.t_ready = now
 
     def record(self) -> dict:
         """The structured form (slow log / ctl telemetry slow)."""
@@ -266,6 +386,7 @@ class PublishSpan:
             "path": self.path,
             "bucket": self.bucket,
             "fallbacks": self.fallbacks,
+            "gc_ms": round(self.gc_ms, 3),
             "stages_ms": {k: round(v, 3)
                           for k, v in self.stages.items()},
         }
@@ -297,6 +418,9 @@ class Telemetry:
         self._slow_streak = 0
         self._slow_ring: deque = deque(
             maxlen=max(1, self.config.slow_log_size))
+        # milliseconds of full collections so far (the ``gc`` stage's
+        # running sum, which the spans' ``gc_ms`` tags difference)
+        self.gc_ms_total = 0.0
 
     @property
     def enabled(self) -> bool:
@@ -310,17 +434,22 @@ class Telemetry:
         None`` branch — the near-zero disabled cost)."""
         if not self.config.enabled:
             return None
-        return PublishSpan(batch)
+        sp = PublishSpan(batch)
+        sp.gc0 = self.gc_ms_total
+        return sp
 
     def finish(self, span: PublishSpan) -> None:
         """Fold a finished span into the stage histograms; slow-log /
         alarm on threshold breach. Idempotent (the chunked delivery
-        tail and the one-shot finish can both reach the end)."""
+        tail and the one-shot finish can both reach the end).
+        ``end_to_end`` ends at the last delivery chunk: ``span.t_end``
+        where the batcher held the span, else now."""
         if span.closed:
             return
         span.closed = True
-        e2e = (_now() - span.t0) * 1000.0
+        e2e = ((span.t_end or _now()) - span.t0) * 1000.0
         span.stages["end_to_end"] = e2e
+        span.gc_ms = self.gc_ms_total - span.gc0
         for stage, ms in span.stages.items():
             h = self.hists.get(stage)
             if h is not None:
@@ -368,6 +497,14 @@ class Telemetry:
             return
         with _observe_lock:
             h.observe(ms)
+
+    def observe_gc(self, ms: float) -> None:
+        """One full collection's pause (``monitors.SysMon``'s
+        collector hook, on whichever thread collected): the ``gc``
+        stage and the total the open spans' ``gc_ms`` difference.
+        Collections never overlap, so the total has one writer."""
+        self.gc_ms_total += ms
+        self.observe_stage("gc", ms)
 
     # -- read surfaces ----------------------------------------------------
 

@@ -48,6 +48,15 @@ pre-serialization), ``dispatch`` (plan → outbox enqueue), ``xloop``
 (cross-loop delivery ring hand-off), ``publish`` (whole begin →
 finish window), ``flush`` (stamp → connection flush, the
 delivery-latency span slow_subs folds).
+
+Stage intervals (the port's): while a batch is sampled, each of its
+telemetry stages is also one record on the ring of the thread that ran
+it, with no trace ids — ``((), stage, t0, dur_ms, args)``, ``args``
+holding the batch's first trace id under ``batch`` — and
+``monitors.SysMon`` records each full collection as a ``gc`` interval.
+:meth:`Tracing.intervals` returns the retained ones as data, the export
+writes them on rows of their own, and ``ctl profile stop`` lays them
+over the profiler's trace (``profiling.stop_trace``).
 """
 
 from __future__ import annotations
@@ -65,6 +74,13 @@ _now = time.perf_counter
 
 #: headers key carrying the trace context dict
 TRACE_HEADER = "_trace"
+
+#: the stage intervals that wait for another thread or task (their
+#: own rows: other work of the same thread runs inside them);
+#: collections get a row of their own as well, every other stage is
+#: the thread's own work
+WAIT_STAGES = frozenset({"queue", "fetch_wait", "order_wait",
+                         "tail_yield"})
 
 #: Knuth multiplicative hash constant (golden-ratio reciprocal)
 _HASH_MULT = 0x9E3779B1
@@ -109,10 +125,16 @@ class _SpanRing:
     cumulative; the drain folds deltas so a racing increment is
     counted next tick instead of lost."""
 
-    __slots__ = ("name", "cap", "buf", "dropped", "drained_dropped")
+    __slots__ = ("name", "tid", "pthread", "cap", "buf", "dropped",
+                 "drained_dropped")
 
     def __init__(self, name: str, cap: int) -> None:
         self.name = name
+        # the thread as the profiler's trace names it: the OS thread
+        # id (host ops), and the low 32 bits of the pthread id (the
+        # CUDA runtime's records of threads other than the first)
+        self.tid = threading.get_native_id()
+        self.pthread = threading.get_ident() & 0xFFFFFFFF
         self.cap = cap
         self.buf: List[tuple] = []
         self.dropped = 0
@@ -439,6 +461,25 @@ class Tracing:
         self._ring().put((tb.tids, stage, t0w, dur_ms, None))
 
     @any_thread
+    def interval(self, tb: _TraceBatch, stage: str, t0: float, t1: float,
+                 args: Optional[dict] = None) -> None:
+        """One publish stage of a sampled batch, perf-counter ``t0``
+        to ``t1``, on the calling thread's ring (no trace ids: one
+        record a batch, the batch's first trace id in ``args``)."""
+        a = {"batch": tb.tids[0]}
+        if args:
+            a.update(args)
+        self._ring().put(((), stage, tb.t0w + (t0 - tb.t0p),
+                          (t1 - t0) * 1000.0, a))
+
+    @any_thread
+    def interval_at(self, stage: str, t0w: float, dur_ms: float) -> None:
+        """One interval from wall-clock ``t0w`` on the calling
+        thread's ring (a full collection, which belongs to no
+        batch)."""
+        self._ring().put(((), stage, t0w, dur_ms, None))
+
+    @any_thread
     def close_batch(self, tb: _TraceBatch) -> None:
         """Finish the batch: ``dispatch`` (match end → done) and
         ``publish`` (whole window) spans."""
@@ -475,6 +516,36 @@ class Tracing:
         cumulative dropped counters (delta-folded)."""
         cfg = self.config
         now_w = time.time()
+        drained = self.collect(now_w)
+        m = self.metrics
+        if cfg.slow_subs_enabled:
+            self.slow.tick(now_w)
+            if m is not None:
+                df = self.slow.folded - self._slow_folded_seen
+                db = self.slow.breached - self._slow_breached_seen
+                self._slow_folded_seen = self.slow.folded
+                self._slow_breached_seen = self.slow.breached
+                if df:
+                    m.inc("slow_subs.flushes", df)
+                if db:
+                    m.inc("slow_subs.breaches", db)
+        if stats is not None:
+            stats.setstat("tracing.spans.pending", len(self._export))
+            rows = self.slow.top(1)
+            stats.setstat("slow_subs.tracked", len(self.slow.clients))
+            stats.setstat("slow_subs.worst_ms",
+                          round(rows[0][1], 3) if rows else 0)
+        return drained
+
+    @owner_loop
+    def collect(self, now_w: Optional[float] = None) -> int:
+        """The drain's ring swap alone (no slow_subs tick, no gauges):
+        every ring's records into the retained spans, flush spans
+        folded, the tracing counters bumped. ``ctl profile stop``
+        takes it before reading :meth:`intervals`."""
+        cfg = self.config
+        if now_w is None:
+            now_w = time.time()
         with self._reg_lock:
             rings = list(self._rings)
         drained = 0
@@ -504,24 +575,55 @@ class Tracing:
                 m.inc("tracing.spans", drained)
             if dropped:
                 m.inc("tracing.dropped", dropped)
-        if slow_on:
-            self.slow.tick(now_w)
-            if m is not None:
-                df = self.slow.folded - self._slow_folded_seen
-                db = self.slow.breached - self._slow_breached_seen
-                self._slow_folded_seen = self.slow.folded
-                self._slow_breached_seen = self.slow.breached
-                if df:
-                    m.inc("slow_subs.flushes", df)
-                if db:
-                    m.inc("slow_subs.breaches", db)
-        if stats is not None:
-            stats.setstat("tracing.spans.pending", len(self._export))
-            rows = self.slow.top(1)
-            stats.setstat("slow_subs.tracked", len(self.slow.clients))
-            stats.setstat("slow_subs.worst_ms",
-                          round(rows[0][1], 3) if rows else 0)
         return drained
+
+    def intervals(self) -> List[tuple]:
+        """The retained stage intervals as data, in drain order:
+        ``(stage, thread name, OS thread id, t0, t1, args)``, times
+        in wall-clock seconds (:meth:`collect` first to include what
+        the rings still hold)."""
+        with self._reg_lock:
+            tids = {r.name: r.tid for r in self._rings}
+        return [(stage, writer, tids.get(writer, 0), t0,
+                 t0 + dur_ms / 1000.0, extra)
+                for ids, stage, t0, dur_ms, extra, writer in self._export
+                if not ids]
+
+    def interval_events(self, t_lo: float, t_hi: float, shift_us: float,
+                        pid: int, tid_base: int) -> List[dict]:
+        """Chrome trace events of the retained intervals that overlap
+        wall-clock ``[t_lo, t_hi]``: ``ts`` is the wall clock in
+        microseconds plus ``shift_us``; each thread's work, waits and
+        collections on rows of their own (``tid_base`` up, named by
+        ``M`` events), since a wait holds other work of its thread."""
+        with self._reg_lock:
+            ids = {r.name: (r.tid, r.pthread) for r in self._rings}
+        rows: Dict[tuple, int] = {}
+        events: List[dict] = []
+        for tids, stage, t0, dur_ms, extra, writer in self._export:
+            if tids or t0 + dur_ms / 1000.0 < t_lo or t0 > t_hi:
+                continue
+            kind = ("waits" if stage in WAIT_STAGES
+                    else "gc" if stage == "gc" else "stages")
+            row = rows.get((writer, kind))
+            if row is None:
+                row = rows[(writer, kind)] = tid_base + len(rows)
+                events.append({"name": "thread_name", "ph": "M",
+                               "pid": pid, "tid": row,
+                               "args": {"name": f"{writer} {kind}"}})
+            os_tid, pthread = ids.get(writer, (0, 0))
+            args = {"thread": writer, "os_tid": os_tid,
+                    "pthread": pthread}
+            if extra:
+                args.update(extra)
+                if "batch" in args:
+                    args["batch"] = format(args["batch"] & 0xFFFFFFFFFFFF,
+                                           "x")
+            events.append({"name": stage, "cat": "stage", "ph": "X",
+                           "ts": round(t0 * 1e6 + shift_us, 3),
+                           "dur": round(dur_ms * 1000.0, 3),
+                           "pid": pid, "tid": row, "args": args})
+        return events
 
     # -- export ---------------------------------------------------------
 
@@ -529,17 +631,21 @@ class Tracing:
         """Write the retained spans as Chrome trace-event JSON
         (``chrome://tracing`` / Perfetto loadable): one ``X`` event
         per (span, trace id), writer threads named via ``M`` metadata
-        events; the loop profiler's hottest collapsed stacks ride in
-        ``otherData`` so one artifact names both stage and frames."""
+        events, the stage intervals on rows of their own; ``ts`` is
+        the wall clock in microseconds, so the file lines up with
+        other traces of the same hosts. The loop profiler's hottest
+        collapsed stacks ride in ``otherData`` so one artifact names
+        both stage and frames."""
         spans = list(self._export)
         writers: Dict[str, int] = {}
         events: List[dict] = []
-        base = min((rec[2] for rec in spans), default=0.0)
         for tids, stage, t0, dur_ms, extra, writer in spans:
+            if not tids:
+                continue  # a stage interval: interval_events below
             wid = writers.setdefault(writer, len(writers) + 1)
             for tid in tids:
                 ev = {"name": stage, "cat": "emqx_tpu_torch", "ph": "X",
-                      "ts": round((t0 - base) * 1e6, 1),
+                      "ts": round(t0 * 1e6, 1),
                       "dur": round(dur_ms * 1000.0, 1),
                       "pid": 1, "tid": wid,
                       "args": {"trace": format(tid & 0xFFFFFFFFFFFF,
@@ -550,6 +656,8 @@ class Tracing:
         for name, wid in writers.items():
             events.append({"name": "thread_name", "ph": "M", "pid": 1,
                            "tid": wid, "args": {"name": name}})
+        events += self.interval_events(float("-inf"), float("inf"), 0.0,
+                                       1, len(writers) + 1)
         prof = self.profiler
         other: Dict[str, Any] = {"node": self.node,
                                  "spans": len(spans)}

@@ -80,9 +80,12 @@ class Context:
         # -- fault catalog (emqx_tpu/faults.py POINTS)
         self.fault_points: Dict[str, int] = {}   # point -> def line
         self.fault_catalog_path: str = "emqx_tpu/faults.py"
-        # -- telemetry stages
+        # -- telemetry stages (emqx_tpu/telemetry.py), and the port's
+        # (emqx_tpu_torch/telemetry.py)
         self.stages: Tuple[str, ...] = ()
         self.stages_loc: Tuple[str, int] = ("", 0)
+        self.port_stages: Tuple[str, ...] = ()
+        self.port_stages_loc: Tuple[str, int] = ("", 0)
         # -- config schema: section -> {field -> (path, line)}
         self.schema: Dict[str, Dict[str, Tuple[str, int]]] = {}
         # -- example toml: section -> {key -> line}; plus path
@@ -214,9 +217,12 @@ def build_context(root: Path) -> Context:
                     if isinstance(k, ast.Constant) and \
                             isinstance(k.value, str):
                         ctx.fault_points[k.value] = k.lineno
-    # telemetry stages
-    tpath = root / "emqx_tpu" / "telemetry.py"
-    if tpath.exists():
+    # telemetry stages, of the JAX package and of the port
+    for pkg, attr in (("emqx_tpu", "stages"),
+                      ("emqx_tpu_torch", "port_stages")):
+        tpath = root / pkg / "telemetry.py"
+        if not tpath.exists():
+            continue
         tree = ast.parse(tpath.read_text(encoding="utf-8"))
         for node in tree.body:
             if isinstance(node, (ast.Assign, ast.AnnAssign)):
@@ -225,9 +231,10 @@ def build_context(root: Path) -> Context:
                 if isinstance(tgt, ast.Name) and tgt.id == "STAGES" \
                         and isinstance(node.value,
                                        (ast.List, ast.Tuple)):
-                    ctx.stages = tuple(_literal_strs(node.value))
-                    ctx.stages_loc = ("emqx_tpu/telemetry.py",
-                                      node.lineno)
+                    setattr(ctx, attr,
+                            tuple(_literal_strs(node.value)))
+                    setattr(ctx, attr + "_loc",
+                            (f"{pkg}/telemetry.py", node.lineno))
     # config schema + example toml
     from analysis import config_drift
     config_drift.load_schema(ctx)

@@ -1,6 +1,8 @@
 """RD23x — telemetry stage registry vs observe sites.
 
-The ``STAGES`` tuple in ``emqx_tpu/telemetry.py`` is the single
+The ``STAGES`` tuple in ``emqx_tpu/telemetry.py`` (and, for the port,
+in ``emqx_tpu_torch/telemetry.py``: each package's sites are held to
+its own registry) is the single
 source of truth three surfaces render from: the per-stage histogram
 dict, the Prometheus ``emqx_tpu_publish_stage_<stage>_ms`` families,
 and the ``ctl telemetry`` table — all built by iterating STAGES, so
@@ -33,8 +35,19 @@ RULES = {
 }
 
 
-def _applies(path: str) -> bool:
-    return path.replace("\\", "/").startswith("emqx_tpu/")
+#: package → the Context attribute holding its STAGES registry
+_REGISTRIES = {"emqx_tpu": "stages", "emqx_tpu_torch": "port_stages"}
+
+
+def _package(path: str) -> Optional[str]:
+    """The package whose registry a file's sites answer to, or None."""
+    top = path.replace("\\", "/").split("/", 1)[0]
+    return top if top in _REGISTRIES else None
+
+
+def _registry(ctx, pkg: str):
+    attr = _REGISTRIES[pkg]
+    return getattr(ctx, attr), getattr(ctx, attr + "_loc")
 
 
 def _chain(node) -> Optional[str]:
@@ -59,8 +72,10 @@ def _span_receiver(func: ast.Attribute, path: str) -> bool:
 
 
 def check(fi: FileInfo, ctx) -> List[Finding]:
-    if not _applies(fi.path):
+    pkg = _package(fi.path)
+    if pkg is None:
         return []
+    stages, _loc = _registry(ctx, pkg)
     out: List[Finding] = []
     for node in ast.walk(fi.tree):
         stage = None
@@ -87,24 +102,26 @@ def check(fi: FileInfo, ctx) -> List[Finding]:
         if stage is None:
             continue
         ctx.stage_sites.append((fi.path, line, stage))
-        if ctx.stages and stage not in ctx.stages:
+        if stages and stage not in stages:
             out.append(Finding(
                 fi.path, line, "RD231",
-                f"stage '{stage}' is not in telemetry.STAGES — its "
-                f"samples are silently dropped by every surface"))
+                f"stage '{stage}' is not in {pkg}/telemetry.STAGES — "
+                f"its samples are silently dropped by every surface"))
     return out
 
 
 def finalize(ctx) -> List[Finding]:
     out: List[Finding] = []
-    if not ctx.stages or not ctx.stage_sites:
-        return out
-    observed = {s for _p, _l, s in ctx.stage_sites}
-    path, line = ctx.stages_loc
-    for stage in ctx.stages:
-        if stage not in observed:
-            out.append(Finding(
-                path, line, "RD232",
-                f"STAGES entry '{stage}' has no observe site — it "
-                f"renders as a permanently-zero histogram row"))
+    for pkg in _REGISTRIES:
+        stages, (path, line) = _registry(ctx, pkg)
+        observed = {s for p, _l, s in ctx.stage_sites
+                    if _package(p) == pkg}
+        if not stages or not observed:
+            continue
+        for stage in stages:
+            if stage not in observed:
+                out.append(Finding(
+                    path, line, "RD232",
+                    f"STAGES entry '{stage}' has no observe site — it "
+                    f"renders as a permanently-zero histogram row"))
     return out

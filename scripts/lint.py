@@ -32,8 +32,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import analysis  # noqa: E402  (needs the scripts/ dir on sys.path)
 
 ROOT = Path(__file__).resolve().parents[1]
-DEFAULT_TARGETS = ["emqx_tpu", "tests", "scripts", "bench.py",
-                   "__graft_entry__.py"]
+DEFAULT_TARGETS = ["emqx_tpu", "emqx_tpu_torch", "tests", "scripts",
+                   "bench.py", "__graft_entry__.py"]
 
 
 def main(argv) -> int:

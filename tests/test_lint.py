@@ -463,6 +463,59 @@ def test_stage_rules_ignore_set_add_and_cover_all_sites():
     assert kept == []
 
 
+def _port_ctx():
+    ctx = _stages_ctx()
+    ctx.port_stages = ("match", "queue")
+    ctx.port_stages_loc = ("emqx_tpu_torch/telemetry.py", 120)
+    return ctx
+
+
+def test_rd231_unknown_stage_observed_on_the_port():
+    # each package's sites answer to its own registry: "fetch" is the
+    # JAX package's stage, not the port's
+    kept, _ = lint("""\
+        def f(pb, sp, tel, t0, ms):
+            pb.span.add("match", t0)
+            sp.add_ms("queue", ms)
+            sp.add("fetch", t0)
+        """, path="emqx_tpu_torch/example.py", ctx=_port_ctx())
+    assert rules_of(kept) == ["RD231"]
+    assert "emqx_tpu_torch/telemetry.STAGES" in kept[0].msg
+
+
+def test_rd232_port_stage_with_no_observe_site():
+    kept, _ = lint("""\
+        def f(pb, t0):
+            pb.span.add("match", t0)
+        """, path="emqx_tpu_torch/example.py", ctx=_port_ctx())
+    assert rules_of(kept) == ["RD232"]
+    assert "'queue'" in kept[0].msg
+    assert kept[0].path == "emqx_tpu_torch/telemetry.py"
+
+
+def test_stage_rules_run_over_the_port_and_pass():
+    """RD231/RD232 over every file of ``emqx_tpu_torch/`` against its
+    own ``STAGES``: each stage has its observe site, and no site
+    observes a stage the registry lacks."""
+    from pathlib import Path
+
+    from emqx_tpu_torch.telemetry import STAGES
+
+    root = Path(ROOT)
+    ctx = analysis.build_context(root)
+    assert ctx.port_stages == STAGES
+    files = []
+    for p in sorted((root / "emqx_tpu_torch").rglob("*.py")):
+        fi, _errs = analysis.parse_file(p, str(p.relative_to(root)))
+        files.append(fi)
+    for rule in ("RD231", "RD232"):
+        kept, _sup, _counts = analysis.run(files, ctx, rule=rule)
+        assert kept == [], [f.render() for f in kept]
+    sites = {s for path, _l, s in ctx.stage_sites
+             if path.startswith("emqx_tpu_torch/")}
+    assert set(STAGES) <= sites
+
+
 # -- DP301: device purity in ops/ ------------------------------------------
 
 def test_dp301_fires_on_host_sync_constructs():

@@ -15,6 +15,11 @@ publish order across the batches. The burst runs on the CPU, over
 the kernels' plain twins; tests/test_torch_kernels.py runs it on the
 card against the port's CPU broker.
 
+The batcher's telemetry: on the same burst each device batch's
+stages add up to its life, ``publish_begin`` entry to its last
+acknowledgement, with one span a batch; a batch held behind four in
+flight reads its wait in ``queue``.
+
 The accept controls (access rules, the PROXY header) run through a
 port ``Node(device="cpu")`` over loopback sockets, and
 ``read_proxy_header`` against the JAX package's on the same headers.
@@ -22,6 +27,7 @@ port ``Node(device="cpu")`` over loopback sockets, and
 
 import asyncio
 import struct
+import time
 from collections import Counter
 
 import numpy as np
@@ -132,6 +138,102 @@ def test_open_loop_burst_fills_the_pipeline_and_keeps_order():
         for t, f, p in got.inbox:
             assert int(p) >= last.get((t, f), -1), (got.client_id, t)
             last[(t, f)] = int(p)
+
+
+#: the stages that tile a device batch's life under the batcher
+LIFE = ("begin_host", "match", "cache_gather", "pack", "fetch_wait",
+        "fetch", "dispatch_plan", "serialize", "order_wait", "dispatch",
+        "tail_yield", "ack")
+
+
+def _folded_spans(node):
+    """Every span the node's telemetry folds, with the clock at the
+    fold (right after the batch's acknowledgements were set)."""
+    tel = node.telemetry
+    finish = tel.finish
+    got = []
+
+    def rec(span):
+        if not span.closed:
+            got.append((span, time.perf_counter()))
+        return finish(span)
+
+    tel.finish = rec
+    return got
+
+
+def _burst_node(subs):
+    node = Node(matcher=MatcherConfig(**PLAIN, **KNOBS), batch_size=8,
+                device="cpu")
+    sinks = [Sink(f"c{i}") for i in range(8)]
+    for f, s in subs:
+        node.broker.subscribe(sinks[s], f)
+    node.broker.publish_batch([Message(topic="warm/up")])
+    return node, sinks
+
+
+def test_device_batch_stages_add_up_to_its_life():
+    subs, topics = _workload(9, 4 * 8 + 32 + 5)
+    node, sinks = _burst_node(subs)
+    spans = _folded_spans(node)
+    flushes = node.ingress.flushes
+    asyncio.run(asyncio.wait_for(_burst(node, sinks, topics), LIMIT))
+    batches = node.ingress.flushes - flushes
+    assert batches == MAX_INFLIGHT + 2
+    # one span a batch, each a device batch the batcher held
+    assert len(spans) == batches
+    for sp, t_fold in spans:
+        st = sp.stages
+        assert sp.path == "device" and sp.held
+        assert all(st.get(s, 0.0) >= 0.0 for s in LIFE), st
+        life = (t_fold - sp.t0) * 1000.0
+        total = sum(st.get(s, 0.0) for s in LIFE)
+        assert abs(total - life) <= max(0.01 * life, 0.5), (total, life, st)
+        # end_to_end keeps its end, the last delivery chunk: the ack
+        # comes after it
+        assert abs(st["end_to_end"] - (total - st["ack"])) <= \
+            max(0.01 * life, 0.5), st
+        assert st["end_to_end"] <= life
+        # CPU against wall, each on its own thread
+        wall = st["fetch"] + st.get("dispatch_plan", 0.0) + \
+            st.get("serialize", 0.0)
+        assert st["fetch_cpu"] <= wall and st["dispatch_cpu"] <= \
+            st["dispatch"], st
+
+
+def test_a_batch_behind_four_in_flight_reads_its_queue_wait():
+    subs, topics = _workload(3, 5 * 8)
+    node, sinks = _burst_node(subs)
+    spans = _folded_spans(node)
+    fetch = node.broker.publish_fetch
+
+    def slow_fetch(pb):
+        time.sleep(0.05)  # the four slots stay busy a while
+        return fetch(pb)
+
+    node.broker.publish_fetch = slow_fetch
+    stamps = []
+
+    async def go():
+        ing = node.ingress
+        futs = []
+        for i, t in enumerate(topics):
+            stamps.append(time.perf_counter())
+            futs.append(ing.submit(Message(topic=t, payload=b"%d" % i)))
+        assert ing.stats()["ingress.inflight"] == MAX_INFLIGHT
+        await asyncio.gather(*futs)
+        await ing.drain()
+
+    asyncio.run(asyncio.wait_for(go(), LIMIT))
+    assert len(spans) == 5
+    spans.sort(key=lambda x: x[0].t0)
+    for k, (sp, _t) in enumerate(spans):
+        mean_sub = sum(stamps[8 * k:8 * k + 8]) / 8
+        want = (sp.t0 - mean_sub) * 1000.0
+        assert abs(sp.stages["queue"] - want) < 0.5, (k, sp.stages, want)
+    assert spans[0][0].stages["queue"] < 5.0
+    # the fifth batch waits for a slot: the first batch's fetch at least
+    assert spans[4][0].stages["queue"] >= 45.0
 
 
 def test_set_pressure_divides_the_high_water_mark():

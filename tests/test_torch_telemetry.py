@@ -7,7 +7,12 @@ The same inputs, made from a seed with numpy, go through both
 packages. Timing values are never compared: histogram math on equal
 samples, span tags, the set of stages a batch stamps, the deliveries,
 and the slow log and alarm under a scripted clock are compared exactly.
+The port's own stages (``telemetry.PORT_STAGES``) and its spans'
+``gc_ms`` tag are left out of those comparisons and tested on their
+own: the full collections, CPU against wall, and the rebuilds.
 """
+
+import gc
 
 import json
 import logging
@@ -56,7 +61,11 @@ class Q:
 
 
 def test_stage_names_and_buckets_are_the_jax_packages():
-    assert pt.STAGES == jt.STAGES
+    # the JAX package's stages, in order, then the port's
+    assert pt.STAGES == jt.STAGES + pt.PORT_STAGES
+    assert pt.PORT_STAGES == (
+        "queue", "begin_host", "fetch_wait", "order_wait", "tail_yield",
+        "ack", "gc", "fetch_cpu", "dispatch_cpu")
     assert pt.BUCKETS_MS == jt.BUCKETS_MS
     jc, pc = jt.TelemetryConfig(), pt.TelemetryConfig()
     assert vars(jc) == vars(pc)
@@ -136,12 +145,14 @@ def _subscribe(broker, filters):
 
 
 def _tags(rec):
-    """A slow record's tags, and the stages it stamped."""
+    """A slow record's tags, and the stages it stamped (the JAX
+    package's: the port's own stages and ``gc_ms`` tag left out)."""
     rec = dict(rec)
     stages = rec.pop("stages_ms")
     rec.pop("end_to_end_ms")
     rec.pop("ts")
-    return rec, sorted(stages)
+    rec.pop("gc_ms", None)
+    return rec, sorted(s for s in stages if s not in pt.PORT_STAGES)
 
 
 #: matcher settings of each path (both packages take them)
@@ -180,8 +191,20 @@ def test_spans_equal_per_batch(path, planner):
         assert any(r["cache_hit"] > 0 for r in precs)
     if path == "device_overflow":
         assert any(r["fallbacks"] > 0 for r in precs)
-    for s in pt.STAGES:
-        assert ptel.hists[s].count == jtel.hists[s].count, s
+    for s in jt.STAGES:
+        if s != "rebuild":
+            assert ptel.hists[s].count == jtel.hists[s].count, s
+    # the port also observes its inline rebuilds (the first flatten)
+    assert ptel.hists["rebuild"].count >= jtel.hists["rebuild"].count
+    # the port's stages of a batch published without the batcher (a
+    # host batch delivers, and folds its span, inside the begin)
+    n = len(precs)
+    assert ptel.hists["dispatch_cpu"].count == n
+    device = want_path == "device"
+    for s in ("begin_host", "fetch_wait", "fetch_cpu"):
+        assert ptel.hists[s].count == (n if device else 0), s
+    for s in ("queue", "order_wait", "tail_yield", "ack", "gc"):
+        assert ptel.hists[s].count == 0, s
 
 
 @pytest.mark.parametrize("kind", ["rows", "groups", "host"])
@@ -367,31 +390,140 @@ def test_observe_stage_from_another_thread_takes_the_lock():
     assert off.hists["rebuild"].count == 0
 
 
-def test_router_compaction_observes_the_rebuild_stage():
-    """The off-lock compaction's whole duration lands in the rebuild
-    stage, once per merge, and the flatten in ``profiling.timer``."""
+def _wait_compaction(r):
     import time
 
+    deadline = time.monotonic() + 20
+    while (r._compacting or r._rebuild_inflight) \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not r._compacting
+
+
+def test_router_compaction_observes_the_rebuild_stage():
+    """The off-lock compaction's whole duration lands in the rebuild
+    stage, once per merge, and the first flatten (inline) once."""
     from emqx_tpu_torch.router import Router
 
     r = Router(PMatcherConfig(device_min_filters=0, delta_max_filters=4,
                               use_native=False), device="cpu")
     tel = pt.Telemetry()
     r.telemetry = tel
-    profiling.timer.reset()
     for i in range(3):
         r.add_route(f"a/{i}")
     r.match_dispatch(["a/1"])  # the first flatten
-    assert profiling.timer.stats()["automaton.rebuild"]["count"] >= 1
+    assert tel.hists["rebuild"].count == 1
     for i in range(6):
         r.add_route(f"b/{i}/+")
-    deadline = time.monotonic() + 20
-    while (r._compacting or r._rebuild_inflight) \
-            and time.monotonic() < deadline:
-        time.sleep(0.01)
+    _wait_compaction(r)
     merges = r.delta_info()["merges"]
     assert merges >= 1
-    assert tel.hists["rebuild"].count == merges
+    assert tel.hists["rebuild"].count == 1 + merges
+
+
+def test_inline_rebuild_lands_once_in_the_rebuild_stage():
+    from emqx_tpu_torch.router import Router
+
+    r = Router(PMatcherConfig(device_min_filters=0, delta=False,
+                              use_native=False), device="cpu")
+    tel = pt.Telemetry()
+    r.telemetry = tel
+    for i in range(5):
+        r.add_route(f"a/{i}/+")
+    for k in (1, 2, 3):
+        r.rebuild()
+        assert tel.hists["rebuild"].count == k
+        assert tel.hists["rebuild"].sum > 0.0
+    off = pt.Telemetry(pt.TelemetryConfig(enabled=False))
+    r.telemetry = off
+    r.rebuild()
+    assert off.hists["rebuild"].count == 0
+
+
+def test_background_rebuild_lands_once_in_the_rebuild_stage(monkeypatch):
+    """Outside delta mode the background compaction rebuilds inline
+    under the lock: one ``rebuild`` sample, as a sync rebuild."""
+    from emqx_tpu_torch.router import Router
+
+    r = Router(PMatcherConfig(device_min_filters=0, delta=False,
+                              use_native=False), device="cpu")
+    tel = pt.Telemetry()
+    r.telemetry = tel
+    for i in range(5):
+        r.add_route(f"a/{i}/+")
+    r.match_dispatch(["a/1/x"])  # the first flatten, inline
+    assert tel.hists["rebuild"].count == 1
+    monkeypatch.setattr(r, "_needs_compaction_locked", lambda: True)
+    built = r._rebuilds
+    r._schedule_compaction()
+    _wait_compaction(r)
+    assert r._rebuilds == built + 1
+    assert tel.hists["rebuild"].count == 2
+
+
+# -- the port's stages: full collections, CPU against wall ----------------
+
+def test_forced_full_collection_adds_one_gc_sample_and_the_spans_gc_ms():
+    """A ``gc.collect(2)`` inside a batch (a publish hook) reaches the
+    ``gc`` stage once through ``SysMon``'s one collector hook, and the
+    batch's span carries its pause as ``gc_ms``; a younger collection
+    adds nothing, and ``sysmon.long_gc`` still counts past its bound."""
+    from emqx_tpu_torch.metrics import Metrics
+    from emqx_tpu_torch.monitors import SysMon
+
+    b = PBroker(config=PMatcherConfig(device_min_filters=0,
+                                      use_native=False),
+                node="n1", device="cpu")
+    tel = pt.Telemetry(pt.TelemetryConfig(slow_threshold_ms=0.0,
+                                          slow_alarm_after=10**9))
+    b.telemetry = b.router.telemetry = tel
+    b.subscribe(Q(), "g/+")
+    metrics = Metrics()
+    mon = SysMon(metrics=metrics, long_gc_ms=0.0)
+    mon.telemetry = tel
+    fire = {"n": 0}
+
+    def collect(msg):
+        if fire["n"] == 0:
+            gc.collect(2)
+            gc.collect(0)
+        fire["n"] += 1
+
+    b.hooks.add("message.publish", collect)
+    was = gc.isenabled()
+    gc.disable()  # no collection of the interpreter's own in between
+    mon.install_gc_hook()
+    try:
+        b.publish_batch([PMessage(topic="g/1"), PMessage(topic="g/2")])
+        b.publish_batch([PMessage(topic="g/3")])
+    finally:
+        mon.remove_gc_hook()
+        if was:
+            gc.enable()
+    assert tel.hists["gc"].count == 1
+    pause = tel.hists["gc"].sum
+    assert pause > 0.0 and tel.gc_ms_total == pause
+    first, second = tel.slow_records()
+    assert first["gc_ms"] == round(pause, 3) and second["gc_ms"] == 0.0
+    assert metrics.val("sysmon.long_gc") == 2  # both collections
+
+
+@pytest.mark.parametrize("planner", [True, False])
+def test_cpu_stages_never_exceed_their_wall_stages(planner):
+    filters, batches = _workload(13)
+    (_jb, _jt), (pb, ptel) = _pair(
+        {"device_min_filters": 0, "use_native": False}, planner=planner)
+    _subscribe(pb, filters)
+    for batch in batches * 3:
+        pb.publish_batch([PMessage(topic=t, payload=b"x") for t in batch])
+    recs = ptel.slow_records()
+    assert len(recs) == len(batches) * 3
+    for rec in recs:
+        st = rec["stages_ms"]
+        wall = st["fetch"] + st.get("dispatch_plan", 0.0) + \
+            st.get("serialize", 0.0)
+        assert 0.0 <= st["fetch_cpu"] <= wall + 1e-3, st
+        assert 0.0 <= st["dispatch_cpu"] <= st["dispatch"] + 1e-3, st
 
 
 # -- KernelTimer and the profiler trace -----------------------------------

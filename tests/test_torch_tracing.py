@@ -9,9 +9,18 @@ batches (the stages each sampled message gets); and a live port node
 over loopback closes every sampled message's chain, ingress to the
 subscriber's flush. Deliveries at ``sample_rate = 0`` are the untraced
 build's, byte for byte.
+
+The port's stage intervals: a sampled batch under the ingress batcher
+records each telemetry stage as an interval on the thread that ran
+it, none at ``sample_rate = 0``; ``ctl profile stop`` lays them, and
+the full collections, over the profiler's trace on its own clock, so
+the aten ops a batch's ``pack`` ran fall inside its ``pack`` interval.
 """
 
+import asyncio
+import gc
 import json
+import time
 
 import numpy as np
 import pytest
@@ -247,6 +256,29 @@ def test_export_writes_chrome_trace_json_that_loads(tmp_path):
     assert docs[1]["otherData"]["spans"] == docs[0]["otherData"]["spans"]
 
 
+def test_export_writes_wall_clock_timestamps(tmp_path):
+    t = ptr.Tracing(ptr.TracingConfig(sample_rate=1.0), node="n1")
+    now = time.time()
+    tb = t.batch_begin([{"tid": 5, "t0": now}])
+    t.interval(tb, "pack", tb.t0p, tb.t0p + 0.002)
+    t.close_batch(tb)
+    t.drain_tick()
+    path = tmp_path / "t.json"
+    t.export(str(path))
+    evs = [e for e in json.load(open(path))["traceEvents"]
+           if e["ph"] == "X"]
+    assert evs and all(abs(e["ts"] / 1e6 - now) < 60.0 for e in evs)
+    pack = [e for e in evs if e["cat"] == "stage"]
+    assert [e["name"] for e in pack] == ["pack"]
+    assert pack[0]["dur"] == pytest.approx(2000.0, abs=0.01)
+    assert pack[0]["args"]["batch"] == "5"
+    # the interval is data as well, on the wall clock
+    (stage, writer, os_tid, t0, t1, args), = t.intervals()
+    assert stage == "pack" and writer == "MainThread" and os_tid > 0
+    assert t1 - t0 == pytest.approx(0.002, abs=1e-6)
+    assert args == {"batch": 5}
+
+
 def test_loop_profiler_samples_the_main_thread():
     import time
 
@@ -303,3 +335,117 @@ async def test_live_node_closes_every_sampled_chain():
         await pub.close()
     finally:
         await node.stop()
+
+
+# -- stage intervals under the ingress batcher -------------------------------
+
+PLAIN = dict(match_cache=False, delta=False, use_native=False,
+             device_min_filters=1)
+
+
+def _traced_node(rate):
+    from emqx_tpu_torch.node import Node
+    from emqx_tpu_torch.tracing import TracingConfig
+
+    node = Node(matcher=PMatcherConfig(**PLAIN), batch_size=8,
+                device="cpu", boot_listeners=False,
+                tracing=TracingConfig(sample_rate=rate))
+    subs = [Q(f"q{i}") for i in range(3)]
+    node.broker.subscribe(subs[0], "s/+/a")
+    node.broker.subscribe(subs[1], "s/1/#")
+    node.broker.subscribe(subs[2], "s/#")
+    node.broker.publish_batch([PMessage(topic="warm/up")])
+    return node, subs
+
+
+async def _burst(node, n, collect_at=None):
+    ing = node.ingress
+    futs = []
+    for i in range(n):
+        futs.append(ing.submit(PMessage(topic=f"s/{i % 5}/a",
+                                        payload=b"%d" % i)))
+        if i == collect_at:
+            await asyncio.sleep(0)
+            gc.collect(2)
+    res = await asyncio.gather(*futs)
+    await ing.drain()
+    return list(res)
+
+
+def test_no_interval_at_sample_rate_zero_and_deliveries_identical():
+    got = []
+    for rate in (0.0, 1.0):
+        node, subs = _traced_node(rate)
+        res = asyncio.run(asyncio.wait_for(_burst(node, 60), 60))
+        node.tracing.collect()
+        ivs = node.tracing.intervals()
+        if rate == 0.0:
+            assert ivs == [] and node.tracing.spans_total == 0
+        else:
+            stages = {iv[0] for iv in ivs}
+            assert {"queue", "begin_host", "pack", "fetch_wait", "fetch",
+                    "order_wait", "dispatch", "ack"} <= stages, stages
+            threads = {iv[0]: iv[1] for iv in ivs}
+            assert threads["fetch"].startswith("ingress-fetch")
+            assert threads["pack"] == threads["ack"] == "MainThread"
+        got.append((res, [[x[:3] for x in q.inbox] for q in subs]))
+    assert got[0] == got[1]
+
+
+def test_profile_stop_lines_the_stages_up_with_the_aten_ops(tmp_path,
+                                                           monkeypatch):
+    """The aten ops each ``pack_matches`` call ran (marked by the test)
+    fall inside the ``pack`` interval, or a re-pack's ``fetch``, that
+    the merged trace holds for the same thread, within 0.2 ms; a full
+    collection in the window has its own row."""
+    from torch.profiler import record_function
+
+    import emqx_tpu_torch.broker as broker_mod
+
+    node, _subs = _traced_node(1.0)
+    pack = broker_mod.pack_matches
+
+    def marked(*a, **kw):
+        with record_function("test.pack_matches"):
+            return pack(*a, **kw)
+
+    monkeypatch.setattr(broker_mod, "pack_matches", marked)
+    node.sys_mon.install_gc_hook()
+    try:
+        out = node.ctl.run(["profile", "start", str(tmp_path)])
+        assert "tracing to" in out
+        asyncio.run(asyncio.wait_for(_burst(node, 60, collect_at=30), 60))
+        out = node.ctl.run(["profile", "stop"])
+    finally:
+        node.sys_mon.remove_gc_hook()
+    assert out.startswith("trace written to")
+    doc = json.load(open(tmp_path / "trace.json"))
+    evs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    stages = [e for e in evs if e.get("cat") == "stage"]
+    marks = [e for e in evs if e["name"] == "test.pack_matches"]
+    assert marks and stages
+    tol = 200.0  # microseconds
+
+    def inside(m, names):
+        return any(iv["name"] in names
+                   and iv["args"]["os_tid"] == m["tid"]
+                   and iv["ts"] - tol <= m["ts"]
+                   and m["ts"] + m["dur"] <= iv["ts"] + iv["dur"] + tol
+                   for iv in stages)
+
+    assert all(inside(m, ("pack", "fetch")) for m in marks)
+    assert sum(inside(m, ("pack",)) for m in marks) >= 5
+    # the aten ops the marked calls ran lie inside the same interval
+    ops = [e for e in evs if e.get("cat") == "cpu_op"
+           and any(m["tid"] == e["tid"] and m["ts"] <= e["ts"]
+                   and e["ts"] + e["dur"] <= m["ts"] + m["dur"]
+                   for m in marks)]
+    assert ops and all(inside(e, ("pack", "fetch")) for e in ops)
+    # the stages on rows of their own, named by thread and kind
+    rows = {e["args"]["name"] for e in doc["traceEvents"]
+            if e.get("ph") == "M" and e.get("name") == "thread_name"
+            and e["tid"] >= (1 << 32)}
+    assert {"MainThread stages", "MainThread waits", "MainThread gc"} <= \
+        rows, rows
+    assert any(r.startswith("ingress-fetch") for r in rows)
+    assert any(e["name"] == "gc" for e in stages)
