@@ -8,12 +8,17 @@ import time
 import pytest
 
 from benchmark import harness, manifest
+from benchmark.metrics._port_stages import per_batch_ms
 from benchmark.tests import _tiny
 
 SEED = 2**31 + 23
 NEW = ("ingress_wait_ms", "fetch_wait_ms", "order_wait_ms",
        "tail_yield_ms", "ack_ms", "gc_pause_pct", "fetch_cpu_pct",
        "dispatch_cpu_pct")
+#: the submit wait and the stages that tile a device batch's life
+LIFE = ("queue", "begin_host", "match", "cache_gather", "pack",
+        "fetch_wait", "fetch", "dispatch_plan", "serialize", "order_wait",
+        "dispatch", "tail_yield", "ack")
 
 
 @pytest.fixture(scope="module")
@@ -43,13 +48,16 @@ def test_each_reads_a_number_on_a_traced_run(traced, name):
 
 
 def test_the_waits_are_a_share_of_the_batches_life(traced):
-    """A batch's waits fit inside its life: each under the window's
-    length, and the acknowledgement stage is positive (every batch
-    sets its futures)."""
-    window_ms = traced.window_s * 1000.0
+    """A batch's waits fit inside its life, the submit wait and the
+    stages that tile it from ``publish_begin`` to the last
+    acknowledgement, as the same counters give them a batch (not
+    inside the window: a batch folded in a short window may have begun
+    long before it on a loaded host), and the acknowledgement stage is
+    positive (every batch sets its futures)."""
+    life = sum(per_batch_ms(traced, s) for s in LIFE)
     for name in ("ingress_wait_ms", "fetch_wait_ms", "order_wait_ms",
                  "tail_yield_ms", "ack_ms"):
-        assert manifest.reader(name)(traced) < window_ms
+        assert 0.0 <= manifest.reader(name)(traced) <= life, name
     assert manifest.reader("ack_ms")(traced) > 0.0
 
 

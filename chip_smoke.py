@@ -7489,7 +7489,7 @@ def ops_ctl(node, card):
         # without a file it prints its usage here; 17a reloads a file
         raise AssertionError("[16a] the port lacks ctl reload")
     runs = [[c] for c in names if c != "profile"] + [
-        ["profile"], ["profile", "kernels"], ["profile", "loops"],
+        ["profile"], ["profile", "loops"],
         ["clients", "list"], ["banned", "list"], ["telemetry", "slow"],
         ["drain", "status"], ["trace", "list"], ["log", "show"]]
     for argv in runs:

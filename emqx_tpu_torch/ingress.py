@@ -27,7 +27,8 @@ slot frees. The constructor's defaults are the JAX package's:
 × ``batch_size``, ``queue_hiwater`` one batch, ``finish_chunk``
 :data:`FINISH_CHUNK`.
 
-Telemetry: each submit stamps the clock beside its pending entry;
+Telemetry: while it is on, each submit stamps the clock beside its
+pending entry (0.0 while it is off);
 the batcher holds the spans of the batches it completes and stamps the
 stages between the broker's phases — ``queue`` (submit → begin, the
 batch's mean), ``order_wait`` (fetch done → first delivery chunk),
@@ -97,7 +98,8 @@ class IngressBatcher:
         self.queue_hiwater = queue_hiwater or batch_size
         # the delivery tail yields to the loop every this many units
         self.finish_chunk = max(1, finish_chunk)
-        # (message, ack future or None, submit clock)
+        # (message, ack future or None, submit clock or 0.0 while
+        # telemetry is off)
         self._pending: List[Tuple[Message, Optional[asyncio.Future],
                                   float]] = []
         self._handle = None
@@ -174,7 +176,9 @@ class IngressBatcher:
         if loop is None:
             return None
         fut = loop.create_future() if want_result else None
-        self._pending.append((msg, fut, _now()))
+        tel = self.broker.telemetry
+        self._pending.append(
+            (msg, fut, _now() if tel is not None and tel.enabled else 0.0))
         self.submitted += 1
         self.max_queue = max(self.max_queue, len(self._pending))
         if len(self._pending) >= self.batch_size:
@@ -196,7 +200,8 @@ class IngressBatcher:
         if want_result and loop is None:
             return None  # a sync caller publishes inline, as before
         fut = loop.create_future() if want_result else None
-        t = _now()
+        tel = self.broker.telemetry
+        t = _now() if tel is not None and tel.enabled else 0.0
         with self._plock:
             self._pending.append((msg, fut, t))
             self.submitted += 1
@@ -375,13 +380,16 @@ class IngressBatcher:
             if sp is not None:
                 # the batch's span is folded by _complete, after its
                 # acknowledgements; its queue wait is the mean submit
-                # → begin of its messages
+                # → begin of its messages (those submitted while
+                # telemetry was on)
                 sp.held = True
-                t_sub = sum(p[2] for p in pending) / len(pending)
-                sp.add_ms("queue", (sp.t0 - t_sub) * 1000.0)
-                if sp.tb is not None:
-                    sp.interval("queue", t_sub, sp.t0,
-                                {"msgs": len(pending)})
+                stamps = [p[2] for p in pending if p[2]]
+                if stamps:
+                    t_sub = sum(stamps) / len(stamps)
+                    sp.add_ms("queue", (sp.t0 - t_sub) * 1000.0)
+                    if sp.tb is not None:
+                        sp.interval("queue", t_sub, sp.t0,
+                                    {"msgs": len(stamps)})
             if not pb.done and pb.host_topics is None:
                 self.device_batches += 1
                 self.device_msgs += len(pending)

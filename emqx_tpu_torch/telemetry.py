@@ -115,8 +115,8 @@ deliveries are identical to the enabled run's (pinned by
 tests/test_torch_telemetry.py). Enabled, the cost is a handful of
 ``perf_counter`` reads per batch, two thread-CPU clock reads per
 stage that has a ``_cpu`` twin (each delivery chunk), and the ingress
-batcher's one ``perf_counter`` read per submitted message (taken
-whatever the setting: cheaper than a branch on it). This module
+batcher's one ``perf_counter`` read per submitted message (disabled,
+one branch per message in its place). This module
 imports no torch: it never touches a tensor.
 """
 
@@ -270,7 +270,7 @@ class PublishSpan:
     __slots__ = ("t0", "stages", "batch", "n_uniq", "bucket", "path",
                  "cache_hit", "cache_miss", "fallbacks", "topic",
                  "closed", "t_ready", "t_end", "held", "gc0", "gc_ms",
-                 "trc", "tb", "begin_ivs")
+                 "trc", "tb")
 
     def __init__(self, batch: int) -> None:
         self.t0 = _now()
@@ -300,7 +300,6 @@ class PublishSpan:
         # sampled (then each stage is also an interval), else None
         self.trc = None
         self.tb = None
-        self.begin_ivs: Optional[List[tuple]] = None
 
     @staticmethod
     def clock() -> float:
@@ -324,15 +323,12 @@ class PublishSpan:
         batch: ``tb`` is its ``tracing._TraceBatch``)."""
         self.trc = trc
         self.tb = tb
-        self.begin_ivs = []
 
     def interval(self, stage: str, t0: float, t1: float,
                  args: Optional[dict] = None) -> None:
         """One interval of ``stage`` on the calling thread's ring
         (perf-counter ``t0``..``t1``); a sampled batch only."""
         self.trc.interval(self.tb, stage, t0, t1, args)
-        if self.begin_ivs is not None:
-            self.begin_ivs.append((t0, t1))
 
     def stamp_match(self, router, t_start: float) -> None:
         """Close the match-dispatch stage, splitting out the
@@ -365,17 +361,10 @@ class PublishSpan:
         inner = st.get("match", 0.0) + st.get("cache_gather", 0.0) + \
             st.get("pack", 0.0)
         self.add_ms("begin_host", (now - self.t0) * 1000.0 - inner)
-        ivs = self.begin_ivs
-        if ivs is not None:
-            # the begin's intervals are the gaps between its stages
-            self.begin_ivs = None
-            t = self.t0
-            for a, b in ivs:
-                if a > t:
-                    self.interval("begin_host", t, a)
-                t = max(t, b)
-            if now > t:
-                self.interval("begin_host", t, now)
+        if self.tb is not None:
+            # one interval for the whole begin: its stages' intervals
+            # nest inside it on the thread's row
+            self.interval("begin_host", self.t0, now)
         self.t_ready = now
 
     def record(self) -> dict:

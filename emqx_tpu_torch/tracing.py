@@ -368,7 +368,11 @@ class Tracing:
         self.node = node
         self._local = threading.local()
         self._rings: List[_SpanRing] = []
-        self._reg_lock = threading.Lock()  # ring registration only
+        # ring registration only. Reentrant: a full collection can
+        # start inside any allocation made under it, and the collector
+        # hook's ``interval_at`` registers a ring for a thread that has
+        # none (``monitors.SysMon``)
+        self._reg_lock = threading.RLock()
         # drained spans held for export: (tids, stage, t0, dur, extra,
         # writer-thread name)
         self._export: List[tuple] = []

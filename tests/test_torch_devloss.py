@@ -469,7 +469,10 @@ def test_open_breaker_fallback_never_enters_the_router_device_seams():
     pf.arm("device.lost", times=0)
     try:
         assert node.broker.publish_batch([Message(topic="ho/1")]) == [1]
-        assert wait_for(lambda: node.broker.breaker.state == REBUILDING)
+        # the recovery thread enters REBUILDING, then suspends the
+        # router's device matching: the checks start once both hold
+        assert wait_for(lambda: node.broker.breaker.state == REBUILDING
+                        and node.router.device_suspended())
         node.router.match_dispatch = boom
         node.router.match_ids = boom
         assert node.broker.publish_batch([Message(topic="ho/1")]) == [1]

@@ -44,6 +44,7 @@ from emqx_tpu_torch.ingress import MAX_INFLIGHT
 from emqx_tpu_torch.node import Node
 from emqx_tpu_torch.router import MatcherConfig
 from emqx_tpu_torch.types import Message
+from test_torch_telemetry import cpu_pairs, cpu_step_ms
 
 KNOBS = dict(device_min_filters=1, fanout_threshold=4, active_k=2)
 #: the JAX package's plain path, which these tests hold the port to:
@@ -172,16 +173,18 @@ def _burst_node(subs):
     return node, sinks
 
 
-def test_device_batch_stages_add_up_to_its_life():
+def test_device_batch_stages_add_up_to_its_life(monkeypatch):
     subs, topics = _workload(9, 4 * 8 + 32 + 5)
     node, sinks = _burst_node(subs)
     spans = _folded_spans(node)
+    pairs = cpu_pairs(monkeypatch)
     flushes = node.ingress.flushes
     asyncio.run(asyncio.wait_for(_burst(node, sinks, topics), LIMIT))
     batches = node.ingress.flushes - flushes
     assert batches == MAX_INFLIGHT + 2
     # one span a batch, each a device batch the batcher held
     assert len(spans) == batches
+    step = cpu_step_ms()
     for sp, t_fold in spans:
         st = sp.stages
         assert sp.path == "device" and sp.held
@@ -194,11 +197,13 @@ def test_device_batch_stages_add_up_to_its_life():
         assert abs(st["end_to_end"] - (total - st["ack"])) <= \
             max(0.01 * life, 0.5), st
         assert st["end_to_end"] <= life
-        # CPU against wall, each on its own thread
+        # CPU against wall, each on its own thread, within the thread
+        # CPU clock's step for each read pair
         wall = st["fetch"] + st.get("dispatch_plan", 0.0) + \
             st.get("serialize", 0.0)
-        assert st["fetch_cpu"] <= wall and st["dispatch_cpu"] <= \
-            st["dispatch"], st
+        assert st["fetch_cpu"] <= wall + pairs[sp, "fetch_cpu"] * step \
+            and st["dispatch_cpu"] <= \
+            st["dispatch"] + pairs[sp, "dispatch_cpu"] * step, (st, step)
 
 
 def test_a_batch_behind_four_in_flight_reads_its_queue_wait():
@@ -234,6 +239,42 @@ def test_a_batch_behind_four_in_flight_reads_its_queue_wait():
     assert spans[0][0].stages["queue"] < 5.0
     # the fifth batch waits for a slot: the first batch's fetch at least
     assert spans[4][0].stages["queue"] >= 45.0
+
+
+def test_telemetry_off_reads_no_clock_at_submit(monkeypatch):
+    """Disabled, telemetry costs the batcher one branch a message: no
+    submit reads the clock, and no batch takes a span."""
+    import emqx_tpu_torch.ingress as ingress_mod
+    from emqx_tpu_torch.telemetry import TelemetryConfig
+
+    subs, topics = _workload(5, 3 * 8 + 3)
+    reads = []
+    now = ingress_mod._now
+
+    def counted():
+        reads.append(1)
+        return now()
+
+    monkeypatch.setattr(ingress_mod, "_now", counted)
+    got = []
+    for enabled in (False, True):
+        node = Node(matcher=MatcherConfig(**PLAIN, **KNOBS), batch_size=8,
+                    device="cpu",
+                    telemetry=TelemetryConfig(enabled=enabled))
+        sinks = [Sink(f"c{i}") for i in range(8)]
+        for f, s in subs:
+            node.broker.subscribe(sinks[s], f)
+        spans = node.telemetry.spans_total
+        del reads[:]
+        res, _order, _inflight = asyncio.run(
+            asyncio.wait_for(_burst(node, sinks, topics), LIMIT))
+        got.append((res, [s.inbox for s in sinks]))
+        if enabled:
+            assert len(reads) >= len(topics)
+            assert node.telemetry.spans_total > spans
+        else:
+            assert reads == [] and node.telemetry.spans_total == spans
+    assert got[0] == got[1]
 
 
 def test_set_pressure_divides_the_high_water_mark():

@@ -16,6 +16,8 @@ import gc
 
 import json
 import logging
+import time
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -509,21 +511,59 @@ def test_forced_full_collection_adds_one_gc_sample_and_the_spans_gc_ms():
 
 
 @pytest.mark.parametrize("planner", [True, False])
-def test_cpu_stages_never_exceed_their_wall_stages(planner):
+def test_cpu_stages_never_exceed_their_wall_stages(planner, monkeypatch):
+    """Each ``_cpu`` stage reads its clock inside its wall marks: a
+    batch's reading is at most its wall stages' sum, plus the thread
+    CPU clock's step for each read pair (a clock that advances in
+    scheduler ticks may credit a short stage a whole tick)."""
     filters, batches = _workload(13)
     (_jb, _jt), (pb, ptel) = _pair(
         {"device_min_filters": 0, "use_native": False}, planner=planner)
     _subscribe(pb, filters)
+    pairs = cpu_pairs(monkeypatch)
     for batch in batches * 3:
         pb.publish_batch([PMessage(topic=t, payload=b"x") for t in batch])
-    recs = ptel.slow_records()
-    assert len(recs) == len(batches) * 3
-    for rec in recs:
-        st = rec["stages_ms"]
+    assert len(ptel.slow_records()) == len(batches) * 3
+    spans = {sp for sp, _stage in pairs}
+    assert len(spans) == len(batches) * 3
+    step = cpu_step_ms()
+    for sp in spans:
+        st = sp.stages
         wall = st["fetch"] + st.get("dispatch_plan", 0.0) + \
             st.get("serialize", 0.0)
-        assert 0.0 <= st["fetch_cpu"] <= wall + 1e-3, st
-        assert 0.0 <= st["dispatch_cpu"] <= st["dispatch"] + 1e-3, st
+        assert 0.0 <= st["fetch_cpu"] <= \
+            wall + pairs[sp, "fetch_cpu"] * step + 1e-3, (st, step)
+        assert 0.0 <= st["dispatch_cpu"] <= \
+            st["dispatch"] + pairs[sp, "dispatch_cpu"] * step + 1e-3, \
+            (st, step)
+
+
+def cpu_step_ms() -> float:
+    """The thread CPU clock's step, in ms: the most one pair of its
+    reads can exceed the wall time between them by."""
+    step = 0
+    for _ in range(3):
+        t0 = time.thread_time_ns()
+        t1 = t0
+        while t1 == t0:
+            t1 = time.thread_time_ns()
+        step = max(step, t1 - t0)
+    return step / 1e6
+
+
+def cpu_pairs(monkeypatch) -> Counter:
+    """Counts, per span and ``_cpu`` stage, the thread-CPU read pairs
+    the spans fold (each pair is one ``add_ms``)."""
+    pairs: Counter = Counter()
+    add_ms = pt.PublishSpan.add_ms
+
+    def counted(self, stage, ms):
+        if stage.endswith("_cpu"):
+            pairs[self, stage] += 1
+        add_ms(self, stage, ms)
+
+    monkeypatch.setattr(pt.PublishSpan, "add_ms", counted)
+    return pairs
 
 
 # -- KernelTimer and the profiler trace -----------------------------------

@@ -20,6 +20,7 @@ the aten ops a batch's ``pack`` ran fall inside its ``pack`` interval.
 import asyncio
 import gc
 import json
+import threading
 import time
 
 import numpy as np
@@ -390,6 +391,40 @@ def test_no_interval_at_sample_rate_zero_and_deliveries_identical():
             assert threads["pack"] == threads["ack"] == "MainThread"
         got.append((res, [[x[:3] for x in q.inbox] for q in subs]))
     assert got[0] == got[1]
+
+
+def test_a_collection_under_the_ring_lock_on_a_ringless_thread_returns():
+    """A full collection that starts inside ``Tracing.collect``'s
+    locked section, on a thread with no ring yet, records its ``gc``
+    interval on that thread (the collector hook registers the ring
+    under the same lock) and the thread goes on."""
+    node, _subs = _traced_node(1.0)
+    trc = node.tracing
+
+    class Collecting(list):
+        # the copy of the rings under the lock allocates: a full
+        # collection may start there
+        def __iter__(self):
+            gc.collect(2)
+            return super().__iter__()
+
+    trc._rings = Collecting(trc._rings)
+    done = []
+
+    def run():
+        trc.collect()
+        done.append(threading.current_thread().name)
+
+    th = threading.Thread(target=run, name="ringless", daemon=True)
+    node.sys_mon.install_gc_hook()
+    try:
+        th.start()
+        th.join(10)
+    finally:
+        node.sys_mon.remove_gc_hook()
+    assert done == ["ringless"]
+    assert any(iv[0] == "gc" and iv[1] == "ringless"
+               for iv in trc.intervals())
 
 
 def test_profile_stop_lines_the_stages_up_with_the_aten_ops(tmp_path,
